@@ -1,0 +1,48 @@
+"""Carry state across from the JAX package.
+
+The tests feed both packages identical state: arrays taken from
+``tangram_tpu`` (as numpy, e.g. through ``np.asarray``) become the port's
+tensors on a given device. Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.core import unported
+from .ops.losses import MapperData
+
+__all__ = ["state_from_jax", "mapper_data_from_jax"]
+
+
+def _tensor(x, device):
+    if x is None:
+        return None
+    # np.array copies: the port updates M, mu and nu in place, and arrays
+    # handed out by jax are read-only
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def state_from_jax(M, count, mu, nu, stats, device="cpu"):
+    """``(M, count, mu, nu, stats)`` of the JAX fused step → the port's
+    ``(M, count, mu, nu, stats)``: f32 tensors on ``device``, ``count`` a
+    host int, ``stats`` a tuple of (c, 1) tensors."""
+    return (
+        _tensor(M, device),
+        int(np.asarray(count)),
+        _tensor(mu, device),
+        _tensor(nu, device),
+        tuple(_tensor(s, device) for s in stats),
+    )
+
+
+def mapper_data_from_jax(data, device="cpu") -> MapperData:
+    """A ``tangram_tpu.ops.losses.MapperData`` → the port's ``MapperData``
+    on ``device``. Raises for fields of terms the port does not compute."""
+    for name, value in data._asdict().items():
+        if value is not None and name not in MapperData._fields:
+            raise unported(f"MapperData.{name}",
+                           "queue A2 (spatial graphs and the graph-term epilogue)")
+    return MapperData(**{name: _tensor(getattr(data, name), device)
+                         for name in MapperData._fields})

@@ -1,0 +1,192 @@
+"""The Tangram loss terms of the unconstrained mapper, in PyTorch.
+
+Counterpart of ``tangram_tpu/ops/losses.py`` for the main path: the
+expression (gene-voxel and voxel-gene) similarities, the density KL and the
+entropy term. Semantics mirror the reference optimizer
+(``mapping_optimizer.py:189-309``), including its reporting quirks: each term
+is reported as ``term / lambda``, NaN when that lambda is 0.
+
+The spatial-graph and cell-type-island terms, the L1/L2 terms, the
+constrained epilogue and ``val_metrics`` are later slices; asking for them
+raises ``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from .core import mapper_core_reference, unported
+
+__all__ = [
+    "LossWeights",
+    "MapperData",
+    "cosine_similarity",
+    "kl_div_sum",
+    "compute_loss",
+    "unconstrained_inputs",
+    "unconstrained_epilogue",
+]
+
+COSINE_EPS = 1e-8  # matches torch.nn.functional.cosine_similarity default
+
+_SPATIAL_LAMBDAS = (
+    "lambda_neighborhood_g1",
+    "lambda_ct_islands",
+    "lambda_getis_ord",
+    "lambda_moran",
+    "lambda_geary",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    """Loss-term strengths (the same fields as the JAX package's)."""
+
+    lambda_g1: float = 1.0
+    lambda_d: float = 0.0
+    lambda_g2: float = 0.0
+    lambda_r: float = 0.0
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    lambda_neighborhood_g1: float = 0.0
+    lambda_ct_islands: float = 0.0
+    lambda_getis_ord: float = 0.0
+    lambda_moran: float = 0.0
+    lambda_geary: float = 0.0
+    # constrained mode only
+    lambda_count: float = 1.0
+    lambda_f_reg: float = 1.0
+
+
+class MapperData(NamedTuple):
+    """Tensors consumed by the loss, all on one device. ``None`` disables a
+    term."""
+
+    S: torch.Tensor  # (cells, genes) training expression
+    G: torch.Tensor  # (spots, genes) spatial expression
+    gene_mask: Optional[torch.Tensor] = None  # (genes,) 1/0 for padded folds
+    d: Optional[torch.Tensor] = None  # (spots,) target density
+    d_source: Optional[torch.Tensor] = None  # (cells,) cluster density
+
+
+def check_supported(lw: LossWeights) -> None:
+    """Raise for the loss terms this port does not compute yet."""
+    for name in _SPATIAL_LAMBDAS:
+        if getattr(lw, name) > 0:
+            raise unported(
+                f"{name} > 0",
+                "queue A2 (spatial graphs and the graph-term epilogue)",
+            )
+    if lw.lambda_l1 != 0 or lw.lambda_l2 != 0:
+        raise unported(
+            "lambda_l1/lambda_l2 != 0", "queue B5 (_rowstats_norms, L1/L2)"
+        )
+
+
+def cosine_similarity(x, y, axis: int = 0, eps: float = COSINE_EPS):
+    """torch-compatible cosine similarity along ``axis``: each norm is clamped
+    to ``eps`` individually.
+
+    The clamp sits *inside* the sqrt (``sqrt(max(Σx², eps²))``): the same
+    value as ``max(‖x‖, eps)``, but with a zero (not NaN) gradient at x = 0,
+    which matters for masked gene columns. ``F.cosine_similarity`` clamps
+    differently and is not used.
+    """
+    dot = torch.sum(x * y, dim=axis)
+    nx = torch.sqrt(torch.clamp(torch.sum(x * x, dim=axis), min=eps * eps))
+    ny = torch.sqrt(torch.clamp(torch.sum(y * y, dim=axis), min=eps * eps))
+    return dot / (nx * ny)
+
+
+def kl_div_sum(log_pred, target):
+    """torch ``KLDivLoss(reduction='sum')``: Σ target·(log target − log_pred)
+    with 0·log 0 := 0, so zero-target entries contribute exactly 0 even
+    where ``log_pred`` is −inf."""
+    pos = target > 0
+    xlogx = torch.where(
+        pos, target * torch.log(torch.where(pos, target, torch.ones_like(target))),
+        torch.zeros_like(target),
+    )
+    cross = torch.where(pos, target * log_pred, torch.zeros_like(log_pred))
+    return torch.sum(xlogx - cross)
+
+
+def _masked_mean(values, mask):
+    if mask is None:
+        return torch.mean(values)
+    return torch.sum(values * mask) / torch.sum(mask)
+
+
+def unconstrained_inputs(M, data: MapperData, lw: LossWeights):
+    """(A, w) fed to the core: A is S (gene-masked), w the marginal weight —
+    uniform 1/n_cells in cells mode, the cluster density in clusters mode."""
+    check_supported(lw)
+    S, mask = data.S, data.gene_mask
+    if mask is not None:
+        S = S * mask[None, :]
+    if data.d_source is not None:
+        w = data.d_source
+    else:
+        n_cells = M.shape[0]
+        w = torch.full((n_cells,), 1.0 / n_cells, dtype=torch.float32,
+                       device=M.device)
+    return S, w
+
+
+def unconstrained_epilogue(Y, q, h, data: MapperData, lw: LossWeights):
+    """Everything downstream of the core, as a function of the small
+    (spots × genes) projection ``Y``, the marginal ``q`` and the per-cell
+    ``h = Σ P log P``. The fused loop differentiates this function alone and
+    hands (dY, dq, dh) to the streamed backward kernels.
+
+    Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
+    ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg`` and
+    ``total_loss``, NaN where the term's lambda is 0.
+    """
+    check_supported(lw)
+    S, G, mask = data.S, data.G, data.gene_mask
+    if mask is not None:
+        S = S * mask[None, :]
+        G = G * mask[None, :]
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=Y.device)
+
+    G_pred = Y[:, : S.shape[1]]
+    terms = {}
+
+    # gene-voxel & voxel-gene expression similarity (ref :205-206)
+    gv_sim = _masked_mean(cosine_similarity(G_pred, G, axis=0), mask)
+    vg_sim = torch.mean(cosine_similarity(G_pred, G, axis=1))
+    gv_term = lw.lambda_g1 * gv_sim
+    vg_term = lw.lambda_g2 * vg_sim
+    expression_term = gv_term + vg_term
+    terms["main_loss"] = gv_term / lw.lambda_g1
+    terms["vg_reg"] = vg_term / lw.lambda_g2 if lw.lambda_g2 != 0 else nan
+
+    # density KL (ref :212-221)
+    if data.d is not None:
+        density_term = lw.lambda_d * kl_div_sum(torch.log(q), data.d)
+        terms["kl_reg"] = density_term / lw.lambda_d if lw.lambda_d != 0 else nan
+    else:
+        density_term = 0.0
+        terms["kl_reg"] = nan
+
+    # entropy (ref :224) — positive entropy ADDED to the loss => peaked maps
+    entropy_term = lw.lambda_r * -torch.sum(h)
+    terms["entropy_reg"] = entropy_term / lw.lambda_r if lw.lambda_r != 0 else nan
+
+    total = -expression_term + density_term + entropy_term
+    terms["total_loss"] = total
+    return total, terms
+
+
+def compute_loss(M, data: MapperData, lw: LossWeights):
+    """Loss of the unconstrained mapper through the materialized core
+    (reference ``_loss_fn``, ``mapping_optimizer.py:189-309``).
+
+    Returns ``(total_loss, terms)``."""
+    A, w = unconstrained_inputs(M, data, lw)
+    Y, q, h = mapper_core_reference(M, A, w)
+    return unconstrained_epilogue(Y, q, h, data, lw)

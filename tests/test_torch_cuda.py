@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+Marked ``cuda``: every test skips without an NVIDIA GPU. On a machine with
+one (and nvcc), run
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(``--noconftest`` because the suite's conftest imports jax, which this file
+does not need). ``chip_smoke.py`` makes the same comparison at the full
+tutorial shape.
+
+Tolerance: max |kernel − twin| ≤ 1e-4 · max |twin| per output (1e-5 for the
+row stats): both are IEEE f32 and differ only in summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tangram_tpu_torch.models.mapper import fit_mapping
+from tangram_tpu_torch.ops import cuda_core as cc
+from tangram_tpu_torch.ops import fused_step as fs
+from tangram_tpu_torch.ops.losses import LossWeights, MapperData
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(8, 16, 4), (37, 53, 7), (300, 600, 7), (257, 513, 129), (70, 301, 300)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def inputs(c, s, k, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
+
+    return dict(
+        M=t(rng.normal(0, 1, (c, s))), A=t(rng.poisson(1.5, (c, k))),
+        w=t(rng.random(c) / c), dY=t(rng.normal(0, 0.1, (s, k))),
+        dq=t(rng.normal(0, 1, s)), dh=t(rng.normal(0, 0.1, c)),
+        mu=t(rng.normal(0, 1e-3, (c, s))), nu=t(rng.random((c, s)) * 1e-6),
+    )
+
+
+def assert_close(got, want, rtol=1e-4):
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    assert err <= rtol * max(scale, 1e-30), (err, scale)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_forward_kernels_match_twins(dev, c, s, k):
+    x = inputs(c, s, k, dev)
+    before = dict(cc.LAUNCHES)
+    m, l, u = cc._rowstats(x["M"])
+    for g, w in zip((m, l, u), cc._rowstats_plain(x["M"])):
+        assert_close(g, w, rtol=1e-5)
+    for g, w in zip(cc._project(x["M"], x["A"], x["w"], m, l),
+                    cc._project_plain(x["M"], x["A"], x["w"], m, l)):
+        assert_close(g, w)
+    assert cc.LAUNCHES["rowstats"] == before["rowstats"] + 1
+    assert cc.LAUNCHES["project"] == before["project"] + 1
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_backward_kernels_match_twins(dev, c, s, k, with_dh):
+    x = inputs(c, s, k, dev)
+    m, l, _ = cc._rowstats_plain(x["M"])
+    args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = fs._rbar_plain(*args, with_dh=with_dh)
+    assert_close(fs._rbar(*args, with_dh=with_dh), r)
+    scalars = fs.adam_scalars(3, 0.1)
+    k_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
+    p_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
+    got = fs._dm_adam(k_state[0], *args[1:], r, *k_state[1:], scalars, with_dh=with_dh)
+    want = fs._dm_adam_plain(p_state[0], *args[1:], r, *p_state[1:], scalars,
+                             with_dh=with_dh)
+    assert got[0] is k_state[0]  # in place
+    for g, w in zip(got, want):
+        assert_close(g, w)
+
+
+def test_kernels_fit_matches_cpu_reference(dev):
+    rng = np.random.default_rng(1)
+    S = (rng.poisson(2.0, (60, 9)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (90, 9)) + 0.1).astype(np.float32)
+    d = rng.random(90).astype(np.float32)
+    d /= d.sum()
+    M0 = rng.normal(0, 1, (60, 90)).astype(np.float32)
+    lw = LossWeights(lambda_d=1.0, lambda_g2=0.5, lambda_r=0.01)
+
+    def data_on(device):
+        return MapperData(*(torch.from_numpy(a).to(device) for a in (S, G)),
+                          d=torch.from_numpy(d).to(device))
+
+    cc.reset_launches()
+    M_k, h_k = fit_mapping(torch.from_numpy(M0).to(dev), data_on(dev), lw, 25,
+                           impl="kernels")
+    assert cc.LAUNCHES == {"rowstats": 1, "project": 25, "rbar": 25, "dm_adam": 25}
+    M_r, h_r = fit_mapping(torch.from_numpy(M0.copy()), data_on("cpu"), lw, 25,
+                           impl="reference")
+    np.testing.assert_allclose(h_k["total_loss"].cpu().numpy(),
+                               h_r["total_loss"].numpy(), rtol=3e-4, atol=3e-5)
+    np.testing.assert_allclose(M_k.cpu().numpy(), M_r.numpy(), atol=3e-3)

@@ -1,0 +1,142 @@
+"""The PyTorch port's loss epilogue against the JAX package's.
+
+The fused step differentiates ``unconstrained_epilogue`` alone and hands
+its cotangents (dY, dq, dh) to the streamed backward kernels, so the terms
+and all three cotangents are held against ``jax.vjp`` of the JAX epilogue
+on the same seeded inputs, for the λ sets of ``tests/test_fused_step.py``
+that the port computes. The materialized ``compute_loss`` is held against
+the JAX XLA path as well.
+
+Tolerance: rtol = 1e-5, atol = 1e-7 (the cotangents are O(1e-3)); both
+sides are f32 with reductions in different orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tangram_tpu.ops import losses as jl
+from tangram_tpu.ops.core import _mapper_core_xla
+from tangram_tpu_torch.convert import mapper_data_from_jax
+from tangram_tpu_torch.ops import losses as tl
+
+RTOL, ATOL = 1e-5, 1e-7
+LAMBDAS = [
+    dict(lambda_g1=1.0),
+    dict(lambda_g1=1.0, lambda_d=1.0),
+    dict(lambda_g1=1.0, lambda_g2=0.7, lambda_d=0.5, lambda_r=0.05),
+]
+TERM_KEYS = ["main_loss", "vg_reg", "kl_reg", "entropy_reg", "total_loss"]
+
+
+def make_problem(seed, c=40, s=72, g=9, with_d=True, masked=False):
+    rng = np.random.default_rng(seed)
+    S = (rng.poisson(2.0, (c, g)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (s, g)) + 0.1).astype(np.float32)
+    d = None
+    if with_d:
+        d = rng.random(s).astype(np.float32)
+        d /= d.sum()
+    mask = None
+    if masked:
+        mask = np.ones(g, np.float32)
+        mask[[1, 4]] = 0.0
+    data = jl.MapperData(
+        S=jnp.asarray(S), G=jnp.asarray(G),
+        d=None if d is None else jnp.asarray(d),
+        gene_mask=None if mask is None else jnp.asarray(mask),
+    )
+    M = rng.normal(0, 1, (c, s)).astype(np.float32)
+    return M, data
+
+
+def close(got, want):
+    np.testing.assert_allclose(np.asarray(got, dtype=np.float64),
+                               np.asarray(want, dtype=np.float64),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_epilogue_terms_and_cotangents_match_jax_vjp(lam, masked):
+    M, jdata = make_problem(1, with_d="lambda_d" in lam, masked=masked)
+    jlw = jl.LossWeights(**lam)
+    A, w = jl.unconstrained_inputs(jnp.asarray(M), jdata, jlw)
+    Y, q, h = _mapper_core_xla(jnp.asarray(M), A, w)
+
+    total_j, vjp, terms_j = jax.vjp(
+        lambda Y, q, h: jl.unconstrained_epilogue(Y, q, h, None, None, jdata, jlw),
+        Y, q, h, has_aux=True,
+    )
+    dY_j, dq_j, dh_j = vjp(jnp.ones_like(total_j))
+
+    data = mapper_data_from_jax(jdata)
+    Yt, qt, ht = (torch.from_numpy(np.array(x)).requires_grad_() for x in (Y, q, h))
+    total, terms = tl.unconstrained_epilogue(Yt, qt, ht, data, tl.LossWeights(**lam))
+    dY, dq, dh = torch.autograd.grad(total, (Yt, qt, ht), allow_unused=True)
+
+    close(total.detach(), total_j)
+    for key in TERM_KEYS:
+        got, want = float(terms[key].detach()), float(terms_j[key])
+        if np.isnan(want):
+            assert np.isnan(got), key
+        else:
+            close(got, want)
+    close(dY, dY_j)
+    if dq is None:  # q is unused without a density prior
+        assert not np.any(np.asarray(dq_j))
+    else:
+        close(dq, dq_j)
+    close(dh, dh_j)
+
+
+@pytest.mark.parametrize("lam", LAMBDAS)
+def test_compute_loss_matches_jax_xla(lam):
+    M, jdata = make_problem(2, with_d="lambda_d" in lam)
+    jlw = jl.LossWeights(**lam)
+    (total_j, terms_j), g_j = jax.value_and_grad(
+        lambda M: jl.compute_loss(M, jdata, jlw, impl="xla"), has_aux=True
+    )(jnp.asarray(M))
+    Mt = torch.from_numpy(M.copy()).requires_grad_()
+    total, terms = tl.compute_loss(Mt, mapper_data_from_jax(jdata), tl.LossWeights(**lam))
+    (g,) = torch.autograd.grad(total, (Mt,))
+    close(total.detach(), total_j)
+    close(terms["main_loss"].detach(), terms_j["main_loss"])
+    close(g, g_j)
+
+
+def test_cosine_similarity_gradient_is_finite_on_zero_columns():
+    """The eps clamp inside the sqrt keeps the gradient finite (not NaN) on
+    an all-zero column, where ``d‖x‖/dx = x/‖x‖`` would be 0/0."""
+    x_np = np.zeros((5, 3), np.float32)
+    x_np[:, 0] = np.arange(1.0, 6.0)
+    x = torch.from_numpy(x_np.copy()).requires_grad_()
+    sim = tl.cosine_similarity(x, torch.ones((5, 3)), axis=0)
+    (g,) = torch.autograd.grad(sim.sum(), (x,))
+    assert torch.isfinite(g).all()
+    want, g_j = jax.value_and_grad(
+        lambda x: jnp.sum(jl.cosine_similarity(x, jnp.ones((5, 3)), axis=0))
+    )(jnp.asarray(x_np))
+    close(sim.detach().sum(), want)
+    close(g, g_j)
+
+
+def test_kl_div_sum_zero_targets_contribute_nothing():
+    target = torch.tensor([0.0, 0.25, 0.75])
+    log_pred = torch.log(torch.tensor([0.0, 0.5, 0.5]))  # -inf where target is 0
+    got = tl.kl_div_sum(log_pred, target)
+    want = jl.kl_div_sum(jnp.asarray(log_pred.numpy()), jnp.asarray(target.numpy()))
+    assert torch.isfinite(got)
+    close(got, want)
+
+
+@pytest.mark.parametrize("name", [
+    "lambda_neighborhood_g1", "lambda_ct_islands", "lambda_getis_ord",
+    "lambda_moran", "lambda_geary", "lambda_l1", "lambda_l2",
+])
+def test_unported_terms_raise_naming_the_roadmap(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+        tl.check_supported(tl.LossWeights(**{name: 0.1}))
