@@ -116,9 +116,11 @@ rowstats_kernel(const float* __restrict__ M, float* __restrict__ m_out,
 // Y = P^T A and q = w P reduce over cells, the axis that crosses the softmax
 // rows. w rides along as column k of A_ext = [A | w], so one contraction
 // gives both (column k of the result is q). A block owns 64 spots x 256
-// columns of A_ext and loops over its share of the cells in chunks of 16:
-// it recomputes the P chunk from (m, l) into shared memory, stages the A_ext
-// chunk beside it, and accumulates an 8 x 8 register tile per thread.
+// columns of A_ext and loops over its share of the cells in chunks of 16.
+// The raw M chunk and the A_ext chunk arrive by cp.async into a double
+// buffer, so the next chunk's loads (M from HBM, A from L2) are in flight
+// while the current chunk computes; P is recomputed from (m, l) into shared
+// memory, and each thread accumulates an 8 x 8 register tile.
 // The cells are split into `nsplit` contiguous ranges (grid.z) to fill the
 // card; each range writes its own partial sums, and project_reduce adds them
 // in a fixed order. Bound: f32 FMA (2 c s (k+1) flops); M is read once,
@@ -130,13 +132,32 @@ constexpr int PJ_BJ = 256;   // A_ext columns per block
 constexpr int PJ_BC = 16;    // cells per chunk
 constexpr int PJ_THREADS = 256;
 
+// 4-byte asynchronous copy global -> shared; valid == false writes zeros
+__device__ __forceinline__ void cp_async_f32(float* smem, const float* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __global__ void __launch_bounds__(PJ_THREADS, 2)
 project_kernel(const float* __restrict__ M, const float* __restrict__ A,
                const float* __restrict__ w, const float* __restrict__ mrow,
                const float* __restrict__ lrow, float* __restrict__ partial,
                int c, int s, int k, int cells_per_split) {
+  __shared__ __align__(16) float Ms[2][PJ_BC][PJ_BS];
+  __shared__ __align__(16) float As[2][PJ_BC][PJ_BJ];
   __shared__ __align__(16) float Ps[PJ_BC][PJ_BS];
-  __shared__ __align__(16) float As[PJ_BC][PJ_BJ];
   const int tid = threadIdx.x;
   const int ty = tid >> 5;   // 8 spot groups of 8 spots
   const int tx = tid & 31;   // 32 column groups: tx*4.. and 128+tx*4..
@@ -146,38 +167,56 @@ project_kernel(const float* __restrict__ M, const float* __restrict__ A,
   const int c_begin = blockIdx.z * cells_per_split;
   const int c_end = min(c, c_begin + cells_per_split);
 
+  // start the copies of the chunk at cell c0 into buffer b
+  auto issue = [&](int c0, int b) {
+    for (int e = tid; e < PJ_BC * PJ_BS; e += PJ_THREADS) {
+      const int cc = e / PJ_BS, ss = e % PJ_BS;
+      const int cell = c0 + cc, spot = s0 + ss;
+      const bool ok = cell < c_end && spot < s;
+      cp_async_f32(&Ms[b][cc][ss], ok ? M + (size_t)cell * s + spot : M, ok);
+    }
+    for (int e = tid; e < PJ_BC * PJ_BJ; e += PJ_THREADS) {
+      const int cc = e / PJ_BJ, jj = e % PJ_BJ;
+      const int cell = c0 + cc, j = j0 + jj;
+      const bool in = cell < c_end;
+      const float* src = (in && j < k) ? A + (size_t)cell * k + j
+                         : (in && j == k) ? w + cell : A;
+      cp_async_f32(&As[b][cc][jj], src, in && j <= k);
+    }
+    cp_async_commit();
+  };
+
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int c0 = c_begin; c0 < c_end; c0 += PJ_BC) {
+  if (c_begin < c_end) issue(c_begin, 0);
+  int buf = 0;
+  for (int c0 = c_begin; c0 < c_end; c0 += PJ_BC, buf ^= 1) {
+    if (c0 + PJ_BC < c_end) {
+      issue(c0 + PJ_BC, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this chunk's copies are visible to every thread
     for (int e = tid; e < PJ_BC * PJ_BS; e += PJ_THREADS) {
       const int cc = e / PJ_BS, ss = e % PJ_BS;
       const int cell = c0 + cc, spot = s0 + ss;
       float p = 0.0f;
       if (cell < c_end && spot < s)
-        p = expf(M[(size_t)cell * s + spot] - mrow[cell]) * (1.0f / lrow[cell]);
+        p = expf(Ms[buf][cc][ss] - mrow[cell]) * (1.0f / lrow[cell]);
       Ps[cc][ss] = p;
-    }
-    for (int e = tid; e < PJ_BC * PJ_BJ; e += PJ_THREADS) {
-      const int cc = e / PJ_BJ, jj = e % PJ_BJ;
-      const int cell = c0 + cc, j = j0 + jj;
-      float a = 0.0f;
-      if (cell < c_end) {
-        if (j < k) a = A[(size_t)cell * k + j];
-        else if (j == k) a = w[cell];
-      }
-      As[cc][jj] = a;
     }
     __syncthreads();
 #pragma unroll
     for (int cc = 0; cc < PJ_BC; ++cc) {
       const float4 p0 = *reinterpret_cast<const float4*>(&Ps[cc][ty * 8]);
       const float4 p1 = *reinterpret_cast<const float4*>(&Ps[cc][ty * 8 + 4]);
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cc][tx * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cc][128 + tx * 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][cc][tx * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][cc][128 + tx * 4]);
       const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
@@ -185,7 +224,7 @@ project_kernel(const float* __restrict__ M, const float* __restrict__ A,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], a[j], acc[i][j]);
     }
-    __syncthreads();
+    __syncthreads();  // Ps and As[buf] are free for the next chunk's writes
   }
 
   float* out = partial + (size_t)blockIdx.z * s * K1;
@@ -226,9 +265,11 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 //
 // A block owns 64 whole cell rows and loops over all spots in tiles of 128.
 // Per tile it forms dP = A_ext dY_ext^T (A_ext = [A | w], dY_ext = [dY | dq],
-// both passed transposed so every staging load is coalesced) by looping
-// over k in chunks of 32 through shared memory; each thread holds a 4-cell x
-// 8-spot register tile. The epilogue reads M (and mu, nu) for those
+// both passed transposed so every staging copy is coalesced) by looping
+// over k in chunks of 32 through a cp.async double buffer in shared memory
+// (the next chunk, or the next tile's first chunk, is in flight while the
+// current one computes); each thread holds a 4-cell x 8-spot register tile.
+// The epilogue reads M (and mu, nu) for those
 // elements, recomputes P from (m, l), adds dh (log P + 1) when WITH_DH, and
 //   rbar:    accumulates r_c += P dP per cell;
 //   dm_adam: g = P (dP - r), the exact Adam update (eps after the sqrt),
@@ -275,8 +316,8 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
           float* __restrict__ m_out, float* __restrict__ l_out,
           float* __restrict__ u_out, int c, int s, int K1,
           float lr, float bc1, float bc2, int vec) {
-  __shared__ __align__(16) float As[DP_KC][DP_TC];
-  __shared__ __align__(16) float Ds[DP_KC][DP_TS];
+  __shared__ __align__(16) float As[2][DP_KC][DP_TC];
+  __shared__ __align__(16) float Ds[2][DP_KC][DP_TS];
   const int tid = threadIdx.x;
   const int ty = tid >> 4;   // 16 cell groups of 4 cells
   const int tx = tid & 15;   // 16 spot groups: tx*4.. and 64+tx*4..
@@ -306,39 +347,60 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
   float nl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float nu_[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  for (int s0 = 0; s0 < s; s0 += DP_TS) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < K1; k0 += DP_KC) {
-      for (int e = tid; e < DP_KC * DP_TC; e += DP_THREADS) {
-        const int kk = e / DP_TC, cc = e % DP_TC;
-        const int j = k0 + kk, cell = c0 + cc;
-        As[kk][cc] = (j < K1 && cell < c) ? AT[(size_t)j * c + cell] : 0.0f;
-      }
-      for (int e = tid; e < DP_KC * DP_TS; e += DP_THREADS) {
-        const int kk = e / DP_TS, ss = e % DP_TS;
-        const int j = k0 + kk, spot = s0 + ss;
-        Ds[kk][ss] = (j < K1 && spot < s) ? dYT[(size_t)j * s + spot] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < DP_KC; ++kk) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Ds[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Ds[kk][64 + tx * 4]);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  // start the copies of k chunk k0 of spot tile s0 into buffer b
+  auto issue = [&](int s0, int k0, int b) {
+    for (int e = tid; e < DP_KC * DP_TC; e += DP_THREADS) {
+      const int kk = e / DP_TC, cc = e % DP_TC;
+      const int j = k0 + kk, cell = c0 + cc;
+      const bool ok = j < K1 && cell < c;
+      cp_async_f32(&As[b][kk][cc], ok ? AT + (size_t)j * c + cell : AT, ok);
     }
+    for (int e = tid; e < DP_KC * DP_TS; e += DP_THREADS) {
+      const int kk = e / DP_TS, ss = e % DP_TS;
+      const int j = k0 + kk, spot = s0 + ss;
+      const bool ok = j < K1 && spot < s;
+      cp_async_f32(&Ds[b][kk][ss], ok ? dYT + (size_t)j * s + spot : dYT, ok);
+    }
+    cp_async_commit();
+  };
+
+  // one flat sequence of (spot tile, k chunk) steps, so the prefetch also
+  // runs across tile boundaries and overlaps each tile's epilogue
+  const int n_k = (K1 + DP_KC - 1) / DP_KC;
+  const int n_steps = (s + DP_TS - 1) / DP_TS * n_k;
+  float acc[4][8];
+  if (n_steps > 0) issue(0, 0, 0);
+  int buf = 0;
+  for (int step = 0; step < n_steps; ++step, buf ^= 1) {
+    const int s0 = step / n_k * DP_TS;
+    const int ki = step % n_k;
+    if (ki == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    }
+    if (step + 1 < n_steps) {
+      issue((step + 1) / n_k * DP_TS, (step + 1) % n_k * DP_KC, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this chunk's copies are visible to every thread
+#pragma unroll 8
+    for (int kk = 0; kk < DP_KC; ++kk) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Ds[buf][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Ds[buf][kk][64 + tx * 4]);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // As[buf] and Ds[buf] are free for the next copies
+    if (ki != n_k - 1) continue;
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
