@@ -100,15 +100,14 @@ def _rowstats(M):
 
 _PJ_SPOTS = 64    # spots per block of the project kernel
 _PJ_COLS = 256    # columns of [A | w] per block
-_SM_COUNT = 132   # H100 SXM; only sizes the cell split
 
 
-def project_splits(c: int, s: int, k: int) -> int:
+def project_splits(c: int, s: int, k: int, sm_count: int) -> int:
     """How many contiguous cell ranges the project kernel reduces over in
     parallel: enough blocks for about eight per SM, each range at least 512
     cells (fewer splits for few cells — clusters mode has tens)."""
     base = math.ceil(s / _PJ_SPOTS) * math.ceil((k + 1) / _PJ_COLS)
-    want = math.ceil(8 * _SM_COUNT / max(base, 1))
+    want = math.ceil(8 * sm_count / max(base, 1))
     return max(1, min(want, math.ceil(c / 512), 16))
 
 
@@ -130,8 +129,9 @@ def _project(M, A, w, m, l):
     lib = kernels_for(M, A, w, m, l)
     if lib is None:
         return _project_plain(M, A, w, m, l)
-    nsplit = project_splits(c, s, k)
     dev = M.device
+    nsplit = project_splits(
+        c, s, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     partial = torch.empty((nsplit, s, k + 1), dtype=torch.float32, device=dev)
     Y = torch.empty((s, k), dtype=torch.float32, device=dev)
     q = torch.empty((s,), dtype=torch.float32, device=dev)

@@ -163,6 +163,14 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
         resolve_impl("pallas", M)
 
 
+def test_project_split_count():
+    """The cell split of the project kernel: about eight blocks per SM at the
+    tutorial shape, none for clusters mode's few cells."""
+    assert cc.project_splits(26_000, 9_852, 249, sm_count=132) == 7
+    assert cc.project_splits(22, 9_852, 249, sm_count=132) == 1
+    assert cc.project_splits(10**6, 64, 3, sm_count=132) == 16
+
+
 def test_wrappers_reject_mixed_devices():
     x = make_inputs(4, 6, 2)
     M = T(x["M"])
