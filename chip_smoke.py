@@ -12,12 +12,14 @@ last line):
 2. build      nvcc builds tangram_tpu_torch/csrc/*.cu for sm_90a
 3. kernels    each CUDA kernel against its plain PyTorch twin on seeded
               inputs at the tutorial shape (26,000 cells x 9,852 spots x 249
-              genes) and at a ragged small shape, with and without the
-              entropy cotangent; median times from CUDA events
+              genes), at its clusters-mode shape (22 x 9,852 x 249) and at a
+              ragged small shape, with and without the entropy cotangent;
+              median times from CUDA events
 4. cells      synthetic tutorial pair -> pp_adatas -> map_cells_to_space
               (cells mode, 100 epochs) -> project_genes ->
               compare_spatial_geneexp, with the kernels' launch counts
-5. clusters   map_cells_to_space in clusters mode (22 clusters), 100 epochs
+5. clusters   map_cells_to_space in clusters mode (22 clusters), 100 epochs,
+              and its steady step time
 6. reference  10 epochs of the fused kernels against the materialized
               reference loop at the tutorial shape, and both step times
 
@@ -40,6 +42,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "reference")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
+CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
 EPOCHS = 100
 SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
@@ -243,21 +246,24 @@ def check_launches(phase, expect):
     return counts
 
 
-def cells_inputs(ad_sc, ad_sp, dev):
-    """The (S, G, d) that map_cells_to_space hands the optimizer in cells
-    mode with the rna_count_based prior."""
+def mapper_for(ad_sc, ad_sp, dev, mode):
+    """The Mapper that map_cells_to_space builds in ``mode`` with the
+    rna_count_based prior (clusters by subclass_label)."""
     from tangram_tpu_torch.mapping import (
-        _check_mapping_args, _densify, _resolve_density, _resolve_training_genes)
+        _check_mapping_args, _densify, _resolve_density, _resolve_training_genes,
+        adata_to_cluster_expression)
     from tangram_tpu_torch.models.mapper import Mapper
 
-    lam = _check_mapping_args("cells", 1, 0, "rna_count_based", None, None, 1, 1)
+    label = "subclass_label" if mode == "clusters" else None
+    lam = _check_mapping_args(mode, 1, 0, "rna_count_based", label, None, 1, 1)
+    if mode == "clusters":
+        ad_sc = adata_to_cluster_expression(ad_sc, label, True, add_density=True)
     genes = _resolve_training_genes(ad_sc, ad_sp, None)
     S = _densify(ad_sc[:, genes].X)
     G = _densify(ad_sp[:, genes].X)
-    prior = _resolve_density("cells", "rna_count_based", lam, ad_sc, ad_sp)
-    mapper = Mapper(S, G, d=prior.d, lambda_d=prior.lambda_d, device=dev,
-                    random_state=0)
-    return mapper
+    prior = _resolve_density(mode, "rna_count_based", lam, ad_sc, ad_sp)
+    return Mapper(S, G, d=prior.d, d_source=prior.d_source,
+                  lambda_d=prior.lambda_d, device=dev, random_state=0)
 
 
 def step_ms(mapper, impl, warm, steps):
@@ -347,7 +353,7 @@ def main(argv=None) -> int:
                 say("build", "ptxas " + line.strip().removeprefix("ptxas info    : "))
 
     if "kernels" in phases:
-        for shape, timed in ((RAGGED, False), (SHAPE, True)):
+        for shape, timed in ((RAGGED, False), (CLUSTERS, False), (SHAPE, True)):
             t0 = time.perf_counter()
             compare_kernels(shape, dev, results, timed)
             say("kernels", f"{shape} checked in {time.perf_counter() - t0:.1f} s")
@@ -398,12 +404,15 @@ def main(argv=None) -> int:
                                     "rbar": EPOCHS, "dm_adam": EPOCHS})
         n_clusters = ad_map.X.shape[0]
         check_mapping("clusters", ad_map, n_clusters, SHAPE[1], SHAPE[2])
-        say("clusters", f"{n_clusters} clusters, {EPOCHS} epochs in {t_map:.2f} s")
+        ms_c = step_ms(mapper_for(ad_sc, ad_sp, dev, "clusters"), "kernels",
+                       warm=5, steps=50)
+        say("clusters", f"{n_clusters} clusters, {EPOCHS} epochs in {t_map:.2f} s; "
+            f"steady-state {ms_c:.3f} ms/step ({card})")
 
     if "reference" in phases:
         from tangram_tpu_torch.models.mapper import HISTORY_KEYS, fit_mapping
 
-        mapper = cells_inputs(ad_sc, ad_sp, dev)
+        mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
         runs = {}
         for impl in ("kernels", "reference"):
             M = mapper.M.clone()

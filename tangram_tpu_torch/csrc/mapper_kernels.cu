@@ -275,10 +275,14 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 //   dm_adam: g = P (dP - r), the exact Adam update (eps after the sqrt),
 //            stores M, mu, nu in place, and folds the stored M into the
 //            next step's online (m, l, u).
-// Because the block owns whole rows, the per-cell sums need no merge across
+// A block owns whole rows, so its per-cell sums need no merge across
 // blocks: the 16 threads sharing a cell group reduce by shuffle in a fixed
-// order. Bound: f32 FMA, like project; dm_adam also moves 3 reads and
-// 3 writes of c x s f32 (6 GB per step at the tutorial shape).
+// order. With few cells (clusters mode has tens) that would leave most of
+// the card idle, so the spot tiles are also shared out over `nsplit` blocks
+// per cell group (grid.y); each writes the row sums of its spot range and
+// dp_merge adds them (r) or merges them (m, l, u) in split order.
+// Bound: f32 FMA, like project; dm_adam also moves 3 reads and 3 writes of
+// c x s f32 (6 GB per step at the tutorial shape).
 // ---------------------------------------------------------------------------
 
 constexpr int DP_TC = 64;    // cells per block
@@ -315,7 +319,7 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
           float* __restrict__ mu, float* __restrict__ nu,
           float* __restrict__ m_out, float* __restrict__ l_out,
           float* __restrict__ u_out, int c, int s, int K1,
-          float lr, float bc1, float bc2, int vec) {
+          float lr, float bc1, float bc2, int vec, int tiles_per_split) {
   __shared__ __align__(16) float As[2][DP_KC][DP_TC];
   __shared__ __align__(16) float Ds[2][DP_KC][DP_TS];
   const int tid = threadIdx.x;
@@ -364,15 +368,18 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
     cp_async_commit();
   };
 
-  // one flat sequence of (spot tile, k chunk) steps, so the prefetch also
-  // runs across tile boundaries and overlaps each tile's epilogue
+  // one flat sequence of (spot tile, k chunk) steps over this block's spot
+  // tiles, so the prefetch also runs across tile boundaries and overlaps
+  // each tile's epilogue
   const int n_k = (K1 + DP_KC - 1) / DP_KC;
-  const int n_steps = (s + DP_TS - 1) / DP_TS * n_k;
+  const int tile0 = blockIdx.y * tiles_per_split;
+  const int n_tiles = max(0, min((s + DP_TS - 1) / DP_TS - tile0, tiles_per_split));
+  const int n_steps = n_tiles * n_k;
   float acc[4][8];
-  if (n_steps > 0) issue(0, 0, 0);
+  if (n_steps > 0) issue(tile0 * DP_TS, 0, 0);
   int buf = 0;
   for (int step = 0; step < n_steps; ++step, buf ^= 1) {
-    const int s0 = step / n_k * DP_TS;
+    const int s0 = (tile0 + step / n_k) * DP_TS;
     const int ki = step % n_k;
     if (ki == 0) {
 #pragma unroll
@@ -381,7 +388,7 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
     }
     if (step + 1 < n_steps) {
-      issue((step + 1) / n_k * DP_TS, (step + 1) % n_k * DP_KC, buf ^ 1);
+      issue((tile0 + (step + 1) / n_k) * DP_TS, (step + 1) % n_k * DP_KC, buf ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -461,33 +468,63 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!cvalid[i]) continue;
-      const int cell = c0 + ty * 4 + i;
+      const size_t out = (size_t)blockIdx.y * c + (c0 + ty * 4 + i);
       if (!ADAM) {
-        r_out[cell] = racc[i];
+        r_out[out] = racc[i];
       } else {
-        m_out[cell] = nm[i];
-        l_out[cell] = nl[i];
-        u_out[cell] = nu_[i];
+        m_out[out] = nm[i];
+        l_out[out] = nl[i];
+        u_out[out] = nu_[i];
       }
     }
   }
 }
 
+// r = the sum of the split partials (rbar), or (m, l, u) = their online-stats
+// merge (dm_adam), in split order: (nsplit, c) partials -> (c,) outputs
 template <bool ADAM>
-void launch_dp(bool with_dh, float* M, const float* AT, const float* dYT,
-               const float* dh, const float* m, const float* l, const float* r,
-               float* r_out, float* mu, float* nu, float* m_out, float* l_out,
-               float* u_out, int c, int s, int K1, float lr, float bc1, float bc2,
-               int vec, cudaStream_t stream) {
-  const dim3 grid((c + DP_TC - 1) / DP_TC);
+__global__ void dp_merge_kernel(const float* __restrict__ r_part, float* __restrict__ r,
+                                const float* __restrict__ m_part,
+                                const float* __restrict__ l_part,
+                                const float* __restrict__ u_part, float* __restrict__ m,
+                                float* __restrict__ l, float* __restrict__ u, int c,
+                                int nsplit) {
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= c) return;
+  if (!ADAM) {
+    float acc = 0.0f;
+    for (int z = 0; z < nsplit; ++z) acc += r_part[(size_t)z * c + cell];
+    r[cell] = acc;
+  } else {
+    float mm = NEG_BIG, ll = 0.0f, uu = 0.0f;
+    for (int z = 0; z < nsplit; ++z) {
+      const size_t e = (size_t)z * c + cell;
+      stats_merge(mm, ll, uu, m_part[e], l_part[e], u_part[e]);
+    }
+    m[cell] = mm;
+    l[cell] = ll;
+    u[cell] = uu;
+  }
+}
+
+template <bool ADAM>
+cudaError_t launch_dp(bool with_dh, float* M, const float* AT, const float* dYT,
+                      const float* dh, const float* m, const float* l, const float* r,
+                      float* r_part, float* mu, float* nu, float* m_part,
+                      float* l_part, float* u_part, int c, int s, int K1, float lr,
+                      float bc1, float bc2, int vec, int nsplit, cudaStream_t stream) {
+  const int n_tiles = (s + DP_TS - 1) / DP_TS;
+  const int tiles_per_split = (n_tiles + nsplit - 1) / nsplit;
+  const dim3 grid((c + DP_TC - 1) / DP_TC, nsplit);
   if (with_dh)
     dp_kernel<true, ADAM><<<grid, DP_THREADS, 0, stream>>>(
-        M, AT, dYT, dh, m, l, r, r_out, mu, nu, m_out, l_out, u_out, c, s, K1,
-        lr, bc1, bc2, vec);
+        M, AT, dYT, dh, m, l, r, r_part, mu, nu, m_part, l_part, u_part, c, s, K1,
+        lr, bc1, bc2, vec, tiles_per_split);
   else
     dp_kernel<false, ADAM><<<grid, DP_THREADS, 0, stream>>>(
-        M, AT, dYT, dh, m, l, r, r_out, mu, nu, m_out, l_out, u_out, c, s, K1,
-        lr, bc1, bc2, vec);
+        M, AT, dYT, dh, m, l, r, r_part, mu, nu, m_part, l_part, u_part, c, s, K1,
+        lr, bc1, bc2, vec, tiles_per_split);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -525,26 +562,37 @@ extern "C" int tg_project(const float* M, const float* A, const float* w,
   return (int)cudaGetLastError();
 }
 
-// AT: (k + 1, c) = [A | w]^T; dYT: (k + 1, s) = [dY | dq]^T; r: (c,).
-// vec != 0 allows 16-byte loads of M (s % 4 == 0, aligned base).
+// AT: (k + 1, c) = [A | w]^T; dYT: (k + 1, s) = [dY | dq]^T; r: (c,);
+// r_part: (nsplit, c) scratch. vec != 0 allows 16-byte loads of M
+// (s % 4 == 0, aligned base). nsplit: spot-axis splits (see dp_kernel).
 extern "C" int tg_rbar(const float* M, const float* AT, const float* dYT,
-                       const float* dh, const float* m, const float* l, float* r,
-                       int c, int s, int K1, int with_dh, int vec, void* stream) {
-  launch_dp<false>(with_dh != 0, const_cast<float*>(M), AT, dYT, dh, m, l, nullptr,
-                   r, nullptr, nullptr, nullptr, nullptr, nullptr, c, s, K1, 0.0f,
-                   1.0f, 1.0f, vec, (cudaStream_t)stream);
+                       const float* dh, const float* m, const float* l,
+                       float* r_part, float* r, int c, int s, int K1, int with_dh,
+                       int vec, int nsplit, void* stream) {
+  const cudaError_t err = launch_dp<false>(
+      with_dh != 0, const_cast<float*>(M), AT, dYT, dh, m, l, nullptr, r_part,
+      nullptr, nullptr, nullptr, nullptr, nullptr, c, s, K1, 0.0f, 1.0f, 1.0f, vec,
+      nsplit, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  dp_merge_kernel<false><<<(c + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      r_part, r, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, c, nsplit);
   return (int)cudaGetLastError();
 }
 
 // M, mu, nu: (c, s), updated in place; m_out, l_out, u_out: (c,) stats of the
-// stored M. vec as for tg_rbar, for M, mu and nu.
+// stored M; m_part, l_part, u_part: (nsplit, c) scratch. vec (for M, mu and
+// nu) and nsplit as for tg_rbar.
 extern "C" int tg_dm_adam(float* M, const float* AT, const float* dYT,
                           const float* dh, const float* m, const float* l,
-                          const float* r, float* mu, float* nu, float* m_out,
-                          float* l_out, float* u_out, int c, int s, int K1,
-                          int with_dh, float lr, float bc1, float bc2, int vec,
-                          void* stream) {
-  launch_dp<true>(with_dh != 0, M, AT, dYT, dh, m, l, r, nullptr, mu, nu, m_out,
-                  l_out, u_out, c, s, K1, lr, bc1, bc2, vec, (cudaStream_t)stream);
+                          const float* r, float* mu, float* nu, float* m_part,
+                          float* l_part, float* u_part, float* m_out, float* l_out,
+                          float* u_out, int c, int s, int K1, int with_dh, float lr,
+                          float bc1, float bc2, int vec, int nsplit, void* stream) {
+  const cudaError_t err = launch_dp<true>(
+      with_dh != 0, M, AT, dYT, dh, m, l, r, nullptr, mu, nu, m_part, l_part,
+      u_part, c, s, K1, lr, bc1, bc2, vec, nsplit, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  dp_merge_kernel<true><<<(c + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      nullptr, nullptr, m_part, l_part, u_part, m_out, l_out, u_out, c, nsplit);
   return (int)cudaGetLastError();
 }

@@ -40,9 +40,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tg_rowstats": (_P, _P, _P, _P, _I, _I, _P),
     "tg_project": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "tg_rbar": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "tg_dm_adam": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    "tg_rbar": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tg_dm_adam": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
 }
 
 

@@ -21,6 +21,8 @@ the JAX step computes them, in f32 on the host.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -60,6 +62,21 @@ def adam_scalars(step: int, learning_rate: float):
     bc1 = one - np.float32(BETA1) ** t
     bc2 = one - np.float32(BETA2) ** t
     return float(np.float32(learning_rate)), float(bc1), float(bc2)
+
+
+def dp_splits(c: int, s: int, sm_count: int) -> int:
+    """How many blocks share the spot tiles of one 64-cell group in the
+    rbar and dm_adam kernels: 1 when the cell groups alone give about two
+    blocks per SM (cells mode), up to one 128-spot tile per block when there
+    are few cells (clusters mode has tens)."""
+    tiles = math.ceil(s / 128)
+    want = math.ceil(2 * sm_count / math.ceil(c / 64))
+    per = math.ceil(tiles / max(1, min(want, tiles)))
+    return math.ceil(tiles / per)
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def _ext_transposed(X, v):
@@ -106,12 +123,15 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True):
         return _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
     AT = _ext_transposed(A, w)
     dYT = _ext_transposed(dY, dq)
+    nsplit = dp_splits(c, s, _sm_count(M))
+    r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
     r = torch.empty((c, 1), dtype=torch.float32, device=M.device)
     if c:
         with torch.cuda.device(M.device):
             lib.call("tg_rbar", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
-                     dh.data_ptr(), m.data_ptr(), l.data_ptr(), r.data_ptr(),
-                     c, s, k + 1, int(with_dh), vec4_ok(s, M), stream_of(M))
+                     dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
+                     r.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M),
+                     nsplit, stream_of(M))
         LAUNCHES["rbar"] += 1
     return r
 
@@ -155,15 +175,18 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
     lr, bc1, bc2 = scalars
     AT = _ext_transposed(A, w)
     dYT = _ext_transposed(dY, dq)
+    nsplit = dp_splits(c, s, _sm_count(M))
+    parts = torch.empty((3, nsplit, c), dtype=torch.float32, device=M.device)
     m2, l2, u2 = (torch.empty((c, 1), dtype=torch.float32, device=M.device)
                   for _ in range(3))
     if c:
         with torch.cuda.device(M.device):
             lib.call("tg_dm_adam", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
                      dh.data_ptr(), m.data_ptr(), l.data_ptr(), r.data_ptr(),
-                     mu.data_ptr(), nu.data_ptr(), m2.data_ptr(), l2.data_ptr(),
-                     u2.data_ptr(), c, s, k + 1, int(with_dh), lr, bc1, bc2,
-                     vec4_ok(s, M, mu, nu), stream_of(M))
+                     mu.data_ptr(), nu.data_ptr(), parts[0].data_ptr(),
+                     parts[1].data_ptr(), parts[2].data_ptr(), m2.data_ptr(),
+                     l2.data_ptr(), u2.data_ptr(), c, s, k + 1, int(with_dh), lr,
+                     bc1, bc2, vec4_ok(s, M, mu, nu), nsplit, stream_of(M))
         LAUNCHES["dm_adam"] += 1
     return M, mu, nu, m2, l2, u2
 

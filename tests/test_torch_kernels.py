@@ -171,6 +171,15 @@ def test_project_split_count():
     assert cc.project_splits(10**6, 64, 3, sm_count=132) == 16
 
 
+def test_dp_split_count():
+    """The spot split of the rbar / dm_adam kernels: none in cells mode at
+    the tutorial shape, one 128-spot tile per block for clusters mode."""
+    assert fs.dp_splits(26_000, 9_852, sm_count=132) == 1
+    assert fs.dp_splits(22, 9_852, sm_count=132) == 77
+    assert fs.dp_splits(5_000, 9_852, sm_count=132) == 4
+    assert fs.dp_splits(64, 100, sm_count=132) == 1
+
+
 def test_wrappers_reject_mixed_devices():
     x = make_inputs(4, 6, 2)
     M = T(x["M"])
