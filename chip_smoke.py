@@ -62,8 +62,9 @@ RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4}
 # fused kernels vs the reference loop over 10 epochs: the loss terms agree
 # to LOSS_RTOL (the reference materializes P and sums in another order) and
 # the logits to M_ATOL (Adam's normalized step is ~lr = 0.1 per epoch, so
-# 1e-3 is 1% of one step after 10 of them)
-LOSS_RTOL, M_ATOL = 1e-4, 1e-3
+# 1e-3 is 1% of one step after 10 of them), and the softmax maps to MAP_ATOL:
+# a logit error e moves P = softmax(M) by at most about 2e·P, and P <= 1
+LOSS_RTOL, M_ATOL, MAP_ATOL = 1e-4, 1e-3, 2e-3
 
 
 def say(phase: str, msg: str) -> None:
@@ -431,9 +432,9 @@ def main(argv=None) -> int:
         m_err = float((Mk - Mr).abs().max())
         p_err = float((torch.softmax(Mk, 1) - torch.softmax(Mr, 1)).abs().max())
         say("reference", f"logits max abs diff {m_err:.2e} (tol {M_ATOL:.0e}); "
-            f"softmax maps max abs diff {p_err:.2e}")
-        if not m_err <= M_ATOL:
-            fail("reference: logits of the kernels and the reference loop differ")
+            f"softmax maps max abs diff {p_err:.2e} (tol {MAP_ATOL:.0e})")
+        if not (m_err <= M_ATOL and p_err <= MAP_ATOL):
+            fail("reference: the kernels' and the reference loop's mappings differ")
         del Mk, Mr, runs
         ms_k = step_ms(mapper, "kernels", warm=5, steps=20)
         ms_r = step_ms(mapper, "reference", warm=2, steps=10)
