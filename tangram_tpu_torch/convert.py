@@ -13,7 +13,7 @@ import torch
 from .ops.core import unported
 from .ops.losses import MapperData
 
-__all__ = ["state_from_jax", "mapper_data_from_jax"]
+__all__ = ["state_from_jax", "adafactor_state_from_jax", "mapper_data_from_jax"]
 
 
 def _tensor(x, device):
@@ -27,7 +27,8 @@ def _tensor(x, device):
 def state_from_jax(M, count, mu, nu, stats, device="cpu"):
     """``(M, count, mu, nu, stats)`` of the JAX fused step → the port's
     ``(M, count, mu, nu, stats)``: f32 tensors on ``device``, ``count`` a
-    host int, ``stats`` a tuple of (c, 1) tensors."""
+    host int, ``stats`` a tuple of (c, 1) tensors — (m, l, u), or
+    (m, l, u, s1, s2) when the L1/L2 terms are on."""
     return (
         _tensor(M, device),
         int(np.asarray(count)),
@@ -35,6 +36,19 @@ def state_from_jax(M, count, mu, nu, stats, device="cpu"):
         _tensor(nu, device),
         tuple(_tensor(s, device) for s in stats),
     )
+
+
+def adafactor_state_from_jax(count, v_row, v_col, c: int, s: int, device="cpu"):
+    """optax ``FactoredState`` statistics of a (c, s) parameter → the
+    port's Adafactor carry ``(count, vr (c,), vc (s,))``. optax's ``v_row``
+    is the mean over the LARGER axis, so it lies on the smaller one: on
+    cells when s ≥ c, on spots otherwise (as the JAX fused path maps it)."""
+    vr, vc = (v_row, v_col) if s >= c else (v_col, v_row)
+    vr, vc = _tensor(vr, device), _tensor(vc, device)
+    if tuple(vr.shape) != (c,) or tuple(vc.shape) != (s,):
+        raise ValueError(f"factored statistics of shapes {tuple(vr.shape)} and "
+                         f"{tuple(vc.shape)} do not belong to a ({c}, {s}) parameter")
+    return int(np.asarray(count)), vr, vc
 
 
 def mapper_data_from_jax(data, device="cpu") -> MapperData:

@@ -1,31 +1,36 @@
 // Hand-written Hopper (sm_90a) kernels for the fused mapping step.
 //
-// The fused Tangram step streams the (cells x spots) logits M through four
+// The fused Tangram step streams the (cells x spots) logits M through a few
 // passes and never stores the softmax P = softmax(M, rows) or its cotangent
 // dP:
 //
-//   tg_rowstats  per-cell online softmax stats m, l, u            (init only)
-//   tg_project   Y = P^T A and q = w P                           (every step)
-//   tg_rbar      r_c = sum_s P * dP                              (every step)
-//   tg_dm_adam   g = P (dP - r), exact Adam in place on M/mu/nu,
-//                and the next step's m, l, u                     (every step)
+//   tg_rowstats        per-cell online softmax stats m, l, u        (init only)
+//   tg_rowstats_norms  the same plus s1 = sum |M|, s2 = sum M^2     (init, L1/L2)
+//   tg_project         Y = P^T A and q = w P                       (every step)
+//   tg_rbar            r_c = sum_s P * dP                          (every step)
+//   tg_dm_adam         g = P (dP - r) [+ L1/L2 gradient], exact Adam in
+//                      place on M/mu/nu, and the next step's m, l, u
+//                      [, s1, s2]                                  (Adam steps)
+//   tg_gsq             sum_s g^2 per cell and sum_c g^2 per spot   (Adafactor)
+//   tg_dm_adafactor    M -= lr g rowf[c] colf[s] in place, and the next
+//                      step's m, l, u [, s1, s2]                   (Adafactor)
 //
 // with dP = A dY^T + w (x) dq [+ dh (x) (log P + 1)] formed tile by tile.
 // Each kernel replaces one Pallas TPU kernel of the JAX package (named at
 // each kernel below). The TPU grid carries sums from one grid step to the
 // next in VMEM; here a loop inside the block takes that place, and every
-// cross-thread reduction has a fixed order, so all four kernels are
+// cross-thread reduction has a fixed order, so all kernels are
 // deterministic (no atomics).
 //
 // Precision: every product is a plain f32 FMA on the CUDA cores, i.e. IEEE
 // f32 by construction. Tensor-core TF32 would keep about three decimal
 // digits, the class of fault that degraded the JAX package's held-out score
-// on the TPU. The price: project, rbar and dm_adam each do about
-// 2 * c * s * (k + 1) flops per step (1.3e11 at the 26,000 x 9,852 x 249
+// on the TPU. The price: project and the four dP-tile kernels each do about
+// 2 * c * s * (k + 1) flops per call (1.3e11 at the 26,000 x 9,852 x 249
 // tutorial shape), which makes them compute-bound on the H100's f32 CUDA
 // cores, not memory-bound. Faster variants (3xTF32 or bf16-split tensor-core
-// products via wgmma, TMA loads, one shared dP recompute for rbar and
-// dm_adam) are later work.
+// products via wgmma, TMA loads, one shared dP recompute for rbar and the
+// update) are later work.
 //
 // All shared memory is static and below 48 KB per block, so no
 // cudaFuncSetAttribute opt-in is needed. Every entry point launches on the
@@ -39,6 +44,9 @@
 namespace {
 
 constexpr float NEG_BIG = -1e30f;
+// Entries at or below PAD_GUARD are padding sentinels of the JAX package's
+// sharded path: they take no L1/L2 norm and no norm gradient.
+constexpr float PAD_GUARD = -1e20f;
 constexpr float BETA1 = 0.9f;
 constexpr float BETA2 = 0.999f;
 constexpr float ONE_MINUS_BETA1 = 0.1f;    // f32(1.0 - 0.9)
@@ -82,31 +90,61 @@ __device__ __forceinline__ void stats_reduce(float& m, float& l, float& u, int w
   }
 }
 
+// sum over the lanes of an aligned group of `width` lanes (butterfly)
+__device__ __forceinline__ float sum_reduce(float v, int width) {
+  for (int off = width / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// the L1/L2 norm sums take real entries only: x > PAD_GUARD, else 0
+__device__ __forceinline__ float norm_value(float x) { return x > PAD_GUARD ? x : 0.0f; }
+
+__device__ __forceinline__ void norms_push(float& s1, float& s2, float x) {
+  const float z = norm_value(x);
+  s1 += fabsf(z);
+  s2 = fmaf(z, z, s2);
+}
+
 // ---------------------------------------------------------------------------
-// rowstats — replaces tangram_tpu/ops/pallas_core.py::_rowstats
+// rowstats — replaces tangram_tpu/ops/pallas_core.py::_rowstats;
+// rowstats<NORMS> replaces tangram_tpu/ops/fused_step.py::_rowstats_norms
 //
 // One warp per cell row; lanes stride along spots (coalesced), each keeps an
-// online (m, l, u) and the warp merges them by shuffle. Bound: one read of
-// M (1.02 GB at the tutorial shape); the exp per element is far below the
-// SFU rate.
+// online (m, l, u) [and s1, s2] and the warp merges them by shuffle in a
+// fixed order. Bound: one read of M (1.02 GB at the tutorial shape); the exp
+// per element is far below the SFU rate and the norms add two FMAs.
 // ---------------------------------------------------------------------------
 
 constexpr int RS_THREADS = 256;
 
+template <bool NORMS>
 __global__ void __launch_bounds__(RS_THREADS)
 rowstats_kernel(const float* __restrict__ M, float* __restrict__ m_out,
-                float* __restrict__ l_out, float* __restrict__ u_out, int c, int s) {
+                float* __restrict__ l_out, float* __restrict__ u_out,
+                float* __restrict__ s1_out, float* __restrict__ s2_out, int c, int s) {
   const int row = (blockIdx.x * RS_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= c) return;  // the whole warp leaves together
   const float* Mrow = M + (size_t)row * s;
-  float m = NEG_BIG, l = 0.0f, u = 0.0f;
-  for (int j = lane; j < s; j += 32) stats_push(m, l, u, __ldg(Mrow + j));
+  float m = NEG_BIG, l = 0.0f, u = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int j = lane; j < s; j += 32) {
+    const float x = __ldg(Mrow + j);
+    stats_push(m, l, u, x);
+    if (NORMS) norms_push(s1, s2, x);
+  }
   stats_reduce(m, l, u, 32);
+  if (NORMS) {
+    s1 = sum_reduce(s1, 32);
+    s2 = sum_reduce(s2, 32);
+  }
   if (lane == 0) {
     m_out[row] = m;
     l_out[row] = l;
     u_out[row] = u;
+    if (NORMS) {
+      s1_out[row] = s1;
+      s2_out[row] = s2;
+    }
   }
 }
 
@@ -258,10 +296,15 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// dP tiles — rbar replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
-// pallas_core._rbar_kernel / _dp_tile); dm_adam replaces
-// tangram_tpu/ops/fused_step.py::_dm_adam (_dm_adam_kernel, _grad_tile,
-// _emit_next_stats) on its f32, no-L1/L2, round-to-nearest path.
+// dP tiles — one kernel, four epilogues:
+//   EPI_RBAR       replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
+//                  pallas_core._rbar_kernel / _dp_tile)
+//   EPI_ADAM       replaces tangram_tpu/ops/fused_step.py::_dm_adam
+//                  (_dm_adam_kernel, _grad_tile, _emit_next_stats) on its
+//                  f32, round-to-nearest path, L1/L2 terms included
+//   EPI_GSQ        replaces tangram_tpu/ops/fused_step.py::_gsq (_gsq_kernel)
+//   EPI_ADAFACTOR  replaces tangram_tpu/ops/fused_step.py::_dm_adafactor
+//                  (_dm_adafactor_kernel) on its f32, round-to-nearest path
 //
 // A block owns 64 whole cell rows and loops over all spots in tiles of 128.
 // Per tile it forms dP = A_ext dY_ext^T (A_ext = [A | w], dY_ext = [dY | dq],
@@ -269,26 +312,61 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 // over k in chunks of 32 through a cp.async double buffer in shared memory
 // (the next chunk, or the next tile's first chunk, is in flight while the
 // current one computes); each thread holds a 4-cell x 8-spot register tile.
-// The epilogue reads M (and mu, nu) for those
-// elements, recomputes P from (m, l), adds dh (log P + 1) when WITH_DH, and
-//   rbar:    accumulates r_c += P dP per cell;
-//   dm_adam: g = P (dP - r), the exact Adam update (eps after the sqrt),
-//            stores M, mu, nu in place, and folds the stored M into the
-//            next step's online (m, l, u).
+// The epilogue reads M (and mu, nu, or colf) for those elements, recomputes
+// P from (m, l), adds dh (log P + 1) when WITH_DH, forms the gradient
+// g = P (dP - r) + lam1 sign(M) + 2 lam2 M in one place (grad_elem, the
+// counterpart of _grad_tile), so Adam, gsq and Adafactor see the same g, and
+//   rbar:      accumulates r_c += P dP per cell;
+//   adam:      the exact Adam update (eps after the sqrt), stores M, mu, nu
+//              in place;
+//   gsq:       accumulates g^2 per cell (vr) and per spot (vc, below);
+//   adafactor: M -= lr g rowf[c] colf[s], stored in place;
+// and the two updates fold the stored M into the next step's online
+// (m, l, u) [and, with NORMS, its s1 = sum |M|, s2 = sum M^2].
 // A block owns whole rows, so its per-cell sums need no merge across
 // blocks: the 16 threads sharing a cell group reduce by shuffle in a fixed
 // order. With few cells (clusters mode has tens) that would leave most of
 // the card idle, so the spot tiles are also shared out over `nsplit` blocks
 // per cell group (grid.y); each writes the row sums of its spot range and
-// dp_merge adds them (r) or merges them (m, l, u) in split order.
-// Bound: f32 FMA, like project; dm_adam also moves 3 reads and 3 writes of
-// c x s f32 (6 GB per step at the tutorial shape).
+// dp_merge adds them (r, vr, s1, s2) or merges them (m, l, u) in split
+// order. gsq's per-spot sums cross the cell blocks: the 16 cell groups of a
+// block add their column sums through shared memory in a fixed order, each
+// cell block writes one row of a (ceil(c / 64), s) partial, and col_sum adds
+// the rows in block order (the counterpart of the TPU kernel's column
+// partials).
+// Bound: f32 FMA, like project (gsq and adafactor do the same 2 c s (k+1)
+// flops as rbar); adam also moves 3 reads and 3 writes of c x s f32 (6 GB
+// per step at the tutorial shape), adafactor 1 read and 1 write.
 // ---------------------------------------------------------------------------
 
 constexpr int DP_TC = 64;    // cells per block
 constexpr int DP_TS = 128;   // spots per tile
 constexpr int DP_KC = 32;    // k chunk
 constexpr int DP_THREADS = 256;
+
+enum Epilogue : int { EPI_RBAR = 0, EPI_ADAM = 1, EPI_GSQ = 2, EPI_ADAFACTOR = 3 };
+
+// Everything a dP-tile kernel reads or writes; a pointer an epilogue does
+// not use may be null.
+struct DpArgs {
+  float* M;               // (c, s); updated in place by adam and adafactor
+  const float* AT;        // (K1, c) = [A | w]^T
+  const float* dYT;       // (K1, s) = [dY | dq]^T
+  const float* dh;        // (c,)
+  const float* m;         // (c,) row max
+  const float* l;         // (c,) row sum of exp
+  const float* r;         // (c,) softmax-VJP row term (adam, gsq, adafactor)
+  float* mu;              // (c, s) Adam moments, in place
+  float* nu;
+  const float* rowf;      // (c,) Adafactor row factor
+  const float* colf;      // (s,) Adafactor column factor
+  float* row_part;        // (nsplit, c) row sums: r (rbar) or vr (gsq)
+  float* col_part;        // (ceil(c / DP_TC), s) gsq column sums per cell block
+  float* st_part;         // (5, nsplit, c) next stats m, l, u, s1, s2 (updates)
+  int c, s, K1, vec, tiles_per_split;
+  float lr, bc1, bc2;     // lr: adam, adafactor; bc1, bc2: adam
+  float lam1, two_lam2;   // L1 and 2 * L2 strength; both 0 without norms
+};
 
 __device__ __forceinline__ void load4(const float* p, int n_valid, bool vec, float v[4]) {
   if (vec && n_valid >= 4) {
@@ -310,46 +388,64 @@ __device__ __forceinline__ void store4(float* p, int n_valid, bool vec, const fl
   }
 }
 
-template <bool WITH_DH, bool ADAM>
+// the loss gradient of one element: softmax VJP plus the L1/L2 terms on the
+// raw logit; sign(0) = 0 as jnp.sign gives, and sentinels take no norm term
+__device__ __forceinline__ float grad_elem(float P, float dP, float r, float x,
+                                           float lam1, float two_lam2, bool norm_grad) {
+  float g = P * (dP - r);
+  if (norm_grad) {
+    const float z = norm_value(x);
+    const float sgn = (float)((z > 0.0f) - (z < 0.0f));
+    g = g + lam1 * sgn;
+    g = g + two_lam2 * z;
+  }
+  return g;
+}
+
+template <bool WITH_DH, int EPI, bool NORMS>
 __global__ void __launch_bounds__(DP_THREADS, 2)
-dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
-          const float* __restrict__ dYT, const float* __restrict__ dh,
-          const float* __restrict__ mrow, const float* __restrict__ lrow,
-          const float* __restrict__ rrow, float* __restrict__ r_out,
-          float* __restrict__ mu, float* __restrict__ nu,
-          float* __restrict__ m_out, float* __restrict__ l_out,
-          float* __restrict__ u_out, int c, int s, int K1,
-          float lr, float bc1, float bc2, int vec, int tiles_per_split) {
+dp_kernel(const DpArgs a) {
+  constexpr bool UPDATE = EPI == EPI_ADAM || EPI == EPI_ADAFACTOR;
+  constexpr bool ROW_SUM = EPI == EPI_RBAR || EPI == EPI_GSQ;
   __shared__ __align__(16) float As[2][DP_KC][DP_TC];
   __shared__ __align__(16) float Ds[2][DP_KC][DP_TS];
+  float* __restrict__ M = a.M;
+  const float* __restrict__ AT = a.AT;
+  const float* __restrict__ dYT = a.dYT;
+  const int c = a.c, s = a.s, K1 = a.K1;
+  const bool vec = a.vec != 0;
+  const bool norm_grad = a.lam1 != 0.0f || a.two_lam2 != 0.0f;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;   // 16 cell groups of 4 cells
   const int tx = tid & 15;   // 16 spot groups: tx*4.. and 64+tx*4..
   const int c0 = blockIdx.x * DP_TC;
 
-  float cm[4], cinvl[4], clogl[4], cdh[4], cr[4];
+  float cm[4], cinvl[4], clogl[4], cdh[4], cr[4], crf[4];
   bool cvalid[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int cell = c0 + ty * 4 + i;
     cvalid[i] = cell < c;
-    cm[i] = cinvl[i] = clogl[i] = cdh[i] = cr[i] = 0.0f;
+    cm[i] = cinvl[i] = clogl[i] = cdh[i] = cr[i] = crf[i] = 0.0f;
     if (cvalid[i]) {
-      const float l = lrow[cell];
-      cm[i] = mrow[cell];
+      const float l = a.l[cell];
+      cm[i] = a.m[cell];
       cinvl[i] = 1.0f / l;
       clogl[i] = logf(l);
-      if (WITH_DH) cdh[i] = dh[cell];
-      if (ADAM) cr[i] = rrow[cell];
+      if (WITH_DH) cdh[i] = a.dh[cell];
+      if (EPI != EPI_RBAR) cr[i] = a.r[cell];
+      if (EPI == EPI_ADAFACTOR) crf[i] = a.rowf[cell];
     }
   }
-  const float inv_bc1 = 1.0f / bc1;
-  const float inv_bc2 = 1.0f / bc2;
+  const float inv_bc1 = 1.0f / a.bc1;
+  const float inv_bc2 = 1.0f / a.bc2;
 
-  float racc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float racc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // r (rbar) or vr (gsq)
   float nm[4] = {NEG_BIG, NEG_BIG, NEG_BIG, NEG_BIG};
   float nl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float nu_[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float ns1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float ns2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
   // start the copies of k chunk k0 of spot tile s0 into buffer b
   auto issue = [&](int s0, int k0, int b) {
@@ -372,8 +468,8 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
   // tiles, so the prefetch also runs across tile boundaries and overlaps
   // each tile's epilogue
   const int n_k = (K1 + DP_KC - 1) / DP_KC;
-  const int tile0 = blockIdx.y * tiles_per_split;
-  const int n_tiles = max(0, min((s + DP_TS - 1) / DP_TS - tile0, tiles_per_split));
+  const int tile0 = blockIdx.y * a.tiles_per_split;
+  const int n_tiles = max(0, min((s + DP_TS - 1) / DP_TS - tile0, a.tiles_per_split));
   const int n_steps = n_tiles * n_k;
   float acc[4][8];
   if (n_steps > 0) issue(tile0 * DP_TS, 0, 0);
@@ -399,16 +495,17 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
       const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
       const float4 b0 = *reinterpret_cast<const float4*>(&Ds[buf][kk][tx * 4]);
       const float4 b1 = *reinterpret_cast<const float4*>(&Ds[buf][kk][64 + tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();  // As[buf] and Ds[buf] are free for the next copies
     if (ki != n_k - 1) continue;
 
+    float csum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // gsq
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!cvalid[i]) continue;
@@ -418,127 +515,235 @@ dp_kernel(float* __restrict__ M, const float* __restrict__ AT,
         const int spot = s0 + half * 64 + tx * 4;
         const int n_valid = min(4, s - spot);
         if (n_valid <= 0) continue;
-        float x[4], mv[4], vv[4];
+        float x[4], mv[4], vv[4], cf[4];
         load4(M + row + spot, n_valid, vec, x);
-        if (ADAM) {
-          load4(mu + row + spot, n_valid, vec, mv);
-          load4(nu + row + spot, n_valid, vec, vv);
+        if (EPI == EPI_ADAM) {
+          load4(a.mu + row + spot, n_valid, vec, mv);
+          load4(a.nu + row + spot, n_valid, vec, vv);
         }
+        if (EPI == EPI_ADAFACTOR) load4(a.colf + spot, n_valid, vec, cf);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           if (q >= n_valid) continue;
           const float P = expf(x[q] - cm[i]) * cinvl[i];
           float dP = acc[i][half * 4 + q];
           if (WITH_DH) dP += cdh[i] * ((x[q] - cm[i] - clogl[i]) + 1.0f);
-          if (!ADAM) {
+          if constexpr (EPI == EPI_RBAR) {
             racc[i] = fmaf(P, dP, racc[i]);
           } else {
-            const float g = P * (dP - cr[i]);
-            const float mun = BETA1 * mv[q] + ONE_MINUS_BETA1 * g;
-            const float nun = BETA2 * vv[q] + ONE_MINUS_BETA2 * (g * g);
-            const float m_hat = mun * inv_bc1;
-            const float v_hat = nun * inv_bc2;
-            const float xn = x[q] - lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
-            x[q] = xn;
-            mv[q] = mun;
-            vv[q] = nun;
-            stats_push(nm[i], nl[i], nu_[i], xn);
+            const float g = grad_elem(P, dP, cr[i], x[q], a.lam1, a.two_lam2, norm_grad);
+            if constexpr (EPI == EPI_GSQ) {
+              const float g2 = g * g;
+              racc[i] += g2;
+              csum[half * 4 + q] += g2;
+            } else if constexpr (EPI == EPI_ADAM) {
+              const float mun = BETA1 * mv[q] + ONE_MINUS_BETA1 * g;
+              const float nun = BETA2 * vv[q] + ONE_MINUS_BETA2 * (g * g);
+              const float m_hat = mun * inv_bc1;
+              const float v_hat = nun * inv_bc2;
+              x[q] = x[q] - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+              mv[q] = mun;
+              vv[q] = nun;
+            } else {
+              x[q] = x[q] - a.lr * ((g * crf[i]) * cf[q]);
+            }
+            if (UPDATE) {
+              stats_push(nm[i], nl[i], nu_[i], x[q]);
+              if (NORMS) norms_push(ns1[i], ns2[i], x[q]);
+            }
           }
         }
-        if (ADAM) {
-          store4(M + row + spot, n_valid, vec, x);
-          store4(mu + row + spot, n_valid, vec, mv);
-          store4(nu + row + spot, n_valid, vec, vv);
+        if (UPDATE) store4(M + row + spot, n_valid, vec, x);
+        if (EPI == EPI_ADAM) {
+          store4(a.mu + row + spot, n_valid, vec, mv);
+          store4(a.nu + row + spot, n_valid, vec, vv);
         }
       }
+    }
+    if constexpr (EPI == EPI_GSQ) {
+      // column sums of g^2 over the block's 64 cells: each cell group puts
+      // its 8 spot sums in row ty of the free buffer Ds[buf], then one
+      // thread per spot adds the 16 rows in order
+      float (*cs)[DP_TS] = Ds[buf];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cs[ty][tx * 4 + q] = csum[q];
+        cs[ty][64 + tx * 4 + q] = csum[4 + q];
+      }
+      __syncthreads();
+      if (tid < DP_TS && s0 + tid < s) {
+        float v = 0.0f;
+#pragma unroll
+        for (int t = 0; t < DP_THREADS / 16; ++t) v += cs[t][tid];
+        a.col_part[(size_t)blockIdx.x * s + s0 + tid] = v;
+      }
+      __syncthreads();  // the next step's copies may overwrite Ds[buf]
     }
   }
 
   // the 16 threads of a cell group are 16 aligned lanes of one warp
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (!ADAM) {
-      for (int off = 8; off > 0; off >>= 1)
-        racc[i] += __shfl_xor_sync(0xffffffffu, racc[i], off);
-    } else {
+    if (ROW_SUM) racc[i] = sum_reduce(racc[i], 16);
+    if (UPDATE) {
       stats_reduce(nm[i], nl[i], nu_[i], 16);
+      if (NORMS) {
+        ns1[i] = sum_reduce(ns1[i], 16);
+        ns2[i] = sum_reduce(ns2[i], 16);
+      }
     }
   }
   if (tx == 0) {
+    const size_t plane = (size_t)gridDim.y * c;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!cvalid[i]) continue;
       const size_t out = (size_t)blockIdx.y * c + (c0 + ty * 4 + i);
-      if (!ADAM) {
-        r_out[out] = racc[i];
-      } else {
-        m_out[out] = nm[i];
-        l_out[out] = nl[i];
-        u_out[out] = nu_[i];
+      if (ROW_SUM) a.row_part[out] = racc[i];
+      if (UPDATE) {
+        a.st_part[out] = nm[i];
+        a.st_part[plane + out] = nl[i];
+        a.st_part[2 * plane + out] = nu_[i];
+        if (NORMS) {
+          a.st_part[3 * plane + out] = ns1[i];
+          a.st_part[4 * plane + out] = ns2[i];
+        }
       }
     }
   }
 }
 
-// r = the sum of the split partials (rbar), or (m, l, u) = their online-stats
-// merge (dm_adam), in split order: (nsplit, c) partials -> (c,) outputs
-template <bool ADAM>
-__global__ void dp_merge_kernel(const float* __restrict__ r_part, float* __restrict__ r,
-                                const float* __restrict__ m_part,
-                                const float* __restrict__ l_part,
-                                const float* __restrict__ u_part, float* __restrict__ m,
-                                float* __restrict__ l, float* __restrict__ u, int c,
+// In split order, (nsplit, c) partials -> (c,) outputs:
+//   !STATS: out0 = the sum of the row partials (r or vr);
+//   STATS:  (out0, out1, out2) = the online-stats merge of (m, l, u) and,
+//           with NORMS, (out3, out4) = the sums of s1 and s2.
+template <bool STATS, bool NORMS>
+__global__ void dp_merge_kernel(const float* __restrict__ part, float* __restrict__ out0,
+                                float* __restrict__ out1, float* __restrict__ out2,
+                                float* __restrict__ out3, float* __restrict__ out4, int c,
                                 int nsplit) {
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= c) return;
-  if (!ADAM) {
+  if (!STATS) {
     float acc = 0.0f;
-    for (int z = 0; z < nsplit; ++z) acc += r_part[(size_t)z * c + cell];
-    r[cell] = acc;
-  } else {
-    float mm = NEG_BIG, ll = 0.0f, uu = 0.0f;
-    for (int z = 0; z < nsplit; ++z) {
-      const size_t e = (size_t)z * c + cell;
-      stats_merge(mm, ll, uu, m_part[e], l_part[e], u_part[e]);
+    for (int z = 0; z < nsplit; ++z) acc += part[(size_t)z * c + cell];
+    out0[cell] = acc;
+    return;
+  }
+  const size_t plane = (size_t)nsplit * c;
+  float mm = NEG_BIG, ll = 0.0f, uu = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int z = 0; z < nsplit; ++z) {
+    const size_t e = (size_t)z * c + cell;
+    stats_merge(mm, ll, uu, part[e], part[plane + e], part[2 * plane + e]);
+    if (NORMS) {
+      s1 += part[3 * plane + e];
+      s2 += part[4 * plane + e];
     }
-    m[cell] = mm;
-    l[cell] = ll;
-    u[cell] = uu;
+  }
+  out0[cell] = mm;
+  out1[cell] = ll;
+  out2[cell] = uu;
+  if (NORMS) {
+    out3[cell] = s1;
+    out4[cell] = s2;
   }
 }
 
-template <bool ADAM>
-cudaError_t launch_dp(bool with_dh, float* M, const float* AT, const float* dYT,
-                      const float* dh, const float* m, const float* l, const float* r,
-                      float* r_part, float* mu, float* nu, float* m_part,
-                      float* l_part, float* u_part, int c, int s, int K1, float lr,
-                      float bc1, float bc2, int vec, int nsplit, cudaStream_t stream) {
-  const int n_tiles = (s + DP_TS - 1) / DP_TS;
-  const int tiles_per_split = (n_tiles + nsplit - 1) / nsplit;
-  const dim3 grid((c + DP_TC - 1) / DP_TC, nsplit);
+// vc[spot] = the sum of the (rows, s) gsq column partials, in row order
+__global__ void col_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                               int rows, int s) {
+  const int spot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (spot >= s) return;
+  float acc = 0.0f;
+  for (int r = 0; r < rows; ++r) acc += part[(size_t)r * s + spot];
+  out[spot] = acc;
+}
+
+template <int EPI, bool NORMS>
+cudaError_t launch_dp_kernel(bool with_dh, const DpArgs& a, dim3 grid, cudaStream_t st) {
   if (with_dh)
-    dp_kernel<true, ADAM><<<grid, DP_THREADS, 0, stream>>>(
-        M, AT, dYT, dh, m, l, r, r_part, mu, nu, m_part, l_part, u_part, c, s, K1,
-        lr, bc1, bc2, vec, tiles_per_split);
+    dp_kernel<true, EPI, NORMS><<<grid, DP_THREADS, 0, st>>>(a);
   else
-    dp_kernel<false, ADAM><<<grid, DP_THREADS, 0, stream>>>(
-        M, AT, dYT, dh, m, l, r, r_part, mu, nu, m_part, l_part, u_part, c, s, K1,
-        lr, bc1, bc2, vec, tiles_per_split);
+    dp_kernel<false, EPI, NORMS><<<grid, DP_THREADS, 0, st>>>(a);
   return cudaGetLastError();
+}
+
+// launch the dP-tile kernel of epilogue EPI over (cell blocks, nsplit), then
+// the merge of its per-cell partials into out0..out4
+template <int EPI>
+cudaError_t launch_dp(bool with_dh, bool norms, DpArgs a, int nsplit, float* out0,
+                      float* out1, float* out2, float* out3, float* out4,
+                      cudaStream_t st) {
+  const int n_tiles = (a.s + DP_TS - 1) / DP_TS;
+  a.tiles_per_split = (n_tiles + nsplit - 1) / nsplit;
+  const dim3 grid((a.c + DP_TC - 1) / DP_TC, nsplit);
+  const int merge_blocks = (a.c + 255) / 256;
+  cudaError_t err;
+  if constexpr (EPI == EPI_RBAR || EPI == EPI_GSQ) {
+    err = launch_dp_kernel<EPI, false>(with_dh, a, grid, st);
+    if (err != cudaSuccess) return err;
+    dp_merge_kernel<false, false><<<merge_blocks, 256, 0, st>>>(
+        a.row_part, out0, nullptr, nullptr, nullptr, nullptr, a.c, nsplit);
+  } else if (norms) {
+    err = launch_dp_kernel<EPI, true>(with_dh, a, grid, st);
+    if (err != cudaSuccess) return err;
+    dp_merge_kernel<true, true><<<merge_blocks, 256, 0, st>>>(
+        a.st_part, out0, out1, out2, out3, out4, a.c, nsplit);
+  } else {
+    err = launch_dp_kernel<EPI, false>(with_dh, a, grid, st);
+    if (err != cudaSuccess) return err;
+    dp_merge_kernel<true, false><<<merge_blocks, 256, 0, st>>>(
+        a.st_part, out0, out1, out2, nullptr, nullptr, a.c, nsplit);
+  }
+  return cudaGetLastError();
+}
+
+DpArgs dp_args(const float* M, const float* AT, const float* dYT, const float* dh,
+               const float* m, const float* l, int c, int s, int K1, int vec) {
+  DpArgs a = {};
+  a.M = const_cast<float*>(M);
+  a.AT = AT;
+  a.dYT = dYT;
+  a.dh = dh;
+  a.m = m;
+  a.l = l;
+  a.c = c;
+  a.s = s;
+  a.K1 = K1;
+  a.vec = vec;
+  a.bc1 = a.bc2 = 1.0f;
+  return a;
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes). Each returns the cudaError_t of its
-// launch; 0 means the kernel was enqueued.
+// launches; 0 means the kernels were enqueued.
+//
+// Shared arguments of the dP-tile entry points: AT (k + 1, c) = [A | w]^T;
+// dYT (k + 1, s) = [dY | dq]^T; dh, m, l, r: (c,); vec != 0 allows 16-byte
+// accesses along spots (s % 4 == 0 and every (c, s) / (s,) base 16-byte
+// aligned); nsplit: spot-axis splits (see dp_kernel); lam1 and two_lam2: the
+// L1 strength and twice the L2 strength (0 and 0 without the norm terms).
 // ---------------------------------------------------------------------------
 
 extern "C" int tg_rowstats(const float* M, float* m, float* l, float* u, int c,
                            int s, void* stream) {
   const int warps_per_block = RS_THREADS / 32;
   const dim3 grid((c + warps_per_block - 1) / warps_per_block);
-  rowstats_kernel<<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(M, m, l, u, c, s);
+  rowstats_kernel<false><<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(
+      M, m, l, u, nullptr, nullptr, c, s);
+  return (int)cudaGetLastError();
+}
+
+// as tg_rowstats, plus s1 = sum |M| and s2 = sum M^2 over M > PAD_GUARD
+extern "C" int tg_rowstats_norms(const float* M, float* m, float* l, float* u,
+                                 float* s1, float* s2, int c, int s, void* stream) {
+  const int warps_per_block = RS_THREADS / 32;
+  const dim3 grid((c + warps_per_block - 1) / warps_per_block);
+  rowstats_kernel<true><<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(
+      M, m, l, u, s1, s2, c, s);
   return (int)cudaGetLastError();
 }
 
@@ -562,37 +767,82 @@ extern "C" int tg_project(const float* M, const float* A, const float* w,
   return (int)cudaGetLastError();
 }
 
-// AT: (k + 1, c) = [A | w]^T; dYT: (k + 1, s) = [dY | dq]^T; r: (c,);
-// r_part: (nsplit, c) scratch. vec != 0 allows 16-byte loads of M
-// (s % 4 == 0, aligned base). nsplit: spot-axis splits (see dp_kernel).
+// r_part: (nsplit, c) scratch; r: (c,)
 extern "C" int tg_rbar(const float* M, const float* AT, const float* dYT,
                        const float* dh, const float* m, const float* l,
                        float* r_part, float* r, int c, int s, int K1, int with_dh,
                        int vec, int nsplit, void* stream) {
-  const cudaError_t err = launch_dp<false>(
-      with_dh != 0, const_cast<float*>(M), AT, dYT, dh, m, l, nullptr, r_part,
-      nullptr, nullptr, nullptr, nullptr, nullptr, c, s, K1, 0.0f, 1.0f, 1.0f, vec,
-      nsplit, (cudaStream_t)stream);
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+  a.row_part = r_part;
+  return (int)launch_dp<EPI_RBAR>(with_dh != 0, false, a, nsplit, r, nullptr, nullptr,
+                                  nullptr, nullptr, (cudaStream_t)stream);
+}
+
+// M, mu, nu: (c, s), updated in place; st_part: (5, nsplit, c) scratch;
+// m_out, l_out, u_out [, s1_out, s2_out when with_norms]: (c,) stats of the
+// stored M.
+extern "C" int tg_dm_adam(float* M, const float* AT, const float* dYT,
+                          const float* dh, const float* m, const float* l,
+                          const float* r, float* mu, float* nu, float* st_part,
+                          float* m_out, float* l_out, float* u_out, float* s1_out,
+                          float* s2_out, int c, int s, int K1, int with_dh,
+                          int with_norms, float lr, float bc1, float bc2, float lam1,
+                          float two_lam2, int vec, int nsplit, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+  a.r = r;
+  a.mu = mu;
+  a.nu = nu;
+  a.st_part = st_part;
+  a.lr = lr;
+  a.bc1 = bc1;
+  a.bc2 = bc2;
+  a.lam1 = lam1;
+  a.two_lam2 = two_lam2;
+  return (int)launch_dp<EPI_ADAM>(with_dh != 0, with_norms != 0, a, nsplit, m_out,
+                                  l_out, u_out, s1_out, s2_out, (cudaStream_t)stream);
+}
+
+// vr_part: (nsplit, c) and vc_part: (ceil(c / 64), s) scratch; vr: (c,) =
+// sum over spots of g^2; vc: (s,) = sum over cells of g^2
+extern "C" int tg_gsq(const float* M, const float* AT, const float* dYT,
+                      const float* dh, const float* m, const float* l, const float* r,
+                      float* vr_part, float* vc_part, float* vr, float* vc, int c,
+                      int s, int K1, int with_dh, float lam1, float two_lam2, int vec,
+                      int nsplit, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+  a.r = r;
+  a.row_part = vr_part;
+  a.col_part = vc_part;
+  a.lam1 = lam1;
+  a.two_lam2 = two_lam2;
+  const cudaError_t err = launch_dp<EPI_GSQ>(with_dh != 0, false, a, nsplit, vr,
+                                             nullptr, nullptr, nullptr, nullptr,
+                                             (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  dp_merge_kernel<false><<<(c + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      r_part, r, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, c, nsplit);
+  col_sum_kernel<<<(s + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      vc_part, vc, (c + DP_TC - 1) / DP_TC, s);
   return (int)cudaGetLastError();
 }
 
-// M, mu, nu: (c, s), updated in place; m_out, l_out, u_out: (c,) stats of the
-// stored M; m_part, l_part, u_part: (nsplit, c) scratch. vec (for M, mu and
-// nu) and nsplit as for tg_rbar.
-extern "C" int tg_dm_adam(float* M, const float* AT, const float* dYT,
-                          const float* dh, const float* m, const float* l,
-                          const float* r, float* mu, float* nu, float* m_part,
-                          float* l_part, float* u_part, float* m_out, float* l_out,
-                          float* u_out, int c, int s, int K1, int with_dh, float lr,
-                          float bc1, float bc2, int vec, int nsplit, void* stream) {
-  const cudaError_t err = launch_dp<true>(
-      with_dh != 0, M, AT, dYT, dh, m, l, r, nullptr, mu, nu, m_part, l_part,
-      u_part, c, s, K1, lr, bc1, bc2, vec, nsplit, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  dp_merge_kernel<true><<<(c + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      nullptr, nullptr, m_part, l_part, u_part, m_out, l_out, u_out, c, nsplit);
-  return (int)cudaGetLastError();
+// M: (c, s), updated in place; rowf: (c,); colf: (s,); st_part and the stats
+// outputs as for tg_dm_adam
+extern "C" int tg_dm_adafactor(float* M, const float* AT, const float* dYT,
+                               const float* dh, const float* m, const float* l,
+                               const float* r, const float* rowf, const float* colf,
+                               float* st_part, float* m_out, float* l_out,
+                               float* u_out, float* s1_out, float* s2_out, int c,
+                               int s, int K1, int with_dh, int with_norms, float lr,
+                               float lam1, float two_lam2, int vec, int nsplit,
+                               void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+  a.r = r;
+  a.rowf = rowf;
+  a.colf = colf;
+  a.st_part = st_part;
+  a.lr = lr;
+  a.lam1 = lam1;
+  a.two_lam2 = two_lam2;
+  return (int)launch_dp<EPI_ADAFACTOR>(with_dh != 0, with_norms != 0, a, nsplit, m_out,
+                                       l_out, u_out, s1_out, s2_out,
+                                       (cudaStream_t)stream);
 }

@@ -5,9 +5,9 @@ mapping_utils.py:20, ``adata_to_cluster_expression`` ref
 mapping_utils.py:103, ``map_cells_to_space`` ref mapping_utils.py:141):
 AnnData in, AnnData out, feeding the PyTorch training engine in
 :mod:`tangram_tpu_torch.models.mapper`. ``cells`` and ``clusters`` modes
-with Adam and f32 storage are ported; every other option keeps the JAX
-package's keyword and raises ``NotImplementedError`` naming its ROADMAP
-item.
+with Adam or Adafactor, the L1/L2 terms and f32 storage are ported; every
+other option keeps the JAX package's keyword and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -229,8 +229,8 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     return report
 
 
-def _reject_unported(mode, mesh, dtypes, rounding, optimizer, init_method,
-                     graph_format, early_stop_tol):
+def _reject_unported(mode, mesh, dtypes, rounding, init_method, graph_format,
+                     early_stop_tol):
     if mode == "constrained":
         raise unported("mode='constrained'", "queue A1 (constrained mode)")
     if mesh is not None:
@@ -242,10 +242,6 @@ def _reject_unported(mode, mesh, dtypes, rounding, optimizer, init_method,
         raise unported("rounding='stochastic'", "queue A4 (bf16 and stochastic rounding)")
     if rounding != "nearest":
         raise ValueError(f'rounding must be "nearest" or "stochastic", got {rounding!r}')
-    if optimizer == "adafactor":
-        raise unported("optimizer='adafactor'", "queue A5 (Adafactor)")
-    if optimizer != "adam":
-        raise ValueError(f'optimizer must be "adam" or "adafactor", got {optimizer!r}')
     if init_method not in ("auto", "numpy"):
         raise unported(f"init_method={init_method!r}",
                        "queue A6 (schedules and early stop)")
@@ -305,7 +301,9 @@ def map_cells_to_space(
     ``device="cpu"`` for the plain PyTorch path. ``impl`` picks the
     training loop (``"auto"``: the CUDA kernels on the card, the
     materialized reference loop on the CPU; see
-    :func:`tangram_tpu_torch.ops.core.resolve_impl`).
+    :func:`tangram_tpu_torch.ops.core.resolve_impl`). ``optimizer`` is
+    ``"adam"`` (the reference's) or ``"adafactor"`` (factored second
+    moments: c + s floats of optimizer state instead of 2·c·s).
     """
     del early_stop_window
     lambda_d = _check_mapping_args(
@@ -316,7 +314,7 @@ def map_cells_to_space(
         mode, mesh,
         {"moment_dtype": moment_dtype, "compute_dtype": compute_dtype,
          "param_dtype": param_dtype},
-        rounding, optimizer, init_method, graph_format, early_stop_tol,
+        rounding, init_method, graph_format, early_stop_tol,
     )
 
     if mode == "clusters":
@@ -356,6 +354,7 @@ def map_cells_to_space(
         lambda_moran=lambda_moran,
         lambda_geary=lambda_geary,
         impl=impl,
+        optimizer=optimizer,
     )
     mapping_matrix, training_history = mapper.train(
         learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,

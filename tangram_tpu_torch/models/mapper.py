@@ -1,12 +1,12 @@
 """The mapping optimizer: a PyTorch training loop over the fused step.
 
 Counterpart of ``tangram_tpu/models/mapper.py`` for the unconstrained
-mapper with Adam and f32 storage:
+mapper with Adam or Adafactor and f32 storage:
 
 * :func:`fit_mapping` — the functional core, with two loops: the fused loop
   (``ops/fused_step.py``: the streamed CUDA kernels on a CUDA tensor, their
   plain twins on a CPU tensor) and the reference loop (autograd through the
-  materialized core plus the Adam update written out).
+  materialized core plus the optimizer update written out).
 * :class:`Mapper` — the reference-compatible class (same constructor
   keywords for the supported options, same ``train()`` contract, same
   history keys, same seeded N(0, 1) numpy init stream).
@@ -25,27 +25,38 @@ import torch
 
 from ..ops.core import resolve_impl, unported
 from ..ops.fused_step import (
+    ADAFACTOR_EPS,
     ADAM_EPS,
     BETA1,
     BETA2,
+    adafactor_decay,
     adam_scalars,
     fused_unconstrained_step,
+    fused_unconstrained_step_adafactor,
+    init_fused_adafactor_state,
     init_fused_opt_state,
     initial_stats,
 )
 from ..ops.losses import LossWeights, MapperData, check_supported, compute_loss
 
-__all__ = ["Mapper", "fit_mapping", "init_logits", "resolve_device"]
+__all__ = ["Mapper", "fit_mapping", "init_logits", "resolve_device",
+           "adafactor_update"]
 
 HISTORY_KEYS = ["total_loss", "main_loss", "vg_reg", "kl_reg", "entropy_reg"]
 VAL_KEYS = ["val_total_loss", "val_gene_sim", "val_sp_sparsity_weighted_sim",
             "val_entropy"]
+# the per-epoch terms fit_mapping records: the history keys plus the L1/L2
+# terms, which the printed score line shows but training_history leaves out
+TERM_KEYS = HISTORY_KEYS + ["l1_reg", "l2_reg"]
+OPTIMIZERS = ("adam", "adafactor")
 
 PRINT_NAMES = {
     "main_loss": "Gene-voxel score",
     "vg_reg": "Voxel-gene score",
     "kl_reg": "Cell densities reg",
     "entropy_reg": "Entropy reg",
+    "l1_reg": "L1 reg",
+    "l2_reg": "L2 reg",
 }
 
 
@@ -80,68 +91,115 @@ def _check_lr(learning_rate) -> float:
     return float(learning_rate)
 
 
-def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate):
-    count, mu, nu = opt_state
+def _check_optimizer(optimizer: str) -> str:
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f'optimizer must be "adam" or "adafactor", got {optimizer!r}')
+    return optimizer
+
+
+def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer):
+    step = (fused_unconstrained_step if optimizer == "adam"
+            else fused_unconstrained_step_adafactor)
+    count, v1, v2 = opt_state
     stats = initial_stats(M, lw)
     rows = []
     for _ in range(num_epochs):
-        M, count, mu, nu, stats, terms = fused_unconstrained_step(
-            M, count, mu, nu, stats, data, lw, learning_rate
+        M, count, v1, v2, stats, terms = step(
+            M, count, v1, v2, stats, data, lw, learning_rate
         )
-        rows.append(torch.stack([terms[k] for k in HISTORY_KEYS]))
-    return M, (count, mu, nu), rows
+        rows.append(torch.stack([terms[k] for k in TERM_KEYS]))
+    return M, (count, v1, v2), rows
 
 
-def _reference_loop(M, opt_state, data, lw, num_epochs, learning_rate):
-    """Autograd through the materialized core; Adam written out as the JAX
-    package's ``_adam_vector`` does, in place on M, mu and nu."""
-    count, mu, nu = opt_state
+def _adam_update(M, g, count, mu, nu, learning_rate):
+    """Adam written out as the JAX package's ``_adam_vector`` does, in place
+    on M, mu and nu; ``count`` is the incremented step."""
+    lr, bc1, bc2 = adam_scalars(count, learning_rate)
+    mu.copy_(BETA1 * mu + (1.0 - BETA1) * g)
+    nu.copy_(BETA2 * nu + (1.0 - BETA2) * (g * g))
+    M.sub_(lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
+    return mu, nu
+
+
+def adafactor_update(M, g, count: int, vr, vc, learning_rate: float):
+    """optax ``adafactor`` as ``tangram_tpu.models.mapper.make_adafactor``
+    configures it (factored second moments, no momentum, no clipping, no
+    parameter scale, ``min_dim_size_to_factor=2``), written out on a
+    materialized gradient ``g`` and applied to M in place. ``count`` is the
+    pre-increment step; ``vr`` (c,) and ``vc`` (s,) are the carried
+    statistics, returned updated. Follows optax's orientation: the statistic
+    on the smaller axis is divided by its mean, and the update multiplies
+    the factor of that axis first."""
+    c, s = M.shape
+    decay, one_minus = adafactor_decay(count)
+    grad_sqr = g * g + ADAFACTOR_EPS
+    vr = decay * vr + one_minus * grad_sqr.mean(dim=1)
+    vc = decay * vc + one_minus * grad_sqr.mean(dim=0)
+    if s >= c:
+        u = g * ((vr / vr.mean()) ** -0.5)[:, None] * (vc ** -0.5)[None, :]
+    else:
+        u = g * ((vc / vc.mean()) ** -0.5)[None, :] * (vr ** -0.5)[:, None]
+    M.sub_(float(np.float32(learning_rate)) * u)
+    return vr, vc
+
+
+def _reference_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer):
+    """Autograd through the materialized core, then the optimizer update
+    written out (:func:`_adam_update` or :func:`adafactor_update`)."""
+    count, v1, v2 = opt_state
     rows = []
     for _ in range(num_epochs):
         with torch.enable_grad():
             Mv = M.detach().requires_grad_()
             total, terms = compute_loss(Mv, data, lw)
             (g,) = torch.autograd.grad(total, (Mv,))
-        rows.append(torch.stack([terms[k].detach() for k in HISTORY_KEYS]))
+        rows.append(torch.stack([terms[k].detach() for k in TERM_KEYS]))
+        if optimizer == "adam":
+            v1, v2 = _adam_update(M, g, count + 1, v1, v2, learning_rate)
+        else:
+            v1, v2 = adafactor_update(M, g, count, v1, v2, learning_rate)
         count += 1
-        lr, bc1, bc2 = adam_scalars(count, learning_rate)
-        mu.copy_(BETA1 * mu + (1.0 - BETA1) * g)
-        nu.copy_(BETA2 * nu + (1.0 - BETA2) * (g * g))
-        M.sub_(lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
-    return M, (count, mu, nu), rows
+    return M, (count, v1, v2), rows
 
 
 @torch.no_grad()
 def fit_mapping(M, data: MapperData, lw: LossWeights, num_epochs: int,
                 learning_rate: float = 0.1, impl: str = "auto",
-                opt_state=None, return_opt_state: bool = False):
-    """Run ``num_epochs`` Adam steps on the logits ``M``.
+                opt_state=None, return_opt_state: bool = False,
+                optimizer: str = "adam"):
+    """Run ``num_epochs`` optimizer steps on the logits ``M``.
 
-    ``impl`` picks the loop (:func:`~tangram_tpu_torch.ops.core.resolve_impl`):
-    ``"kernels"`` / ``"fused"`` run the fused step, ``"reference"`` the
-    materialized autograd loop, ``"auto"`` the kernels on CUDA and the
-    reference loop on the CPU.
+    ``optimizer`` is ``"adam"`` (the reference's, the default) or
+    ``"adafactor"`` (factored second moments: c + s floats of state instead
+    of Adam's 2·c·s). ``impl`` picks the loop
+    (:func:`~tangram_tpu_torch.ops.core.resolve_impl`): ``"kernels"`` /
+    ``"fused"`` run the fused step, ``"reference"`` the materialized
+    autograd loop, ``"auto"`` the kernels on CUDA and the reference loop on
+    the CPU.
 
-    M, and mu/nu of ``opt_state`` (``(count, mu, nu)``, fresh when
-    ``None``), are updated **in place**; keep a copy to reuse the start.
-    History entries are recorded *before* each step, like the reference
-    loop. Returns ``(M, history)`` or ``(M, opt_state, history)``, where
-    ``history`` maps each key of ``HISTORY_KEYS`` to a (num_epochs,) tensor
-    on M's device.
+    ``opt_state`` is ``(count, mu, nu)`` for Adam or ``(count, vr, vc)``
+    (vr (c,), vc (s,)) for Adafactor, fresh when ``None``. M and Adam's
+    mu/nu are updated **in place**; keep a copy to reuse the start. History
+    entries are recorded *before* each step, like the reference loop.
+    Returns ``(M, history)`` or ``(M, opt_state, history)``, where
+    ``history`` maps each key of ``TERM_KEYS`` to a (num_epochs,) tensor on
+    M's device.
     """
     check_supported(lw)
     learning_rate = _check_lr(learning_rate)
+    _check_optimizer(optimizer)
     resolved = resolve_impl(impl, M)
     if M.dtype != torch.float32:
         raise unported(f"param dtype {M.dtype}", "queue A4 (bf16 and stochastic rounding)")
     if opt_state is None:
-        opt_state = init_fused_opt_state(M)
+        opt_state = (init_fused_opt_state(M) if optimizer == "adam"
+                     else init_fused_adafactor_state(M))
     loop = _reference_loop if resolved == "reference" else _fused_loop
     M, opt_state, rows = loop(M, opt_state, data, lw, int(num_epochs),
-                              learning_rate)
+                              learning_rate, optimizer)
     table = (torch.stack(rows) if rows
-             else torch.empty((0, len(HISTORY_KEYS)), device=M.device))
-    history = {k: table[:, i] for i, k in enumerate(HISTORY_KEYS)}
+             else torch.empty((0, len(TERM_KEYS)), device=M.device))
+    history = {k: table[:, i] for i, k in enumerate(TERM_KEYS)}
     if return_opt_state:
         return M, opt_state, history
     return M, history
@@ -164,28 +222,28 @@ def _print_epoch(terms_at_t, names):
 
 
 def _train_chunked(run_chunk, M, num_epochs, print_each, print_names):
-    """Run ``print_each``-epoch chunks with the Adam state carried across
-    (identical to one run) and print the first epoch of each chunk, like the
-    reference's per-epoch loop. Each chunk's history is fetched to the host
-    in one copy. ``run_chunk(M, opt_state, chunk)`` returns
+    """Run ``print_each``-epoch chunks with the optimizer state carried
+    across (identical to one run) and print the first epoch of each chunk,
+    like the reference's per-epoch loop. Each chunk's history is fetched to
+    the host in one copy. ``run_chunk(M, opt_state, chunk)`` returns
     ``(M, opt_state, history)``."""
     chunks, opt_state, epoch = [], None, 0
     while epoch < num_epochs:
         chunk = min(int(print_each), num_epochs - epoch)
         M, opt_state, h = run_chunk(M, opt_state, chunk)
-        table = torch.stack([h[k] for k in HISTORY_KEYS], dim=1).cpu().numpy()
+        table = torch.stack([h[k] for k in TERM_KEYS], dim=1).cpu().numpy()
         if print_names is not None:
-            _print_epoch(dict(zip(HISTORY_KEYS, table[0])), print_names)
+            _print_epoch(dict(zip(TERM_KEYS, table[0])), print_names)
         chunks.append(table)
         epoch += chunk
     table = (np.concatenate(chunks) if chunks
-             else np.zeros((0, len(HISTORY_KEYS)), np.float32))
-    return M, {k: table[:, i] for i, k in enumerate(HISTORY_KEYS)}
+             else np.zeros((0, len(TERM_KEYS)), np.float32))
+    return M, {k: table[:, i] for i, k in enumerate(TERM_KEYS)}
 
 
 def _warn_if_diverged(training_history):
     """Warn with the first epoch whose total loss is non-finite: from there
-    Adam's moments are poisoned and the mapping is unreliable."""
+    the optimizer state is poisoned and the mapping is unreliable."""
     vals = np.asarray(training_history.get("total_loss", ()), dtype=np.float64)
     if vals.size and not np.isfinite(vals).all():
         first = int(np.flatnonzero(~np.isfinite(vals))[0])
@@ -199,12 +257,12 @@ def _warn_if_diverged(training_history):
 class Mapper:
     """Unconstrained mapping optimizer; API-compatible with the reference
     ``Mapper`` (``mapping_optimizer.py:14-157``) for the options this port
-    supports. The spatial-graph, cell-type-island and L1/L2 terms raise
+    supports. The spatial-graph and cell-type-island terms raise
     ``NotImplementedError`` naming their ROADMAP item.
 
     ``device=None`` means ``"cuda"`` (raises if CUDA is absent); pass
-    ``device="cpu"`` for the plain PyTorch path. ``impl`` is as for
-    :func:`fit_mapping`.
+    ``device="cpu"`` for the plain PyTorch path. ``impl`` and ``optimizer``
+    are as for :func:`fit_mapping`.
     """
 
     def __init__(
@@ -227,10 +285,12 @@ class Mapper:
         device=None,
         random_state=None,
         impl: str = "auto",
+        optimizer: str = "adam",
     ):
         self.device = resolve_device(device)
         self.random_state = random_state
         self.impl = impl
+        self.optimizer = _check_optimizer(optimizer)
         self.lw = LossWeights(
             lambda_g1=float(lambda_g1),
             lambda_d=float(lambda_d),
@@ -259,8 +319,8 @@ class Mapper:
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100, val_each=None,
               early_stop_tol=None, early_stop_window=100):
-        """Run Adam; returns ``(M_probs, training_history)`` like the
-        reference ``Mapper.train`` (``mapping_optimizer.py:358-408``).
+        """Run the optimizer; returns ``(M_probs, training_history)`` like
+        the reference ``Mapper.train`` (``mapping_optimizer.py:358-408``).
 
         Training runs in ``print_each``-epoch chunks with one score line per
         chunk. The logits are updated in place and ``self.M`` stays bound to
@@ -279,7 +339,7 @@ class Mapper:
         def run_chunk(M, opt_state, chunk):
             return fit_mapping(M, self.data, self.lw, chunk, learning_rate,
                                impl=self.impl, opt_state=opt_state,
-                               return_opt_state=True)
+                               return_opt_state=True, optimizer=self.optimizer)
 
         self.M, history = _train_chunked(
             run_chunk, self.M, num_epochs,

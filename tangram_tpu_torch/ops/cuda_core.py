@@ -20,7 +20,8 @@ import torch
 __all__ = ["LAUNCHES", "reset_launches", "kernels_for", "_rowstats", "_project"]
 
 #: launches of each kernel since the last :func:`reset_launches`
-LAUNCHES = {"rowstats": 0, "project": 0, "rbar": 0, "dm_adam": 0}
+LAUNCHES = {"rowstats": 0, "project": 0, "rbar": 0, "dm_adam": 0,
+            "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0}
 
 
 def reset_launches() -> None:
@@ -61,7 +62,8 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def vec4_ok(s: int, *tensors: torch.Tensor) -> int:
-    """1 when the kernels may use 16-byte accesses along spots."""
+    """1 when the kernels may use 16-byte accesses along spots of each
+    tensor, (c, s) or (s,)."""
     return int(s % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 

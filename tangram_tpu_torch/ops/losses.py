@@ -1,14 +1,15 @@
 """The Tangram loss terms of the unconstrained mapper, in PyTorch.
 
-Counterpart of ``tangram_tpu/ops/losses.py`` for the main path: the
-expression (gene-voxel and voxel-gene) similarities, the density KL and the
-entropy term. Semantics mirror the reference optimizer
-(``mapping_optimizer.py:189-309``), including its reporting quirks: each term
-is reported as ``term / lambda``, NaN when that lambda is 0.
+Counterpart of ``tangram_tpu/ops/losses.py`` for the unconstrained modes:
+the expression (gene-voxel and voxel-gene) similarities, the density KL,
+the entropy term and the L1/L2 terms on the raw logits. Semantics mirror
+the reference optimizer (``mapping_optimizer.py:189-309``), including its
+reporting quirks: each term is reported as ``term / lambda``, NaN when that
+lambda is 0.
 
-The spatial-graph and cell-type-island terms, the L1/L2 terms, the
-constrained epilogue and ``val_metrics`` are later slices; asking for them
-raises ``NotImplementedError`` naming the ROADMAP item.
+The spatial-graph and cell-type-island terms, the constrained epilogue and
+``val_metrics`` are later slices; asking for them raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -80,10 +81,6 @@ def check_supported(lw: LossWeights) -> None:
                 f"{name} > 0",
                 "queue A2 (spatial graphs and the graph-term epilogue)",
             )
-    if lw.lambda_l1 != 0 or lw.lambda_l2 != 0:
-        raise unported(
-            "lambda_l1/lambda_l2 != 0", "queue B5 (_rowstats_norms, L1/L2)"
-        )
 
 
 def cosine_similarity(x, y, axis: int = 0, eps: float = COSINE_EPS):
@@ -136,15 +133,19 @@ def unconstrained_inputs(M, data: MapperData, lw: LossWeights):
     return S, w
 
 
-def unconstrained_epilogue(Y, q, h, data: MapperData, lw: LossWeights):
+def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
+                           lw: LossWeights):
     """Everything downstream of the core, as a function of the small
     (spots × genes) projection ``Y``, the marginal ``q`` and the per-cell
     ``h = Σ P log P``. The fused loop differentiates this function alone and
-    hands (dY, dq, dh) to the streamed backward kernels.
+    hands (dY, dq, dh) to the streamed backward kernels. ``l1_sum`` and
+    ``l2_sum`` are Σ|M| and ΣM² of the raw logits (``None`` where their
+    lambda is 0); the fused loop passes them as values only, their
+    gradients being added inside the update kernels.
 
     Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
-    ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg`` and
-    ``total_loss``, NaN where the term's lambda is 0.
+    ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg``, ``l1_reg``,
+    ``l2_reg`` and ``total_loss``, NaN where the term's lambda is 0.
     """
     check_supported(lw)
     S, G, mask = data.S, data.G, data.gene_mask
@@ -177,7 +178,13 @@ def unconstrained_epilogue(Y, q, h, data: MapperData, lw: LossWeights):
     entropy_term = lw.lambda_r * -torch.sum(h)
     terms["entropy_reg"] = entropy_term / lw.lambda_r if lw.lambda_r != 0 else nan
 
-    total = -expression_term + density_term + entropy_term
+    # L1/L2 on the raw logits (ref :228-231)
+    l1_term = lw.lambda_l1 * l1_sum if lw.lambda_l1 != 0 else 0.0
+    l2_term = lw.lambda_l2 * l2_sum if lw.lambda_l2 != 0 else 0.0
+    terms["l1_reg"] = l1_term / lw.lambda_l1 if lw.lambda_l1 != 0 else nan
+    terms["l2_reg"] = l2_term / lw.lambda_l2 if lw.lambda_l2 != 0 else nan
+
+    total = -expression_term + density_term + entropy_term + l1_term + l2_term
     terms["total_loss"] = total
     return total, terms
 
@@ -189,4 +196,6 @@ def compute_loss(M, data: MapperData, lw: LossWeights):
     Returns ``(total_loss, terms)``."""
     A, w = unconstrained_inputs(M, data, lw)
     Y, q, h = mapper_core_reference(M, A, w)
-    return unconstrained_epilogue(Y, q, h, data, lw)
+    l1_sum = torch.sum(torch.abs(M)) if lw.lambda_l1 != 0 else None
+    l2_sum = torch.sum(M * M) if lw.lambda_l2 != 0 else None
+    return unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data, lw)

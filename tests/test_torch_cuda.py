@@ -10,7 +10,9 @@ does not need). ``chip_smoke.py`` makes the same comparison at the full
 tutorial shape.
 
 Tolerance: max |kernel − twin| ≤ 1e-4 · max |twin| per output (1e-5 for the
-row stats): both are IEEE f32 and differ only in summation order.
+row stats): both are IEEE f32 and differ only in summation order. The L1/L2
+cases plant one padding sentinel in M and take the scale of the other
+entries.
 """
 
 import numpy as np
@@ -35,14 +37,21 @@ def dev():
     return torch.device("cuda")
 
 
-def inputs(c, s, k, dev, seed=0):
+PAD = -1e25  # a padding sentinel, below PAD_GUARD
+NORMS = (0.01, 0.02)  # (lambda_l1, lambda_l2)
+
+
+def inputs(c, s, k, dev, seed=0, pad=False):
     rng = np.random.default_rng(seed)
 
     def t(x):
         return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(dev)
 
+    M = rng.normal(0, 1, (c, s))
+    if pad:
+        M[0, 1 % s] = PAD
     return dict(
-        M=t(rng.normal(0, 1, (c, s))), A=t(rng.poisson(1.5, (c, k))),
+        M=t(M), A=t(rng.poisson(1.5, (c, k))),
         w=t(rng.random(c) / c), dY=t(rng.normal(0, 0.1, (s, k))),
         dq=t(rng.normal(0, 1, s)), dh=t(rng.normal(0, 0.1, c)),
         mu=t(rng.normal(0, 1e-3, (c, s))), nu=t(rng.random((c, s)) * 1e-6),
@@ -51,7 +60,8 @@ def inputs(c, s, k, dev, seed=0):
 
 def assert_close(got, want, rtol=1e-4):
     err = float((got - want).abs().max())
-    scale = float(want.abs().max())
+    real = want.abs() < -fs.PAD_GUARD  # the sentinel does not set the scale
+    scale = float(want[real].abs().max()) if bool(real.any()) else 0.0
     assert err <= rtol * max(scale, 1e-30), (err, scale)
 
 
@@ -88,6 +98,80 @@ def test_backward_kernels_match_twins(dev, c, s, k, with_dh):
         assert_close(g, w)
 
 
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_rowstats_norms_kernel_matches_twin(dev, c, s, k):
+    x = inputs(c, s, k, dev, pad=True)
+    before = cc.LAUNCHES["rowstats_norms"]
+    got = fs._rowstats_norms(x["M"])
+    for g, w in zip(got, fs._rowstats_norms_plain(x["M"])):
+        assert_close(g, w, rtol=1e-5)
+    assert cc.LAUNCHES["rowstats_norms"] == before + 1
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_norm_and_adafactor_kernels_match_twins(dev, c, s, k, with_dh):
+    """dm_adam with norms, gsq with and without norms, and dm_adafactor with
+    and without norms, at the factors of the twin's own statistics."""
+    x = inputs(c, s, k, dev, pad=True)
+    m, l, _ = cc._rowstats_plain(x["M"])
+    args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = fs._rbar_plain(*args, with_dh=with_dh)
+    scalars = fs.adam_scalars(3, 0.1)
+    k_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
+    p_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
+    norm_kw = dict(lam_l1=NORMS[0], lam_l2=NORMS[1], with_norms=True)
+    got = fs._dm_adam(k_state[0], *args[1:], r, *k_state[1:], scalars,
+                      with_dh=with_dh, **norm_kw)
+    want = fs._dm_adam_plain(p_state[0], *args[1:], r, *p_state[1:], scalars,
+                             with_dh, **norm_kw)
+    assert len(got) == 8 and got[0] is k_state[0]
+    for g, w in zip(got, want):
+        assert_close(g, w)
+    for lam in ((0.0, 0.0), NORMS):
+        got = fs._gsq(*args, r, *lam, with_dh=with_dh)
+        want = fs._gsq_plain(*args, r, *lam, with_dh=with_dh)
+        for g, w in zip(got, want):
+            assert_close(g, w)
+        c_, s_ = x["M"].shape
+        _, _, rowf, colf = fs.factored_rms_vectors(
+            0, torch.zeros_like(want[0]), torch.zeros_like(want[1]), *want, c_, s_)
+        Mk, Mp = x["M"].clone(), x["M"].clone()
+        with_norms = lam != (0.0, 0.0)
+        got = fs._dm_adafactor(Mk, *args[1:], r, rowf, colf, 0.1, *lam,
+                               with_norms=with_norms, with_dh=with_dh)
+        want = fs._dm_adafactor_plain(Mp, *args[1:], r, rowf, colf, 0.1, *lam,
+                                      with_norms, with_dh)
+        assert len(got) == (6 if with_norms else 4) and got[0] is Mk
+        for g, w in zip(got, want):
+            assert_close(g, w)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_kernels_fit_with_norms_matches_cpu_reference(dev, optimizer):
+    rng = np.random.default_rng(2)
+    S = (rng.poisson(2.0, (60, 9)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (90, 9)) + 0.1).astype(np.float32)
+    M0 = rng.normal(0, 1, (60, 90)).astype(np.float32)
+    lw = LossWeights(lambda_g2=0.5, lambda_r=0.01, lambda_l1=1e-3, lambda_l2=1e-3)
+    cc.reset_launches()
+    M_k, h_k = fit_mapping(torch.from_numpy(M0).to(dev),
+                           MapperData(torch.from_numpy(S).to(dev),
+                                      torch.from_numpy(G).to(dev)),
+                           lw, 25, impl="kernels", optimizer=optimizer)
+    update = "dm_adam" if optimizer == "adam" else "dm_adafactor"
+    assert cc.LAUNCHES["rowstats_norms"] == 1 and cc.LAUNCHES[update] == 25
+    assert cc.LAUNCHES["gsq"] == (25 if optimizer == "adafactor" else 0)
+    M_r, h_r = fit_mapping(torch.from_numpy(M0.copy()),
+                           MapperData(torch.from_numpy(S), torch.from_numpy(G)),
+                           lw, 25, impl="reference", optimizer=optimizer)
+    tol = 3e-4 if optimizer == "adam" else 5e-3
+    np.testing.assert_allclose(h_k["total_loss"].cpu().numpy(),
+                               h_r["total_loss"].numpy(), rtol=tol, atol=tol / 10)
+    np.testing.assert_allclose(M_k.cpu().numpy(), M_r.numpy(),
+                               atol=3e-3 if optimizer == "adam" else 5e-3)
+
+
 def test_kernels_fit_matches_cpu_reference(dev):
     rng = np.random.default_rng(1)
     S = (rng.poisson(2.0, (60, 9)) + 0.1).astype(np.float32)
@@ -104,7 +188,8 @@ def test_kernels_fit_matches_cpu_reference(dev):
     cc.reset_launches()
     M_k, h_k = fit_mapping(torch.from_numpy(M0).to(dev), data_on(dev), lw, 25,
                            impl="kernels")
-    assert cc.LAUNCHES == {"rowstats": 1, "project": 25, "rbar": 25, "dm_adam": 25}
+    assert cc.LAUNCHES == {"rowstats": 1, "project": 25, "rbar": 25, "dm_adam": 25,
+                           "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0}
     M_r, h_r = fit_mapping(torch.from_numpy(M0.copy()), data_on("cpu"), lw, 25,
                            impl="reference")
     np.testing.assert_allclose(h_k["total_loss"].cpu().numpy(),

@@ -7,9 +7,12 @@ in interpret mode on the CPU (as ``tests/test_pallas_core.py`` runs it).
 The CUDA kernels themselves are held against these twins on the card by
 ``chip_smoke.py``.
 
-Tolerance: rtol = atol = 1e-5 throughout. Both sides compute in f32; they
-differ only in summation order and in the exp implementation (about one
-ulp), which moves results by far less than 1e-5 at these sizes.
+Tolerance: rtol = atol = 1e-5 throughout, except for the Adafactor
+statistics (vr, vc), which are small sums of squares and are held at
+1e-5 of their largest entry. Both sides compute in f32; they differ only in
+summation order and in the exp implementation (about one ulp), which moves
+results by far less than 1e-5 at these sizes. The norm cases plant one
+padding sentinel (``PAD`` < ``PAD_GUARD``) in M.
 """
 
 import os
@@ -31,6 +34,9 @@ from tangram_tpu_torch.ops.core import resolve_impl
 from tangram_tpu_torch.ops.losses import LossWeights, MapperData
 
 RTOL = ATOL = 1e-5
+PAD = -1e25  # a padding sentinel: below PAD_GUARD, so it takes no norm
+# (lambda_l1, lambda_l2) of the L1/L2 cases: each alone and both
+NORMS = [(0.01, 0.0), (0.0, 0.02), (0.01, 0.02)]
 SHAPES = [
     (8, 16, 4),       # tiny
     (300, 600, 7),    # ragged in every dimension
@@ -39,11 +45,14 @@ SHAPES = [
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def make_inputs(c, s, k, seed=0):
+def make_inputs(c, s, k, seed=0, pad=False):
     rng = np.random.default_rng(seed)
     f32 = np.float32
+    M = rng.normal(0, 1, (c, s)).astype(f32)
+    if pad:
+        M[0, 1 % s] = PAD
     return dict(
-        M=rng.normal(0, 1, (c, s)).astype(f32),
+        M=M,
         A=rng.poisson(1.5, (c, k)).astype(f32),
         w=(rng.random(c) / c).astype(f32),
         dY=(rng.normal(0, 0.1, (s, k))).astype(f32),
@@ -144,16 +153,148 @@ def test_dm_adam_twin_matches_jax(c, s, k, with_dh):
         close(g, w)
 
 
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_rowstats_norms_twin_matches_jax(c, s, k):
+    x = make_inputs(c, s, k, pad=True)
+    got = fs._rowstats_norms(T(x["M"]))
+    want = jfs._rowstats_norms(jnp.asarray(x["M"]))
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == np.asarray(w).shape == (c, 1)
+        close(g, w)
+    # the sentinel takes no norm
+    z = np.where(x["M"] > fs.PAD_GUARD, x["M"], 0.0)
+    close(got[3][:, 0], np.abs(z).sum(axis=1))
+
+
+def jax_args(x, m, l):
+    return (jnp.asarray(x["M"]), jpc._pad_k(jnp.asarray(x["A"])), jnp.asarray(x["w"]),
+            jnp.asarray(m), jnp.asarray(l), jpc._pad_k(jnp.asarray(x["dY"])),
+            jnp.asarray(x["dq"]), jnp.asarray(x["dh"]))
+
+
+def torch_args(x, m, l):
+    return (T(x["M"]), T(x["A"]), T(x["w"]), T(m), T(l), T(x["dY"]), T(x["dq"]),
+            T(x["dh"]))
+
+
+@pytest.mark.parametrize("lam", NORMS)
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_adam_norms_twin_matches_jax(c, s, k, with_dh, lam):
+    """The L1/L2 branch: the gradient gains λ₁·sign(M) + 2λ₂·M and the
+    kernel also emits the next s1, s2."""
+    x = make_inputs(c, s, k, pad=True)
+    m, l, _ = jax_stats(x["M"])
+    r = np.asarray(jax_rbar(x, m, l, with_dh))
+    lr, bc1, bc2 = fs.adam_scalars(2, 0.1)
+    scalars = jnp.asarray([[lr, bc1, bc2, 2.0]], jnp.float32)
+    want = jfs._dm_adam(*jax_args(x, m, l), jnp.asarray(r), jnp.asarray(x["mu"]),
+                        jnp.asarray(x["nu"]), scalars, *lam, with_norms=True,
+                        with_dh=with_dh)
+    got = fs._dm_adam(*torch_args(x, m, l), T(r), T(x["mu"]), T(x["nu"]),
+                      (lr, bc1, bc2), with_dh=with_dh, lam_l1=lam[0],
+                      lam_l2=lam[1], with_norms=True)
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == np.asarray(w).shape
+        close(g, w)
+
+
+def close_to_scale(got, want):
+    """|got − want| ≤ 1e-5 · max |want|: for sums of small squares."""
+    want = np.asarray(want)
+    assert np.asarray(got).shape == want.shape
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=RTOL * float(np.abs(want).max()))
+
+
+def jax_gsq(x, m, l, r, lam, with_dh):
+    return jfs._gsq(*jax_args(x, m, l), jnp.asarray(r), *lam, with_dh=with_dh)
+
+
+@pytest.mark.parametrize("lam", [(0.0, 0.0), (0.01, 0.02)])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_gsq_twin_matches_jax(c, s, k, with_dh, lam):
+    x = make_inputs(c, s, k, pad=lam != (0.0, 0.0))
+    m, l, _ = jax_stats(x["M"])
+    r = np.asarray(jax_rbar(x, m, l, with_dh))
+    vr_j, vc_j = jax_gsq(x, m, l, r, lam, with_dh)
+    vr, vc = fs._gsq(*torch_args(x, m, l), T(r), *lam, with_dh=with_dh)
+    assert tuple(vr.shape) == (c,) and tuple(vc.shape) == (s,)
+    close_to_scale(vr, vr_j)
+    close_to_scale(vc, vc_j)
+
+
+@pytest.mark.parametrize("with_norms", [False, True])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_adafactor_twin_matches_jax(c, s, k, with_dh, with_norms):
+    """The update at the factors of this step's own statistics (count 0)."""
+    lam = (0.01, 0.02) if with_norms else (0.0, 0.0)
+    x = make_inputs(c, s, k, pad=with_norms)
+    m, l, _ = jax_stats(x["M"])
+    r = np.asarray(jax_rbar(x, m, l, with_dh))
+    vr_sum, vc_sum = jax_gsq(x, m, l, r, lam, with_dh)
+    _, _, rowf, colf = jfs.factored_rms_vectors(
+        jnp.zeros((), jnp.int32), jnp.zeros((c,)), jnp.zeros((s,)), vr_sum, vc_sum,
+        c, s)
+    want = jfs._dm_adafactor(*jax_args(x, m, l), jnp.asarray(r), rowf, colf,
+                             jnp.asarray([[0.1, 1.0]], jnp.float32), *lam,
+                             with_norms=with_norms, with_dh=with_dh)
+    M = T(x["M"])
+    got = fs._dm_adafactor(M, *torch_args(x, m, l)[1:], T(r), T(rowf), T(colf),
+                           0.1, *lam, with_norms=with_norms, with_dh=with_dh)
+    assert len(got) == len(want) == (6 if with_norms else 4)
+    assert got[0] is M  # updated in place
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == np.asarray(w).shape
+        close(g, w)
+
+
+@pytest.mark.parametrize("c,s", [(13, 21), (21, 13)])
+def test_factored_rms_vectors_match_jax(c, s):
+    """Both orientations, from zero and from carried statistics; rtol 1e-6
+    as ``tests/test_adafactor.py:59-87`` holds the JAX bookkeeping to optax."""
+    rng = np.random.default_rng(c)
+    vr, vc = np.zeros(c, np.float32), np.zeros(s, np.float32)
+    for count in range(3):
+        g = rng.normal(0, 1e-2, (c, s)).astype(np.float32)
+        sums = ((g * g).sum(axis=1), (g * g).sum(axis=0))
+        want = jfs.factored_rms_vectors(jnp.asarray(count, jnp.int32), jnp.asarray(vr),
+                                        jnp.asarray(vc), *map(jnp.asarray, sums), c, s)
+        got = fs.factored_rms_vectors(count, T(vr), T(vc), *map(T, sums), c, s)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+        vr, vc = np.asarray(want[0]), np.asarray(want[1])
+
+
+def test_adafactor_decay_uses_the_pre_increment_count():
+    """decay = 1 − (count + 1)^−0.8: 0 at the first step, as optax's."""
+    assert fs.adafactor_decay(0) == (0.0, 1.0)
+    for count in (1, 2, 9, 999):
+        want = 1.0 - (jnp.asarray(count, jnp.int32).astype(jnp.float32) + 1.0) ** -0.8
+        decay, one_minus = fs.adafactor_decay(count)
+        assert decay == pytest.approx(float(want), rel=1e-6)
+        assert one_minus == float(np.float32(1.0) - np.float32(decay))
+
+
 def test_cpu_tensors_never_launch_and_kernels_impl_raises():
     x = make_inputs(12, 20, 3)
     cc.reset_launches()
     M = T(x["M"])
     data = MapperData(S=T(x["A"]), G=T(np.abs(x["dY"][:, :3]) + 0.1))
-    fit_mapping(M.clone(), data, LossWeights(), 3, impl="fused")
-    fit_mapping(M.clone(), data, LossWeights(), 3, impl="reference")
+    norms = LossWeights(lambda_l1=0.01, lambda_l2=0.01)
+    for lw in (LossWeights(), norms):
+        for optimizer in ("adam", "adafactor"):
+            for impl in ("fused", "reference"):
+                fit_mapping(M.clone(), data, lw, 3, impl=impl, optimizer=optimizer)
     m, l, _ = cc._rowstats(M)
     cc._project(M, T(x["A"]), T(x["w"]), m, l)
-    assert cc.LAUNCHES == {"rowstats": 0, "project": 0, "rbar": 0, "dm_adam": 0}
+    assert set(cc.LAUNCHES) == {"rowstats", "project", "rbar", "dm_adam",
+                                "rowstats_norms", "gsq", "dm_adafactor"}
+    assert not any(cc.LAUNCHES.values())
     assert resolve_impl("auto", M) == "reference"
     with pytest.raises(ValueError, match="kernels"):
         resolve_impl("kernels", M)
@@ -161,6 +302,8 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
         fit_mapping(M.clone(), data, LossWeights(), 1, impl="kernels")
     with pytest.raises(ValueError, match="impl"):
         resolve_impl("pallas", M)
+    with pytest.raises(ValueError, match="optimizer"):
+        fit_mapping(M.clone(), data, LossWeights(), 1, optimizer="sgd")
 
 
 def test_project_split_count():

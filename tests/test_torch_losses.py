@@ -4,8 +4,9 @@ The fused step differentiates ``unconstrained_epilogue`` alone and hands
 its cotangents (dY, dq, dh) to the streamed backward kernels, so the terms
 and all three cotangents are held against ``jax.vjp`` of the JAX epilogue
 on the same seeded inputs, for the λ sets of ``tests/test_fused_step.py``
-that the port computes. The materialized ``compute_loss`` is held against
-the JAX XLA path as well.
+that the port computes, plus L1/L2 sets (the epilogue takes Σ|M| and ΣM²
+as values). The materialized ``compute_loss`` is held against the JAX XLA
+path as well, its gradient including the L1/L2 terms.
 
 Tolerance: rtol = 1e-5, atol = 1e-7 (the cotangents are O(1e-3)); both
 sides are f32 with reductions in different orders.
@@ -28,8 +29,12 @@ LAMBDAS = [
     dict(lambda_g1=1.0),
     dict(lambda_g1=1.0, lambda_d=1.0),
     dict(lambda_g1=1.0, lambda_g2=0.7, lambda_d=0.5, lambda_r=0.05),
+    dict(lambda_g1=1.0, lambda_d=1.0, lambda_l1=0.01),
+    dict(lambda_g1=1.0, lambda_g2=0.7, lambda_r=0.05, lambda_l1=0.01,
+         lambda_l2=0.02),
 ]
-TERM_KEYS = ["main_loss", "vg_reg", "kl_reg", "entropy_reg", "total_loss"]
+TERM_KEYS = ["main_loss", "vg_reg", "kl_reg", "entropy_reg", "l1_reg", "l2_reg",
+             "total_loss"]
 
 
 def make_problem(seed, c=40, s=72, g=9, with_d=True, masked=False):
@@ -67,15 +72,19 @@ def test_epilogue_terms_and_cotangents_match_jax_vjp(lam, masked):
     A, w = jl.unconstrained_inputs(jnp.asarray(M), jdata, jlw)
     Y, q, h = _mapper_core_xla(jnp.asarray(M), A, w)
 
+    l1 = np.float32(np.abs(M).sum()) if jlw.lambda_l1 else None
+    l2 = np.float32((M * M).sum()) if jlw.lambda_l2 else None
     total_j, vjp, terms_j = jax.vjp(
-        lambda Y, q, h: jl.unconstrained_epilogue(Y, q, h, None, None, jdata, jlw),
+        lambda Y, q, h: jl.unconstrained_epilogue(Y, q, h, l1, l2, jdata, jlw),
         Y, q, h, has_aux=True,
     )
     dY_j, dq_j, dh_j = vjp(jnp.ones_like(total_j))
 
     data = mapper_data_from_jax(jdata)
     Yt, qt, ht = (torch.from_numpy(np.array(x)).requires_grad_() for x in (Y, q, h))
-    total, terms = tl.unconstrained_epilogue(Yt, qt, ht, data, tl.LossWeights(**lam))
+    l1t, l2t = (None if v is None else torch.tensor(v) for v in (l1, l2))
+    total, terms = tl.unconstrained_epilogue(Yt, qt, ht, l1t, l2t, data,
+                                             tl.LossWeights(**lam))
     dY, dq, dh = torch.autograd.grad(total, (Yt, qt, ht), allow_unused=True)
 
     close(total.detach(), total_j)
@@ -104,7 +113,10 @@ def test_compute_loss_matches_jax_xla(lam):
     total, terms = tl.compute_loss(Mt, mapper_data_from_jax(jdata), tl.LossWeights(**lam))
     (g,) = torch.autograd.grad(total, (Mt,))
     close(total.detach(), total_j)
-    close(terms["main_loss"].detach(), terms_j["main_loss"])
+    for key in TERM_KEYS:
+        want = float(terms_j[key])
+        got = float(terms[key].detach())
+        assert np.isnan(got) if np.isnan(want) else got == pytest.approx(want, rel=RTOL)
     close(g, g_j)
 
 
@@ -135,8 +147,34 @@ def test_kl_div_sum_zero_targets_contribute_nothing():
 
 @pytest.mark.parametrize("name", [
     "lambda_neighborhood_g1", "lambda_ct_islands", "lambda_getis_ord",
-    "lambda_moran", "lambda_geary", "lambda_l1", "lambda_l2",
+    "lambda_moran", "lambda_geary",
 ])
 def test_unported_terms_raise_naming_the_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP queue"):
         tl.check_supported(tl.LossWeights(**{name: 0.1}))
+
+
+def test_l1_gradient_of_a_zero_logit_is_zero():
+    """sign(0) = 0 in the L1 gradient, as ``jnp.sign`` gives in the JAX
+    fused kernels: the port's autograd of |M| (torch's, like the torch
+    reference) and its fused path's explicit sign agree. JAX's autodiff of
+    ``jnp.abs`` gives +1 at 0, so its XLA path differs there by exactly λ₁
+    and agrees everywhere else."""
+    M_np = np.array([[0.0, 1.5, -2.0], [0.5, 0.0, -0.25]], np.float32)
+    jdata = jl.MapperData(S=jnp.ones((2, 2)), G=jnp.asarray([[1.0, 2.0], [2.0, 1.0],
+                                                             [1.0, 1.0]]))
+    lam = dict(lambda_l1=0.5, lambda_l2=0.25)
+    g_j = jax.grad(lambda M: jl.compute_loss(M, jdata, jl.LossWeights(**lam),
+                                             impl="xla")[0])(jnp.asarray(M_np))
+    Mt = torch.from_numpy(M_np.copy()).requires_grad_()
+    total, _ = tl.compute_loss(Mt, mapper_data_from_jax(jdata), tl.LossWeights(**lam))
+    (g,) = torch.autograd.grad(total, (Mt,))
+    at_zero = M_np == 0
+    close(g[~at_zero], np.asarray(g_j)[~at_zero])
+    close(g[at_zero], np.asarray(g_j)[at_zero] - 0.5)
+    from tangram_tpu_torch.ops.fused_step import _grad_plain
+
+    zero = torch.zeros_like(Mt)
+    norm_part = _grad_plain(Mt.detach(), zero, zero, zero[:, :1], 0.5, 0.25)
+    np.testing.assert_array_equal(norm_part.numpy(),
+                                  0.5 * np.sign(M_np) + 0.5 * M_np)

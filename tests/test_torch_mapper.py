@@ -9,6 +9,14 @@ the first recorded loss (no accumulation yet) to rel 1e-5. The port's
 fused loop is held against its own reference loop with the same
 tolerances, and one fused step, fed identical state through
 ``convert.state_from_jax``, against the JAX step at rtol/atol 1e-5.
+
+Adafactor (``optimizer="adafactor"``) is held to the tolerances of
+``tests/test_adafactor.py:177-191``: losses rtol/atol 5e-3 over 25 epochs,
+because its update is linear in the gradient and passes f32 rounding
+differences straight on where Adam's g/√v damps them; the logits are held
+to the 5e-3 of ``tests/test_adafactor.py:242``. The written-out reference
+update is held against optax ``make_adafactor`` on one gradient at atol
+5e-5 (``tests/test_adafactor.py:195-205``).
 """
 
 import numpy as np
@@ -21,7 +29,11 @@ from tangram_tpu.models import mapper as jm
 from tangram_tpu.ops import fused_step as jfs
 from tangram_tpu.ops.losses import LossWeights as JLossWeights
 from tangram_tpu.ops.losses import MapperData as JMapperData
-from tangram_tpu_torch.convert import mapper_data_from_jax, state_from_jax
+from tangram_tpu_torch.convert import (
+    adafactor_state_from_jax,
+    mapper_data_from_jax,
+    state_from_jax,
+)
 from tangram_tpu_torch.models import mapper as tm
 from tangram_tpu_torch.ops import fused_step as tfs
 from tangram_tpu_torch.ops.losses import LossWeights
@@ -32,6 +44,7 @@ LAMBDAS = [
     dict(lambda_g1=1.0, lambda_g2=0.7, lambda_d=0.5, lambda_r=0.05),
 ]
 EPOCHS = 25
+L1L2 = dict(lambda_g1=1.0, lambda_d=1.0, lambda_l1=1e-3, lambda_l2=2e-3)
 
 
 def make_problem(rng, c=40, s=72, g=9, with_d=True):
@@ -117,6 +130,141 @@ def test_one_fused_step_matches_jax_from_converted_state(rng):
         assert float(got[5][key]) == pytest.approx(float(want[5][key]), rel=1e-5)
 
 
+def test_fused_adam_with_l1_l2_matches_jax_pallas(rng):
+    """Adam + L1/L2: 5-tuple stats, the norm terms in the epilogue and the
+    norm gradient in the update kernel, with the Adam tolerances."""
+    M0, jdata = make_problem(rng)
+    p_j, h_j = jm.fit_mapping(jnp.asarray(M0), jdata, JLossWeights(**L1L2), EPOCHS,
+                              0.1, impl="pallas", fused=True)
+    M_t, h_t = tm.fit_mapping(torch.from_numpy(M0.copy()), mapper_data_from_jax(jdata),
+                              LossWeights(**L1L2), EPOCHS, 0.1, impl="fused")
+    h_t = {k: v.numpy() for k, v in h_t.items()}
+    assert_trajectories_close(M_t, h_t, p_j, h_j)
+    for key in ("l1_reg", "l2_reg"):
+        np.testing.assert_allclose(h_t[key], np.asarray(h_j[key]), rtol=3e-4)
+
+
+def assert_adafactor_close(M_a, h_a, M_b, h_b):
+    for key in ("main_loss", "total_loss"):
+        np.testing.assert_allclose(np.asarray(h_a[key]), np.asarray(h_b[key]),
+                                   rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(np.asarray(M_a), np.asarray(M_b), atol=5e-3)
+
+
+@pytest.mark.parametrize("shape", [(40, 72), (72, 40)])
+@pytest.mark.parametrize("lam", [dict(lambda_g1=1.0, lambda_d=1.0), L1L2])
+def test_fused_adafactor_matches_jax_pallas(rng, lam, shape):
+    """Both orientations of the factored statistics (s ≥ c and c > s)."""
+    c, s = shape
+    M0, jdata = make_problem(rng, c=c, s=s)
+    p_j, h_j = jm.fit_mapping(jnp.asarray(M0), jdata, JLossWeights(**lam), EPOCHS,
+                              0.1, impl="pallas", fused=True, optimizer="adafactor")
+    data, lw = mapper_data_from_jax(jdata), LossWeights(**lam)
+    M_t, h_t = tm.fit_mapping(torch.from_numpy(M0.copy()), data, lw, EPOCHS, 0.1,
+                              impl="fused", optimizer="adafactor")
+    h_t = {k: v.numpy() for k, v in h_t.items()}
+    assert_adafactor_close(M_t, h_t, p_j, h_j)
+    M_r, h_r = tm.fit_mapping(torch.from_numpy(M0.copy()), data, lw, EPOCHS, 0.1,
+                              impl="reference", optimizer="adafactor")
+    assert_adafactor_close(M_r, h_r, M_t, h_t)
+
+
+@pytest.mark.parametrize("c,s", [(13, 21), (21, 13)])
+def test_adafactor_update_matches_optax(c, s):
+    """The reference loop's written-out update against optax
+    ``make_adafactor`` on the same gradients, two steps (the second decays
+    carried statistics)."""
+    import optax
+
+    rng = np.random.default_rng(c)
+    M0 = rng.normal(0, 1, (c, s)).astype(np.float32)
+    opt = jm.make_adafactor(0.1)
+    state = opt.init(jnp.asarray(M0))
+    M_j, M_t = jnp.asarray(M0), torch.from_numpy(M0.copy())
+    vr, vc = torch.zeros(c), torch.zeros(s)
+    for count in range(2):
+        g = rng.normal(0, 1e-2, (c, s)).astype(np.float32)
+        updates, state = opt.update(jnp.asarray(g), state, M_j)
+        M_j = optax.apply_updates(M_j, updates)
+        vr, vc = tm.adafactor_update(M_t, torch.from_numpy(g), count, vr, vc, 0.1)
+        np.testing.assert_allclose(M_t.numpy(), np.asarray(M_j), atol=5e-5)
+    _, vr_j, vc_j = adafactor_state_from_jax(state[0].count, state[0].v_row,
+                                             state[0].v_col, c, s)
+    np.testing.assert_allclose(vr.numpy(), vr_j.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(vc.numpy(), vc_j.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(40, 72), (72, 40)])
+def test_one_adafactor_step_matches_jax_from_converted_state(rng, shape):
+    """Three JAX Adafactor steps with L1/L2, then one more step in each
+    package from the optax ``FactoredState`` carried across by
+    ``adafactor_state_from_jax`` (and the 5-tuple stats by
+    ``state_from_jax``)."""
+    c, s = shape
+    M0, jdata = make_problem(rng, c=c, s=s)
+    jlw = JLossWeights(**L1L2)
+    M3, st, _ = jm.fit_mapping(jnp.asarray(M0), jdata, jlw, 3, 0.1, impl="pallas",
+                               fused=True, optimizer="adafactor",
+                               return_opt_state=True)
+    fstate = st[0]
+    count, vr, vc = adafactor_state_from_jax(fstate.count, fstate.v_row,
+                                             fstate.v_col, c, s)
+    assert count == 3 and tuple(vr.shape) == (c,) and tuple(vc.shape) == (s,)
+    stats_j = jfs.initial_stats(M3, jlw)
+    M, _, _, _, stats = state_from_jax(M3, count, M3, M3, stats_j)
+    assert len(stats) == 5
+    want = jfs.fused_unconstrained_step_adafactor(
+        M3, jnp.asarray(count), jnp.asarray(vr.numpy()), jnp.asarray(vc.numpy()),
+        stats_j, jdata, jlw, 0.1)
+    got = tfs.fused_unconstrained_step_adafactor(
+        M, count, vr, vc, stats, mapper_data_from_jax(jdata), LossWeights(**L1L2), 0.1)
+    assert got[1] == 4
+    for g, w in [(got[0], want[0]), (got[2], want[2]), (got[3], want[3])]:
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    for g, w in zip(got[4], want[4]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    for key in ("total_loss", "main_loss", "kl_reg", "l1_reg", "l2_reg"):
+        assert float(got[5][key]) == pytest.approx(float(want[5][key]), rel=1e-5)
+
+
+def test_chunked_adafactor_training_equals_one_run(rng):
+    """Carrying (count, vr, vc) across chunks gives the one-run trajectory,
+    bit for bit."""
+    M0, jdata = make_problem(rng)
+    data, lw = mapper_data_from_jax(jdata), LossWeights(**L1L2)
+    kw = dict(impl="fused", optimizer="adafactor")
+    M_one, h_one = tm.fit_mapping(torch.from_numpy(M0.copy()), data, lw, 12, **kw)
+    M = torch.from_numpy(M0.copy())
+    M, state, h_a = tm.fit_mapping(M, data, lw, 5, return_opt_state=True, **kw)
+    assert state[0] == 5
+    M, h_b = tm.fit_mapping(M, data, lw, 7, opt_state=state, **kw)
+    torch.testing.assert_close(M, M_one, rtol=0, atol=0)
+    for key in ("total_loss", "l1_reg", "l2_reg"):
+        torch.testing.assert_close(torch.cat([h_a[key], h_b[key]]), h_one[key],
+                                   rtol=0, atol=0)
+
+
+def test_mapper_prints_the_l1_l2_terms_like_jax(rng, capsys):
+    """The score line of each chunk names the L1/L2 terms as the JAX
+    package's does; training_history keeps the JAX keys."""
+    S = (rng.poisson(2.0, (30, 6)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (20, 6)) + 0.1).astype(np.float32)
+    kw = dict(lambda_l1=1e-3, lambda_l2=1e-3, random_state=5)
+    _, hist_j = jm.Mapper(S, G, impl="pallas", optimizer="adafactor", **kw).train(
+        20, print_each=10)
+    lines_j = capsys.readouterr().out.splitlines()
+    _, hist_t = tm.Mapper(S, G, device="cpu", impl="fused", optimizer="adafactor",
+                          **kw).train(20, print_each=10)
+    lines_t = capsys.readouterr().out.splitlines()
+    assert set(hist_t) == set(hist_j)
+    assert len(lines_t) == len(lines_j) == 2
+    for got, want in zip(lines_t, lines_j):
+        assert [f.split(":")[0] for f in got.split(", ")] == \
+            ["Gene-voxel score", "L1 reg", "L2 reg"]
+        assert [f.split(":")[0] for f in got.split(", ")] == \
+            [f.split(":")[0] for f in want.split(", ")]
+
+
 def test_chunked_training_equals_one_run(rng):
     """Carrying (count, mu, nu) across chunks gives the one-run trajectory."""
     M0, jdata = make_problem(rng)
@@ -157,8 +305,11 @@ def test_mapper_rejects_unported_options(rng):
         mapper.train(2, early_stop_tol=1e-3)
     with pytest.raises(NotImplementedError, match="A6"):
         mapper.train(2, learning_rate=np.full(2, 0.1))
-    with pytest.raises(NotImplementedError, match="B5"):
-        tm.Mapper(S, G, device="cpu", lambda_l1=0.1)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tm.Mapper(S, G, device="cpu", optimizer="adafactor").train(
+            2, learning_rate=np.full(2, 0.1))
+    with pytest.raises(ValueError, match="optimizer"):
+        tm.Mapper(S, G, device="cpu", optimizer="sgd")
 
 
 def test_default_device_is_cuda():

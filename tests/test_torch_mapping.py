@@ -12,7 +12,11 @@ Tolerances of the JAX comparison: loss histories rtol 3e-4 / atol 3e-5 and
 logits-level agreement of the mapping (rtol 3e-3 on the probabilities,
 which is exp of an M atol 3e-3), as ``tests/test_fused_step.py`` allows
 for 25-100 Adam epochs; the train-gene scores, cosines of those mappings,
-to atol 1e-4; the sparsity columns exactly.
+to atol 1e-4; the sparsity columns exactly. With ``optimizer="adafactor"``
+the losses are held to ``tests/test_adafactor.py:177-191``'s rtol/atol
+5e-3 and the mapping to rtol 1e-2 (exp of the logits' atol 5e-3): the
+Adafactor update is linear in the gradient and passes f32 rounding
+differences on undamped.
 """
 
 import json
@@ -125,6 +129,40 @@ def test_map_cells_to_space_matches_jax(mode, impl):
     np.testing.assert_allclose(cmp_t["score"], cmp_j["score"], atol=1e-4)
 
 
+@pytest.mark.parametrize("mode,options", [
+    ("cells", dict(optimizer="adafactor", lambda_l1=1e-3, lambda_l2=1e-3)),
+    ("clusters", dict(optimizer="adafactor")),
+    ("cells", dict(lambda_l1=1e-3, lambda_l2=2e-3)),
+    ("clusters", dict(lambda_l1=1e-3)),
+])
+def test_map_cells_to_space_adafactor_and_norms_match_jax(mode, options):
+    """The options of this slice through the public entry point, on the
+    port's fused loop (the kernels' twins on the CPU): cells mode has more
+    cells than spots and clusters mode fewer, so both orientations of the
+    Adafactor statistics run."""
+    (sc_j, sp_j), (sc_t, sp_t) = pairs()
+    kw = dict(mode=mode, num_epochs=30, random_state=7, verbose=False,
+              density_prior="rna_count_based", **options)
+    if mode == "clusters":
+        kw["cluster_label"] = "subclass_label"
+    map_j = tg.map_cells_to_space(sc_j, sp_j, impl="pallas", **kw)
+    map_t = tgt.map_cells_to_space(sc_t, sp_t, device="cpu", impl="fused", **kw)
+
+    adafactor = options.get("optimizer") == "adafactor"
+    tol = 5e-3 if adafactor else 3e-4
+    np.testing.assert_allclose(map_t.X, map_j.X, rtol=1e-2 if adafactor else 3e-3,
+                               atol=1e-7)
+    np.testing.assert_allclose(map_t.X.sum(axis=1), 1.0, atol=1e-5)
+    h_j, h_t = map_j.uns["training_history"], map_t.uns["training_history"]
+    assert set(h_t) == set(h_j)
+    for key in ("total_loss", "main_loss", "kl_reg"):
+        np.testing.assert_allclose(h_t[key], h_j[key], rtol=tol, atol=tol / 10)
+    df_j = map_j.uns["train_genes_df"]
+    df_t = map_t.uns["train_genes_df"].loc[df_j.index]
+    np.testing.assert_allclose(df_t["train_score"], df_j["train_score"],
+                               atol=1e-3 if adafactor else 1e-4)
+
+
 def golden_fixture():
     """``tests/test_golden.py::build_fixture`` rebuilt with the port's own
     AnnData and pp_adatas (the same seeded arrays)."""
@@ -211,8 +249,8 @@ def test_missing_pp_adatas_raises():
     (dict(param_dtype="bfloat16"), "A4"),
     (dict(moment_dtype="bfloat16"), "A4"),
     (dict(rounding="stochastic"), "A4"),
-    (dict(optimizer="adafactor"), "A5"),
-    (dict(lambda_l1=0.1), "B5"),
+    (dict(mode="constrained", target_count=10, optimizer="adafactor"), "A1"),
+    (dict(optimizer="adafactor", rounding="stochastic"), "A4"),
     (dict(lambda_moran=0.1), "A2"),
     (dict(lambda_ct_islands=0.1), "A2"),
     (dict(graph_format="knn"), "A2"),
