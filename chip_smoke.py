@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, as a release check
     python3 chip_smoke.py --phases device,build,kernels   # a subset
+    python3 chip_smoke.py --phases device,build,kernels --shapes ragged,clusters
     python3 chip_smoke.py --profile        # also print a torch.profiler table
 
 Phases (each prints its own lines; any failure exits non-zero before the
@@ -17,7 +18,17 @@ last line):
               without the entropy cotangent and the L1/L2 terms (their λ
               scaled to each case's gradient, and each norm case shown to
               miss a twin with the norm gradient dropped or sign-flipped);
-              median times from CUDA events
+              one forward + backward of the kernels' MapperCore against
+              autograd through the materialized core (tutorial shape);
+              median times from CUDA events, each kernel's bound (the least
+              time the card could take for its work) and the cuBLAS f32
+              GEMM time at each contraction's shape; --shapes picks the
+              shapes (ragged, clusters, tutorial). At the ragged and
+              clusters shapes every buffer a kernel writes sits between two
+              bands of sentinel words that must stay intact (out-of-bounds
+              writes), and each kernel run three times on the same inputs
+              must give the same bits (races: the kernels reduce in a fixed
+              order, with no atomics)
 4. cells      synthetic tutorial pair -> pp_adatas -> map_cells_to_space
               (cells mode, Adam, 100 epochs) -> project_genes ->
               compare_spatial_geneexp, with the kernels' launch counts and
@@ -29,12 +40,18 @@ last line):
               other orientation of its factored statistics), 100 epochs
               each, with launch counts; the Adafactor and Adam steady step
               times and peak device memory
-7. reference  10 epochs of the fused kernels against the materialized
-              reference loop at the tutorial shape for Adam, Adam + L1/L2
-              and Adafactor + L1/L2 (Adafactor also stepped one epoch at a
-              time, with one kernel step from the reference loop's own state
-              at each, beside the reference loop started 1 ulp away and on
-              permuted data), and the Adam step times
+7. constrained map_cells_to_space in constrained mode (target_count = one
+              cell per spot), 100 epochs with Adam (the fused constrained
+              step) and with Adafactor (autograd through MapperCore: the
+              backward_rbar and dm_backward kernels), with launch counts,
+              the filter F_out, steady step times and peak device memory
+8. reference  10 epochs of the kernels against the materialized reference
+              loop at the tutorial shape for Adam, Adam + L1/L2, Adafactor
+              + L1/L2 (also stepped one epoch at a time, with one kernel
+              step from the reference loop's own state at each, beside the
+              reference loop started 1 ulp away and on permuted data),
+              fused=False Adam (MapperCore), constrained Adam and
+              constrained Adafactor, and the Adam step times
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -45,8 +62,11 @@ phase ran and passed. Needs one CUDA device; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -55,10 +75,12 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "reference")
+PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
+          "reference")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
+KERNEL_SHAPES = {"ragged": RAGGED, "clusters": CLUSTERS, "tutorial": SHAPE}
 EPOCHS = 100
 SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
 REPLACES = {
@@ -67,12 +89,21 @@ REPLACES = {
     "rbar": "tangram_tpu/ops/fused_step.py:386",
     "dm_adam": "tangram_tpu/ops/fused_step.py:307",
     "rowstats_norms": "tangram_tpu/ops/fused_step.py:105",
+    "backward_rbar": "tangram_tpu/ops/pallas_core.py:303",
+    "dm_backward": "tangram_tpu/ops/pallas_core.py:314",
     "gsq": "tangram_tpu/ops/fused_step.py:470",
     "dm_adafactor": "tangram_tpu/ops/fused_step.py:574",
 }
-# the kernels that the Adafactor + L1/L2 run carries (their launch counts
-# come from that run; the others' from the Adam cells run)
+# the kernels that the Adafactor + L1/L2 run carries, and those that the
+# constrained Adafactor run carries (their launch counts come from those
+# runs; the others' from the Adam cells run)
 ADAFACTOR_KERNELS = ("rowstats_norms", "gsq", "dm_adafactor")
+BACKWARD_KERNELS = ("backward_rbar", "dm_backward")
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s and f32 FMA-pipe flop/s outside the tensor cores. A kernel's bound
+# is the larger of its bytes over the first and its flops over the second.
+HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+
 # L1/L2 strengths of the adafactor phase and of the reference phase's
 # L1/L2 runs; the adafactor phase prints how large their gradient is
 # against the softmax gradient's at the start (0.10 of it at the tutorial
@@ -86,14 +117,19 @@ LAMBDA_L1, LAMBDA_L2 = 1e-10, 5e-11
 # case checks that against the twin run so)
 NORM_SHARE = (0.5, 0.25)
 PAD = -1e25  # a padding sentinel (below PAD_GUARD) planted at the small shape
+# guard bands of the kernel phase's small shapes: GUARD words on each side of
+# every buffer a kernel writes, holding a NaN payload no arithmetic produces
+GUARD, GUARD_BITS = 4096, 0x7FA1DEAD
 # kernel vs twin: max |kernel - twin| <= RTOL * max |twin|, per output.
 # Both sides are IEEE f32; they differ only in summation order (the kernels
 # reduce per thread, then across lanes; the twins through cuBLAS and
 # PyTorch's reductions). Row stats sum 9,852 positive terms; the
-# contractions sum 26,000 (project) or 250 (rbar, dm_adam) terms, so order
-# alone moves the last ~4 bits of the largest values.
+# contractions sum 26,000 (project), 250 (rbar, dm_adam) or 9,852
+# (dm_backward's dA and dw) terms, so order alone moves the last ~4 bits of
+# the largest values. MapperCore's gradients are held to dm_backward's.
 RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
-        "rowstats_norms": 1e-5, "gsq": 1e-4, "dm_adafactor": 1e-4}
+        "rowstats_norms": 1e-5, "backward_rbar": 1e-4, "dm_backward": 1e-4,
+        "gsq": 1e-4, "dm_adafactor": 1e-4}
 # fused kernels vs the reference loop over 10 epochs: the loss terms agree
 # to LOSS_RTOL (the reference materializes P and sums in another order) and
 # the logits to M_ATOL (Adam's normalized step is ~lr = 0.1 per epoch, so
@@ -134,6 +170,39 @@ KINK_FRACTION, KINK_REACH = 1e-6, 1.0
 # beside the forced kernel step as the measure of what rounding does.
 AF_LOSS_TOL, AF_NORM_RTOL, AF_STEP_RTOL = 5e-3, 1e-3, 2e-3
 AF_FORCED_STEPS, AF_FREE_STEPS = 3, 2
+
+
+def kernel_work(name, c, s, k):
+    """(bytes, flops) that kernel ``name`` must move and do at (c, s, k):
+    each input read once and each output written once (f32), and its
+    contractions at 2 flops per multiply-add (the dP tile A_ext dY_extᵀ, or
+    project's Pᵀ A_ext, 2·c·s·(k+1); dm_backward adds P [dY | dq]). The
+    elementwise work per (cell, spot) entry (exp, the gradient, the
+    optimizer update: 5-20 flops) is counted only where there is no
+    contraction (the row stats); beside a contraction it adds 4-8%."""
+    cs, K1 = c * s, k + 1
+    dp_in = 4 * (cs + c * K1 + s * K1 + 3 * c)  # M, [A|w], [dY|dq], dh, m, l
+    contraction = 2 * cs * K1
+    work = {
+        "rowstats": (4 * cs + 12 * c, 4 * cs),
+        "rowstats_norms": (4 * cs + 20 * c, 7 * cs),
+        "project": (4 * (cs + c * K1 + 2 * c + s * K1), contraction),
+        "rbar": (dp_in + 4 * c, contraction),
+        "backward_rbar": (dp_in + 4 * c, contraction),
+        "dm_adam": (dp_in + 4 * (c + 5 * cs + 3 * c), contraction),  # r; M/mu/nu rw
+        "gsq": (dp_in + 4 * (c + c + s), contraction),
+        "dm_adafactor": (dp_in + 4 * (c + c + s + cs + 3 * c), contraction),
+        "dm_backward": (dp_in + 4 * (c + cs + c * K1), 2 * contraction),
+    }
+    return work[name]
+
+
+def bound_ms(name, shape):
+    """(the least ms the card could take for kernel ``name`` at ``shape``,
+    "bytes" or "operations": which of the two sets it)."""
+    nbytes, flops = kernel_work(name, *shape)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def say(phase: str, msg: str) -> None:
@@ -281,11 +350,11 @@ def compare_kernels(shape, dev, results, timed):
         tag = f"{shape} with_dh={with_dh}"
         args = (M, A, w, m, l, dY, dq, dh)
         r_k = fs._rbar(*args, with_dh=with_dh)
-        r_p = fs._rbar_plain(*args, with_dh=with_dh)
+        r_p = cc._rbar_plain(*args, with_dh=with_dh)
         check("rbar", [("r", r_k, r_p)], tag)
         if timed and not with_dh:
             time_pair("rbar", lambda: fs._rbar(*args, with_dh=False),
-                      lambda: fs._rbar_plain(*args, with_dh=False))
+                      lambda: cc._rbar_plain(*args, with_dh=False))
 
         # the norm cases' λ, scaled to this case's softmax gradient
         vr0, _ = fs._gsq_plain(*args, r_p, 0.0, 0.0, with_dh=with_dh)
@@ -357,9 +426,188 @@ def compare_kernels(shape, dev, results, timed):
                     Mp, A, w, m, l, dY, dq, dh, r_p, rowf, colf, 0.1, *lam, True,
                     False))
             del Mk, Mp, out_k, out_p
+
+        # the unfused backward: its rbar pass (always with the entropy
+        # cotangent, as pallas_core._backward), then dM, dA, dw
+        if with_dh:
+            r_k = cc._rbar(*args, with_dh=True, counter="backward_rbar")
+            check("backward_rbar", [("r", r_k, r_p)], tag)
+            if timed:
+                time_pair("backward_rbar",
+                          lambda: cc._rbar(*args, with_dh=True, counter="backward_rbar"),
+                          lambda: cc._rbar_plain(*args, with_dh=True))
+        out_k = cc._dm_backward(*args, r_p, with_dh=with_dh)
+        out_p = cc._dm_backward_plain(*args, r_p, with_dh=with_dh)
+        check("dm_backward", zip(("dM", "dA", "dw"), out_k, out_p), tag)
+        del out_k, out_p
+        if timed and with_dh:  # the constrained path's case (dh from λ_r·Σh)
+            time_pair("dm_backward", lambda: cc._dm_backward(*args, r_p, with_dh=True),
+                      lambda: cc._dm_backward_plain(*args, r_p, with_dh=True))
+
+    if shape == SHAPE:
+        check_mapper_core(x)
+    if timed:
+        time_gemms(x)
     torch.cuda.synchronize()
     if not torch.equal(M.cpu(), M_host):
         fail(f"a kernel or twin at {shape} wrote into its input M")
+
+
+def core_gradients(core, M, A, w, cts):
+    """(dM, dA, dw) of Σ Y⊙gY + Σ q⊙gq + Σ h⊙gh through ``core``."""
+    import torch
+
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in (M, A, w)]
+        outs = core(*leaves)
+        loss = sum((o * g).sum() for o, g in zip(outs, cts))
+        return torch.autograd.grad(loss, leaves)
+
+
+def check_mapper_core(x):
+    """One forward + backward of mapper_core(impl="kernels") (rowstats,
+    project, backward_rbar, dm_backward) against autograd through the
+    materialized core, with the kernel phase's cotangents (dY, dq, dh);
+    each gradient within dm_backward's RTOL."""
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops.core import mapper_core, mapper_core_reference
+
+    cts = (x["dY"], x["dq"], x["dh"])
+    before = {n: cc.LAUNCHES[n] for n in ("rowstats", "project", "backward_rbar",
+                                          "dm_backward")}
+    got = core_gradients(lambda *t: mapper_core(*t, "kernels"), x["M"], x["A"], x["w"],
+                         cts)
+    ran = {n: cc.LAUNCHES[n] - v for n, v in before.items()}
+    if ran != dict.fromkeys(before, 1):
+        fail(f"mapper_core(impl='kernels') launched {ran}")
+    want = core_gradients(mapper_core_reference, x["M"], x["A"], x["w"], cts)
+    for what, g, ref in zip(("dM", "dA", "dw"), got, want):
+        a, r = rel_err(g, ref)
+        say("kernels", f"MapperCore {SHAPE} {what} against autograd through the "
+            f"materialized core: max_abs_err={a:.3e} rel={r:.3e} "
+            f"(tol rel {RTOL['dm_backward']:.0e})")
+        if not r <= RTOL["dm_backward"]:
+            fail(f"MapperCore's {what} disagrees with autograd through the reference core")
+
+
+def time_gemms(x):
+    """cuBLAS f32 (TF32 off) GEMM times at each contraction's shape: a note
+    beside the kernels (each also forms P, dP and its epilogue), not the
+    library call of the same function, which none of them has."""
+    import torch
+
+    M, A_ext = x["M"], torch.cat([x["A"], x["w"][:, None]], dim=1)
+    dY_ext = torch.cat([x["dY"], x["dq"][:, None]], dim=1)
+    gemm = {"project": cuda_ms(lambda: M.T @ A_ext, 10),            # (s×c)(c×k+1)
+            "dP": cuda_ms(lambda: A_ext @ dY_ext.T, 10),            # (c×k+1)(k+1×s)
+            "P dY": cuda_ms(lambda: M @ dY_ext, 10)}                # (c×s)(s×k+1)
+    say("kernels", f"cuBLAS f32 GEMMs at the contraction shapes of {SHAPE}: "
+        f"PᵀA_ext (project) {gemm['project']:.3f} ms, A_ext dY_extᵀ (every dP "
+        f"tile) {gemm['dP']:.3f} ms, P dY_ext (dm_backward's second) "
+        f"{gemm['P dY']:.3f} ms")
+
+
+@contextlib.contextmanager
+def guarded_allocations(dev, where):
+    """While active, every contiguous f32 tensor on ``dev`` that
+    ``torch.empty``, ``torch.empty_like`` or ``Tensor.clone`` makes (each
+    kernel's outputs and scratch, and the operands the checks copy for the
+    in-place kernels) is the middle of a buffer with GUARD sentinel words on
+    each side, and starts as sentinel NaNs. On exit, fails if a guard word
+    changed: a write out of bounds by up to GUARD words, which is what
+    compute-sanitizer's memcheck would report. (A kernel that leaves part of
+    its output unwritten shows as NaNs in the twin comparisons.)"""
+    import torch
+
+    empty, empty_like, clone = torch.empty, torch.empty_like, torch.Tensor.clone
+    live = []
+
+    def ours(dtype, device):
+        return (dtype in (None, torch.float32) and device is not None
+                and torch.device(device).type == dev.type)
+
+    def guarded(shape):
+        n = math.prod(shape)
+        buf = empty(n + 2 * GUARD, dtype=torch.int32, device=dev).fill_(GUARD_BITS)
+        live.append((buf, n, sys._getframe(2).f_code.co_name))
+        return buf.view(torch.float32)[GUARD:GUARD + n].view(shape)
+
+    def p_empty(*size, dtype=None, device=None, **kw):
+        if kw or not ours(dtype, device):
+            return empty(*size, dtype=dtype, device=device, **kw)
+        return guarded(tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int)
+                       else size)
+
+    def p_empty_like(t, **kw):
+        if kw or not ours(t.dtype, t.device):
+            return empty_like(t, **kw)
+        return guarded(tuple(t.shape))
+
+    def p_clone(t, **kw):
+        if kw or t.requires_grad or not t.is_contiguous() or not ours(t.dtype, t.device):
+            return clone(t, **kw)
+        return guarded(tuple(t.shape)).copy_(t)
+
+    torch.empty, torch.empty_like, torch.Tensor.clone = p_empty, p_empty_like, p_clone
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like, torch.Tensor.clone = empty, empty_like, clone
+    torch.cuda.synchronize()
+    hit = {}
+    for buf, n, owner in live:
+        bad = int((buf[:GUARD] != GUARD_BITS).sum() + (buf[GUARD + n:] != GUARD_BITS).sum())
+        if bad:
+            hit[owner] = hit.get(owner, 0) + bad
+    if hit:
+        fail(f"out-of-bounds writes at {where}: guard words changed around buffers made "
+             f"by {hit}")
+    say("kernels", f"{where}: {len(live)} guarded buffers from "
+        f"{sorted({owner for _, _, owner in live})}: no write outside any "
+        f"(guards of {GUARD} words)")
+
+
+def check_repeatable(shape, dev, repeats=3):
+    """Each kernel, run ``repeats`` times on the same inputs (with the
+    entropy cotangent and the L1/L2 terms on), gives the same bits. The
+    kernels reduce in a fixed order with no atomics, so a difference is a
+    race: what compute-sanitizer's racecheck would look for."""
+    import torch
+
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops import fused_step as fs
+
+    c, s, k = shape
+    x = kernel_inputs(c, s, k, seed=12, dev=dev, pad=shape == RAGGED)
+    M, mu, nu = x["M"], x["mu"], x["nu"]
+    m, l, _ = cc._rowstats_plain(M)
+    args = (M, x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = cc._rbar_plain(*args)
+    vr, vc = fs._gsq_plain(*args, r, 0.0, 0.0)
+    _, _, rowf, colf = fs.factored_rms_vectors(
+        0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, c, s)
+    lam = (1e-3, 1e-3)
+    runs = {
+        "rowstats": lambda: cc._rowstats(M),
+        "rowstats_norms": lambda: fs._rowstats_norms(M),
+        "project": lambda: cc._project(M, *args[1:5]),
+        "rbar": lambda: (fs._rbar(*args),),
+        "backward_rbar": lambda: (cc._rbar(*args, counter="backward_rbar"),),
+        "dm_backward": lambda: cc._dm_backward(*args, r),
+        "dm_adam": lambda: fs._dm_adam(
+            M.clone(), *args[1:], r, mu.clone(), nu.clone(), fs.adam_scalars(3, 0.1),
+            lam_l1=lam[0], lam_l2=lam[1], with_norms=True),
+        "gsq": lambda: fs._gsq(*args, r, *lam),
+        "dm_adafactor": lambda: fs._dm_adafactor(
+            M.clone(), *args[1:], r, rowf, colf, 0.1, *lam, with_norms=True),
+    }
+    for name, run in runs.items():
+        first = [t.clone() for t in run()]
+        for _ in range(repeats - 1):
+            if not all(torch.equal(a, b) for a, b in zip(first, run())):
+                fail(f"{name} at {shape} gave different bits on the same inputs")
+    say("kernels", f"{shape}: each of the {len(runs)} kernels gave the same bits "
+        f"{repeats} times")
 
 
 # ---------------------------------------------------------------------------
@@ -418,41 +666,55 @@ def check_launches(phase, expect):
 
 
 def mapper_for(ad_sc, ad_sp, dev, mode):
-    """The Mapper that map_cells_to_space builds in ``mode`` with the
-    rna_count_based prior (clusters by subclass_label)."""
+    """The Mapper (MapperConstrained in constrained mode, with one cell per
+    spot as its target count) that map_cells_to_space builds in ``mode``
+    with the rna_count_based prior (clusters by subclass_label)."""
     from tangram_tpu_torch.mapping import (
         _check_mapping_args, _densify, _resolve_density, _resolve_training_genes,
         adata_to_cluster_expression)
-    from tangram_tpu_torch.models.mapper import Mapper
+    from tangram_tpu_torch.models.mapper import Mapper, MapperConstrained
 
     label = "subclass_label" if mode == "clusters" else None
-    lam = _check_mapping_args(mode, 1, 0, "rna_count_based", label, None, 1, 1)
+    lam = _check_mapping_args(mode, 1, 0, "rna_count_based", label, SHAPE[1], 1, 1)
     if mode == "clusters":
         ad_sc = adata_to_cluster_expression(ad_sc, label, True, add_density=True)
     genes = _resolve_training_genes(ad_sc, ad_sp, None)
     S = _densify(ad_sc[:, genes].X)
     G = _densify(ad_sp[:, genes].X)
     prior = _resolve_density(mode, "rna_count_based", lam, ad_sc, ad_sp)
+    if mode == "constrained":
+        return MapperConstrained(S, G, prior.d, lambda_d=prior.lambda_d,
+                                 target_count=SHAPE[1], device=dev, random_state=0)
     return Mapper(S, G, d=prior.d, d_source=prior.d_source,
                   lambda_d=prior.lambda_d, device=dev, random_state=0)
 
 
-def step_ms(mapper, impl, warm, steps, lw=None, optimizer="adam"):
-    """Steady-state ms per training step from ``mapper.M`` (with the loss
-    weights ``lw``, by default the mapper's): ``warm`` steps untimed, then
-    ``steps`` steps between two CUDA events."""
+def start_params(mapper):
+    """A copy of the mapper's parameters as fit_mapping takes them: M, or
+    (M, F) for a MapperConstrained, with fit_mapping's constrained flag."""
+    F = getattr(mapper, "F", None)
+    if F is None:
+        return mapper.M.clone(), False
+    return (mapper.M.clone(), F.clone()), True
+
+
+def step_ms(mapper, impl, warm, steps, lw=None, optimizer="adam", fused=True):
+    """Steady-state ms per training step from the mapper's parameters (with
+    the loss weights ``lw``, by default the mapper's): ``warm`` steps
+    untimed, then ``steps`` steps between two CUDA events."""
     import torch
 
     from tangram_tpu_torch.models.mapper import fit_mapping
 
     lw = mapper.lw if lw is None else lw
-    M = mapper.M.clone()
-    _, opt_state, _ = fit_mapping(M, mapper.data, lw, warm, impl=impl,
-                                  return_opt_state=True, optimizer=optimizer)
+    params, constrained = start_params(mapper)
+    params, opt_state, _ = fit_mapping(params, mapper.data, lw, warm, impl=impl,
+                                       return_opt_state=True, optimizer=optimizer,
+                                       constrained=constrained, fused=fused)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    fit_mapping(M, mapper.data, lw, steps, impl=impl, opt_state=opt_state,
-                optimizer=optimizer)
+    fit_mapping(params, mapper.data, lw, steps, impl=impl, opt_state=opt_state,
+                optimizer=optimizer, constrained=constrained, fused=fused)
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / steps
@@ -565,31 +827,58 @@ def adafactor_divergence(mapper, lw, label, steps=10):
              f"{AF_FREE_STEPS} steps")
 
 
-def compare_with_reference(mapper, lw, optimizer, label, expect):
+def first_step_check(mapper, lw, optimizer, label, fused):
+    """One step of the kernels and of the reference loop from the same
+    parameters: the logits within M_ATOL in the max (before rounding
+    differences compound)."""
+    from tangram_tpu_torch.models.mapper import fit_mapping
+
+    out = []
+    for impl in ("kernels", "reference"):
+        params, constrained = start_params(mapper)
+        params, _ = fit_mapping(params, mapper.data, lw, 1, impl=impl, optimizer=optimizer,
+                                fused=fused, constrained=constrained)
+        out.append(params[0] if constrained else params)
+    err = float((out[0] - out[1]).abs().max())
+    say("reference", f"{label} logits after step 1: max abs diff {err:.2e} "
+        f"(tol {M_ATOL:.0e})")
+    if not err <= M_ATOL:
+        fail(f"reference: {label}: one step of the kernels and of the reference loop differ")
+
+
+def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True):
     """10 epochs of the kernels and of the materialized reference loop from
-    the same logits; fails beyond the stated tolerances, or unless the
-    kernels' run launched ``expect``."""
+    the same parameters (the logits M, and the filter F of a
+    MapperConstrained); fails beyond the stated tolerances, or unless the
+    kernels' run launched ``expect``. ``fused=False`` runs the kernels'
+    autograd loop through MapperCore."""
     import torch
 
-    from tangram_tpu_torch.models.mapper import TERM_KEYS, fit_mapping
+    from tangram_tpu_torch.models.mapper import (
+        CONSTRAINED_HISTORY_KEYS, TERM_KEYS, fit_mapping)
     from tangram_tpu_torch.ops import cuda_core
 
     adafactor = optimizer == "adafactor"
     loss_rtol, loss_atol = (AF_LOSS_TOL, AF_LOSS_TOL) if adafactor else (LOSS_RTOL, 0.0)
-    if adafactor:
+    constrained = start_params(mapper)[1]
+    if adafactor and constrained:
+        first_step_check(mapper, lw, optimizer, label, fused)
+    elif adafactor:
         adafactor_divergence(mapper, lw, label)
     runs = {}
     for impl in ("kernels", "reference"):
-        M = mapper.M.clone()
+        params, _ = start_params(mapper)
         torch.cuda.synchronize()
         cuda_core.reset_launches()
-        M, hist = fit_mapping(M, mapper.data, lw, 10, impl=impl, optimizer=optimizer)
+        params, hist = fit_mapping(params, mapper.data, lw, 10, impl=impl,
+                                   optimizer=optimizer, fused=fused,
+                                   constrained=constrained)
         torch.cuda.synchronize()
         if impl == "kernels":
             check_launches("reference", expect)
-        runs[impl] = (M, {k: v.cpu().numpy() for k, v in hist.items()})
-    (Mk, hk), (Mr, hr) = runs["kernels"], runs["reference"]
-    for key in TERM_KEYS:
+        runs[impl] = (params, {k: v.cpu().numpy() for k, v in hist.items()})
+    (pk, hk), (pr, hr) = runs["kernels"], runs["reference"]
+    for key in CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS:
         a, b = hk[key], hr[key]
         if np.isnan(b).all() and np.isnan(a).all():
             continue
@@ -599,17 +888,22 @@ def compare_with_reference(mapper, lw, optimizer, label, expect):
             f"(tol rtol {loss_rtol:.0e}, atol {loss_atol:.0e})")
         if bad.any():
             fail(f"reference: {label} {key} of the kernels and the reference loop differ")
+    (Mk, Fk), (Mr, Fr) = (pk, pr) if constrained else ((pk, None), (pr, None))
     dM = (Mk - Mr).abs()
     m_err, m_med = float(dM.max()), float(dM.median())
     far = dM > M_ATOL
     n_far = int(far.sum())
     reach = float(Mr[far].abs().max()) if n_far else 0.0
     p_err = float((torch.softmax(Mk, 1) - torch.softmax(Mr, 1)).abs().max())
+    f_err = float((Fk - Fr).abs().max()) if constrained else 0.0
     say("reference", f"{label} logits: max abs diff {m_err:.2e}, median {m_med:.2e}, "
         f"{n_far} beyond {M_ATOL:.0e}" + (f" (all within {reach:.3f} of 0)" if n_far
                                           else "") + f"; softmax maps max abs diff "
-        f"{p_err:.2e}")
-    if adafactor:
+        f"{p_err:.2e}" + (f"; filter logits F max abs diff {f_err:.2e}" if constrained
+                          else ""))
+    if adafactor and constrained:
+        ok, rule = True, "held after step 1 only (above)"
+    elif adafactor:
         ok, rule = m_med <= M_ATOL, f"median <= {M_ATOL:.0e}"
     elif lw.lambda_l1 != 0:
         ok = (n_far <= KINK_FRACTION * dM.numel() and reach <= KINK_REACH
@@ -617,8 +911,8 @@ def compare_with_reference(mapper, lw, optimizer, label, expect):
         rule = (f"at most {KINK_FRACTION:.0e} of the logits beyond {M_ATOL:.0e}, "
                 f"within {KINK_REACH} of 0; maps <= {MAP_ATOL:.0e}")
     else:
-        ok = m_err <= M_ATOL and p_err <= MAP_ATOL
-        rule = f"max <= {M_ATOL:.0e}; maps <= {MAP_ATOL:.0e}"
+        ok = m_err <= M_ATOL and p_err <= MAP_ATOL and f_err <= M_ATOL
+        rule = f"max <= {M_ATOL:.0e} (F too); maps <= {MAP_ATOL:.0e}"
     say("reference", f"{label} logits tolerance: {rule}")
     if not ok:
         fail(f"reference: {label}: the kernels' and the reference loop's mappings differ")
@@ -645,6 +939,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--shapes", default=",".join(KERNEL_SHAPES),
+                    help="the kernel phase's shapes, a subset of "
+                    + ",".join(KERNEL_SHAPES) + " (times come from tutorial)")
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 fused steps")
     args = ap.parse_args(argv)
@@ -652,6 +949,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    shapes = [p for p in args.shapes.split(",") if p]
+    if set(shapes) - set(KERNEL_SHAPES):
+        ap.error(f"unknown shapes {sorted(set(shapes) - set(KERNEL_SHAPES))}")
 
     import torch
 
@@ -693,15 +993,24 @@ def main(argv=None) -> int:
                 say("build", "ptxas " + line.strip().removeprefix("ptxas info    : "))
 
     if "kernels" in phases:
-        for shape, timed in ((RAGGED, False), (CLUSTERS, False), (SHAPE, True)):
+        for key in shapes:
+            shape = KERNEL_SHAPES[key]
             t0 = time.perf_counter()
-            compare_kernels(shape, dev, results, timed)
+            if shape == SHAPE:
+                compare_kernels(shape, dev, results, timed=True)
+            else:
+                with guarded_allocations(dev, shape):
+                    compare_kernels(shape, dev, results, timed=False)
+                    check_repeatable(shape, dev)
             say("kernels", f"{shape} checked in {time.perf_counter() - t0:.1f} s")
         for name, r in results.items():
-            say("kernels", f"{name}: kernel {r['ms']:.3f} ms, twin "
-                f"{r['plain_ms']:.3f} ms at {SHAPE} ({card})")
+            if "ms" in r:
+                bound, by = bound_ms(name, SHAPE)
+                say("kernels", f"{name}: kernel {r['ms']:.3f} ms, twin "
+                    f"{r['plain_ms']:.3f} ms, bound {bound:.3f} ms ({by}) at {SHAPE} "
+                    f"({card})")
 
-    if {"cells", "clusters", "adafactor", "reference"} & set(phases):
+    if {"cells", "clusters", "adafactor", "constrained", "reference"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
@@ -826,6 +1135,55 @@ def main(argv=None) -> int:
                 f"{peaks['adam'] / 2**30:.3f} GiB, adafactor + L1/L2 "
                 f"{peaks['adafactor'] / 2**30:.3f} GiB ({card})")
 
+    if "constrained" in phases:
+        import tangram_tpu_torch as tgt
+
+        for opt, expect in (
+                ("adam", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
+                          "dm_adam": EPOCHS}),
+                ("adafactor", {"rowstats": EPOCHS, "project": EPOCHS,
+                               "backward_rbar": EPOCHS, "dm_backward": EPOCHS})):
+            gc.collect()  # what earlier phases left unreachable is not resident
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_core.reset_launches()
+            t0 = time.perf_counter()
+            ad_map = tgt.map_cells_to_space(
+                ad_sc, ad_sp, mode="constrained", target_count=SHAPE[1],
+                density_prior="rna_count_based", optimizer=opt, num_epochs=EPOCHS,
+                random_state=0)
+            torch.cuda.synchronize()
+            t_map = time.perf_counter() - t0
+            counts = check_launches("constrained", expect)
+            peaks[f"constrained {opt}"] = torch.cuda.max_memory_allocated()
+            if opt == "adafactor":
+                launches = dict(launches or {}, **{k: counts[k] for k in BACKWARD_KERNELS})
+            # Adafactor is not required to raise the score (queue C)
+            check_mapping("constrained", ad_map, SHAPE[0], SHAPE[1], SHAPE[2],
+                          rising=opt == "adam")
+            F_out = np.asarray(ad_map.obs["F_out"], dtype=np.float64)
+            count_reg = np.asarray(ad_map.uns["training_history"]["count_reg"])
+            if F_out.shape != (SHAPE[0],) or not ((F_out > 0) & (F_out < 1)).all():
+                fail(f"constrained {opt}: F_out has shape {F_out.shape} or values "
+                     "outside (0, 1)")
+            if not np.isfinite(count_reg).all():
+                fail(f"constrained {opt}: count_reg is not finite")
+            say("constrained", f"{opt}: map_cells_to_space {t_map:.2f} s for {EPOCHS} "
+                f"epochs; F_out in [{F_out.min():.4f}, {F_out.max():.4f}], sum "
+                f"{F_out.sum():.1f} (target {SHAPE[1]}); count_reg {count_reg[0]:.1f} -> "
+                f"{count_reg[-1]:.1f}; peak device memory "
+                f"{peaks[f'constrained {opt}'] / 2**30:.3f} GiB, "
+                f"{(peaks[f'constrained {opt}'] - base) / 2**30:.3f} GiB above the "
+                f"{base / 2**30:.3f} GiB resident before ({card})")
+            del ad_map
+        # built after the runs above, so that their peaks hold one mapping
+        con_mapper = mapper_for(ad_sc, ad_sp, dev, "constrained")
+        ms_con = {opt: step_ms(con_mapper, "kernels", warm=3, steps=10, optimizer=opt)
+                  for opt in ("adam", "adafactor")}
+        say("constrained", "steady-state ms/step at " + str(SHAPE) + ": " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms_con.items()) + f" ({card})")
+
     if "reference" in phases:
         mapper = cells_mapper
         compare_with_reference(mapper, mapper.lw, "adam", "adam",
@@ -836,10 +1194,21 @@ def main(argv=None) -> int:
         compare_with_reference(mapper, norm_lw, "adafactor", "adafactor + L1/L2",
                                {"rowstats_norms": 1, "project": 10, "rbar": 10,
                                 "gsq": 10, "dm_adafactor": 10})
+        unfused = {"rowstats": 10, "project": 10, "backward_rbar": 10, "dm_backward": 10}
+        compare_with_reference(mapper, mapper.lw, "adam", "adam fused=False", unfused,
+                               fused=False)
+        if "constrained" not in phases:
+            con_mapper = mapper_for(ad_sc, ad_sp, dev, "constrained")
+        compare_with_reference(con_mapper, con_mapper.lw, "adam", "constrained adam",
+                               {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10})
+        compare_with_reference(con_mapper, con_mapper.lw, "adafactor",
+                               "constrained adafactor", unfused)
         ms_k = step_ms(mapper, "kernels", warm=5, steps=20)
+        ms_u = step_ms(mapper, "kernels", warm=3, steps=10, fused=False)
         ms_r = step_ms(mapper, "reference", warm=2, steps=10)
         say("reference", f"steady-state ms/step at {SHAPE}: kernels {ms_k:.2f}, "
-            f"reference loop {ms_r:.2f} ({card})")
+            f"kernels with fused=False (MapperCore) {ms_u:.2f}, reference loop "
+            f"{ms_r:.2f} ({card})")
         if args.profile:
             profile_steps(mapper)
 
@@ -848,12 +1217,16 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": None if launches is None else launches.get(name),
          "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
-         "plain_ms": r.get("plain_ms")}
+         "plain_ms": r.get("plain_ms"), "bound_ms": bound_ms(name, SHAPE)[0],
+         "bound_by": bound_ms(name, SHAPE)[1],
+         # no one PyTorch call computes any of these functions (time_gemms
+         # prints cuBLAS at the contraction shapes as a note)
+         "library_ms": None}
         for name, r in results.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)
-    if list(phases) != list(PHASES):
+    if list(phases) != list(PHASES) or shapes != list(KERNEL_SHAPES):
         say("done", "partial run: the ok line is printed only when every phase runs")
         return 0
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """tangram_tpu_torch: the Tangram mapper in PyTorch, with hand-written CUDA
 kernels for NVIDIA Hopper.
 
-The port of ``tangram_tpu`` (JAX) that runs the main mapping path —
-``map_cells_to_space`` in cells and clusters modes with Adam and f32
-storage — on one H100 through four streamed kernels
-(``csrc/mapper_kernels.cu``). ``tangram_tpu`` stays the reference it is
-tested against. This package imports torch and never jax.
+The port of ``tangram_tpu`` (JAX) that runs ``map_cells_to_space`` in
+cells, clusters and constrained modes, with Adam or Adafactor, the L1/L2
+terms, validation metrics and f32 storage, on one H100 through nine
+streamed kernels (``csrc/mapper_kernels.cu``), one for each Pallas kernel
+call of the JAX package. ``tangram_tpu`` stays the reference it is tested
+against. This package imports torch and never jax.
 
 ``import tangram_tpu_torch as tgt; tgt.pp_adatas(...);
 tgt.map_cells_to_space(...)``
@@ -14,7 +15,7 @@ tgt.map_cells_to_space(...)``
 from .adlite import AnnData, read_h5ad, write_h5ad
 from .evaluation import compare_spatial_geneexp, project_genes
 from .mapping import adata_to_cluster_expression, map_cells_to_space, pp_adatas
-from .models.mapper import Mapper, fit_mapping
+from .models.mapper import Mapper, MapperConstrained, fit_mapping
 
 __all__ = [
     "AnnData",
@@ -26,5 +27,6 @@ __all__ = [
     "project_genes",
     "compare_spatial_geneexp",
     "Mapper",
+    "MapperConstrained",
     "fit_mapping",
 ]

@@ -13,7 +13,8 @@ import torch
 from .ops.core import unported
 from .ops.losses import MapperData
 
-__all__ = ["state_from_jax", "adafactor_state_from_jax", "mapper_data_from_jax"]
+__all__ = ["state_from_jax", "constrained_state_from_jax", "adafactor_state_from_jax",
+           "constrained_adafactor_state_from_jax", "mapper_data_from_jax"]
 
 
 def _tensor(x, device):
@@ -38,6 +39,14 @@ def state_from_jax(M, count, mu, nu, stats, device="cpu"):
     )
 
 
+def constrained_state_from_jax(params, count, mus, nus, stats, device="cpu"):
+    """``((M, F), count, (mu, muF), (nu, nuF), stats)`` of the JAX fused
+    constrained step → the port's, as :func:`state_from_jax` converts it."""
+    pair = lambda xs: tuple(_tensor(x, device) for x in xs)  # noqa: E731
+    return (pair(params), int(np.asarray(count)), pair(mus), pair(nus),
+            pair(stats))
+
+
 def adafactor_state_from_jax(count, v_row, v_col, c: int, s: int, device="cpu"):
     """optax ``FactoredState`` statistics of a (c, s) parameter → the
     port's Adafactor carry ``(count, vr (c,), vc (s,))``. optax's ``v_row``
@@ -49,6 +58,19 @@ def adafactor_state_from_jax(count, v_row, v_col, c: int, s: int, device="cpu"):
         raise ValueError(f"factored statistics of shapes {tuple(vr.shape)} and "
                          f"{tuple(vc.shape)} do not belong to a ({c}, {s}) parameter")
     return int(np.asarray(count)), vr, vc
+
+
+def constrained_adafactor_state_from_jax(count, v_row, v_col, v, c: int, s: int,
+                                         device="cpu"):
+    """optax ``FactoredState`` of the constrained (M, F) pytree — ``v_row``,
+    ``v_col`` and ``v`` each a pair (M's, F's) — → the port's carry
+    ``(count, vr (c,), vc (s,), vF (c,))``: M's factored statistics as
+    :func:`adafactor_state_from_jax` maps them, and F's unfactored ``v``."""
+    count, vr, vc = adafactor_state_from_jax(count, v_row[0], v_col[0], c, s, device)
+    vF = _tensor(v[1], device)
+    if tuple(vF.shape) != (c,):
+        raise ValueError(f"F's statistic has shape {tuple(vF.shape)}, not ({c},)")
+    return count, vr, vc, vF
 
 
 def mapper_data_from_jax(data, device="cpu") -> MapperData:

@@ -14,6 +14,8 @@
 //   tg_gsq             sum_s g^2 per cell and sum_c g^2 per spot   (Adafactor)
 //   tg_dm_adafactor    M -= lr g rowf[c] colf[s] in place, and the next
 //                      step's m, l, u [, s1, s2]                   (Adafactor)
+//   tg_dm_backward     dM = P (dP - r) and [dA | dw] = P [dY | dq], the
+//                      backward of the unfused core               (autograd)
 //
 // with dP = A dY^T + w (x) dq [+ dh (x) (log P + 1)] formed tile by tile.
 // Each kernel replaces one Pallas TPU kernel of the JAX package (named at
@@ -32,8 +34,9 @@
 // products via wgmma, TMA loads, one shared dP recompute for rbar and the
 // update) are later work.
 //
-// All shared memory is static and below 48 KB per block, so no
-// cudaFuncSetAttribute opt-in is needed. Every entry point launches on the
+// All shared memory is static and below 48 KB per block, except the
+// dm_backward tile's 64 KB of dynamic shared memory, for which the launch
+// opts in with cudaFuncSetAttribute. Every entry point launches on the
 // given stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
@@ -160,7 +163,7 @@ rowstats_kernel(const float* __restrict__ M, float* __restrict__ m_out,
 // while the current chunk computes; P is recomputed from (m, l) into shared
 // memory, and each thread accumulates an 8 x 8 register tile.
 // The cells are split into `nsplit` contiguous ranges (grid.z) to fill the
-// card; each range writes its own partial sums, and project_reduce adds them
+// card; each range writes its own partial sums, and ext_reduce adds them
 // in a fixed order. Bound: f32 FMA (2 c s (k+1) flops); M is read once,
 // A_ext (26 MB) once per spot tile, mostly from L2.
 // ---------------------------------------------------------------------------
@@ -278,21 +281,31 @@ project_kernel(const float* __restrict__ M, const float* __restrict__ A,
   }
 }
 
-// Y[spot, :k] and q[spot] = sum over the splits, in split order.
-__global__ void project_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ Y, float* __restrict__ q,
-                                      int s, int k, int nsplit) {
+// The sum over the splits of a (nsplit, rows, k + 1) partial, in split
+// order, split into its first k columns X (rows, k) and its last v (rows,):
+// Y and q for project, dA and dw for dm_backward.
+__global__ void ext_reduce_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ X, float* __restrict__ v,
+                                  int rows, int k, int nsplit) {
   const int K1 = k + 1;
-  const size_t n = (size_t)s * K1;
+  const size_t n = (size_t)rows * K1;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     float acc = 0.0f;
     for (int z = 0; z < nsplit; ++z) acc += partial[(size_t)z * n + e];
-    const size_t spot = e / K1;
+    const size_t row = e / K1;
     const int col = (int)(e % K1);
-    if (col < k) Y[spot * k + col] = acc;
-    else q[spot] = acc;
+    if (col < k) X[row * k + col] = acc;
+    else v[row] = acc;
   }
+}
+
+cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows, int k,
+                              int nsplit, cudaStream_t st) {
+  const size_t n = (size_t)rows * (k + 1);
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  ext_reduce_kernel<<<blocks, 256, 0, st>>>(partial, X, v, rows, k, nsplit);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -305,6 +318,8 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 //   EPI_GSQ        replaces tangram_tpu/ops/fused_step.py::_gsq (_gsq_kernel)
 //   EPI_ADAFACTOR  replaces tangram_tpu/ops/fused_step.py::_dm_adafactor
 //                  (_dm_adafactor_kernel) on its f32, round-to-nearest path
+//   EPI_DM         replaces tangram_tpu/ops/pallas_core.py::_backward's second
+//                  call (_dm_kernel): the backward of the unfused core
 //
 // A block owns 64 whole cell rows and loops over all spots in tiles of 128.
 // Per tile it forms dP = A_ext dY_ext^T (A_ext = [A | w], dY_ext = [dY | dq],
@@ -321,6 +336,8 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 //              in place;
 //   gsq:       accumulates g^2 per cell (vr) and per spot (vc, below);
 //   adafactor: M -= lr g rowf[c] colf[s], stored in place;
+//   dm:        stores dM = g (without L1/L2 terms) to its own array, and adds
+//              P [dY | dq] over the tile to [dA | dw] (see the EPI_DM block);
 // and the two updates fold the stored M into the next step's online
 // (m, l, u) [and, with NORMS, its s1 = sum |M|, s2 = sum M^2].
 // A block owns whole rows, so its per-cell sums need no merge across
@@ -336,15 +353,33 @@ __global__ void project_reduce_kernel(const float* __restrict__ partial,
 // partials).
 // Bound: f32 FMA, like project (gsq and adafactor do the same 2 c s (k+1)
 // flops as rbar); adam also moves 3 reads and 3 writes of c x s f32 (6 GB
-// per step at the tutorial shape), adafactor 1 read and 1 write.
+// per step at the tutorial shape), adafactor 1 read and 1 write. dm does
+// twice the flops of rbar (its second product P [dY | dq]) and writes dM.
+//
+// dm's second product reduces over spots, the axis the block walks, into a
+// (64 cells x (k + 1)) result that is far too large for registers (250
+// columns here) and, beside the dP tile's buffers, for shared memory. So
+// each tile's P goes to shared memory as a (spots x cells) tile, zero
+// outside the valid cells and spots; the k + 1 columns are taken in chunks
+// of 64 ([dY | dq] staged in shared memory beside it), each thread owns a
+// 4-cell x 4-column register tile per chunk, and adds it into the block's
+// own slice of a (nsplit, c, k + 1) partial in device memory: the first
+// tile writes, later ones add (read-modify-write of addresses no other
+// thread touches, mostly L2 hits). ext_reduce then adds the splits in
+// order. Deterministic, no atomics, like the rest.
 // ---------------------------------------------------------------------------
 
 constexpr int DP_TC = 64;    // cells per block
 constexpr int DP_TS = 128;   // spots per tile
 constexpr int DP_KC = 32;    // k chunk
 constexpr int DP_THREADS = 256;
+constexpr int DM_KC = 64;    // [dY | dq] columns per chunk of dm's second product
+// dm's dynamic shared memory: the P tile (DP_TS x DP_TC) and a (DP_TS x
+// DM_KC) chunk of [dY | dq]; with the 48 KB of static buffers, 112 KB, so two
+// blocks fit on an SM
+constexpr size_t DM_SMEM = (size_t)DP_TS * (DP_TC + DM_KC) * sizeof(float);
 
-enum Epilogue : int { EPI_RBAR = 0, EPI_ADAM = 1, EPI_GSQ = 2, EPI_ADAFACTOR = 3 };
+enum Epilogue : int { EPI_RBAR = 0, EPI_ADAM = 1, EPI_GSQ = 2, EPI_ADAFACTOR = 3, EPI_DM = 4 };
 
 // Everything a dP-tile kernel reads or writes; a pointer an epilogue does
 // not use may be null.
@@ -363,6 +398,9 @@ struct DpArgs {
   float* row_part;        // (nsplit, c) row sums: r (rbar) or vr (gsq)
   float* col_part;        // (ceil(c / DP_TC), s) gsq column sums per cell block
   float* st_part;         // (5, nsplit, c) next stats m, l, u, s1, s2 (updates)
+  float* dM;              // (c, s) dm's gradient output
+  const float* dYE;       // (s, K1) = [dY | dq], row-major (dm's second product)
+  float* ext_part;        // (nsplit, c, K1) dm's [dA | dw] partials
   int c, s, K1, vec, tiles_per_split;
   float lr, bc1, bc2;     // lr: adam, adafactor; bc1, bc2: adam
   float lam1, two_lam2;   // L1 and 2 * L2 strength; both 0 without norms
@@ -409,6 +447,7 @@ dp_kernel(const DpArgs a) {
   constexpr bool ROW_SUM = EPI == EPI_RBAR || EPI == EPI_GSQ;
   __shared__ __align__(16) float As[2][DP_KC][DP_TC];
   __shared__ __align__(16) float Ds[2][DP_KC][DP_TS];
+  extern __shared__ __align__(16) float dyn[];  // EPI_DM only (DM_SMEM bytes)
   float* __restrict__ M = a.M;
   const float* __restrict__ AT = a.AT;
   const float* __restrict__ dYT = a.dYT;
@@ -506,6 +545,11 @@ dp_kernel(const DpArgs a) {
     if (ki != n_k - 1) continue;
 
     float csum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // gsq
+    float pt[4][8];  // dm: this thread's P values, 0 outside the valid region
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) pt[i][j] = 0.0f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!cvalid[i]) continue;
@@ -515,7 +559,7 @@ dp_kernel(const DpArgs a) {
         const int spot = s0 + half * 64 + tx * 4;
         const int n_valid = min(4, s - spot);
         if (n_valid <= 0) continue;
-        float x[4], mv[4], vv[4], cf[4];
+        float x[4], mv[4], vv[4], cf[4], dmv[4];
         load4(M + row + spot, n_valid, vec, x);
         if (EPI == EPI_ADAM) {
           load4(a.mu + row + spot, n_valid, vec, mv);
@@ -544,8 +588,11 @@ dp_kernel(const DpArgs a) {
               x[q] = x[q] - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
               mv[q] = mun;
               vv[q] = nun;
-            } else {
+            } else if constexpr (EPI == EPI_ADAFACTOR) {
               x[q] = x[q] - a.lr * ((g * crf[i]) * cf[q]);
+            } else {
+              dmv[q] = g;
+              pt[i][half * 4 + q] = P;
             }
             if (UPDATE) {
               stats_push(nm[i], nl[i], nu_[i], x[q]);
@@ -558,6 +605,56 @@ dp_kernel(const DpArgs a) {
           store4(a.mu + row + spot, n_valid, vec, mv);
           store4(a.nu + row + spot, n_valid, vec, vv);
         }
+        if (EPI == EPI_DM) store4(a.dM + row + spot, n_valid, vec, dmv);
+      }
+    }
+    if constexpr (EPI == EPI_DM) {
+      // [dA | dw] += P [dY | dq] over this tile (see the comment above)
+      float* Ps = dyn;                   // [DP_TS][DP_TC]
+      float* Ys = dyn + DP_TS * DP_TC;   // [DP_TS][DM_KC]
+#pragma unroll
+      for (int hq = 0; hq < 8; ++hq) {
+        const int ss = (hq >> 2) * 64 + tx * 4 + (hq & 3);
+        *reinterpret_cast<float4*>(&Ps[ss * DP_TC + ty * 4]) =
+            make_float4(pt[0][hq], pt[1][hq], pt[2][hq], pt[3][hq]);
+      }
+      const int kg = tid & 15;  // 16 groups of 4 columns
+      const int cg = tid >> 4;  // 16 groups of 4 cells
+      const bool first = step < n_k;  // the block's first spot tile
+      for (int j0 = 0; j0 < K1; j0 += DM_KC) {
+        for (int e = tid; e < DP_TS * DM_KC; e += DP_THREADS) {
+          const int spot = s0 + e / DM_KC, j = j0 + e % DM_KC;
+          Ys[e] = (spot < s && j < K1) ? a.dYE[(size_t)spot * K1 + j] : 0.0f;
+        }
+        __syncthreads();  // Ps and this chunk of Ys are visible to every thread
+        float acc2[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc2[i][j] = 0.0f;
+#pragma unroll 4
+        for (int ss = 0; ss < DP_TS; ++ss) {
+          const float4 p4 = *reinterpret_cast<const float4*>(&Ps[ss * DP_TC + cg * 4]);
+          const float4 y4 = *reinterpret_cast<const float4*>(&Ys[ss * DM_KC + kg * 4]);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+          const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(pv[i], yv[j], acc2[i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int cell = c0 + cg * 4 + i;
+          if (cell >= c) continue;
+          float* o = a.ext_part + ((size_t)blockIdx.y * c + cell) * K1;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = j0 + kg * 4 + j;
+            if (col < K1) o[col] = first ? acc2[i][j] : o[col] + acc2[i][j];
+          }
+        }
+        __syncthreads();  // Ys, and after the last chunk Ps, may be rewritten
       }
     }
     if constexpr (EPI == EPI_GSQ) {
@@ -579,6 +676,15 @@ dp_kernel(const DpArgs a) {
       }
       __syncthreads();  // the next step's copies may overwrite Ds[buf]
     }
+  }
+
+  if constexpr (EPI == EPI_DM) {
+    // a split with no spot tiles still owns its slice of the partial
+    if (n_tiles == 0)
+      for (int e = tid; e < DP_TC * K1; e += DP_THREADS) {
+        const int cell = c0 + e / K1;
+        if (cell < c) a.ext_part[((size_t)blockIdx.y * c + cell) * K1 + e % K1] = 0.0f;
+      }
   }
 
   // the 16 threads of a cell group are 16 aligned lanes of one warp
@@ -661,11 +767,22 @@ __global__ void col_sum_kernel(const float* __restrict__ part, float* __restrict
 
 template <int EPI, bool NORMS>
 cudaError_t launch_dp_kernel(bool with_dh, const DpArgs& a, dim3 grid, cudaStream_t st) {
-  if (with_dh)
-    dp_kernel<true, EPI, NORMS><<<grid, DP_THREADS, 0, st>>>(a);
-  else
-    dp_kernel<false, EPI, NORMS><<<grid, DP_THREADS, 0, st>>>(a);
-  return cudaGetLastError();
+  void (*kernel)(const DpArgs) =
+      with_dh ? dp_kernel<true, EPI, NORMS> : dp_kernel<false, EPI, NORMS>;
+  size_t smem = 0;
+  if constexpr (EPI == EPI_DM) {
+    smem = DM_SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {const_cast<DpArgs*>(&a)};
+  const cudaError_t err = cudaLaunchKernel((const void*)kernel, grid, dim3(DP_THREADS),
+                                           args, smem, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // launch the dP-tile kernel of epilogue EPI over (cell blocks, nsplit), then
@@ -684,6 +801,10 @@ cudaError_t launch_dp(bool with_dh, bool norms, DpArgs a, int nsplit, float* out
     if (err != cudaSuccess) return err;
     dp_merge_kernel<false, false><<<merge_blocks, 256, 0, st>>>(
         a.row_part, out0, nullptr, nullptr, nullptr, nullptr, a.c, nsplit);
+  } else if constexpr (EPI == EPI_DM) {
+    err = launch_dp_kernel<EPI, false>(with_dh, a, grid, st);
+    if (err != cudaSuccess) return err;
+    return launch_ext_reduce(a.ext_part, out0, out1, a.c, a.K1 - 1, nsplit, st);
   } else if (norms) {
     err = launch_dp_kernel<EPI, true>(with_dh, a, grid, st);
     if (err != cudaSuccess) return err;
@@ -760,11 +881,7 @@ extern "C" int tg_project(const float* M, const float* A, const float* w,
       M, A, w, m, l, partial, c, s, k, cells_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)s * K1;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  project_reduce_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(partial, Y, q, s,
-                                                                   k, nsplit);
-  return (int)cudaGetLastError();
+  return (int)launch_ext_reduce(partial, Y, q, s, k, nsplit, (cudaStream_t)stream);
 }
 
 // r_part: (nsplit, c) scratch; r: (c,)
@@ -822,6 +939,23 @@ extern "C" int tg_gsq(const float* M, const float* AT, const float* dYT,
   col_sum_kernel<<<(s + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       vc_part, vc, (c + DP_TC - 1) / DP_TC, s);
   return (int)cudaGetLastError();
+}
+
+// dYE: (s, k + 1) = [dY | dq], row-major; r: (c,) from tg_rbar with the same
+// dh; dM: (c, s) = P (dP - r); ext_part: (nsplit, c, k + 1) scratch;
+// dA: (c, k) = P dY; dw: (c,) = P dq
+extern "C" int tg_dm_backward(const float* M, const float* AT, const float* dYT,
+                              const float* dYE, const float* dh, const float* m,
+                              const float* l, const float* r, float* dM, float* ext_part,
+                              float* dA, float* dw, int c, int s, int K1, int with_dh,
+                              int vec, int nsplit, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+  a.r = r;
+  a.dM = dM;
+  a.dYE = dYE;
+  a.ext_part = ext_part;
+  return (int)launch_dp<EPI_DM>(with_dh != 0, false, a, nsplit, dA, dw, nullptr, nullptr,
+                                nullptr, (cudaStream_t)stream);
 }
 
 // M: (c, s), updated in place; rowf: (c,); colf: (s,); st_part and the stats

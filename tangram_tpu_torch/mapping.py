@@ -4,10 +4,10 @@ Counterpart of ``tangram_tpu/mapping.py`` (``pp_adatas`` ref
 mapping_utils.py:20, ``adata_to_cluster_expression`` ref
 mapping_utils.py:103, ``map_cells_to_space`` ref mapping_utils.py:141):
 AnnData in, AnnData out, feeding the PyTorch training engine in
-:mod:`tangram_tpu_torch.models.mapper`. ``cells`` and ``clusters`` modes
-with Adam or Adafactor, the L1/L2 terms and f32 storage are ported; every
-other option keeps the JAX package's keyword and raises
-``NotImplementedError`` naming its ROADMAP item.
+:mod:`tangram_tpu_torch.models.mapper`. ``cells``, ``clusters`` and
+``constrained`` modes with Adam or Adafactor, the L1/L2 terms and f32
+storage are ported; every other option keeps the JAX package's keyword and
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import scipy.sparse as sp
 
 from . import adlite
 from . import spatial as sw
-from .models.mapper import Mapper
+from .models.mapper import Mapper, MapperConstrained
 from .ops.core import unported
 from .utils import annotate_gene_sparsity
 
@@ -229,10 +229,8 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     return report
 
 
-def _reject_unported(mode, mesh, dtypes, rounding, init_method, graph_format,
+def _reject_unported(mesh, dtypes, rounding, init_method, graph_format,
                      early_stop_tol):
-    if mode == "constrained":
-        raise unported("mode='constrained'", "queue A1 (constrained mode)")
     if mesh is not None:
         raise unported("mesh", "queue A11 (multi-GPU)")
     for name, dt in dtypes.items():
@@ -303,15 +301,23 @@ def map_cells_to_space(
     materialized reference loop on the CPU; see
     :func:`tangram_tpu_torch.ops.core.resolve_impl`). ``optimizer`` is
     ``"adam"`` (the reference's) or ``"adafactor"`` (factored second
-    moments: c + s floats of optimizer state instead of 2·c·s).
+    moments: c + s floats of optimizer state instead of 2·c·s). In
+    ``constrained`` mode the result's ``obs['F_out']`` holds each cell's
+    learned filter probability.
     """
     del early_stop_window
     lambda_d = _check_mapping_args(
         mode, lambda_g1, lambda_d, density_prior, cluster_label,
         target_count, lambda_f_reg, lambda_count,
     )
+    if mode == "constrained" and early_stop_tol is not None:
+        # before the constructor draws the (cells × spots) init
+        raise ValueError(
+            "early_stop_tol is not supported in constrained mode (the "
+            "count/filter penalties keep moving the score target)"
+        )
     _reject_unported(
-        mode, mesh,
+        mesh,
         {"moment_dtype": moment_dtype, "compute_dtype": compute_dtype,
          "param_dtype": param_dtype},
         rounding, init_method, graph_format, early_stop_tol,
@@ -335,36 +341,60 @@ def map_cells_to_space(
         f"training: {len(training_genes)} genes, prior={prior.label}, mode={mode}"
     )
 
-    mapper = Mapper(
-        S=S,
-        G=G,
-        d=prior.d,
-        d_source=prior.d_source,
-        device=device,
-        random_state=random_state,
-        lambda_d=prior.lambda_d,
-        lambda_g1=lambda_g1,
-        lambda_g2=lambda_g2,
-        lambda_r=lambda_r,
-        lambda_l1=lambda_l1,
-        lambda_l2=lambda_l2,
-        lambda_neighborhood_g1=lambda_neighborhood_g1,
-        lambda_ct_islands=lambda_ct_islands,
-        lambda_getis_ord=lambda_getis_ord,
-        lambda_moran=lambda_moran,
-        lambda_geary=lambda_geary,
-        impl=impl,
-        optimizer=optimizer,
-    )
-    mapping_matrix, training_history = mapper.train(
-        learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
-    )
+    if mode == "constrained":
+        mapper = MapperConstrained(
+            S=S,
+            G=G,
+            d=prior.d,
+            device=device,
+            random_state=random_state,
+            lambda_d=prior.lambda_d,
+            lambda_g1=lambda_g1,
+            lambda_g2=lambda_g2,
+            lambda_r=lambda_r,
+            lambda_count=lambda_count,
+            lambda_f_reg=lambda_f_reg,
+            target_count=target_count,
+            impl=impl,
+            init_method=init_method,
+            optimizer=optimizer,
+        )
+        mapping_matrix, F_out, training_history = mapper.train(
+            learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
+        )
+    else:
+        mapper = Mapper(
+            S=S,
+            G=G,
+            d=prior.d,
+            d_source=prior.d_source,
+            device=device,
+            random_state=random_state,
+            lambda_d=prior.lambda_d,
+            lambda_g1=lambda_g1,
+            lambda_g2=lambda_g2,
+            lambda_r=lambda_r,
+            lambda_l1=lambda_l1,
+            lambda_l2=lambda_l2,
+            lambda_neighborhood_g1=lambda_neighborhood_g1,
+            lambda_ct_islands=lambda_ct_islands,
+            lambda_getis_ord=lambda_getis_ord,
+            lambda_moran=lambda_moran,
+            lambda_geary=lambda_geary,
+            impl=impl,
+            optimizer=optimizer,
+        )
+        mapping_matrix, training_history = mapper.train(
+            learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
+        )
 
     adata_map = adlite.AnnData(
         X=mapping_matrix,
         obs=adata_sc[:, training_genes].obs.copy(),
         var=adata_sp[:, training_genes].obs.copy(),
     )
+    if mode == "constrained":
+        adata_map.obs["F_out"] = F_out
     adata_map.uns["train_genes_df"] = _train_gene_report(
         mapper.M, S, G, training_genes, adata_sc, adata_sp,
     )

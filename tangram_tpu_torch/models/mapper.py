@@ -1,15 +1,19 @@
-"""The mapping optimizer: a PyTorch training loop over the fused step.
+"""The mapping optimizer: PyTorch training loops over the fused steps.
 
-Counterpart of ``tangram_tpu/models/mapper.py`` for the unconstrained
-mapper with Adam or Adafactor and f32 storage:
+Counterpart of ``tangram_tpu/models/mapper.py`` for single-device training
+with Adam or Adafactor and f32 storage:
 
-* :func:`fit_mapping` — the functional core, with two loops: the fused loop
-  (``ops/fused_step.py``: the streamed CUDA kernels on a CUDA tensor, their
-  plain twins on a CPU tensor) and the reference loop (autograd through the
-  materialized core plus the optimizer update written out).
-* :class:`Mapper` — the reference-compatible class (same constructor
-  keywords for the supported options, same ``train()`` contract, same
-  history keys, same seeded N(0, 1) numpy init stream).
+* :func:`fit_mapping` — the functional core, with three loops: the fused
+  loops (``ops/fused_step.py``, unconstrained and constrained: the streamed
+  CUDA kernels on a CUDA tensor, their plain twins on a CPU tensor), and
+  the autograd loop, which differentiates the loss through
+  :func:`~tangram_tpu_torch.ops.core.mapper_core` (the kernels'
+  ``MapperCore`` with its streamed backward, or the materialized reference
+  core) and applies the optimizer update written out. Each loop can
+  evaluate the validation metrics after a step.
+* :class:`Mapper` and :class:`MapperConstrained` — the reference-compatible
+  classes (same constructor keywords for the supported options, same
+  ``train()`` contract, same history keys, same seeded numpy init streams).
 
 History stays on the device as tensors and is fetched once per print
 chunk; no step waits for the device.
@@ -24,27 +28,35 @@ import numpy as np
 import torch
 
 from ..ops.core import resolve_impl, unported
+from ..ops.cuda_core import _rowstats
 from ..ops.fused_step import (
     ADAFACTOR_EPS,
-    ADAM_EPS,
-    BETA1,
-    BETA2,
+    _adam_vector,
     adafactor_decay,
     adam_scalars,
+    fused_constrained_step,
     fused_unconstrained_step,
     fused_unconstrained_step_adafactor,
     init_fused_adafactor_state,
     init_fused_opt_state,
     initial_stats,
 )
-from ..ops.losses import LossWeights, MapperData, check_supported, compute_loss
+from ..ops.losses import (
+    VAL_METRIC_KEYS,
+    LossWeights,
+    MapperData,
+    check_supported,
+    compute_constrained_loss,
+    compute_loss,
+    val_metrics,
+)
 
-__all__ = ["Mapper", "fit_mapping", "init_logits", "resolve_device",
-           "adafactor_update"]
+__all__ = ["Mapper", "MapperConstrained", "fit_mapping", "init_logits",
+           "init_constrained_logits", "resolve_device", "adafactor_update"]
 
 HISTORY_KEYS = ["total_loss", "main_loss", "vg_reg", "kl_reg", "entropy_reg"]
-VAL_KEYS = ["val_total_loss", "val_gene_sim", "val_sp_sparsity_weighted_sim",
-            "val_entropy"]
+CONSTRAINED_HISTORY_KEYS = HISTORY_KEYS + ["count_reg", "lambda_f_reg"]
+VAL_KEYS = list(VAL_METRIC_KEYS)
 # the per-epoch terms fit_mapping records: the history keys plus the L1/L2
 # terms, which the printed score line shows but training_history leaves out
 TERM_KEYS = HISTORY_KEYS + ["l1_reg", "l2_reg"]
@@ -57,6 +69,14 @@ PRINT_NAMES = {
     "entropy_reg": "Entropy reg",
     "l1_reg": "L1 reg",
     "l2_reg": "L2 reg",
+}
+CONSTRAINED_PRINT_NAMES = {
+    "main_loss": "Score",
+    "vg_reg": "VG reg",
+    "kl_reg": "KL reg",
+    "entropy_reg": "Entropy reg",
+    "count_reg": "Count reg",
+    "lambda_f_reg": "Lambda f reg",
 }
 
 
@@ -84,6 +104,28 @@ def init_logits(n_cells: int, n_spots: int, random_state: Optional[int] = None,
     return torch.from_numpy(M).to(device)
 
 
+def _check_init_method(method: str) -> None:
+    if method not in ("auto", "numpy"):
+        raise unported(f"init_method={method!r}", "queue A6 (schedules and early stop)")
+
+
+def init_constrained_logits(n_cells: int, n_spots: int,
+                            random_state: Optional[int] = None,
+                            method: str = "auto", device="cpu"):
+    """(M, F) of the constrained mapper from the reference's stream
+    (``mapping_optimizer.py:472-493``): seed (only when truthy), one
+    *discarded* N(0, 1) draw of M's shape, then M, then F (cells,), each
+    cast to f32. ``method`` is ``"auto"`` or ``"numpy"``: the on-device
+    draws wait for queue A6."""
+    _check_init_method(method)
+    if random_state:
+        np.random.seed(seed=random_state)
+    np.random.normal(0, 1, (n_cells, n_spots))  # discarded first draw
+    M = np.random.normal(0, 1, (n_cells, n_spots)).astype(np.float32)
+    F = np.random.normal(0, 1, n_cells).astype(np.float32)
+    return torch.from_numpy(M).to(device), torch.from_numpy(F).to(device)
+
+
 def _check_lr(learning_rate) -> float:
     if np.ndim(learning_rate) != 0 or callable(learning_rate):
         raise unported("a learning-rate schedule",
@@ -97,28 +139,31 @@ def _check_optimizer(optimizer: str) -> str:
     return optimizer
 
 
-def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer):
+def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer,
+                record):
     step = (fused_unconstrained_step if optimizer == "adam"
             else fused_unconstrained_step_adafactor)
     count, v1, v2 = opt_state
     stats = initial_stats(M, lw)
     rows = []
-    for _ in range(num_epochs):
+    for t in range(num_epochs):
         M, count, v1, v2, stats, terms = step(
             M, count, v1, v2, stats, data, lw, learning_rate
         )
-        rows.append(torch.stack([terms[k] for k in TERM_KEYS]))
+        rows.append(record(terms, M, t))
     return M, (count, v1, v2), rows
 
 
-def _adam_update(M, g, count, mu, nu, learning_rate):
-    """Adam written out as the JAX package's ``_adam_vector`` does, in place
-    on M, mu and nu; ``count`` is the incremented step."""
-    lr, bc1, bc2 = adam_scalars(count, learning_rate)
-    mu.copy_(BETA1 * mu + (1.0 - BETA1) * g)
-    nu.copy_(BETA2 * nu + (1.0 - BETA2) * (g * g))
-    M.sub_(lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
-    return mu, nu
+def _fused_constrained_loop(params, opt_state, data, lw, num_epochs, learning_rate,
+                            record):
+    (M, F), (count, (mu, muF), (nu, nuF)) = params, opt_state
+    stats = tuple(_rowstats(M))
+    rows = []
+    for t in range(num_epochs):
+        (M, F), count, (mu, muF), (nu, nuF), stats, terms = fused_constrained_step(
+            M, F, count, mu, nu, muF, nuF, stats, data, lw, learning_rate)
+        rows.append(record(terms, M, t))
+    return (M, F), (count, (mu, muF), (nu, nuF)), rows
 
 
 def adafactor_update(M, g, count: int, vr, vc, learning_rate: float):
@@ -143,66 +188,156 @@ def adafactor_update(M, g, count: int, vr, vc, learning_rate: float):
     return vr, vc
 
 
-def _reference_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer):
-    """Autograd through the materialized core, then the optimizer update
-    written out (:func:`_adam_update` or :func:`adafactor_update`)."""
-    count, v1, v2 = opt_state
+def adafactor_vector_update(x, g, count: int, v, learning_rate: float):
+    """optax ``adafactor``'s unfactored branch, for a parameter with fewer
+    than two dimensions (the constrained mapper's filter logits F):
+    v = d·v + (1 − d)(g² + ε), x −= lr·g·v^−0.5, in place on ``x``;
+    returns the new ``v``."""
+    decay, one_minus = adafactor_decay(count)
+    v = decay * v + one_minus * (g * g + ADAFACTOR_EPS)
+    x.sub_(float(np.float32(learning_rate)) * (g * v ** -0.5))
+    return v
+
+
+def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
+                   optimizer, constrained, impl, record):
+    """Autograd through :func:`mapper_core` with the resolved ``impl`` (the
+    kernels' MapperCore or the materialized reference core), then the
+    optimizer update written out, in place: Adam over M (and F), or
+    Adafactor with M factored (:func:`adafactor_update`) and F unfactored
+    (:func:`adafactor_vector_update`)."""
+    count = opt_state[0]
+    params = tuple(params) if constrained else (params,)
+    loss_fn = compute_constrained_loss if constrained else compute_loss
     rows = []
-    for _ in range(num_epochs):
+    for t in range(num_epochs):
         with torch.enable_grad():
-            Mv = M.detach().requires_grad_()
-            total, terms = compute_loss(Mv, data, lw)
-            (g,) = torch.autograd.grad(total, (Mv,))
-        rows.append(torch.stack([terms[k].detach() for k in TERM_KEYS]))
+            leaves = tuple(p.detach().requires_grad_() for p in params)
+            total, terms = loss_fn(leaves if constrained else leaves[0], data, lw, impl)
+            grads = torch.autograd.grad(total, leaves)
+        terms = {k: v.detach() for k, v in terms.items()}
         if optimizer == "adam":
-            v1, v2 = _adam_update(M, g, count + 1, v1, v2, learning_rate)
+            scalars = adam_scalars(count + 1, learning_rate)
+            state = opt_state[1:]
+            mus, nus = state if constrained else ((state[0],), (state[1],))
+            for p, g, mu, nu in zip(params, grads, mus, nus):
+                _adam_vector(p, g, mu, nu, *scalars)
         else:
-            v1, v2 = adafactor_update(M, g, count, v1, v2, learning_rate)
+            state = adafactor_update(params[0], grads[0], count, *opt_state[1:3],
+                                     learning_rate)
+            if constrained:
+                state += (adafactor_vector_update(params[1], grads[1], count,
+                                                  opt_state[3], learning_rate),)
         count += 1
-    return M, (count, v1, v2), rows
+        opt_state = (count,) + tuple(state)
+        rows.append(record(terms, params[0], t))
+    return (params if constrained else params[0]), opt_state, rows
+
+
+def _init_opt_state(params, optimizer: str, constrained: bool):
+    """A fresh optimizer carry: Adam ``(count, mu, nu)``, Adafactor
+    ``(count, vr (c,), vc (s,))``; in constrained mode mu and nu are (M, F)
+    pairs and Adafactor carries F's unfactored ``v`` last."""
+    M = params[0] if constrained else params
+    if optimizer == "adafactor":
+        state = init_fused_adafactor_state(M)
+        return state + (torch.zeros_like(params[1]),) if constrained else state
+    if not constrained:
+        return init_fused_opt_state(M)
+    F = params[1]
+    return (0, (torch.zeros_like(M), torch.zeros_like(F)),
+            (torch.zeros_like(M), torch.zeros_like(F)))
+
+
+def _recorder(term_keys, with_val, val_data, val_each, step_offset, impl):
+    """``record(terms, M_new, t)`` → the history row of step ``t``: the
+    pre-step loss terms, then, with ``with_val``, the validation metrics of
+    the post-step logits on the steps where ``(step_offset + t) % val_each
+    == 0`` and NaN on the others (the reference's order and cadence)."""
+    def record(terms, M, t):
+        row = [terms[k] for k in term_keys]
+        if with_val:
+            if (step_offset + t) % val_each == 0:
+                vm = val_metrics(M, val_data.S, val_data.G, val_data.gene_mask,
+                                 impl=impl)
+                row += [vm[k] for k in VAL_KEYS]
+            else:
+                row += [torch.full((), float("nan"), device=M.device)] * len(VAL_KEYS)
+        return torch.stack(row)
+    return record
 
 
 @torch.no_grad()
-def fit_mapping(M, data: MapperData, lw: LossWeights, num_epochs: int,
+def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
                 learning_rate: float = 0.1, impl: str = "auto",
                 opt_state=None, return_opt_state: bool = False,
-                optimizer: str = "adam"):
-    """Run ``num_epochs`` optimizer steps on the logits ``M``.
+                optimizer: str = "adam", constrained: bool = False,
+                fused: bool = True, with_val: bool = False,
+                val_data: Optional[MapperData] = None, val_each: int = 1,
+                step_offset: int = 0):
+    """Run ``num_epochs`` optimizer steps on ``params``: the logits ``M``,
+    or ``(M, F)`` with ``constrained`` (F the filter logits (cells,); the
+    data then needs ``target_count``).
 
     ``optimizer`` is ``"adam"`` (the reference's, the default) or
     ``"adafactor"`` (factored second moments: c + s floats of state instead
-    of Adam's 2·c·s). ``impl`` picks the loop
-    (:func:`~tangram_tpu_torch.ops.core.resolve_impl`): ``"kernels"`` /
-    ``"fused"`` run the fused step, ``"reference"`` the materialized
-    autograd loop, ``"auto"`` the kernels on CUDA and the reference loop on
-    the CPU.
+    of Adam's 2·c·s). ``impl`` (:func:`~tangram_tpu_torch.ops.core.resolve_impl`)
+    and ``fused`` pick the loop, as in the JAX package:
+
+    * ``"kernels"`` / ``"fused"`` with ``fused=True``: the fused step, except
+      constrained + Adafactor, which has no fused step;
+    * ``"kernels"`` / ``"fused"`` otherwise: autograd through the kernels'
+      ``MapperCore`` (the rowstats and project kernels forward, the
+      backward_rbar and dm_backward kernels backward);
+    * ``"reference"``: autograd through the materialized core;
+    * ``"auto"``: ``"kernels"`` on CUDA, ``"reference"`` on the CPU.
 
     ``opt_state`` is ``(count, mu, nu)`` for Adam or ``(count, vr, vc)``
-    (vr (c,), vc (s,)) for Adafactor, fresh when ``None``. M and Adam's
-    mu/nu are updated **in place**; keep a copy to reuse the start. History
-    entries are recorded *before* each step, like the reference loop.
-    Returns ``(M, history)`` or ``(M, opt_state, history)``, where
-    ``history`` maps each key of ``TERM_KEYS`` to a (num_epochs,) tensor on
-    M's device.
+    (vr (c,), vc (s,)) for Adafactor, fresh when ``None``; constrained, mu
+    and nu are (M, F) pairs and Adafactor's carry ends with F's ``v``.
+    Parameters and optimizer state are updated **in place**; keep a copy
+    to reuse the start. History entries are recorded *before* each step,
+    like the reference loop. With ``with_val`` the validation metrics of
+    ``val_data`` (``data`` when ``None``) are evaluated on the post-step
+    logits where ``(step_offset + t) % val_each == 0``, NaN elsewhere.
+
+    Returns ``(params, history)`` or ``(params, opt_state, history)``;
+    ``history`` maps each key of ``TERM_KEYS`` (``CONSTRAINED_HISTORY_KEYS``
+    when constrained) [and ``VAL_KEYS``] to a (num_epochs,) tensor on M's
+    device.
     """
     check_supported(lw)
     learning_rate = _check_lr(learning_rate)
     _check_optimizer(optimizer)
+    M = params[0] if constrained else params
     resolved = resolve_impl(impl, M)
     if M.dtype != torch.float32:
         raise unported(f"param dtype {M.dtype}", "queue A4 (bf16 and stochastic rounding)")
     if opt_state is None:
-        opt_state = (init_fused_opt_state(M) if optimizer == "adam"
-                     else init_fused_adafactor_state(M))
-    loop = _reference_loop if resolved == "reference" else _fused_loop
-    M, opt_state, rows = loop(M, opt_state, data, lw, int(num_epochs),
-                              learning_rate, optimizer)
+        opt_state = _init_opt_state(params, optimizer, constrained)
+    term_keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
+    keys = term_keys + (VAL_KEYS if with_val else [])
+    record = _recorder(term_keys, with_val, data if val_data is None else val_data,
+                       int(val_each), int(step_offset), resolved)
+    num_epochs = int(num_epochs)
+    use_fused = (fused and resolved != "reference"
+                 and (optimizer == "adam" or not constrained))
+    if use_fused and constrained:
+        params, opt_state, rows = _fused_constrained_loop(
+            params, opt_state, data, lw, num_epochs, learning_rate, record)
+    elif use_fused:
+        params, opt_state, rows = _fused_loop(
+            params, opt_state, data, lw, num_epochs, learning_rate, optimizer, record)
+    else:
+        params, opt_state, rows = _autograd_loop(
+            params, opt_state, data, lw, num_epochs, learning_rate, optimizer,
+            constrained, resolved, record)
     table = (torch.stack(rows) if rows
-             else torch.empty((0, len(TERM_KEYS)), device=M.device))
-    history = {k: table[:, i] for i, k in enumerate(TERM_KEYS)}
+             else torch.empty((0, len(keys)), device=M.device))
+    history = {k: table[:, i] for i, k in enumerate(keys)}
     if return_opt_state:
-        return M, opt_state, history
-    return M, history
+        return params, opt_state, history
+    return params, history
 
 
 def _final_softmax(M):
@@ -221,24 +356,34 @@ def _print_epoch(terms_at_t, names):
     print(", ".join(msgs))
 
 
-def _train_chunked(run_chunk, M, num_epochs, print_each, print_names):
+def _train_chunked(run_chunk, params, num_epochs, print_each, print_names):
     """Run ``print_each``-epoch chunks with the optimizer state carried
     across (identical to one run) and print the first epoch of each chunk,
     like the reference's per-epoch loop. Each chunk's history is fetched to
-    the host in one copy. ``run_chunk(M, opt_state, chunk)`` returns
-    ``(M, opt_state, history)``."""
-    chunks, opt_state, epoch = [], None, 0
+    the host in one copy. ``run_chunk(params, opt_state, chunk, epoch)``
+    runs ``chunk`` epochs from absolute epoch ``epoch`` and returns
+    ``(params, opt_state, history)``."""
+    chunks, opt_state, epoch, keys = [], None, 0, []
     while epoch < num_epochs:
         chunk = min(int(print_each), num_epochs - epoch)
-        M, opt_state, h = run_chunk(M, opt_state, chunk)
-        table = torch.stack([h[k] for k in TERM_KEYS], dim=1).cpu().numpy()
+        params, opt_state, h = run_chunk(params, opt_state, chunk, epoch)
+        keys = list(h)
+        table = torch.stack([h[k] for k in keys], dim=1).cpu().numpy()
         if print_names is not None:
-            _print_epoch(dict(zip(TERM_KEYS, table[0])), print_names)
+            _print_epoch(dict(zip(keys, table[0])), print_names)
         chunks.append(table)
         epoch += chunk
-    table = (np.concatenate(chunks) if chunks
-             else np.zeros((0, len(TERM_KEYS)), np.float32))
-    return M, {k: table[:, i] for i, k in enumerate(TERM_KEYS)}
+    table = np.concatenate(chunks) if chunks else np.zeros((0, 0), np.float32)
+    return params, {k: table[:, i] for i, k in enumerate(keys)}
+
+
+def _history_lists(history, keys, with_val=False, val_each=1):
+    """``training_history``: a list of floats per key ([] for a key the run
+    did not record), the validation keys taken every ``val_each`` epochs."""
+    out = {k: [float(v) for v in history.get(k, ())] for k in keys}
+    for k in VAL_KEYS:
+        out[k] = [float(v) for v in history[k][::val_each]] if with_val else []
+    return out
 
 
 def _warn_if_diverged(training_history):
@@ -262,13 +407,18 @@ class Mapper:
 
     ``device=None`` means ``"cuda"`` (raises if CUDA is absent); pass
     ``device="cpu"`` for the plain PyTorch path. ``impl`` and ``optimizer``
-    are as for :func:`fit_mapping`.
+    are as for :func:`fit_mapping`. ``train_genes_idx`` and
+    ``val_genes_idx`` select the training and validation genes (columns of
+    S and G); like the reference, validation scores the TRAINING genes
+    unless ``emulate_reference_val_quirk=False``.
     """
 
     def __init__(
         self,
         S,
         G,
+        train_genes_idx=None,
+        val_genes_idx=None,
         d=None,
         d_source=None,
         lambda_g1=1.0,
@@ -285,6 +435,7 @@ class Mapper:
         device=None,
         random_state=None,
         impl: str = "auto",
+        emulate_reference_val_quirk: bool = True,
         optimizer: str = "adam",
     ):
         self.device = resolve_device(device)
@@ -309,11 +460,24 @@ class Mapper:
         def dev(x):
             if x is None:
                 return None
-            return torch.tensor(np.asarray(x, dtype=np.float32), device=self.device)
+            return torch.tensor(np.ascontiguousarray(x, dtype=np.float32),
+                                device=self.device)
 
         S = np.asarray(S, dtype=np.float32)
         G = np.asarray(G, dtype=np.float32)
-        self.data = MapperData(S=dev(S), G=dev(G), d=dev(d), d_source=dev(d_source))
+
+        def genes(idx):
+            if idx is None:
+                return dev(S), dev(G)
+            idx = np.asarray(idx)
+            return dev(S[:, idx]), dev(G[:, idx])
+
+        S_train, G_train = genes(train_genes_idx)
+        # Reference quirk: its _val_loss_fn scores the TRAIN split
+        # (mapping_optimizer.py:321-322); pass False for a true val split
+        self._val_S, self._val_G = (
+            (S_train, G_train) if emulate_reference_val_quirk else genes(val_genes_idx))
+        self.data = MapperData(S=S_train, G=G_train, d=dev(d), d_source=dev(d_source))
         self.M = init_logits(S.shape[0], G.shape[0], random_state, self.device)
         resolve_impl(impl, self.M)  # reject a bad impl before training
 
@@ -323,32 +487,136 @@ class Mapper:
         the reference ``Mapper.train`` (``mapping_optimizer.py:358-408``).
 
         Training runs in ``print_each``-epoch chunks with one score line per
-        chunk. The logits are updated in place and ``self.M`` stays bound to
-        the trained tensor. ``M_probs`` is the row softmax, on the host.
+        chunk. With ``val_each``, the validation metrics of the post-step
+        logits are recorded every ``val_each`` epochs (the ``val_*`` lists of
+        ``training_history``). The logits are updated in place and
+        ``self.M`` stays bound to the trained tensor. ``M_probs`` is the row
+        softmax, on the host.
         """
         del early_stop_window
-        if val_each is not None:
-            raise unported("val_each", "queue A3 (val_metrics)")
         if early_stop_tol is not None:
             raise unported("early_stop_tol", "queue A6 (schedules and early stop)")
         num_epochs = int(num_epochs)
         learning_rate = _check_lr(learning_rate)
         if print_each:
             logging.info(f"Printing scores every {print_each} epochs.")
+        with_val = val_each is not None
+        val_data = MapperData(S=self._val_S, G=self._val_G)
 
-        def run_chunk(M, opt_state, chunk):
+        def run_chunk(M, opt_state, chunk, epoch):
             return fit_mapping(M, self.data, self.lw, chunk, learning_rate,
                                impl=self.impl, opt_state=opt_state,
-                               return_opt_state=True, optimizer=self.optimizer)
+                               return_opt_state=True, optimizer=self.optimizer,
+                               with_val=with_val, val_data=val_data,
+                               val_each=int(val_each) if with_val else 1,
+                               step_offset=epoch)
 
         self.M, history = _train_chunked(
             run_chunk, self.M, num_epochs,
             print_each if print_each else max(num_epochs, 1),
             PRINT_NAMES if print_each else None,
         )
-        training_history = {k: [float(v) for v in history[k]] for k in HISTORY_KEYS}
-        for k in VAL_KEYS:
-            training_history[k] = []
+        training_history = _history_lists(history, HISTORY_KEYS, with_val,
+                                           int(val_each) if with_val else 1)
         _warn_if_diverged(training_history)
         output = _final_softmax(self.M).cpu().numpy()
         return output, training_history
+
+
+class MapperConstrained:
+    """Constrained (filtered) mapping optimizer; API-compatible with the
+    reference ``MapperConstrained`` (``mapping_optimizer.py:411-493``) on
+    one device. It learns the logits M and a per-cell filter F; the loss
+    adds a count term pulling Σσ(F) to ``target_count`` (the number of
+    spots by default) and a term pushing σ(F) to 0 or 1.
+
+    ``device``, ``impl`` and ``optimizer`` are as for :class:`Mapper`; with
+    Adam the kernels run the fused constrained step, with Adafactor the
+    autograd loop through the kernels' ``MapperCore``. ``adata_map`` warm
+    starts M from the log of its mapping (F is still drawn N(0, 1)).
+    ``mesh`` waits for queue A11. Training-history values are floats (the
+    reference stringifies them, ``mapping_optimizer.py:630``).
+    """
+
+    def __init__(
+        self,
+        S,
+        G,
+        d,
+        lambda_d=1,
+        lambda_g1=1,
+        lambda_g2=1,
+        lambda_r=0,
+        lambda_count=1,
+        lambda_f_reg=1,
+        target_count=None,
+        device=None,
+        adata_map=None,
+        random_state=None,
+        init_method: str = "auto",
+        impl: str = "auto",
+        mesh=None,
+        optimizer: str = "adam",
+    ):
+        if mesh is not None:
+            raise unported("mesh", "queue A11 (multi-GPU)")
+        _check_init_method(init_method)
+        self.device = resolve_device(device)
+        self.random_state = random_state
+        self.impl = impl
+        self.optimizer = _check_optimizer(optimizer)
+        S = np.asarray(S, dtype=np.float32)
+        G = np.asarray(G, dtype=np.float32)
+        n_cells, n_spots = S.shape[0], G.shape[0]
+        if target_count is None:
+            target_count = n_spots
+        self.lw = LossWeights(
+            lambda_g1=float(lambda_g1),
+            lambda_d=float(lambda_d),
+            lambda_g2=float(lambda_g2),
+            lambda_r=float(lambda_r),
+            lambda_count=float(lambda_count),
+            lambda_f_reg=float(lambda_f_reg),
+        )
+
+        def dev(x):
+            return torch.tensor(np.asarray(x, dtype=np.float32), device=self.device)
+
+        self.data = MapperData(
+            S=dev(S), G=dev(G), d=None if d is None else dev(d),
+            target_count=dev(np.float32(target_count)),
+        )
+        if adata_map is not None:
+            P0 = np.asarray(adata_map.X, dtype=np.float32)
+            self.M = dev(np.log(np.clip(P0, 1e-12, None)))
+            self.F = init_logits(1, n_cells, random_state, self.device)[0]
+        else:
+            self.M, self.F = init_constrained_logits(n_cells, n_spots, random_state,
+                                                     init_method, self.device)
+        resolve_impl(impl, self.M)  # reject a bad impl before training
+
+    def train(self, num_epochs, learning_rate=0.1, print_each=100):
+        """Returns ``(M_probs, F_probs, training_history)`` like the
+        reference ``MapperConstrained.train``, in ``print_each``-epoch chunks
+        with one score line per chunk; M and F are updated in place."""
+        num_epochs = int(num_epochs)
+        learning_rate = _check_lr(learning_rate)
+
+        def run_chunk(params, opt_state, chunk, epoch):
+            del epoch
+            return fit_mapping(params, self.data, self.lw, chunk, learning_rate,
+                               impl=self.impl, opt_state=opt_state,
+                               return_opt_state=True, optimizer=self.optimizer,
+                               constrained=True)
+
+        (self.M, self.F), history = _train_chunked(
+            run_chunk, (self.M, self.F), num_epochs,
+            print_each if print_each else max(num_epochs, 1),
+            CONSTRAINED_PRINT_NAMES if print_each else None,
+        )
+        training_history = {k: [float(v) for v in history.get(k, ())]
+                            for k in CONSTRAINED_HISTORY_KEYS}
+        _warn_if_diverged(training_history)
+        output = _final_softmax(self.M).cpu().numpy()
+        F_out = torch.sigmoid(self.F).cpu().numpy()
+        return output, F_out, training_history

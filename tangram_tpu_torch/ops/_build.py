@@ -46,6 +46,8 @@ SIGNATURES = {
                    _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
     "tg_gsq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "tg_dm_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P),
     "tg_dm_adafactor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
 }

@@ -12,14 +12,15 @@ Every unconstrained Tangram loss reduces to one primitive::
 :func:`mapper_core_reference` materializes P and lets autograd differentiate
 it; it is the counterpart of ``tangram_tpu.ops.core._mapper_core_xla``. The
 streamed CUDA kernels (``ops/cuda_core.py``, ``ops/fused_step.py``) compute
-the same values without ever storing P or dP.
+the same values without ever storing P or dP; :func:`mapper_core` picks one
+or the other.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mapper_core_reference", "resolve_impl", "unported"]
+__all__ = ["mapper_core", "mapper_core_reference", "resolve_impl", "unported"]
 
 IMPLS = ("auto", "kernels", "fused", "reference")
 
@@ -70,3 +71,19 @@ def resolve_impl(impl: str, M: torch.Tensor) -> str:
             "impl='reference'."
         )
     return impl
+
+
+def mapper_core(M, A, w, impl: str):
+    """(Y, q, h) of the core, differentiable in M, A and w
+    (``tangram_tpu.ops.core.mapper_core``). ``impl`` is a resolved impl:
+    ``"reference"`` runs :func:`mapper_core_reference`; ``"kernels"`` and
+    ``"fused"`` run :class:`~tangram_tpu_torch.ops.cuda_core.MapperCore`,
+    whose wrappers launch the kernels on CUDA tensors and run their twins
+    on CPU tensors."""
+    if impl == "reference":
+        return mapper_core_reference(M, A, w)
+    if impl not in ("kernels", "fused"):
+        raise ValueError(f"mapper_core takes a resolved impl, got {impl!r}")
+    from .cuda_core import MapperCore
+
+    return MapperCore.apply(M.contiguous(), A.contiguous(), w.contiguous())

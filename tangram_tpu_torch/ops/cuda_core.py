@@ -1,8 +1,10 @@
-"""Forward kernels of the fused core: row stats and the projection.
+"""The core's kernels: row stats, the projection, the softmax-VJP row
+reduction and the unfused backward, and :class:`MapperCore` around them.
 
 Counterpart of ``tangram_tpu/ops/pallas_core.py`` (``_rowstats``,
-``_project``). Each wrapper takes the JAX function's arguments and returns
-its outputs in the same shapes. On a CUDA tensor it launches the
+``_project``, ``_backward`` and the ``mapper_core_pallas`` custom VJP) and
+of ``tangram_tpu/ops/fused_step.py::_rbar``. Each wrapper takes the JAX
+function's arguments and returns its outputs in the same shapes. On a CUDA tensor it launches the
 hand-written kernel from ``csrc/mapper_kernels.cu`` (and counts the launch
 in :data:`LAUNCHES`); on a CPU tensor it runs the plain PyTorch twin that
 sits beside it. There is no other path: a CUDA launch that fails raises.
@@ -17,11 +19,14 @@ import math
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "kernels_for", "_rowstats", "_project"]
+__all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
+           "_project", "_rbar", "_backward"]
 
-#: launches of each kernel since the last :func:`reset_launches`
+#: launches of each kernel since the last :func:`reset_launches`;
+#: ``backward_rbar`` counts the rbar kernel when :func:`_backward` runs it
 LAUNCHES = {"rowstats": 0, "project": 0, "rbar": 0, "dm_adam": 0,
-            "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0}
+            "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0,
+            "backward_rbar": 0, "dm_backward": 0}
 
 
 def reset_launches() -> None:
@@ -144,3 +149,177 @@ def _project(M, A, w, m, l):
                      Y.data_ptr(), q.data_ptr(), c, s, k, nsplit, stream_of(M))
         LAUNCHES["project"] += 1
     return Y, q
+
+
+# ---------------------------------------------------------------------------
+# dP tiles: what the rbar, update and backward kernels share
+# ---------------------------------------------------------------------------
+
+
+def dp_splits(c: int, s: int, sm_count: int) -> int:
+    """How many blocks share the spot tiles of one 64-cell group in the
+    dP-tile kernels (rbar, dm_adam, gsq, dm_adafactor, dm_backward): 1 when
+    the cell groups alone give about two blocks per SM (cells mode), up to
+    one 128-spot tile per block when there are few cells (clusters mode has
+    tens)."""
+    tiles = math.ceil(s / 128)
+    want = math.ceil(2 * sm_count / math.ceil(c / 64))
+    per = math.ceil(tiles / max(1, min(want, tiles)))
+    return math.ceil(tiles / per)
+
+
+def _sm_count(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _ext(X, v):
+    """[X | v] (n, k + 1), contiguous."""
+    return torch.cat([X, v[:, None]], dim=1)
+
+
+def _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh):
+    """Materialized P and dP = A dYᵀ + w ⊗ dq [+ dh ⊙ (log P + 1)]."""
+    P = torch.exp(M - m) * (1.0 / l)
+    dP = A @ dY.T + w[:, None] * dq[None, :]
+    if with_dh:
+        dP = dP + dh[:, None] * ((M - m - torch.log(l)) + 1.0)
+    return P, dP
+
+
+def _check_dp_args(M, A, w, m, l, dY, dq, dh):
+    c, s = M.shape
+    k = A.shape[1]
+    for name, t, shape in (("M", M, (c, s)), ("A", A, (c, k)), ("w", w, (c,)),
+                           ("m", m, (c, 1)), ("l", l, (c, 1)),
+                           ("dY", dY, (s, k)), ("dq", dq, (s,)),
+                           ("dh", dh, (c,))):
+        check(name, t, shape)
+    return c, s, k
+
+
+def _dp_kernel_args(M, A, w, dY, dq):
+    """(AT, dYT, nsplit, stream) shared by the dP-tile entry points:
+    AT = [A | w]ᵀ (k + 1, c) and dYT = [dY | dq]ᵀ (k + 1, s)."""
+    c, s = M.shape
+    return (_ext(A, w).T.contiguous(), _ext(dY, dq).T.contiguous(),
+            dp_splits(c, s, _sm_count(M)), stream_of(M))
+
+
+# ---------------------------------------------------------------------------
+# rbar
+# ---------------------------------------------------------------------------
+
+
+def _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
+    P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
+    return (P * dP).sum(dim=1, keepdim=True)
+
+
+def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"):
+    """r_c = Σ_s P ⊙ dP (c, 1): the row reduction of the softmax VJP.
+    ``with_dh=False`` drops the entropy cotangent path (λ_r = 0). A launch
+    counts in ``LAUNCHES[counter]``: ``"rbar"`` in the fused steps,
+    ``"backward_rbar"`` as the first pass of :func:`_backward`."""
+    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
+    lib = kernels_for(M, A, w, m, l, dY, dq, dh)
+    if lib is None:
+        return _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
+    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
+    r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
+    r = torch.empty((c, 1), dtype=torch.float32, device=M.device)
+    if c:
+        with torch.cuda.device(M.device):
+            lib.call("tg_rbar", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
+                     dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
+                     r.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M),
+                     nsplit, stream)
+        LAUNCHES[counter] += 1
+    return r
+
+
+# ---------------------------------------------------------------------------
+# the unfused backward: dM, dA, dw
+# ---------------------------------------------------------------------------
+
+
+def _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh=True):
+    P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
+    return P * (dP - r), P @ dY, P @ dq
+
+
+def _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh: bool = True):
+    """The softmax VJP through the core, given ``r`` from :func:`_rbar`
+    with the same ``dh``: dM = P ⊙ (dP − r) (c, s), dA = P dY (c, k) and
+    dw = P dq (c,). P and dP are formed tile by tile and never stored."""
+    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
+    check("r", r, (c, 1))
+    lib = kernels_for(M, A, w, m, l, dY, dq, dh, r)
+    if lib is None:
+        return _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh)
+    dev = M.device
+    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
+    dYE = _ext(dY, dq)
+    dM = torch.empty_like(M)
+    ext_part = torch.empty((nsplit, c, k + 1), dtype=torch.float32, device=dev)
+    dA = torch.empty((c, k), dtype=torch.float32, device=dev)
+    dw = torch.empty((c,), dtype=torch.float32, device=dev)
+    if c:
+        with torch.cuda.device(dev):
+            lib.call("tg_dm_backward", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
+                     dYE.data_ptr(), dh.data_ptr(), m.data_ptr(), l.data_ptr(),
+                     r.data_ptr(), dM.data_ptr(), ext_part.data_ptr(), dA.data_ptr(),
+                     dw.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M, dM),
+                     nsplit, stream)
+        LAUNCHES["dm_backward"] += 1
+    return dM, dA, dw
+
+
+def _backward_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
+    r = _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
+    return _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh)
+
+
+def _backward(M, A, w, m, l, dY, dq, dh, with_dh: bool = True):
+    """The VJP of the core (Y, q, h) → (dM, dA, dw) in two streamed
+    passes, as ``pallas_core._backward``: the rbar kernel (counted as
+    ``backward_rbar``), then the dm_backward kernel. ``with_dh=False`` is for
+    a backward where h had no cotangent at all."""
+    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, counter="backward_rbar")
+    return _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh=with_dh)
+
+
+def _forward_parts(M, A, w):
+    m, l, u = _rowstats(M)
+    Y, q = _project(M, A, w, m, l)
+    # h = Σ_s P log P = u/l − m − log l
+    h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
+    return Y, q, h, m, l
+
+
+class MapperCore(torch.autograd.Function):
+    """(Y, q, h) = mapper_core(M, A, w) through the kernels, with the
+    streamed :func:`_backward` as its VJP: the counterpart of
+    ``mapper_core_pallas``. The forward runs the rowstats and project
+    kernels and saves M, A, w and the row stats (never P); on CPU tensors
+    every wrapper runs its twin. Inputs must be contiguous f32."""
+
+    @staticmethod
+    def forward(ctx, M, A, w):
+        Y, q, h, m, l = _forward_parts(M, A, w)
+        ctx.save_for_backward(M, A, w, m, l)
+        ctx.set_materialize_grads(False)
+        return Y, q, h
+
+    @staticmethod
+    def backward(ctx, dY, dq, dh):
+        M, A, w, m, l = ctx.saved_tensors
+        # An output the loss did not use has no cotangent (None); autograd's
+        # cotangents may also be expanded (stride 0). The kernels take
+        # contiguous f32, so zeros stand in for a missing one; a missing dh
+        # also lets the kernels drop the entropy path.
+        with_dh = dh is not None
+        dY = torch.zeros((M.shape[1], A.shape[1]), dtype=M.dtype, device=M.device) \
+            if dY is None else dY.contiguous()
+        dq = torch.zeros_like(M[0]) if dq is None else dq.contiguous()
+        dh = torch.zeros_like(w) if dh is None else dh.contiguous()
+        return _backward(M, A, w, m, l, dY, dq, dh, with_dh=with_dh)

@@ -17,6 +17,11 @@ and per spot), the factored second-moment bookkeeping on those (c,) and
 plus the next row stats). Its carry is (count, vr (c,), vc (s,)) instead of
 Adam's two (c, s) moment matrices.
 
+The constrained Adam step runs the same pipeline as the Adam step with
+A = S ⊙ σ(F) and w = σ(F), differentiates the constrained epilogue, and
+recovers the filter F's gradient from the rbar pass (no extra pass over M);
+F takes its own exact Adam step, an O(cells) vector op.
+
 With λ_l1 or λ_l2 ≠ 0 the carried stats are (m, l, u, s1, s2): s1 = Σ|M|
 and s2 = ΣM² per cell feed the epilogue's L1/L2 terms, and the update
 kernels add λ₁·sign(M) + 2λ₂·M to the gradient. Entries at or below
@@ -42,7 +47,11 @@ import torch
 
 from .cuda_core import (
     LAUNCHES,
+    _check_dp_args,
+    _dp_kernel_args,
+    _dp_plain,
     _project,
+    _rbar,
     _rowstats,
     _rowstats_plain,
     check,
@@ -54,11 +63,14 @@ from .losses import (
     LossWeights,
     MapperData,
     check_supported,
+    constrained_epilogue,
+    constrained_inputs,
     unconstrained_epilogue,
     unconstrained_inputs,
 )
 
 __all__ = [
+    "fused_constrained_step",
     "fused_unconstrained_step",
     "fused_unconstrained_step_adafactor",
     "init_fused_opt_state",
@@ -89,46 +101,6 @@ def adam_scalars(step: int, learning_rate: float):
     return float(np.float32(learning_rate)), float(bc1), float(bc2)
 
 
-def dp_splits(c: int, s: int, sm_count: int) -> int:
-    """How many blocks share the spot tiles of one 64-cell group in the
-    dP-tile kernels (rbar, dm_adam, gsq, dm_adafactor): 1 when the cell groups alone give about two
-    blocks per SM (cells mode), up to one 128-spot tile per block when there
-    are few cells (clusters mode has tens)."""
-    tiles = math.ceil(s / 128)
-    want = math.ceil(2 * sm_count / math.ceil(c / 64))
-    per = math.ceil(tiles / max(1, min(want, tiles)))
-    return math.ceil(tiles / per)
-
-
-def _sm_count(t: torch.Tensor) -> int:
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
-
-
-def _ext_transposed(X, v):
-    """[X | v]ᵀ, contiguous: the (k+1, n) operand layout of the dP kernels."""
-    return torch.cat([X, v[:, None]], dim=1).T.contiguous()
-
-
-def _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh):
-    """Materialized P and dP = A dYᵀ + w ⊗ dq [+ dh ⊙ (log P + 1)]."""
-    P = torch.exp(M - m) * (1.0 / l)
-    dP = A @ dY.T + w[:, None] * dq[None, :]
-    if with_dh:
-        dP = dP + dh[:, None] * ((M - m - torch.log(l)) + 1.0)
-    return P, dP
-
-
-def _check_dp_args(M, A, w, m, l, dY, dq, dh):
-    c, s = M.shape
-    k = A.shape[1]
-    for name, t, shape in (("M", M, (c, s)), ("A", A, (c, k)), ("w", w, (c,)),
-                           ("m", m, (c, 1)), ("l", l, (c, 1)),
-                           ("dY", dY, (s, k)), ("dq", dq, (s,)),
-                           ("dh", dh, (c,))):
-        check(name, t, shape)
-    return c, s, k
-
-
 def _norm_scalars(lam_l1: float, lam_l2: float):
     """(λ₁, 2λ₂) as the kernels take them: f32 of the host values, as JAX
     folds the Python constants ``lam_l1`` and ``2.0 * lam_l2`` into f32."""
@@ -147,13 +119,6 @@ def _grad_plain(M, P, dP, r, lam_l1, lam_l2):
         if lam_l2 != 0:
             g = g + (2.0 * lam_l2) * M_norm
     return g
-
-
-def _dp_kernel_args(M, A, w, dY, dq):
-    """(AT, dYT, nsplit, stream) shared by the dP-tile entry points."""
-    c, s = M.shape
-    return (_ext_transposed(A, w), _ext_transposed(dY, dq),
-            dp_splits(c, s, _sm_count(M)), stream_of(M))
 
 
 def _stat_outputs(M, n: int):
@@ -199,36 +164,6 @@ def _rowstats_norms(M):
                      *(t.data_ptr() for t in out), c, s, stream_of(M))
         LAUNCHES["rowstats_norms"] += 1
     return tuple(out)
-
-
-# ---------------------------------------------------------------------------
-# rbar
-# ---------------------------------------------------------------------------
-
-
-def _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
-    P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    return (P * dP).sum(dim=1, keepdim=True)
-
-
-def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True):
-    """r_c = Σ_s P ⊙ dP (c, 1): the row reduction of the softmax VJP.
-    ``with_dh=False`` drops the entropy cotangent path (λ_r = 0)."""
-    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
-    lib = kernels_for(M, A, w, m, l, dY, dq, dh)
-    if lib is None:
-        return _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
-    r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
-    r = torch.empty((c, 1), dtype=torch.float32, device=M.device)
-    if c:
-        with torch.cuda.device(M.device):
-            lib.call("tg_rbar", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
-                     dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
-                     r.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M),
-                     nsplit, stream)
-        LAUNCHES["rbar"] += 1
-    return r
 
 
 # ---------------------------------------------------------------------------
@@ -509,3 +444,61 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
                         lw.lambda_l1, lw.lambda_l2, with_norms=need_norms,
                         with_dh=with_dh)
     return out[0], count + 1, vr_new, vc_new, tuple(out[1:]), terms
+
+
+def _adam_vector(x, g, mu, nu, lr: float, bc1: float, bc2: float):
+    """Exact torch/optax Adam, written out as the JAX package's
+    ``_adam_vector``, **in place** on ``x``, ``mu`` and ``nu`` (returned);
+    ``(lr, bc1, bc2)`` from :func:`adam_scalars`."""
+    mu.copy_(BETA1 * mu + (1.0 - BETA1) * g)
+    nu.copy_(BETA2 * nu + (1.0 - BETA2) * (g * g))
+    x.sub_(lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
+    return x, mu, nu
+
+
+@torch.no_grad()
+def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
+                           data: MapperData, lw: LossWeights, learning_rate: float):
+    """One fused Adam step of the constrained mapper (M and the filter
+    logits F): reference ``MapperConstrained._loss_fn``
+    (``mapping_optimizer.py:495-587``), Adam over ``[M, F]`` (``:607``).
+
+    M takes the three streamed passes of :func:`fused_unconstrained_step`
+    with A = S ⊙ σ(F) and w = σ(F). Both of F's paths through the core scale
+    linearly in w, so its gradient comes from the rbar reduction already
+    formed for the softmax VJP, r_c = w_c·(dL/dw_c)|_{A,q} + dh_c·(h_c + 1):
+
+        dL/dF = dF_direct + (1 − w)·(r − dh·(h + 1))
+
+    with dF_direct (the count, filter and density-denominator terms) from
+    the epilogue's gradient. M, mu, nu, F, muF and nuF are updated in place.
+
+    Returns ``((M, F), count + 1, (mu, muF), (nu, nuF), stats_new, terms)``.
+    """
+    A, w = constrained_inputs(F, data)
+    m, l, u = stats
+    Y, q = _project(M, A, w, m, l)
+    h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
+
+    with torch.enable_grad():
+        Yv, qv, hsv, Fv = (x.detach().requires_grad_() for x in (Y, q, h.sum(), F))
+        total, terms = constrained_epilogue(Yv, qv, hsv, Fv, data, lw)
+        dY, dq, dhs, dF_direct = torch.autograd.grad(
+            total, (Yv, qv, hsv, Fv), allow_unused=True)
+    # q is unused without a density prior; the kernels take contiguous
+    # operands, and dh is the scalar cotangent of Σh broadcast over cells
+    dq = torch.zeros_like(q) if dq is None else dq.contiguous()
+    dY = dY.contiguous()
+    dh = dhs.expand(M.shape[0]).contiguous()
+    terms = {key: v.detach() for key, v in terms.items()}
+
+    with_dh = lw.lambda_r != 0  # λ_r = 0 ⇒ dh ≡ 0
+    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh)
+    gF = dF_direct + (1.0 - w) * (r[:, 0] - dh * (h + 1.0))
+
+    count_new = count + 1
+    scalars = adam_scalars(count_new, learning_rate)
+    M, mu, nu, m2, l2, u2 = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
+                                     with_dh=with_dh)
+    F, muF, nuF = _adam_vector(F, gF, muF, nuF, *scalars)
+    return (M, F), count_new, (mu, muF), (nu, nuF), (m2, l2, u2), terms

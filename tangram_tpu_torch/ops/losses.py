@@ -1,25 +1,27 @@
-"""The Tangram loss terms of the unconstrained mapper, in PyTorch.
+"""The Tangram loss terms, in PyTorch.
 
-Counterpart of ``tangram_tpu/ops/losses.py`` for the unconstrained modes:
-the expression (gene-voxel and voxel-gene) similarities, the density KL,
-the entropy term and the L1/L2 terms on the raw logits. Semantics mirror
-the reference optimizer (``mapping_optimizer.py:189-309``), including its
-reporting quirks: each term is reported as ``term / lambda``, NaN when that
-lambda is 0.
+Counterpart of ``tangram_tpu/ops/losses.py``: the expression (gene-voxel
+and voxel-gene) similarities, the density KL, the entropy term and the
+L1/L2 terms on the raw logits of the unconstrained mapper; the count and
+filter terms of the constrained mapper; and the validation metrics.
+Semantics mirror the reference optimizer (``mapping_optimizer.py:189-356``
+and ``:495-587``), including its reporting quirks: each term is reported as
+``term / lambda``, NaN when that lambda is 0, and the constrained mapper
+reports the entropy with the opposite sign.
 
-The spatial-graph and cell-type-island terms, the constrained epilogue and
-``val_metrics`` are later slices; asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+The spatial-graph and cell-type-island terms are a later slice; asking for
+them raises ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from .core import mapper_core_reference, unported
+from .core import mapper_core, unported
 
 __all__ = [
     "LossWeights",
@@ -27,8 +29,14 @@ __all__ = [
     "cosine_similarity",
     "kl_div_sum",
     "compute_loss",
+    "compute_constrained_loss",
+    "constrained_epilogue",
+    "constrained_inputs",
     "unconstrained_inputs",
     "unconstrained_epilogue",
+    "val_metrics",
+    "val_metrics_from_projection",
+    "VAL_METRIC_KEYS",
 ]
 
 COSINE_EPS = 1e-8  # matches torch.nn.functional.cosine_similarity default
@@ -71,6 +79,7 @@ class MapperData(NamedTuple):
     gene_mask: Optional[torch.Tensor] = None  # (genes,) 1/0 for padded folds
     d: Optional[torch.Tensor] = None  # (spots,) target density
     d_source: Optional[torch.Tensor] = None  # (cells,) cluster density
+    target_count: Optional[torch.Tensor] = None  # 0-d, constrained mode
 
 
 def check_supported(lw: LossWeights) -> None:
@@ -189,13 +198,131 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
     return total, terms
 
 
-def compute_loss(M, data: MapperData, lw: LossWeights):
-    """Loss of the unconstrained mapper through the materialized core
-    (reference ``_loss_fn``, ``mapping_optimizer.py:189-309``).
+def compute_loss(M, data: MapperData, lw: LossWeights, impl: str = "reference"):
+    """Loss of the unconstrained mapper (reference ``_loss_fn``,
+    ``mapping_optimizer.py:189-309``) through :func:`mapper_core` with the
+    resolved ``impl``: the materialized core by default.
 
     Returns ``(total_loss, terms)``."""
     A, w = unconstrained_inputs(M, data, lw)
-    Y, q, h = mapper_core_reference(M, A, w)
+    Y, q, h = mapper_core(M, A, w, impl)
     l1_sum = torch.sum(torch.abs(M)) if lw.lambda_l1 != 0 else None
     l2_sum = torch.sum(M * M) if lw.lambda_l2 != 0 else None
     return unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data, lw)
+
+
+def compute_constrained_loss(params, data: MapperData, lw: LossWeights,
+                             impl: str = "reference"):
+    """Loss of the constrained mapper (reference
+    ``MapperConstrained._loss_fn``, ``mapping_optimizer.py:495-587``) of
+    ``params = (M, F)``: the core runs with A = S ⊙ σ(F) and w = σ(F)."""
+    M, F = params
+    A, w = constrained_inputs(F, data)
+    Y, q, h = mapper_core(M, A, w, impl)
+    return constrained_epilogue(Y, q, torch.sum(h), F, data, lw)
+
+
+def constrained_inputs(F, data: MapperData):
+    """(A = S ⊙ σ(F), w = σ(F)) fed to the core in constrained mode (S
+    gene-masked), contiguous."""
+    w = torch.sigmoid(F)
+    S = data.S
+    if data.gene_mask is not None:
+        S = S * data.gene_mask[None, :]
+    return (S * w[:, None]).contiguous(), w
+
+
+def constrained_epilogue(Y, q, h_sum, F, data: MapperData, lw: LossWeights):
+    """The constrained loss downstream of the core, as a function of the
+    projection ``Y = Pᵀ(S ⊙ σ(F))``, the filtered marginal ``q = σ(F) P``,
+    the total ``h_sum = Σ P log P`` and the raw filter logits ``F``, taken as
+    independent inputs: the fused step differentiates this function alone
+    and recovers F's gradient through A and q from the rbar pass.
+
+    Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
+    ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg``, ``count_reg``,
+    ``lambda_f_reg`` and ``total_loss``, NaN where the term's lambda is 0.
+    """
+    G, mask = data.G, data.gene_mask
+    if mask is not None:
+        G = G * mask[None, :]
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=Y.device)
+    F_probs = torch.sigmoid(F)
+    sum_F_probs = torch.sum(F_probs)
+    sum_f_reg = torch.sum(F_probs - F_probs * F_probs)
+    terms = {}
+
+    gv_sim = _masked_mean(cosine_similarity(Y, G, axis=0), mask)
+    vg_sim = torch.mean(cosine_similarity(Y, G, axis=1))
+    gv_term = lw.lambda_g1 * gv_sim
+    vg_term = lw.lambda_g2 * vg_sim
+    expression_term = gv_term + vg_term
+    terms["main_loss"] = gv_term / lw.lambda_g1
+    terms["vg_reg"] = vg_term / lw.lambda_g2 if lw.lambda_g2 != 0 else nan
+
+    if data.d is not None:
+        # the filtered marginal: (P ⊙ F).sum(cells) = σ(F) P = q (ref :512-514)
+        density_term = lw.lambda_d * kl_div_sum(torch.log(q / sum_F_probs), data.d)
+        terms["kl_reg"] = density_term / lw.lambda_d if lw.lambda_d != 0 else nan
+    else:
+        density_term = None
+        terms["kl_reg"] = nan
+
+    # sign quirk (ref :526): the constrained mapper reports Σ P log P where
+    # the plain mapper reports −Σ P log P; the loss gains +λ_r·entropy alike
+    entropy_term = lw.lambda_r * h_sum
+    terms["entropy_reg"] = entropy_term / lw.lambda_r if lw.lambda_r != 0 else nan
+
+    count_term = lw.lambda_count * torch.abs(sum_F_probs - data.target_count)
+    terms["count_reg"] = (count_term / lw.lambda_count if lw.lambda_count != 0
+                          else nan)
+
+    f_reg = lw.lambda_f_reg * sum_f_reg
+    terms["lambda_f_reg"] = f_reg / lw.lambda_f_reg if lw.lambda_f_reg != 0 else nan
+
+    total = -expression_term - entropy_term + count_term + f_reg
+    if density_term is not None:
+        total = total + density_term
+    terms["total_loss"] = total
+    return total, terms
+
+
+VAL_METRIC_KEYS = (
+    "val_total_loss",
+    "val_gene_sim",
+    "val_sp_sparsity_weighted_sim",
+    "val_entropy",
+)
+
+
+def val_metrics_from_projection(Y, G, h_mean, n_spots: int, gene_mask=None):
+    """Validation metrics from the projection ``Y = Pᵀ S_val``, the
+    measured val expression ``G`` and the mean per-cell ``h = Σ P log P``."""
+    cos_g = cosine_similarity(Y, G, axis=0)
+    gv_sim = _masked_mean(cos_g, gene_mask)
+    vg_sim = torch.mean(cosine_similarity(Y, G, axis=1))
+    gene_density = torch.sum(G != 0, dim=0) / G.shape[0]  # 1 − sparsity
+    if gene_mask is not None:
+        gene_density = gene_density * gene_mask
+    sp_weighted = torch.sum(cos_g * gene_density) / torch.sum(gene_density)
+    return {
+        "val_total_loss": gv_sim + vg_sim,
+        "val_gene_sim": gv_sim,
+        "val_sp_sparsity_weighted_sim": sp_weighted,
+        "val_entropy": -h_mean / math.log(n_spots),
+    }
+
+
+def val_metrics(M, S, G, gene_mask=None, impl: str = "reference"):
+    """Validation metrics (reference ``_val_loss_fn``,
+    ``mapping_optimizer.py:311-356``): expression similarity, gene-voxel
+    similarity, sparsity-weighted similarity and the normalized mapping
+    entropy, through :func:`mapper_core` with the resolved ``impl``."""
+    if gene_mask is not None:
+        S = S * gene_mask[None, :]
+        G = G * gene_mask[None, :]
+    n_cells = M.shape[0]
+    w = torch.full((n_cells,), 1.0 / n_cells, dtype=torch.float32, device=M.device)
+    Y, _, h = mapper_core(M, S, w, impl)
+    return val_metrics_from_projection(Y, G, torch.mean(h), M.shape[1],
+                                       gene_mask=gene_mask)

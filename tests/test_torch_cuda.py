@@ -85,7 +85,7 @@ def test_backward_kernels_match_twins(dev, c, s, k, with_dh):
     x = inputs(c, s, k, dev)
     m, l, _ = cc._rowstats_plain(x["M"])
     args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
-    r = fs._rbar_plain(*args, with_dh=with_dh)
+    r = cc._rbar_plain(*args, with_dh=with_dh)
     assert_close(fs._rbar(*args, with_dh=with_dh), r)
     scalars = fs.adam_scalars(3, 0.1)
     k_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
@@ -94,6 +94,52 @@ def test_backward_kernels_match_twins(dev, c, s, k, with_dh):
     want = fs._dm_adam_plain(p_state[0], *args[1:], r, *p_state[1:], scalars,
                              with_dh=with_dh)
     assert got[0] is k_state[0]  # in place
+    for g, w in zip(got, want):
+        assert_close(g, w)
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_backward_kernel_matches_twin(dev, c, s, k, with_dh):
+    """dM, dA and dw of the unfused backward, with one padding sentinel."""
+    x = inputs(c, s, k, dev, pad=True)
+    m, l, _ = cc._rowstats_plain(x["M"])
+    args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = cc._rbar_plain(*args, with_dh=with_dh)
+    before = cc.LAUNCHES["dm_backward"]
+    got = cc._dm_backward(*args, r, with_dh=with_dh)
+    want = cc._dm_backward_plain(*args, r, with_dh=with_dh)
+    assert cc.LAUNCHES["dm_backward"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g, w)
+
+
+def core_gradients(M, A, w, cts, core):
+    """(dM, dA, dw) of Σ Y⊙gY + Σ q⊙gq + Σ h⊙gh through ``core``."""
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in (M, A, w)]
+        outs = core(*leaves)
+        loss = sum((o * g).sum() for o, g in zip(outs, cts))
+        return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_mapper_core_kernels_match_autograd_reference(dev, c, s, k):
+    """MapperCore (rowstats, project, backward_rbar, dm_backward) against
+    autograd through the materialized core, on the card."""
+    from tangram_tpu_torch.ops.core import mapper_core_reference
+
+    x = inputs(c, s, k, dev)
+    rng = np.random.default_rng(3)
+    cts = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev)
+           for shape in ((s, k), (s,), (c,))]
+    cc.reset_launches()
+    got = core_gradients(x["M"], x["A"], x["w"], cts, cc.MapperCore.apply)
+    assert {n: cc.LAUNCHES[n] for n in ("rowstats", "project", "backward_rbar",
+                                        "dm_backward")} == dict.fromkeys(
+        ("rowstats", "project", "backward_rbar", "dm_backward"), 1)
+    want = core_gradients(x["M"], x["A"], x["w"], cts, mapper_core_reference)
     for g, w in zip(got, want):
         assert_close(g, w)
 
@@ -116,7 +162,7 @@ def test_norm_and_adafactor_kernels_match_twins(dev, c, s, k, with_dh):
     x = inputs(c, s, k, dev, pad=True)
     m, l, _ = cc._rowstats_plain(x["M"])
     args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
-    r = fs._rbar_plain(*args, with_dh=with_dh)
+    r = cc._rbar_plain(*args, with_dh=with_dh)
     scalars = fs.adam_scalars(3, 0.1)
     k_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
     p_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
@@ -189,7 +235,8 @@ def test_kernels_fit_matches_cpu_reference(dev):
     M_k, h_k = fit_mapping(torch.from_numpy(M0).to(dev), data_on(dev), lw, 25,
                            impl="kernels")
     assert cc.LAUNCHES == {"rowstats": 1, "project": 25, "rbar": 25, "dm_adam": 25,
-                           "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0}
+                           "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0,
+                           "backward_rbar": 0, "dm_backward": 0}
     M_r, h_r = fit_mapping(torch.from_numpy(M0.copy()), data_on("cpu"), lw, 25,
                            impl="reference")
     np.testing.assert_allclose(h_k["total_loss"].cpu().numpy(),

@@ -7,7 +7,8 @@ in interpret mode on the CPU (as ``tests/test_pallas_core.py`` runs it).
 The CUDA kernels themselves are held against these twins on the card by
 ``chip_smoke.py``.
 
-Tolerance: rtol = atol = 1e-5 throughout, except for the Adafactor
+Tolerance: rtol = atol = 1e-5 throughout (the unfused backward and the
+``MapperCore`` gradients included), except for the Adafactor
 statistics (vr, vc), which are small sums of squares and are held at
 1e-5 of their largest entry. Both sides compute in f32; they differ only in
 summation order and in the exp implementation (about one ulp), which moves
@@ -30,7 +31,7 @@ from tangram_tpu.ops import pallas_core as jpc
 from tangram_tpu_torch.models.mapper import fit_mapping
 from tangram_tpu_torch.ops import cuda_core as cc
 from tangram_tpu_torch.ops import fused_step as fs
-from tangram_tpu_torch.ops.core import resolve_impl
+from tangram_tpu_torch.ops.core import mapper_core_reference, resolve_impl
 from tangram_tpu_torch.ops.losses import LossWeights, MapperData
 
 RTOL = ATOL = 1e-5
@@ -253,6 +254,47 @@ def test_dm_adafactor_twin_matches_jax(c, s, k, with_dh, with_norms):
         close(g, w)
 
 
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_backward_twin_matches_jax(c, s, k):
+    """The unfused backward's two passes (rbar with dh, then dM, dA, dw)
+    against ``pallas_core._backward``; JAX pads k to 128, so its dA is
+    sliced back to k columns."""
+    x = make_inputs(c, s, k)
+    m, l, _ = jax_stats(x["M"])
+    dM_j, dA_j, dw_j = jpc._backward(*jax_args(x, m, l))
+    dM, dA, dw = cc._backward(*torch_args(x, m, l))
+    assert (tuple(dM.shape), tuple(dA.shape), tuple(dw.shape)) == ((c, s), (c, k), (c,))
+    close(dM, dM_j)
+    close(dA, np.asarray(dA_j)[:, :k])
+    close(dw, dw_j)
+
+
+def core_grads(core, x, cts):
+    """Values and (dM, dA, dw) of Σ Y⊙gY + Σ q⊙gq [+ Σ h⊙gh] through
+    ``core``; without gh the loss leaves h out, so h has no cotangent."""
+    with torch.enable_grad():
+        leaves = [T(x[n]).requires_grad_() for n in ("M", "A", "w")]
+        outs = core(*leaves)
+        loss = sum((o * g).sum() for o, g in zip(outs, cts))
+        return [o.detach() for o in outs], torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("with_h", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_mapper_core_gradients_match_autograd_reference(c, s, k, with_h):
+    """MapperCore (the kernels' twins on the CPU) against autograd through
+    the materialized core, with seeded cotangents."""
+    x = make_inputs(c, s, k)
+    rng = np.random.default_rng(5)
+    shapes = ((s, k), (s,), (c,))[:3 if with_h else 2]
+    cts = [T(rng.normal(0, 1, shape)) for shape in shapes]
+    out, got = core_grads(cc.MapperCore.apply, x, cts)
+    out_r, want = core_grads(mapper_core_reference, x, cts)
+    for g, w in zip(out + list(got), out_r + list(want)):
+        assert g.shape == w.shape
+        close(g, w)
+
+
 @pytest.mark.parametrize("c,s", [(13, 21), (21, 13)])
 def test_factored_rms_vectors_match_jax(c, s):
     """Both orientations, from zero and from carried statistics; rtol 1e-6
@@ -284,16 +326,24 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
     x = make_inputs(12, 20, 3)
     cc.reset_launches()
     M = T(x["M"])
-    data = MapperData(S=T(x["A"]), G=T(np.abs(x["dY"][:, :3]) + 0.1))
+    F = T(x["dh"])
+    data = MapperData(S=T(x["A"]), G=T(np.abs(x["dY"][:, :3]) + 0.1),
+                      target_count=torch.tensor(5.0))
     norms = LossWeights(lambda_l1=0.01, lambda_l2=0.01)
     for lw in (LossWeights(), norms):
         for optimizer in ("adam", "adafactor"):
             for impl in ("fused", "reference"):
-                fit_mapping(M.clone(), data, lw, 3, impl=impl, optimizer=optimizer)
+                for fused in (True, False):
+                    fit_mapping(M.clone(), data, lw, 3, impl=impl, optimizer=optimizer,
+                                fused=fused, with_val=True)
+    for optimizer in ("adam", "adafactor"):
+        fit_mapping((M.clone(), F.clone()), data, LossWeights(), 3, impl="fused",
+                    optimizer=optimizer, constrained=True)
     m, l, _ = cc._rowstats(M)
     cc._project(M, T(x["A"]), T(x["w"]), m, l)
     assert set(cc.LAUNCHES) == {"rowstats", "project", "rbar", "dm_adam",
-                                "rowstats_norms", "gsq", "dm_adafactor"}
+                                "rowstats_norms", "gsq", "dm_adafactor",
+                                "backward_rbar", "dm_backward"}
     assert not any(cc.LAUNCHES.values())
     assert resolve_impl("auto", M) == "reference"
     with pytest.raises(ValueError, match="kernels"):
@@ -317,10 +367,10 @@ def test_project_split_count():
 def test_dp_split_count():
     """The spot split of the rbar / dm_adam kernels: none in cells mode at
     the tutorial shape, one 128-spot tile per block for clusters mode."""
-    assert fs.dp_splits(26_000, 9_852, sm_count=132) == 1
-    assert fs.dp_splits(22, 9_852, sm_count=132) == 77
-    assert fs.dp_splits(5_000, 9_852, sm_count=132) == 4
-    assert fs.dp_splits(64, 100, sm_count=132) == 1
+    assert cc.dp_splits(26_000, 9_852, sm_count=132) == 1
+    assert cc.dp_splits(22, 9_852, sm_count=132) == 77
+    assert cc.dp_splits(5_000, 9_852, sm_count=132) == 4
+    assert cc.dp_splits(64, 100, sm_count=132) == 1
 
 
 def test_wrappers_reject_mixed_devices():

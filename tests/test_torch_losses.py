@@ -178,3 +178,95 @@ def test_l1_gradient_of_a_zero_logit_is_zero():
     norm_part = _grad_plain(Mt.detach(), zero, zero, zero[:, :1], 0.5, 0.25)
     np.testing.assert_array_equal(norm_part.numpy(),
                                   0.5 * np.sign(M_np) + 0.5 * M_np)
+
+
+CONSTRAINED_LAMBDAS = [
+    # MapperConstrained's defaults, with the density prior
+    dict(lambda_g1=1.0, lambda_g2=1.0, lambda_d=1.0),
+    # no prior (q unused), the entropy term on, other count/filter weights
+    dict(lambda_g1=1.0, lambda_r=0.05, lambda_count=0.5, lambda_f_reg=2.0),
+]
+CONSTRAINED_KEYS = ["main_loss", "vg_reg", "kl_reg", "entropy_reg", "count_reg",
+                    "lambda_f_reg", "total_loss"]
+
+
+def constrained_problem(seed, lam, masked=False):
+    """M, the filter logits F and the JAX data with a target count."""
+    M, jdata = make_problem(seed, with_d="lambda_d" in lam, masked=masked)
+    F = np.random.default_rng(seed + 100).normal(0, 1, M.shape[0]).astype(np.float32)
+    return M, F, jdata._replace(target_count=jnp.float32(15.0))
+
+
+def assert_terms_close(terms, terms_j, keys):
+    for key in keys:
+        got, want = float(terms[key].detach()), float(terms_j[key])
+        if np.isnan(want):
+            assert np.isnan(got), key
+        else:
+            close(got, want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("lam", CONSTRAINED_LAMBDAS)
+def test_constrained_epilogue_terms_and_cotangents_match_jax_vjp(lam, masked):
+    """Values, the reported terms (the entropy's sign quirk and the count
+    and filter terms included) and the cotangents of (Y, q, Σh, F), with the
+    density term on the filtered marginal log(q / Σσ(F)); rtol 1e-5."""
+    M, F, jdata = constrained_problem(3, lam, masked)
+    jlw = jl.LossWeights(**lam)
+    w = jax.nn.sigmoid(jnp.asarray(F))
+    S = jdata.S if jdata.gene_mask is None else jdata.S * jdata.gene_mask[None, :]
+    Y, q, h = _mapper_core_xla(jnp.asarray(M), S * w[:, None], w)
+    total_j, vjp, terms_j = jax.vjp(
+        lambda Y, q, hs, F: jl.constrained_epilogue(Y, q, hs, F, jdata, jlw),
+        Y, q, jnp.sum(h), jnp.asarray(F), has_aux=True,
+    )
+    cts_j = vjp(jnp.ones_like(total_j))
+
+    leaves = [torch.from_numpy(np.array(x)).requires_grad_()
+              for x in (Y, q, jnp.sum(h), F)]
+    total, terms = tl.constrained_epilogue(*leaves, mapper_data_from_jax(jdata),
+                                           tl.LossWeights(**lam))
+    cts = torch.autograd.grad(total, leaves, allow_unused=True)
+    close(total.detach(), total_j)
+    assert_terms_close(terms, terms_j, CONSTRAINED_KEYS)
+    for got, want in zip(cts, cts_j):
+        if got is None:  # q is unused without a density prior
+            assert not np.any(np.asarray(want))
+        else:
+            close(got, want)
+
+
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+@pytest.mark.parametrize("lam", CONSTRAINED_LAMBDAS)
+def test_compute_constrained_loss_matches_jax_xla(lam, impl):
+    """Loss, terms and the gradients in M and F, through the materialized
+    core or MapperCore (the kernels' twins on the CPU); rtol 1e-5."""
+    M, F, jdata = constrained_problem(4, lam)
+    jlw = jl.LossWeights(**lam)
+    (total_j, terms_j), grads_j = jax.value_and_grad(
+        lambda p: jl.compute_constrained_loss(p, jdata, jlw, impl="xla"), has_aux=True
+    )((jnp.asarray(M), jnp.asarray(F)))
+    leaves = [torch.from_numpy(x.copy()).requires_grad_() for x in (M, F)]
+    total, terms = tl.compute_constrained_loss(
+        leaves, mapper_data_from_jax(jdata), tl.LossWeights(**lam), impl=impl)
+    grads = torch.autograd.grad(total, leaves)
+    close(total.detach(), total_j)
+    assert_terms_close(terms, terms_j, CONSTRAINED_KEYS)
+    for got, want in zip(grads, grads_j):
+        close(got, want)
+
+
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_val_metrics_match_jax_xla(masked, impl):
+    """The four validation metrics, rtol 1e-5."""
+    M, jdata = make_problem(6, masked=masked)
+    want = jl.val_metrics(jnp.asarray(M), jdata.S, jdata.G, jdata.gene_mask,
+                          impl="xla")
+    data = mapper_data_from_jax(jdata)
+    got = tl.val_metrics(torch.from_numpy(M), data.S, data.G, data.gene_mask,
+                         impl=impl)
+    assert list(got) == list(tl.VAL_METRIC_KEYS) == list(want)
+    for key in got:
+        close(got[key], want[key])

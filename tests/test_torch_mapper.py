@@ -27,10 +27,13 @@ import jax.numpy as jnp
 
 from tangram_tpu.models import mapper as jm
 from tangram_tpu.ops import fused_step as jfs
+from tangram_tpu.ops import pallas_core as jpc
 from tangram_tpu.ops.losses import LossWeights as JLossWeights
 from tangram_tpu.ops.losses import MapperData as JMapperData
 from tangram_tpu_torch.convert import (
     adafactor_state_from_jax,
+    constrained_adafactor_state_from_jax,
+    constrained_state_from_jax,
     mapper_data_from_jax,
     state_from_jax,
 )
@@ -299,8 +302,8 @@ def test_mapper_rejects_unported_options(rng):
     S = np.ones((4, 3), np.float32)
     G = np.ones((5, 3), np.float32)
     mapper = tm.Mapper(S, G, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        mapper.train(2, val_each=1)
+    _, hist = mapper.train(4, val_each=2, print_each=None)  # ported: queue A3
+    assert all(len(hist[k]) == 2 and np.isfinite(hist[k]).all() for k in tm.VAL_KEYS)
     with pytest.raises(NotImplementedError, match="A6"):
         mapper.train(2, early_stop_tol=1e-3)
     with pytest.raises(NotImplementedError, match="A6"):
@@ -319,3 +322,214 @@ def test_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             tm.Mapper(S, S, device=None)
+
+
+# ---------------------------------------------------------------------------
+# constrained mode, the unfused loop and validation
+# ---------------------------------------------------------------------------
+
+CONSTRAINED = dict(lambda_g1=1.0, lambda_g2=1.0, lambda_d=1.0)  # the class defaults
+
+
+def constrained_problem(rng, c=40, s=72, g=9):
+    """(M0, F0) from the constrained init stream, and JAX data with the
+    density prior and a target count."""
+    _, jdata = make_problem(rng, c=c, s=s, g=g)
+    M0, F0 = jm.init_constrained_logits(c, s, 9, "numpy")
+    return np.asarray(M0), np.asarray(F0), jdata._replace(target_count=jnp.float32(25.0))
+
+
+def test_init_constrained_logits_match_jax_stream():
+    """The discarded first draw, then M, then F: identical arrays."""
+    for seed in (7, 123):
+        want = jm.init_constrained_logits(17, 23, seed, "numpy")
+        got = tm.init_constrained_logits(17, 23, seed)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(NotImplementedError, match="A6"):
+        tm.init_constrained_logits(3, 4, 1, method="jax")
+
+
+def test_one_fused_constrained_step_matches_jax_from_converted_state(rng):
+    """Three JAX fused constrained steps (entropy term on), then one more in
+    each package from the state carried across by
+    ``constrained_state_from_jax``; rtol = atol = 1e-5."""
+    M0, F0, jdata = constrained_problem(rng)
+    jlw = JLossWeights(**CONSTRAINED, lambda_r=0.05)
+    M, F = jnp.asarray(M0), jnp.asarray(F0)
+    count = jnp.zeros((), jnp.int32)
+    mu, nu = jnp.zeros_like(M), jnp.zeros_like(M)
+    muF, nuF = jnp.zeros_like(F), jnp.zeros_like(F)
+    stats = tuple(jpc._rowstats(M))
+    for _ in range(3):
+        (M, F), count, (mu, muF), (nu, nuF), stats, _ = jfs.fused_constrained_step(
+            M, F, count, mu, nu, muF, nuF, stats, jdata, jlw, 0.1)
+    (Mt, Ft), count_t, (mut, muFt), (nut, nuFt), stats_t = constrained_state_from_jax(
+        (M, F), count, (mu, muF), (nu, nuF), stats)
+    assert count_t == 3
+    want = jfs.fused_constrained_step(M, F, count, mu, nu, muF, nuF, stats, jdata,
+                                      jlw, 0.1)
+    got = tfs.fused_constrained_step(Mt, Ft, count_t, mut, nut, muFt, nuFt, stats_t,
+                                     mapper_data_from_jax(jdata),
+                                     LossWeights(**CONSTRAINED, lambda_r=0.05), 0.1)
+    assert got[1] == 4 and got[0][0] is Mt and got[0][1] is Ft  # in place
+    for g, w in zip(got[0] + got[2] + got[3] + got[4], want[0] + want[2] + want[3]
+                    + want[4]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    for key in tm.CONSTRAINED_HISTORY_KEYS:
+        assert float(got[5][key]) == pytest.approx(float(want[5][key]), rel=1e-5)
+
+
+FIT_CONFIGS = {
+    # constrained, fused Adam step (project, rbar, dm_adam + F's Adam)
+    "constrained adam": dict(constrained=True, optimizer="adam"),
+    # constrained + Adafactor: autograd through the core (no fused step)
+    "constrained adafactor": dict(constrained=True, optimizer="adafactor"),
+    # cells mode, Adam, fused=False: autograd through the core
+    "unfused adam": dict(fused=False, optimizer="adam"),
+}
+
+
+@pytest.mark.parametrize("config", list(FIT_CONFIGS))
+def test_fit_matches_jax_pallas(rng, config):
+    """fit_mapping against the JAX package's on its Pallas kernels (their
+    interpret mode here): the port's ``impl="fused"`` runs the fused
+    constrained step or MapperCore on the kernels' twins. Adam held to the
+    Adam tolerances of ``assert_trajectories_close``, Adafactor to those of
+    ``assert_adafactor_close``; the filter logits F to the same atol."""
+    kw = FIT_CONFIGS[config]
+    constrained = kw.get("constrained", False)
+    M0, F0, jdata = constrained_problem(rng)
+    lam = CONSTRAINED if constrained else dict(lambda_g1=1.0, lambda_g2=0.7,
+                                               lambda_d=0.5, lambda_r=0.05)
+    p0 = (M0, F0) if constrained else M0
+    p_j, h_j = jm.fit_mapping(jax_tree(p0), jdata, JLossWeights(**lam), EPOCHS, 0.1,
+                              impl="pallas", **kw)
+    p_t, h_t = tm.fit_mapping(torch_tree(p0), mapper_data_from_jax(jdata),
+                              LossWeights(**lam), EPOCHS, 0.1, impl="fused", **kw)
+    h_t = {k: v.numpy() for k, v in h_t.items()}
+    assert set(h_t) >= {"total_loss", "main_loss"}
+    if constrained:
+        assert set(h_t) == set(tm.CONSTRAINED_HISTORY_KEYS)
+        (p_t, F_t), (p_j, F_j) = p_t, p_j
+        np.testing.assert_allclose(F_t.numpy(), np.asarray(F_j),
+                                   atol=5e-3 if "adafactor" in config else 3e-3)
+        np.testing.assert_allclose(h_t["count_reg"], np.asarray(h_j["count_reg"]),
+                                   rtol=3e-4)
+    if "adafactor" in config:
+        assert_adafactor_close(p_t, h_t, p_j, h_j)
+    else:
+        assert_trajectories_close(p_t, h_t, p_j, h_j)
+
+
+def jax_tree(p):
+    return tuple(map(jnp.asarray, p)) if isinstance(p, tuple) else jnp.asarray(p)
+
+
+def torch_tree(p):
+    return (tuple(torch.from_numpy(x.copy()) for x in p) if isinstance(p, tuple)
+            else torch.from_numpy(p.copy()))
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_constrained_loop_matches_reference_loop(rng, optimizer):
+    """The port's constrained loops on the twins against its materialized
+    reference loop, at the tolerances of its package's optimizer tests."""
+    M0, F0, jdata = constrained_problem(rng)
+    data, lw = mapper_data_from_jax(jdata), LossWeights(**CONSTRAINED)
+    runs = [tm.fit_mapping(torch_tree((M0, F0)), data, lw, EPOCHS, impl=impl,
+                           optimizer=optimizer, constrained=True)
+            for impl in ("fused", "reference")]
+    (M_f, F_f), h_f = runs[0]
+    (M_r, F_r), h_r = runs[1]
+    close = assert_adafactor_close if optimizer == "adafactor" else assert_trajectories_close
+    close(M_f, h_f, M_r, h_r)
+    np.testing.assert_allclose(F_f.numpy(), F_r.numpy(), atol=5e-3)
+
+
+def test_constrained_adafactor_state_carries_across_from_jax(rng):
+    """Five JAX steps of constrained Adafactor, the optax state carried
+    across by ``constrained_adafactor_state_from_jax``, then three more in
+    each package; Adafactor tolerances."""
+    M0, F0, jdata = constrained_problem(rng)
+    jlw = JLossWeights(**CONSTRAINED)
+    kw = dict(impl="pallas", constrained=True, optimizer="adafactor")
+    p5, st, _ = jm.fit_mapping(jax_tree((M0, F0)), jdata, jlw, 5, 0.1,
+                               return_opt_state=True, **kw)
+    fs_ = st[0]
+    c, s = M0.shape
+    state = constrained_adafactor_state_from_jax(fs_.count, fs_.v_row, fs_.v_col,
+                                                 fs_.v, c, s)
+    assert state[0] == 5 and tuple(state[3].shape) == (c,)
+    p_j, h_j = jm.fit_mapping(p5, jdata, jlw, 3, 0.1, opt_state=st, **kw)
+    (M_t, F_t), h_t = tm.fit_mapping(torch_tree(tuple(np.asarray(x) for x in p5)),
+                                     mapper_data_from_jax(jdata),
+                                     LossWeights(**CONSTRAINED), 3, 0.1,
+                                     impl="fused", opt_state=state, constrained=True,
+                                     optimizer="adafactor")
+    assert_adafactor_close(M_t, {k: v.numpy() for k, v in h_t.items()}, p_j[0], h_j)
+    np.testing.assert_allclose(F_t.numpy(), np.asarray(p_j[1]), atol=5e-3)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_mapper_constrained_train_matches_jax(rng, optimizer):
+    """The class surface: the same seed, history keys, mapping and filter,
+    with the score lines of the JAX class; Adam or Adafactor tolerances."""
+    S = (rng.poisson(2.0, (30, 6)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (20, 6)) + 0.1).astype(np.float32)
+    d = np.full(20, 1 / 20, np.float32)
+    kw = dict(target_count=12, random_state=5, optimizer=optimizer)
+    out_j, F_j, hist_j = jm.MapperConstrained(S, G, d, impl="pallas", **kw).train(
+        40, print_each=None)
+    out_t, F_t, hist_t = tm.MapperConstrained(S, G, d, device="cpu", impl="fused",
+                                              **kw).train(40, print_each=None)
+    assert set(hist_t) == set(hist_j) == set(tm.CONSTRAINED_HISTORY_KEYS)
+    tol = 5e-3 if optimizer == "adafactor" else 3e-4
+    np.testing.assert_allclose(out_t, out_j, rtol=10 * tol, atol=1e-6)
+    np.testing.assert_allclose(F_t, F_j, atol=tol)
+    for key in ("total_loss", "count_reg", "lambda_f_reg"):
+        np.testing.assert_allclose(hist_t[key], hist_j[key], rtol=tol, atol=tol / 10)
+
+
+def test_mapper_constrained_rejects_unported_and_warm_starts(rng):
+    S = np.ones((4, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="A11"):
+        tm.MapperConstrained(S, S, None, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="A6"):
+        tm.MapperConstrained(S, S, None, device="cpu", init_method="expression")
+    P0 = rng.dirichlet(np.ones(5), size=4).astype(np.float32)
+
+    class Map:
+        X = P0
+
+    for cls, kw in ((jm.MapperConstrained, {}), (tm.MapperConstrained,
+                                                  dict(device="cpu"))):
+        mapper = cls(S, np.ones((5, 3), np.float32), None, adata_map=Map(),
+                     random_state=3, **kw)
+        np.testing.assert_allclose(np.asarray(mapper.M), np.log(P0), rtol=1e-6)
+        F = np.asarray(mapper.F)
+        assert F.shape == (4,)
+    np.testing.assert_array_equal(F, np.asarray(jm.MapperConstrained(
+        S, np.ones((5, 3), np.float32), None, adata_map=Map(), random_state=3).F))
+
+
+@pytest.mark.parametrize("impl", ["fused", "reference"])
+def test_mapper_train_with_val_each_matches_jax(rng, impl):
+    """``val_each=3`` on held-out genes (the reference quirk off), in chunks
+    of 10 epochs: the validation lists, every third epoch of the absolute
+    count, match the JAX class's; Adam tolerances."""
+    S = (rng.poisson(2.0, (30, 8)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (20, 8)) + 0.1).astype(np.float32)
+    kw = dict(train_genes_idx=[0, 1, 2, 3, 4], val_genes_idx=[5, 6, 7],
+              emulate_reference_val_quirk=False, lambda_g2=0.5, random_state=5)
+    _, hist_j = jm.Mapper(S, G, impl="pallas", **kw).train(25, print_each=10,
+                                                           val_each=3)
+    _, hist_t = tm.Mapper(S, G, device="cpu", impl=impl, **kw).train(
+        25, print_each=10, val_each=3)
+    assert set(hist_t) == set(hist_j)
+    for key in tm.VAL_KEYS:
+        assert len(hist_t[key]) == len(hist_j[key]) == 9
+        np.testing.assert_allclose(hist_t[key], hist_j[key], rtol=3e-4, atol=3e-5)
+    np.testing.assert_allclose(hist_t["total_loss"], hist_j["total_loss"],
+                               rtol=3e-4, atol=3e-5)
