@@ -28,7 +28,10 @@ last line):
               bands of sentinel words that must stay intact (out-of-bounds
               writes), and each kernel run three times on the same inputs
               must give the same bits (races: the kernels reduce in a fixed
-              order, with no atomics)
+              order, with no atomics). Then the bf16 variants of rows 1-5,
+              8 and 9 the same way (bf16 M, mu, nu, A and dY; the updates
+              rounding to nearest and stochastically; stored values within
+              1 bf16 ulp of the twin's)
 4. cells      synthetic tutorial pair -> pp_adatas -> map_cells_to_space
               (cells mode, Adam, 100 epochs) -> project_genes ->
               compare_spatial_geneexp, with the kernels' launch counts and
@@ -45,7 +48,15 @@ last line):
               step) and with Adafactor (autograd through MapperCore: the
               backward_rbar and dm_backward kernels), with launch counts,
               the filter F_out, steady step times and peak device memory
-8. reference  10 epochs of the kernels against the materialized reference
+8. bf16       map_cells_to_space with bf16 logits, Adam moments and
+              contraction inputs, 100 epochs each: (a) cells, Adam,
+              stochastic rounding; (b) as (a) rounding to nearest; (c)
+              constrained, Adam, stochastic; (d) cells, Adafactor + L1/L2,
+              stochastic; each beside its f32 run from the same seed (that
+              of phase 4, 7 or 6), with launch counts, rows summing to 1,
+              final score, ms/step and peak device memory, and two 10-step
+              runs of (a) that must store the same bits
+9. reference  10 epochs of the kernels against the materialized reference
               loop at the tutorial shape for Adam, Adam + L1/L2, Adafactor
               + L1/L2 (also stepped one epoch at a time, with one kernel
               step from the reference loop's own state at each, beside the
@@ -76,7 +87,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "reference")
+          "bf16", "reference")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -94,15 +105,23 @@ REPLACES = {
     "gsq": "tangram_tpu/ops/fused_step.py:470",
     "dm_adafactor": "tangram_tpu/ops/fused_step.py:574",
 }
+# the bf16 variants (bf16 M, and mu, nu, A or dY where the kernel takes
+# them; the updates also with stochastic rounding): the same TPU functions,
+# on their bf16 branches
+BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
+                "dm_adafactor")
+REPLACES.update({f"{name}.bf16": REPLACES[name] for name in BF16_KERNELS})
 # the kernels that the Adafactor + L1/L2 run carries, and those that the
 # constrained Adafactor run carries (their launch counts come from those
 # runs; the others' from the Adam cells run)
 ADAFACTOR_KERNELS = ("rowstats_norms", "gsq", "dm_adafactor")
 BACKWARD_KERNELS = ("backward_rbar", "dm_backward")
-# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s and f32 FMA-pipe flop/s outside the tensor cores. A kernel's bound
-# is the larger of its bytes over the first and its flops over the second.
-HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# HBM bytes/s, f32 FMA-pipe flop/s outside the tensor cores, and the tensor
+# cores' bf16 flop/s (bf16 operands, f32 accumulation). A kernel's bound is
+# the largest of its bytes over the first and its flops of each type over
+# that type's rate (the two pipes run side by side).
+HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S = 3.35e12, 67e12, 989e12
 
 # L1/L2 strengths of the adafactor phase and of the reference phase's
 # L1/L2 runs; the adafactor phase prints how large their gradient is
@@ -130,6 +149,28 @@ GUARD, GUARD_BITS = 4096, 0x7FA1DEAD
 RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
         "rowstats_norms": 1e-5, "backward_rbar": 1e-4, "dm_backward": 1e-4,
         "gsq": 1e-4, "dm_adafactor": 1e-4}
+# the bf16 variants' f32 outputs, as their f32 kernels': they read the same
+# bf16 values on both sides. Two exceptions. Y from a bf16 A takes P
+# rounded to bf16; kernel and twin form P by one formula but not the same
+# exp, so an entry of P a few f32 ulps from a bf16 rounding midpoint may
+# round to the other neighbour: Y is held to Y_BF16_RTOL of max |twin|
+# beyond the most such entries can move it (cc.project_rounding_slack).
+# That limit is set from the gap measured on the H100 (3.4e-7 of max |Y|
+# at the tutorial shape, 0 at the small ones; the f32 project's 2.0e-6),
+# and a twin that leaves P in f32 must miss by more than it, so that the
+# check sees the rounding. The next stats of an update come from the
+# stored bf16 M (where a stored logit is one bf16 ulp apart, m moves by at
+# most that ulp, l and u by as much of one term): 2**-7.
+RTOL.update({f"{name}.bf16": RTOL[name] for name in BF16_KERNELS})
+Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
+# bf16 stores of the updates: every stored value within BF16_ULPS of the
+# twin's beyond what the f32 kernel's tolerance allows (RTOL of the largest
+# value; it matters where the update cancels, as mu near 0), and at most
+# BF16_SHARE of them apart (or one value). Both round the same f32 value,
+# up to summation order, to nearest or with the same random bits (the keys
+# depend on no tiling), so they part only where that order moves the f32
+# value across a rounding boundary.
+BF16_ULPS, BF16_SHARE = 1.0, 1e-3
 # fused kernels vs the reference loop over 10 epochs: the loss terms agree
 # to LOSS_RTOL (the reference materializes P and sums in another order) and
 # the logits to M_ATOL (Adam's normalized step is ~lr = 0.1 per epoch, so
@@ -171,37 +212,79 @@ KINK_FRACTION, KINK_REACH = 1e-6, 1.0
 AF_LOSS_TOL, AF_NORM_RTOL, AF_STEP_RTOL = 5e-3, 1e-3, 2e-3
 AF_FORCED_STEPS, AF_FREE_STEPS = 3, 2
 
+# the bf16 phase: bf16 logits, Adam moments and contraction inputs, in four
+# configurations (label, rounding, map_cells_to_space options, launches of
+# the bf16 variants over EPOCHS), each beside its f32 run. (d) carries the
+# adafactor phase's L1/L2 terms, so that the norm kernel's bf16 variant
+# runs too. The final score is held a priori to the JAX package's bf16
+# tolerance on main_loss (tests/test_fused_step.py:201-204): 3e-2.
+BF16_STORAGE = dict(param_dtype="bfloat16", moment_dtype="bfloat16",
+                    compute_dtype="bfloat16")
+BF16_ADAM = {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS, "dm_adam": EPOCHS}
+# map_cells_to_space options of the configurations that have an f32 run in
+# the earlier phases and a bf16 run in the bf16 phase
+CELLS = dict(mode="cells")
+CONSTRAINED = dict(mode="constrained", target_count=SHAPE[1])
+CELLS_ADAFACTOR_NORMS = dict(mode="cells", optimizer="adafactor", lambda_l1=LAMBDA_L1,
+                             lambda_l2=LAMBDA_L2)
+BF16_CONFIGS = (
+    ("(a) cells, Adam, stochastic", "stochastic", CELLS, BF16_ADAM),
+    ("(b) cells, Adam, nearest", "nearest", CELLS, BF16_ADAM),
+    ("(c) constrained, Adam, stochastic", "stochastic", CONSTRAINED, BF16_ADAM),
+    ("(d) cells, Adafactor + L1/L2, stochastic", "stochastic", CELLS_ADAFACTOR_NORMS,
+     {"rowstats_norms": 1, "project": EPOCHS, "rbar": EPOCHS, "gsq": EPOCHS,
+      "dm_adafactor": EPOCHS}),
+)
+BF16_SCORE_TOL = 3e-2
+# the mapping runs' seed: truthy, since the reference seeds numpy only for
+# a truthy random_state; with 0 each run draws its init from wherever the
+# global stream stands. With one seed, the cells, adafactor and constrained
+# phases' f32 runs start where the bf16 phase's runs do, and serve as their
+# f32 baselines.
+SEED = 1
+
 
 def kernel_work(name, c, s, k):
-    """(bytes, flops) that kernel ``name`` must move and do at (c, s, k):
-    each input read once and each output written once (f32), and its
-    contractions at 2 flops per multiply-add (the dP tile A_ext dY_extᵀ, or
-    project's Pᵀ A_ext, 2·c·s·(k+1); dm_backward adds P [dY | dq]). The
-    elementwise work per (cell, spot) entry (exp, the gradient, the
-    optimizer update: 5-20 flops) is counted only where there is no
-    contraction (the row stats); beside a contraction it adds 4-8%."""
+    """(bytes, f32 flops, bf16 flops) that kernel ``name`` must move and do
+    at (c, s, k): each input read once and each output written once, and
+    its contractions at 2 flops per multiply-add (the dP tile [A|w]
+    [dY|dq]ᵀ, or project's Pᵀ [A|w], 2·c·s·(k+1); dm_backward adds P [dY |
+    dq]). A ".bf16" variant, as the main path runs it (all three dtypes
+    bf16), moves M, mu, nu, A and dY in 2 bytes; the A·dY (or bf16(P)ᵀA)
+    part of its contraction has bf16 operands with f32 accumulation, the
+    tensor cores' type, and only the w ⊗ dq (or wP) part, 2·c·s, stays
+    f32. The elementwise work per (cell, spot) entry (exp, the gradient,
+    the optimizer update, rounding: 5-30 flops) is counted only where there
+    is no contraction (the row stats); beside an f32 contraction it adds
+    4-12%, and a bf16 variant's bytes outweigh it."""
+    base, _, variant = name.partition(".")
+    bf16 = variant == "bf16"
+    e = 2 if bf16 else 4  # bytes per element of M, mu, nu, A and dY
     cs, K1 = c * s, k + 1
-    dp_in = 4 * (cs + c * K1 + s * K1 + 3 * c)  # M, [A|w], [dY|dq], dh, m, l
-    contraction = 2 * cs * K1
+    # M, [A|w], [dY|dq], dh, m, l
+    dp_in = e * cs + e * (c * k + s * k) + 4 * (c + s + 3 * c)
+    f32_ops, bf16_ops = (2 * cs, 2 * cs * k) if bf16 else (2 * cs * K1, 0)
     work = {
-        "rowstats": (4 * cs + 12 * c, 4 * cs),
-        "rowstats_norms": (4 * cs + 20 * c, 7 * cs),
-        "project": (4 * (cs + c * K1 + 2 * c + s * K1), contraction),
-        "rbar": (dp_in + 4 * c, contraction),
-        "backward_rbar": (dp_in + 4 * c, contraction),
-        "dm_adam": (dp_in + 4 * (c + 5 * cs + 3 * c), contraction),  # r; M/mu/nu rw
-        "gsq": (dp_in + 4 * (c + c + s), contraction),
-        "dm_adafactor": (dp_in + 4 * (c + c + s + cs + 3 * c), contraction),
-        "dm_backward": (dp_in + 4 * (c + cs + c * K1), 2 * contraction),
+        "rowstats": (e * cs + 12 * c, 4 * cs, 0),
+        "rowstats_norms": (e * cs + 20 * c, 7 * cs, 0),
+        "project": (e * cs + e * c * k + 4 * (c + 2 * c + s * K1), f32_ops, bf16_ops),
+        "rbar": (dp_in + 4 * c, f32_ops, bf16_ops),
+        "backward_rbar": (dp_in + 4 * c, f32_ops, bf16_ops),
+        # r; M/mu/nu read and written (M's read is in dp_in)
+        "dm_adam": (dp_in + 5 * e * cs + 4 * (c + 3 * c), f32_ops, bf16_ops),
+        "gsq": (dp_in + 4 * (c + c + s), f32_ops, bf16_ops),
+        "dm_adafactor": (dp_in + e * cs + 4 * (c + c + s + 3 * c), f32_ops, bf16_ops),
+        "dm_backward": (dp_in + 4 * (c + cs + c * K1), 2 * f32_ops, 2 * bf16_ops),
     }
-    return work[name]
+    return work[base]
 
 
 def bound_ms(name, shape):
     """(the least ms the card could take for kernel ``name`` at ``shape``,
-    "bytes" or "operations": which of the two sets it)."""
-    nbytes, flops = kernel_work(name, *shape)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    "bytes" or "operations": which sets it)."""
+    nbytes, f32_ops, bf16_ops = kernel_work(name, *shape)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(f32_ops / F32_FLOPS_PER_S, bf16_ops / BF16_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -453,6 +536,181 @@ def compare_kernels(shape, dev, results, timed):
         fail(f"a kernel or twin at {shape} wrote into its input M")
 
 
+def bf16_ulp(ref):
+    """The bf16 spacing at each value of ``ref`` (8 significant bits)."""
+    import torch
+
+    e = torch.floor(torch.log2(ref.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def compare_bf16_kernels(shape, dev, results, timed):
+    """The bf16 variants of rows 1-5, 8 and 9 against their twins on the
+    same bf16 inputs: rowstats and rowstats_norms of a bf16 M; project with
+    a bf16 M and a bf16 A (the fused steps) or an f32 A (the validation
+    metrics); rbar, dm_adam (bf16 M, mu, nu), gsq and dm_adafactor with
+    bf16 M, A and dY, the updates rounding to nearest and stochastically.
+    Timed at the tutorial shape in the bf16 phase's configurations."""
+    import torch
+
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops import fused_step as fs
+
+    c, s, k = shape
+    bf = torch.bfloat16
+    x = kernel_inputs(c, s, k, seed=13, dev=dev, pad=shape == RAGGED)
+    x = {key: v.to(bf) if key in ("M", "A", "dY", "mu", "nu") else v
+         for key, v in x.items()}
+    M, A, w, dY, dq, dh = x["M"], x["A"], x["w"], x["dY"], x["dq"], x["dh"]
+    M_host = M.cpu()
+    runs = 10
+
+    def check(name, pairs, tag, rtol=None):
+        rtol = RTOL[name] if rtol is None else rtol
+        worst = 0.0
+        for what, got, ref in pairs:
+            a, r = rel_err(got, ref)
+            worst = max(worst, a)
+            say("kernels", f"{name} {tag} {what}: max_abs_err={a:.3e} rel={r:.3e} "
+                f"(tol rel {rtol:.1e})")
+            if not r <= rtol:
+                fail(f"{name} {what} disagrees with its twin at {shape} ({tag}): "
+                     f"rel {r:.3e}")
+        results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0.0), worst)
+
+    def check_update(name, names, got, ref, n_store, tag):
+        """Stored bf16 outputs within BF16_ULPS of the twin's beyond the
+        f32 kernel's own tolerance, apart in at most BF16_SHARE of the
+        entries; the next stats within NEXT_STATS_BF16_RTOL."""
+        for what, g, r in zip(names[:n_store], got[:n_store], ref[:n_store]):
+            if g.dtype != bf or r.dtype != bf:
+                fail(f"{name} {what} at {shape} is stored as {g.dtype}, not bf16")
+            gf, rf = g.float(), r.float()
+            diff, ulp = (gf - rf).abs(), bf16_ulp(rf)
+            apart = int((diff > 0).sum())
+            share = apart / diff.numel()
+            err = float(diff.max())
+            scale = float(rf[rf.abs() < 1e20].abs().max())
+            # where the update cancels (mu near 0), the f32 kernel's own
+            # tolerance already allows more than one ulp of the stored value
+            over = float(((diff - RTOL[name] * scale).clamp_min(0) / ulp).max())
+            say("kernels", f"{name} {tag} {what}: {share:.2e} of entries apart "
+                f"({apart}), max {float((diff / ulp).max()):.0f} bf16 ulp, {over:.2f} "
+                f"ulp beyond the f32 tolerance (tol {BF16_ULPS:.0f} ulp beyond "
+                f"{RTOL[name]:.0e} of max |twin|, on at most {BF16_SHARE:.0e} of the "
+                f"entries or one)")
+            if not (over <= BF16_ULPS and apart <= max(1, BF16_SHARE * diff.numel())):
+                fail(f"{name} {what} stored values disagree with the twin's at {shape} "
+                     f"({tag})")
+            results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0.0), err)
+        check(name, list(zip(names[n_store:], got[n_store:], ref[n_store:])), tag,
+              rtol=NEXT_STATS_BF16_RTOL)
+
+    def time_pair(name, kernel, twin):
+        results[name]["ms"] = cuda_ms(kernel, runs)
+        results[name]["plain_ms"] = cuda_ms(twin, runs)
+
+    got, ref = cc._rowstats(M), cc._rowstats_plain(M)
+    check("rowstats.bf16", zip("mlu", got, ref), f"{shape}")
+    m, l, _ = ref
+    got, ref = fs._rowstats_norms(M), fs._rowstats_norms_plain(M)
+    check("rowstats_norms.bf16", zip(("m", "l", "u", "s1", "s2"), got, ref), f"{shape}")
+
+    def check_rounded_y(Y, Yp):
+        """Y of a bf16 A within Y_BF16_RTOL of max |twin| beyond the slack
+        of P's rounding; a twin with P left in f32 must miss by more."""
+        slack = cc.project_rounding_slack(M, A, m, l)
+        P = torch.exp(M.float() - m) * (1.0 / l)
+        Y_f32 = P.T @ A.float()
+        del P
+        scale = float(Yp.abs().max())
+        beyond = float(((Y - Yp).abs() - slack).max()) / scale
+        miss = float(((Y - Y_f32).abs() - slack).max()) / scale
+        say("kernels", f"project.bf16 {shape} bf16 A Y: max_abs_err="
+            f"{float((Y - Yp).abs().max()):.3e}, beyond the rounding slack (max "
+            f"{float(slack.max()) / scale:.1e} of max |Y|) rel={beyond:.3e} (tol rel "
+            f"{Y_BF16_RTOL:.0e}); a twin with P left in f32 misses by rel {miss:.3e} "
+            f"(must exceed {Y_BF16_RTOL:.0e})")
+        if not beyond <= Y_BF16_RTOL:
+            fail(f"project.bf16 Y disagrees with its twin at {shape} (bf16 A): rel "
+                 f"{beyond:.3e}")
+        if not miss > Y_BF16_RTOL:
+            fail(f"project.bf16 at {shape} cannot tell whether Y takes P rounded to bf16")
+        results["project.bf16"]["max_abs_err"] = max(
+            results["project.bf16"].get("max_abs_err", 0.0), float((Y - Yp).abs().max()))
+
+    for A_in, tag in ((A, "bf16 A"), (A.float(), "f32 A")):
+        (Y, q), (Yp, qp) = cc._project(M, A_in, w, m, l), cc._project_plain(M, A_in, w, m, l)
+        if A_in.dtype == bf:
+            check_rounded_y(Y, Yp)
+        else:
+            check("project.bf16", [("Y", Y, Yp)], f"{shape} {tag}")
+        check("project.bf16", [("q", q, qp)], f"{shape} {tag}")
+        del Y, Yp
+    if timed:
+        time_pair("rowstats.bf16", lambda: cc._rowstats(M), lambda: cc._rowstats_plain(M))
+        time_pair("rowstats_norms.bf16", lambda: fs._rowstats_norms(M),
+                  lambda: fs._rowstats_norms_plain(M))
+        time_pair("project.bf16", lambda: cc._project(M, A, w, m, l),
+                  lambda: cc._project_plain(M, A, w, m, l))
+
+    lam = (1e-3, 1e-3)
+    for with_dh in (False, True):
+        args = (M, A, w, m, l, dY, dq, dh)
+        r_k, r_p = fs._rbar(*args, with_dh=with_dh), cc._rbar_plain(*args, with_dh=with_dh)
+        check("rbar.bf16", [("r", r_k, r_p)], f"{shape} with_dh={with_dh}")
+        if timed and not with_dh:
+            time_pair("rbar.bf16", lambda: fs._rbar(*args, with_dh=False),
+                      lambda: cc._rbar_plain(*args, with_dh=False))
+        for rounding in ("nearest", "stochastic"):
+            tag = f"{shape} with_dh={with_dh} {rounding}"
+            kw = dict(rounding=rounding, step=3)
+            for norms in ({}, dict(lam_l1=lam[0], lam_l2=lam[1], with_norms=True)):
+                names = ("M", "mu", "nu", "m'", "l'", "u'", "s1'", "s2'")
+                k_state = [t.clone() for t in (M, x["mu"], x["nu"])]
+                p_state = [t.clone() for t in (M, x["mu"], x["nu"])]
+                scalars = fs.adam_scalars(3, 0.1)
+                out_k = fs._dm_adam(k_state[0], *args[1:], r_p, *k_state[1:], scalars,
+                                    with_dh=with_dh, **norms, **kw)
+                out_p = fs._dm_adam_plain(p_state[0], *args[1:], r_p, *p_state[1:],
+                                          scalars, with_dh, **norms, **kw)
+                check_update("dm_adam.bf16", names, out_k, out_p, 3,
+                             tag + (" norms" if norms else ""))
+                if timed and not with_dh and not norms and rounding == "stochastic":
+                    time_pair("dm_adam.bf16", lambda: fs._dm_adam(
+                        k_state[0], *args[1:], r_p, *k_state[1:], scalars, with_dh=False,
+                        **kw), lambda: fs._dm_adam_plain(
+                        p_state[0], *args[1:], r_p, *p_state[1:], scalars, False, **kw))
+                del k_state, p_state, out_k, out_p
+            for lam_c in ((0.0, 0.0), lam):
+                with_norms = lam_c != (0.0, 0.0)
+                ntag = tag + (" norms" if with_norms else "")
+                vr_p, vc_p = fs._gsq_plain(*args, r_p, *lam_c, with_dh=with_dh)
+                if rounding == "nearest":  # gsq does not round
+                    vr_k, vc_k = fs._gsq(*args, r_p, *lam_c, with_dh=with_dh)
+                    check("gsq.bf16", [("vr", vr_k, vr_p), ("vc", vc_k, vc_p)], ntag)
+                _, _, rowf, colf = fs.factored_rms_vectors(
+                    0, torch.zeros_like(vr_p), torch.zeros_like(vc_p), vr_p, vc_p, c, s)
+                Mk, Mp = M.clone(), M.clone()
+                out_k = fs._dm_adafactor(Mk, *args[1:], r_p, rowf, colf, 0.1, *lam_c,
+                                         with_norms=with_norms, with_dh=with_dh, **kw)
+                out_p = fs._dm_adafactor_plain(Mp, *args[1:], r_p, rowf, colf, 0.1,
+                                               *lam_c, with_norms, with_dh, **kw)
+                check_update("dm_adafactor.bf16", ("M", "m'", "l'", "u'", "s1'", "s2'"),
+                             out_k, out_p, 1, ntag)
+                if timed and not with_dh and with_norms and rounding == "stochastic":
+                    time_pair("gsq.bf16", lambda: fs._gsq(*args, r_p, *lam, with_dh=False),
+                              lambda: fs._gsq_plain(*args, r_p, *lam, with_dh=False))
+                    time_pair("dm_adafactor.bf16", lambda: fs._dm_adafactor(
+                        Mk, *args[1:], r_p, rowf, colf, 0.1, *lam, with_norms=True,
+                        with_dh=False, **kw), lambda: fs._dm_adafactor_plain(
+                        Mp, *args[1:], r_p, rowf, colf, 0.1, *lam, True, False, **kw))
+                del Mk, Mp, out_k, out_p
+    torch.cuda.synchronize()
+    if not torch.equal(M.cpu(), M_host):
+        fail(f"a bf16 kernel or twin at {shape} wrote into its input M")
+
+
 def core_gradients(core, M, A, w, cts):
     """(dM, dA, dw) of Σ Y⊙gY + Σ q⊙gq + Σ h⊙gh through ``core``."""
     import torch
@@ -521,32 +779,37 @@ def guarded_allocations(dev, where):
 
     empty, empty_like, clone = torch.empty, torch.empty_like, torch.Tensor.clone
     live = []
+    # a bf16 buffer's guards: the upper half of GUARD_BITS, a bf16 NaN
+    word = {torch.float32: (torch.int32, GUARD_BITS),
+            torch.bfloat16: (torch.int16, GUARD_BITS >> 16)}
 
     def ours(dtype, device):
-        return (dtype in (None, torch.float32) and device is not None
-                and torch.device(device).type == dev.type)
+        return ((torch.float32 if dtype is None else dtype) in word
+                and device is not None and torch.device(device).type == dev.type)
 
-    def guarded(shape):
+    def guarded(shape, dtype):
+        dtype = torch.float32 if dtype is None else dtype
         n = math.prod(shape)
-        buf = empty(n + 2 * GUARD, dtype=torch.int32, device=dev).fill_(GUARD_BITS)
-        live.append((buf, n, sys._getframe(2).f_code.co_name))
-        return buf.view(torch.float32)[GUARD:GUARD + n].view(shape)
+        int_type, bits = word[dtype]
+        buf = empty(n + 2 * GUARD, dtype=int_type, device=dev).fill_(bits)
+        live.append((buf, n, bits, sys._getframe(2).f_code.co_name))
+        return buf.view(dtype)[GUARD:GUARD + n].view(shape)
 
     def p_empty(*size, dtype=None, device=None, **kw):
         if kw or not ours(dtype, device):
             return empty(*size, dtype=dtype, device=device, **kw)
         return guarded(tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int)
-                       else size)
+                       else size, dtype)
 
     def p_empty_like(t, **kw):
         if kw or not ours(t.dtype, t.device):
             return empty_like(t, **kw)
-        return guarded(tuple(t.shape))
+        return guarded(tuple(t.shape), t.dtype)
 
     def p_clone(t, **kw):
         if kw or t.requires_grad or not t.is_contiguous() or not ours(t.dtype, t.device):
             return clone(t, **kw)
-        return guarded(tuple(t.shape)).copy_(t)
+        return guarded(tuple(t.shape), t.dtype).copy_(t)
 
     torch.empty, torch.empty_like, torch.Tensor.clone = p_empty, p_empty_like, p_clone
     try:
@@ -555,16 +818,17 @@ def guarded_allocations(dev, where):
         torch.empty, torch.empty_like, torch.Tensor.clone = empty, empty_like, clone
     torch.cuda.synchronize()
     hit = {}
-    for buf, n, owner in live:
-        bad = int((buf[:GUARD] != GUARD_BITS).sum() + (buf[GUARD + n:] != GUARD_BITS).sum())
+    for buf, n, bits, owner in live:
+        bad = int((buf[:GUARD] != bits).sum() + (buf[GUARD + n:] != bits).sum())
         if bad:
             hit[owner] = hit.get(owner, 0) + bad
     if hit:
         fail(f"out-of-bounds writes at {where}: guard words changed around buffers made "
              f"by {hit}")
-    say("kernels", f"{where}: {len(live)} guarded buffers from "
-        f"{sorted({owner for _, _, owner in live})}: no write outside any "
-        f"(guards of {GUARD} words)")
+    n_bf16 = sum(buf.dtype == torch.int16 for buf, *_ in live)
+    say("kernels", f"{where}: {len(live)} guarded buffers ({n_bf16} bf16) from "
+        f"{sorted({owner for *_, owner in live})}: no write outside any "
+        f"(guards of {GUARD} elements)")
 
 
 def check_repeatable(shape, dev, repeats=3):
@@ -601,6 +865,28 @@ def check_repeatable(shape, dev, repeats=3):
         "dm_adafactor": lambda: fs._dm_adafactor(
             M.clone(), *args[1:], r, rowf, colf, 0.1, *lam, with_norms=True),
     }
+    # the bf16 variants, the updates with stochastic rounding
+    bf = torch.bfloat16
+    Mb, mub, nub = M.to(bf), mu.to(bf), nu.to(bf)
+    mb, lb, _ = cc._rowstats_plain(Mb)
+    argsb = (Mb, x["A"].to(bf), x["w"], mb, lb, x["dY"].to(bf), x["dq"], x["dh"])
+    rb = cc._rbar_plain(*argsb)
+    vrb, vcb = fs._gsq_plain(*argsb, rb, 0.0, 0.0)
+    _, _, rowfb, colfb = fs.factored_rms_vectors(
+        0, torch.zeros_like(vrb), torch.zeros_like(vcb), vrb, vcb, c, s)
+    sr = dict(rounding="stochastic", step=3)
+    runs.update({
+        "rowstats.bf16": lambda: cc._rowstats(Mb),
+        "rowstats_norms.bf16": lambda: fs._rowstats_norms(Mb),
+        "project.bf16": lambda: cc._project(*argsb[:5]),
+        "rbar.bf16": lambda: (fs._rbar(*argsb),),
+        "dm_adam.bf16": lambda: fs._dm_adam(
+            Mb.clone(), *argsb[1:], rb, mub.clone(), nub.clone(), fs.adam_scalars(3, 0.1),
+            lam_l1=lam[0], lam_l2=lam[1], with_norms=True, **sr),
+        "gsq.bf16": lambda: fs._gsq(*argsb, rb, *lam),
+        "dm_adafactor.bf16": lambda: fs._dm_adafactor(
+            Mb.clone(), *argsb[1:], rb, rowfb, colfb, 0.1, *lam, with_norms=True, **sr),
+    })
     for name, run in runs.items():
         first = [t.clone() for t in run()]
         for _ in range(repeats - 1):
@@ -684,37 +970,43 @@ def mapper_for(ad_sc, ad_sp, dev, mode):
     prior = _resolve_density(mode, "rna_count_based", lam, ad_sc, ad_sp)
     if mode == "constrained":
         return MapperConstrained(S, G, prior.d, lambda_d=prior.lambda_d,
-                                 target_count=SHAPE[1], device=dev, random_state=0)
+                                 target_count=SHAPE[1], device=dev, random_state=SEED)
     return Mapper(S, G, d=prior.d, d_source=prior.d_source,
-                  lambda_d=prior.lambda_d, device=dev, random_state=0)
+                  lambda_d=prior.lambda_d, device=dev, random_state=SEED)
 
 
-def start_params(mapper):
-    """A copy of the mapper's parameters as fit_mapping takes them: M, or
-    (M, F) for a MapperConstrained, with fit_mapping's constrained flag."""
+def start_params(mapper, param_dtype=None):
+    """A copy of the mapper's parameters as fit_mapping takes them: M (in
+    ``param_dtype`` when given, made directly in that type), or (M, F) for
+    a MapperConstrained, with fit_mapping's constrained flag."""
+    import torch
+
+    dtype = getattr(torch, param_dtype) if param_dtype else mapper.M.dtype
+    M = mapper.M.clone() if dtype == mapper.M.dtype else mapper.M.to(dtype)
     F = getattr(mapper, "F", None)
     if F is None:
-        return mapper.M.clone(), False
-    return (mapper.M.clone(), F.clone()), True
+        return M, False
+    return (M, F.clone()), True
 
 
-def step_ms(mapper, impl, warm, steps, lw=None, optimizer="adam", fused=True):
+def step_ms(mapper, impl, warm, steps, lw=None, optimizer="adam", fused=True, **low):
     """Steady-state ms per training step from the mapper's parameters (with
-    the loss weights ``lw``, by default the mapper's): ``warm`` steps
-    untimed, then ``steps`` steps between two CUDA events."""
+    the loss weights ``lw``, by default the mapper's, and fit_mapping's
+    low-precision options ``low``): ``warm`` steps untimed, then ``steps``
+    steps between two CUDA events."""
     import torch
 
     from tangram_tpu_torch.models.mapper import fit_mapping
 
     lw = mapper.lw if lw is None else lw
-    params, constrained = start_params(mapper)
+    params, constrained = start_params(mapper, low.get("param_dtype"))
     params, opt_state, _ = fit_mapping(params, mapper.data, lw, warm, impl=impl,
                                        return_opt_state=True, optimizer=optimizer,
-                                       constrained=constrained, fused=fused)
+                                       constrained=constrained, fused=fused, **low)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     fit_mapping(params, mapper.data, lw, steps, impl=impl, opt_state=opt_state,
-                optimizer=optimizer, constrained=constrained, fused=fused)
+                optimizer=optimizer, constrained=constrained, fused=fused, **low)
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / steps
@@ -918,6 +1210,112 @@ def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True):
         fail(f"reference: {label}: the kernels' and the reference loop's mappings differ")
 
 
+def baseline(f32_runs, opts):
+    """The f32 numbers of the configuration ``opts`` that the bf16 phase
+    compares with: final score ``main``, ``secs`` and ``peak`` (GiB above
+    what was resident) of its map_cells_to_space, and ``ms`` per steady step
+    and the GiB that training adds (``train``)."""
+    return f32_runs.setdefault(json.dumps(opts, sort_keys=True), {})
+
+
+def final_score(ad_map) -> float:
+    return float(np.asarray(ad_map.uns["training_history"]["main_loss"])[-1])
+
+
+def bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs, con_mapper=None):
+    """map_cells_to_space with bf16 logits, Adam moments and contraction
+    inputs, 100 epochs in each configuration of BF16_CONFIGS beside its f32
+    run: launch counts, rows summing to 1, the final score against the f32
+    run's, steady ms/step, the peak device memory of the mapping and what
+    training adds, both above what was resident. The f32 numbers come from
+    ``f32_runs`` (the cells, adafactor and constrained phases', from the
+    same seed); what they lack is measured here. Then two 10-step runs of
+    configuration (a) from the same start, which must store the same bits.
+    Returns the bf16 variants' launch counts, each from the first
+    configuration that runs it: (a) for rowstats, project, rbar and
+    dm_adam, (d) for rowstats_norms, gsq and dm_adafactor."""
+    import torch
+
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.models.mapper import fit_mapping
+    from tangram_tpu_torch.ops import cuda_core
+
+    launches = {}
+
+    def run(opts):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_core.reset_launches()
+        t0 = time.perf_counter()
+        ad_map = tgt.map_cells_to_space(ad_sc, ad_sp, density_prior="rna_count_based",
+                                        num_epochs=EPOCHS, random_state=SEED, **opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        return ad_map, secs, dict(cuda_core.LAUNCHES), peak
+
+    def step_and_memory(opts, low):
+        nonlocal con_mapper
+        if opts == CONSTRAINED:
+            con_mapper = con_mapper or mapper_for(ad_sc, ad_sp, dev, "constrained")
+            mapper, lw = con_mapper, con_mapper.lw
+        else:
+            mapper = cells_mapper
+            lw = norm_lw if "lambda_l1" in opts else cells_mapper.lw
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = step_ms(mapper, "kernels", warm=3, steps=10, lw=lw,
+                     optimizer=opts.get("optimizer", "adam"), **low)
+        return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    for label, rounding, opts, expect in BF16_CONFIGS:
+        f32 = baseline(f32_runs, opts)
+        if "main" not in f32:  # the f32 run of the same configuration
+            ad_map, secs, _, peak = run(opts)
+            f32.update(main=final_score(ad_map), secs=secs, peak=peak)
+            del ad_map
+        if "ms" not in f32:
+            f32["ms"], f32["train"] = step_and_memory(opts, {})
+        low = dict(BF16_STORAGE, rounding=rounding)
+        ad_map, secs, counts, peak = run(dict(opts, **low))
+        check_launches("bf16", {f"{name}.bf16": n for name, n in expect.items()})
+        for name in expect:
+            launches.setdefault(f"{name}.bf16", counts[f"{name}.bf16"])
+        X = np.asarray(ad_map.X)
+        if X.dtype != np.float32:
+            fail(f"bf16 {label}: the mapping is {X.dtype}, not float32")
+        check_mapping("bf16", ad_map, SHAPE[0], SHAPE[1], SHAPE[2],
+                      rising=opts.get("optimizer", "adam") == "adam")
+        main = final_score(ad_map)
+        del ad_map
+        ms, train_gib = step_and_memory(opts, low)
+        say("bf16", f"{label}: final score {main:.4f} against f32 {f32['main']:.4f} "
+            f"(|diff| {abs(main - f32['main']):.2e}, tol {BF16_SCORE_TOL:.0e}); "
+            f"{ms:.2f} ms/step against f32 {f32['ms']:.2f}; peak of map_cells_to_space "
+            f"{peak:.3f} GiB against f32 {f32['peak']:.3f}, training adds "
+            f"{train_gib:.3f} GiB against f32 {f32['train']:.3f}, each above what was "
+            f"resident; {secs:.1f} s against f32 {f32['secs']:.1f} s for {EPOCHS} "
+            f"epochs ({card})")
+        if not abs(main - f32["main"]) <= BF16_SCORE_TOL:
+            fail(f"bf16 {label}: the final score strays from the f32 run's")
+
+    # determinism: two runs from the same start store the same bits
+    low = dict(BF16_STORAGE, rounding="stochastic")
+    outs = []
+    for _ in range(2):
+        M, _ = fit_mapping(cells_mapper.M.clone(), cells_mapper.data, cells_mapper.lw, 10,
+                           impl="kernels", **low)
+        outs.append(M.view(torch.int16))
+    if not torch.equal(*outs):
+        fail("bf16: two stochastic-rounding runs from the same start differ")
+    say("bf16", "two 10-step runs of (a) from the same start stored the same bits")
+    return launches
+
+
 def profile_steps(mapper, steps=5):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -998,9 +1396,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             if shape == SHAPE:
                 compare_kernels(shape, dev, results, timed=True)
+                compare_bf16_kernels(shape, dev, results, timed=True)
             else:
                 with guarded_allocations(dev, shape):
                     compare_kernels(shape, dev, results, timed=False)
+                    compare_bf16_kernels(shape, dev, results, timed=False)
                     check_repeatable(shape, dev)
             say("kernels", f"{shape} checked in {time.perf_counter() - t0:.1f} s")
         for name, r in results.items():
@@ -1010,24 +1410,25 @@ def main(argv=None) -> int:
                     f"{r['plain_ms']:.3f} ms, bound {bound:.3f} ms ({by}) at {SHAPE} "
                     f"({card})")
 
-    if {"cells", "clusters", "adafactor", "constrained", "reference"} & set(phases):
+    if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
         norm_lw = dataclasses.replace(cells_mapper.lw, lambda_l1=LAMBDA_L1,
                                       lambda_l2=LAMBDA_L2)
-    peaks = {}
+    peaks, f32_runs, con_mapper = {}, {}, None
 
     if "cells" in phases:
         import tangram_tpu_torch as tgt
 
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         cuda_core.reset_launches()
         t0 = time.perf_counter()
         ad_map = tgt.map_cells_to_space(
-            ad_sc, ad_sp, mode="cells", density_prior="rna_count_based",
-            num_epochs=EPOCHS, random_state=0)
+            ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
+            random_state=SEED, **CELLS)
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t0
         launches = check_launches(
@@ -1035,6 +1436,8 @@ def main(argv=None) -> int:
                       "dm_adam": EPOCHS})
         peaks["adam"] = torch.cuda.max_memory_allocated()
         check_mapping("cells", ad_map, SHAPE[0], SHAPE[1], SHAPE[2])
+        baseline(f32_runs, CELLS).update(
+            main=final_score(ad_map), secs=t_map, peak=(peaks["adam"] - base) / 2**30)
         t0 = time.perf_counter()
         ad_ge = tgt.project_genes(ad_map, ad_sc)
         report = tgt.compare_spatial_geneexp(ad_ge, ad_sp, ad_sc)
@@ -1054,7 +1457,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         ad_map = tgt.map_cells_to_space(
             ad_sc, ad_sp, mode="clusters", cluster_label="subclass_label",
-            num_epochs=EPOCHS, random_state=0)
+            num_epochs=EPOCHS, random_state=SEED)
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t0
         check_launches("clusters", {"rowstats": 1, "project": EPOCHS,
@@ -1073,14 +1476,15 @@ def main(argv=None) -> int:
         say("adafactor", f"lambda_l1={LAMBDA_L1:g}, lambda_l2={LAMBDA_L2:g}: mean "
             f"|L1/L2 gradient| {g_norm:.3e} against mean |softmax gradient| "
             f"{g_soft:.3e} at the start (ratio {g_norm / g_soft:.2f})")
+        gc.collect()
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         cuda_core.reset_launches()
         t0 = time.perf_counter()
         ad_map = tgt.map_cells_to_space(
-            ad_sc, ad_sp, mode="cells", density_prior="rna_count_based",
-            optimizer="adafactor", lambda_l1=LAMBDA_L1, lambda_l2=LAMBDA_L2,
-            num_epochs=EPOCHS, random_state=0)
+            ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
+            random_state=SEED, **CELLS_ADAFACTOR_NORMS)
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t0
         counts = check_launches(
@@ -1092,6 +1496,9 @@ def main(argv=None) -> int:
         # learning rate 0.1 (no momentum, no update clipping) lowers the
         # gene-voxel score, in the reference loop as in the kernels
         check_mapping("adafactor", ad_map, SHAPE[0], SHAPE[1], SHAPE[2], rising=False)
+        baseline(f32_runs, CELLS_ADAFACTOR_NORMS).update(
+            main=final_score(ad_map), secs=t_map,
+            peak=(peaks["adafactor"] - base) / 2**30)
         say("adafactor", f"cells + L1/L2: map_cells_to_space {t_map:.2f} s for "
             f"{EPOCHS} epochs; peak device memory of the mapping "
             f"{peaks['adafactor'] / 2**30:.3f} GiB ({card})")
@@ -1101,7 +1508,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         ad_map = tgt.map_cells_to_space(
             ad_sc, ad_sp, mode="clusters", cluster_label="subclass_label",
-            optimizer="adafactor", num_epochs=EPOCHS, random_state=0)
+            optimizer="adafactor", num_epochs=EPOCHS, random_state=SEED)
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t0
         check_launches("adafactor", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
@@ -1125,6 +1532,9 @@ def main(argv=None) -> int:
             ms[label] = step_ms(cells_mapper, "kernels", warm=5, steps=20, lw=lw,
                                 optimizer=opt)
             train_gib[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        for label, opts in (("adam", CELLS),
+                            ("adafactor + L1/L2", CELLS_ADAFACTOR_NORMS)):
+            baseline(f32_runs, opts).update(ms=ms[label], train=train_gib[label])
         say("adafactor", "steady-state ms/step at " + str(SHAPE) + ": " + ", ".join(
             f"{k} {v:.2f}" for k, v in ms.items()) + f" ({card})")
         say("adafactor", "device memory a training run adds (logits, optimizer "
@@ -1150,9 +1560,8 @@ def main(argv=None) -> int:
             cuda_core.reset_launches()
             t0 = time.perf_counter()
             ad_map = tgt.map_cells_to_space(
-                ad_sc, ad_sp, mode="constrained", target_count=SHAPE[1],
-                density_prior="rna_count_based", optimizer=opt, num_epochs=EPOCHS,
-                random_state=0)
+                ad_sc, ad_sp, density_prior="rna_count_based", optimizer=opt,
+                num_epochs=EPOCHS, random_state=SEED, **CONSTRAINED)
             torch.cuda.synchronize()
             t_map = time.perf_counter() - t0
             counts = check_launches("constrained", expect)
@@ -1162,6 +1571,10 @@ def main(argv=None) -> int:
             # Adafactor is not required to raise the score (queue C)
             check_mapping("constrained", ad_map, SHAPE[0], SHAPE[1], SHAPE[2],
                           rising=opt == "adam")
+            if opt == "adam":
+                baseline(f32_runs, CONSTRAINED).update(
+                    main=final_score(ad_map), secs=t_map,
+                    peak=(peaks["constrained adam"] - base) / 2**30)
             F_out = np.asarray(ad_map.obs["F_out"], dtype=np.float64)
             count_reg = np.asarray(ad_map.uns["training_history"]["count_reg"])
             if F_out.shape != (SHAPE[0],) or not ((F_out > 0) & (F_out < 1)).all():
@@ -1179,10 +1592,23 @@ def main(argv=None) -> int:
             del ad_map
         # built after the runs above, so that their peaks hold one mapping
         con_mapper = mapper_for(ad_sc, ad_sp, dev, "constrained")
-        ms_con = {opt: step_ms(con_mapper, "kernels", warm=3, steps=10, optimizer=opt)
-                  for opt in ("adam", "adafactor")}
+        ms_con = {}
+        for opt in ("adam", "adafactor"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms_con[opt] = step_ms(con_mapper, "kernels", warm=3, steps=10, optimizer=opt)
+            if opt == "adam":
+                baseline(f32_runs, CONSTRAINED).update(
+                    ms=ms_con[opt],
+                    train=(torch.cuda.max_memory_allocated() - base) / 2**30)
         say("constrained", "steady-state ms/step at " + str(SHAPE) + ": " + ", ".join(
             f"{k} {v:.2f}" for k, v in ms_con.items()) + f" ({card})")
+
+    if "bf16" in phases:
+        counts = bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs,
+                            con_mapper)
+        launches = dict(launches or {}, **counts)
 
     if "reference" in phases:
         mapper = cells_mapper
@@ -1197,8 +1623,7 @@ def main(argv=None) -> int:
         unfused = {"rowstats": 10, "project": 10, "backward_rbar": 10, "dm_backward": 10}
         compare_with_reference(mapper, mapper.lw, "adam", "adam fused=False", unfused,
                                fused=False)
-        if "constrained" not in phases:
-            con_mapper = mapper_for(ad_sc, ad_sp, dev, "constrained")
+        con_mapper = con_mapper or mapper_for(ad_sc, ad_sp, dev, "constrained")
         compare_with_reference(con_mapper, con_mapper.lw, "adam", "constrained adam",
                                {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10})
         compare_with_reference(con_mapper, con_mapper.lw, "adafactor",

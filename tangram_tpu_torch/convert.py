@@ -18,17 +18,23 @@ __all__ = ["state_from_jax", "constrained_state_from_jax", "adafactor_state_from
 
 
 def _tensor(x, device):
+    """A JAX array as a tensor on ``device``: f32, or bf16 where the array
+    is bf16 (numpy's ``bfloat16`` from ml_dtypes), bit for bit — a bf16
+    widens to f32 exactly and narrows back unchanged."""
     if x is None:
         return None
+    bf16 = getattr(getattr(x, "dtype", None), "name", None) == "bfloat16"
     # np.array copies: the port updates M, mu and nu in place, and arrays
     # handed out by jax are read-only
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    t = torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return t.to(torch.bfloat16) if bf16 else t
 
 
 def state_from_jax(M, count, mu, nu, stats, device="cpu"):
     """``(M, count, mu, nu, stats)`` of the JAX fused step → the port's
-    ``(M, count, mu, nu, stats)``: f32 tensors on ``device``, ``count`` a
-    host int, ``stats`` a tuple of (c, 1) tensors — (m, l, u), or
+    ``(M, count, mu, nu, stats)``: tensors on ``device`` (f32, or bf16
+    where the JAX state is stored in bf16), ``count`` a host int, ``stats``
+    a tuple of (c, 1) tensors — (m, l, u), or
     (m, l, u, s1, s2) when the L1/L2 terms are on."""
     return (
         _tensor(M, device),

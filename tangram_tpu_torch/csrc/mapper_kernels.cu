@@ -39,10 +39,27 @@
 // opts in with cudaFuncSetAttribute. Every entry point launches on the
 // given stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
+//
+// Low-precision storage (the JAX package's param_dtype, moment_dtype and
+// compute_dtype options, and rounding="stochastic"): M, and Adam's mu and
+// nu, may be stored in bf16, and A and dY may come rounded to bf16. Every
+// load converts to f32 and all arithmetic stays f32, exactly as in the f32
+// kernels. The update kernels round what they store to nearest even (as
+// jnp's astype) or stochastically (stored_value below), and fold the
+// STORED value into the next step's stats, as _emit_next_stats does, so
+// the next softmax normalizes the M it will read. M's type is a template
+// parameter of rowstats and project (their loads differ in shape), and a
+// uniform runtime flag of the dP-tile kernels beside mu/nu's type and the
+// rounding (their loads sit in the epilogue, a few instructions per
+// element beside its 2 (k + 1) flops). dm_backward takes f32 only.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -109,29 +126,83 @@ __device__ __forceinline__ void norms_push(float& s1, float& s2, float x) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 storage and stochastic rounding
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+// a bf16 is the upper half of an f32: widening is a shift, exact
+__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_f32(const bf16* p) {
+  return bf16_bits_to_f32(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// f32 -> bf16 -> f32, round to nearest even (jnp's astype)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the JAX package's 32-bit Wang hash (fused_step.py::_wang_hash), mod 2^32
+__device__ __forceinline__ uint32_t wang_hash(uint32_t x) {
+  x = (x ^ 61u) ^ (x >> 16);
+  x = x * 9u;
+  x = x ^ (x >> 4);
+  x = x * 0x27D4EB2Du;
+  return x ^ (x >> 15);
+}
+
+// Stochastic-rounding key of one (step t, cell, array salt): JAX's per-tile
+// seed with the tile taken as one cell row, base = wang(t ^ cell 0x85EBCA6B),
+// then _tile_random_bits' key wang((base ^ salt) 0x9E3779B9). The bits of
+// entry (cell, spot) are wang(spot ^ key): they depend on no tiling, so the
+// kernels and their twin draw the same bits for the same f32 value.
+__device__ __forceinline__ uint32_t sr_key(uint32_t t, uint32_t cell, uint32_t salt) {
+  const uint32_t base = wang_hash(t ^ (cell * 0x85EBCA6Bu));
+  return wang_hash((base ^ salt) * 0x9E3779B9u);
+}
+
+// what an entry of f32 value v keeps when stored: v itself in f32 storage;
+// in bf16 the nearest-even bf16, or (sr) the bf16 that _sr_cast gives: add
+// 16 random bits below the bf16 mantissa and truncate (unbiased). The
+// result is an exact bf16, returned as f32.
+__device__ __forceinline__ float stored_value(float v, bool bf16_store, bool sr,
+                                              uint32_t key, int spot) {
+  if (!bf16_store) return v;
+  if (!sr) return round_bf16(v);
+  const uint32_t bits = wang_hash((uint32_t)spot ^ key);
+  return __uint_as_float((__float_as_uint(v) + (bits & 0xFFFFu)) & 0xFFFF0000u);
+}
+
+// ---------------------------------------------------------------------------
 // rowstats — replaces tangram_tpu/ops/pallas_core.py::_rowstats;
 // rowstats<NORMS> replaces tangram_tpu/ops/fused_step.py::_rowstats_norms
 //
 // One warp per cell row; lanes stride along spots (coalesced), each keeps an
 // online (m, l, u) [and s1, s2] and the warp merges them by shuffle in a
-// fixed order. Bound: one read of M (1.02 GB at the tutorial shape); the exp
-// per element is far below the SFU rate and the norms add two FMAs.
+// fixed order. Bound: one read of M (1.02 GB at the tutorial shape in f32,
+// 0.51 GB in bf16); the exp per element is far below the SFU rate and the
+// norms add two FMAs. TM is M's storage type, float or bf16.
 // ---------------------------------------------------------------------------
 
 constexpr int RS_THREADS = 256;
 
-template <bool NORMS>
+template <bool NORMS, typename TM>
 __global__ void __launch_bounds__(RS_THREADS)
-rowstats_kernel(const float* __restrict__ M, float* __restrict__ m_out,
+rowstats_kernel(const TM* __restrict__ M, float* __restrict__ m_out,
                 float* __restrict__ l_out, float* __restrict__ u_out,
                 float* __restrict__ s1_out, float* __restrict__ s2_out, int c, int s) {
   const int row = (blockIdx.x * RS_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= c) return;  // the whole warp leaves together
-  const float* Mrow = M + (size_t)row * s;
+  const TM* Mrow = M + (size_t)row * s;
   float m = NEG_BIG, l = 0.0f, u = 0.0f, s1 = 0.0f, s2 = 0.0f;
   for (int j = lane; j < s; j += 32) {
-    const float x = __ldg(Mrow + j);
+    const float x = load_f32(Mrow + j);
     stats_push(m, l, u, x);
     if (NORMS) norms_push(s1, s2, x);
   }
@@ -166,6 +237,18 @@ rowstats_kernel(const float* __restrict__ M, float* __restrict__ m_out,
 // card; each range writes its own partial sums, and ext_reduce adds them
 // in a fixed order. Bound: f32 FMA (2 c s (k+1) flops); M is read once,
 // A_ext (26 MB) once per spot tile, mostly from L2.
+//
+// M of type bf16 cannot go by 4-byte cp.async per element, and pairs of
+// bf16 misalign every other row when s is odd; so the next chunk of a bf16
+// M is loaded into registers (4 a thread) before the current chunk
+// computes and lands in shared memory after it. A bf16 A (compute_dtype)
+// arrives by 16-byte cp.async into a bf16 tile (the wrapper pads its rows
+// to a multiple of 8 entries, lda), widened to f32 by shifts in the product
+// loop, and w into its own small tile. With a bf16 A, JAX rounds P
+// to bf16 for Y = P^T A and keeps the f32 P for q = w P: here each P is
+// rounded once, into a second tile (Pr) that every column of A takes, and
+// in the block holding column k (w) the first 64 threads, one per spot, sum
+// w times the f32 P of each chunk for q, outside the product loop.
 // ---------------------------------------------------------------------------
 
 constexpr int PJ_BS = 64;    // spots per block
@@ -181,6 +264,15 @@ __device__ __forceinline__ void cp_async_f32(float* smem, const float* gmem, boo
                "r"(src_bytes));
 }
 
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned);
+// valid == false writes zeros
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int src_bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -191,14 +283,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+template <typename TM, typename TA>
 __global__ void __launch_bounds__(PJ_THREADS, 2)
-project_kernel(const float* __restrict__ M, const float* __restrict__ A,
+project_kernel(const TM* __restrict__ M, const TA* __restrict__ A,
                const float* __restrict__ w, const float* __restrict__ mrow,
                const float* __restrict__ lrow, float* __restrict__ partial,
-               int c, int s, int k, int cells_per_split) {
+               int c, int s, int k, int lda, int cells_per_split) {
+  constexpr bool M_BF16 = std::is_same<TM, bf16>::value;
+  constexpr bool A_BF16 = std::is_same<TA, bf16>::value;
+  constexpr int M_PER_THREAD = PJ_BC * PJ_BS / PJ_THREADS;  // 4
   __shared__ __align__(16) float Ms[2][PJ_BC][PJ_BS];
-  __shared__ __align__(16) float As[2][PJ_BC][PJ_BJ];
+  // [A | w] in f32, or a bf16 A and w apart
+  __shared__ __align__(16) float As[2][A_BF16 ? 1 : PJ_BC][A_BF16 ? 4 : PJ_BJ];
+  __shared__ __align__(16) unsigned short Ab[2][A_BF16 ? PJ_BC : 1][A_BF16 ? PJ_BJ : 8];
+  __shared__ __align__(16) float Ws[2][PJ_BC];
   __shared__ __align__(16) float Ps[PJ_BC][PJ_BS];
+  __shared__ __align__(16) float Pr[A_BF16 ? PJ_BC : 1][PJ_BS];  // bf16(P), as f32
   const int tid = threadIdx.x;
   const int ty = tid >> 5;   // 8 spot groups of 8 spots
   const int tx = tid & 31;   // 32 column groups: tx*4.. and 128+tx*4..
@@ -207,36 +307,78 @@ project_kernel(const float* __restrict__ M, const float* __restrict__ A,
   const int K1 = k + 1;
   const int c_begin = blockIdx.z * cells_per_split;
   const int c_end = min(c, c_begin + cells_per_split);
+  // the P tile that the columns of A take
+  const float (*PY)[PJ_BS] = A_BF16 ? Pr : Ps;
+  // with a bf16 A: column k (w) in this block, and whether this thread sums
+  // q for spot s0 + tid
+  const int wcol = k - j0;
+  const bool q_thread = A_BF16 && wcol >= 0 && wcol < PJ_BJ && tid < PJ_BS;
+  float mreg[M_PER_THREAD];  // a bf16 M's next chunk, in flight
 
-  // start the copies of the chunk at cell c0 into buffer b
+  // start the loads of the chunk at cell c0 into buffer b (a bf16 M into
+  // mreg, for land_m to store)
   auto issue = [&](int c0, int b) {
-    for (int e = tid; e < PJ_BC * PJ_BS; e += PJ_THREADS) {
+#pragma unroll
+    for (int q = 0; q < M_PER_THREAD; ++q) {
+      const int e = tid + q * PJ_THREADS;
       const int cc = e / PJ_BS, ss = e % PJ_BS;
       const int cell = c0 + cc, spot = s0 + ss;
       const bool ok = cell < c_end && spot < s;
-      cp_async_f32(&Ms[b][cc][ss], ok ? M + (size_t)cell * s + spot : M, ok);
+      if constexpr (M_BF16)
+        mreg[q] = ok ? load_f32(M + (size_t)cell * s + spot) : 0.0f;
+      else
+        cp_async_f32(&Ms[b][cc][ss], ok ? M + (size_t)cell * s + spot : M, ok);
     }
-    for (int e = tid; e < PJ_BC * PJ_BJ; e += PJ_THREADS) {
-      const int cc = e / PJ_BJ, jj = e % PJ_BJ;
-      const int cell = c0 + cc, j = j0 + jj;
-      const bool in = cell < c_end;
-      const float* src = (in && j < k) ? A + (size_t)cell * k + j
-                         : (in && j == k) ? w + cell : A;
-      cp_async_f32(&As[b][cc][jj], src, in && j <= k);
+    if constexpr (A_BF16) {
+      // 16 rows of 32 segments of 8 entries; a segment at or past lda (a
+      // multiple of 8) is zeros, as are the pad columns from k to lda
+      for (int e = tid; e < PJ_BC * (PJ_BJ / 8); e += PJ_THREADS) {
+        const int cc = e / (PJ_BJ / 8), j = j0 + e % (PJ_BJ / 8) * 8;
+        const int cell = c0 + cc;
+        const bool ok = cell < c_end && j < lda;
+        cp_async_16(&Ab[b][cc][j - j0], ok ? A + (size_t)cell * lda + j : A, ok);
+      }
+      if (tid < PJ_BC) {
+        const bool in = c0 + tid < c_end;
+        cp_async_f32(&Ws[b][tid], in ? w + c0 + tid : w, in);
+      }
+    } else {
+      for (int e = tid; e < PJ_BC * PJ_BJ; e += PJ_THREADS) {
+        const int cc = e / PJ_BJ, jj = e % PJ_BJ;
+        const int cell = c0 + cc, j = j0 + jj;
+        const bool in = cell < c_end;
+        const float* src = (in && j < k) ? A + (size_t)cell * k + j
+                           : (in && j == k) ? w + cell : A;
+        cp_async_f32(&As[b][cc][jj], src, in && j <= k);
+      }
     }
     cp_async_commit();
   };
+  auto land_m = [&](int b) {
+    if constexpr (M_BF16) {
+#pragma unroll
+      for (int q = 0; q < M_PER_THREAD; ++q) {
+        const int e = tid + q * PJ_THREADS;
+        Ms[b][e / PJ_BS][e % PJ_BS] = mreg[q];
+      }
+    }
+  };
 
   float acc[8][8];
+  float qsum = 0.0f;  // with a bf16 A: q of spot s0 + tid from the f32 P
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  if (c_begin < c_end) issue(c_begin, 0);
+  if (c_begin < c_end) {
+    issue(c_begin, 0);
+    land_m(0);
+  }
   int buf = 0;
   for (int c0 = c_begin; c0 < c_end; c0 += PJ_BC, buf ^= 1) {
-    if (c0 + PJ_BC < c_end) {
+    const bool more = c0 + PJ_BC < c_end;
+    if (more) {
       issue(c0 + PJ_BC, buf ^ 1);
       cp_async_wait<1>();
     } else {
@@ -250,22 +392,41 @@ project_kernel(const float* __restrict__ M, const float* __restrict__ A,
       if (cell < c_end && spot < s)
         p = expf(Ms[buf][cc][ss] - mrow[cell]) * (1.0f / lrow[cell]);
       Ps[cc][ss] = p;
+      if constexpr (A_BF16) Pr[cc][ss] = round_bf16(p);
     }
     __syncthreads();
+    if (q_thread) {
+#pragma unroll
+      for (int cc = 0; cc < PJ_BC; ++cc) qsum = fmaf(Ws[buf][cc], Ps[cc][tid], qsum);
+    }
 #pragma unroll
     for (int cc = 0; cc < PJ_BC; ++cc) {
-      const float4 p0 = *reinterpret_cast<const float4*>(&Ps[cc][ty * 8]);
-      const float4 p1 = *reinterpret_cast<const float4*>(&Ps[cc][ty * 8 + 4]);
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][cc][tx * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][cc][128 + tx * 4]);
+      const float4 p0 = *reinterpret_cast<const float4*>(&PY[cc][ty * 8]);
+      const float4 p1 = *reinterpret_cast<const float4*>(&PY[cc][ty * 8 + 4]);
       const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float a[8];
+      if constexpr (A_BF16) {
+        const uint2 r0 = *reinterpret_cast<const uint2*>(&Ab[buf][cc][tx * 4]);
+        const uint2 r1 = *reinterpret_cast<const uint2*>(&Ab[buf][cc][128 + tx * 4]);
+        const uint32_t pair[4] = {r0.x, r0.y, r1.x, r1.y};
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          a[2 * h] = __uint_as_float(pair[h] << 16);
+          a[2 * h + 1] = __uint_as_float(pair[h] & 0xFFFF0000u);
+        }
+      } else {
+        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][cc][tx * 4]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][cc][128 + tx * 4]);
+        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], a[j], acc[i][j]);
     }
-    __syncthreads();  // Ps and As[buf] are free for the next chunk's writes
+    if (more) land_m(buf ^ 1);  // Ms[buf ^ 1] was last read a chunk ago
+    __syncthreads();  // Ps and As/Ab/Ws[buf] are free for the next chunk's writes
   }
 
   float* out = partial + (size_t)blockIdx.z * s * K1;
@@ -276,9 +437,10 @@ project_kernel(const float* __restrict__ M, const float* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = j0 + (j < 4 ? tx * 4 + j : 128 + tx * 4 + (j - 4));
-      if (col < K1) out[(size_t)spot * K1 + col] = acc[i][j];
+      if (col < K1 && !(A_BF16 && col == k)) out[(size_t)spot * K1 + col] = acc[i][j];
     }
   }
+  if (q_thread && s0 + tid < s) out[(size_t)(s0 + tid) * K1 + k] = qsum;
 }
 
 // The sum over the splits of a (nsplit, rows, k + 1) partial, in split
@@ -313,13 +475,14 @@ cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows
 //   EPI_RBAR       replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
 //                  pallas_core._rbar_kernel / _dp_tile)
 //   EPI_ADAM       replaces tangram_tpu/ops/fused_step.py::_dm_adam
-//                  (_dm_adam_kernel, _grad_tile, _emit_next_stats) on its
-//                  f32, round-to-nearest path, L1/L2 terms included
+//                  (_dm_adam_kernel, _grad_tile, _emit_next_stats, _sr_cast),
+//                  L1/L2 terms, bf16 M/mu/nu and stochastic rounding included
 //   EPI_GSQ        replaces tangram_tpu/ops/fused_step.py::_gsq (_gsq_kernel)
 //   EPI_ADAFACTOR  replaces tangram_tpu/ops/fused_step.py::_dm_adafactor
-//                  (_dm_adafactor_kernel) on its f32, round-to-nearest path
+//                  (_dm_adafactor_kernel), bf16 M and stochastic rounding
+//                  included
 //   EPI_DM         replaces tangram_tpu/ops/pallas_core.py::_backward's second
-//                  call (_dm_kernel): the backward of the unfused core
+//                  call (_dm_kernel): the backward of the unfused core (f32)
 //
 // A block owns 64 whole cell rows and loops over all spots in tiles of 128.
 // Per tile it forms dP = A_ext dY_ext^T (A_ext = [A | w], dY_ext = [dY | dq],
@@ -384,15 +547,15 @@ enum Epilogue : int { EPI_RBAR = 0, EPI_ADAM = 1, EPI_GSQ = 2, EPI_ADAFACTOR = 3
 // Everything a dP-tile kernel reads or writes; a pointer an epilogue does
 // not use may be null.
 struct DpArgs {
-  float* M;               // (c, s); updated in place by adam and adafactor
+  void* M;                // (c, s) f32 or bf16; updated in place by adam and adafactor
   const float* AT;        // (K1, c) = [A | w]^T
   const float* dYT;       // (K1, s) = [dY | dq]^T
   const float* dh;        // (c,)
   const float* m;         // (c,) row max
   const float* l;         // (c,) row sum of exp
   const float* r;         // (c,) softmax-VJP row term (adam, gsq, adafactor)
-  float* mu;              // (c, s) Adam moments, in place
-  float* nu;
+  void* mu;               // (c, s) Adam moments, f32 or bf16, in place
+  void* nu;
   const float* rowf;      // (c,) Adafactor row factor
   const float* colf;      // (s,) Adafactor column factor
   float* row_part;        // (nsplit, c) row sums: r (rbar) or vr (gsq)
@@ -404,9 +567,30 @@ struct DpArgs {
   int c, s, K1, vec, tiles_per_split;
   float lr, bc1, bc2;     // lr: adam, adafactor; bc1, bc2: adam
   float lam1, two_lam2;   // L1 and 2 * L2 strength; both 0 without norms
+  int m_bf16, mom_bf16;   // M's and mu/nu's storage is bf16 (else f32)
+  int sr;                 // the updates round stochastically (else to nearest)
+  unsigned t;             // the step count that seeds stochastic rounding
 };
 
-__device__ __forceinline__ void load4(const float* p, int n_valid, bool vec, float v[4]) {
+// entries at..at+3 of an f32 (bf16 == false) or bf16 array, as f32; entries
+// from n_valid on read 0. vec: 16-byte (f32) or 8-byte (bf16) accesses.
+__device__ __forceinline__ void load4(const void* base, size_t at, bool bf16_store,
+                                      int n_valid, bool vec, float v[4]) {
+  if (bf16_store) {
+    const unsigned short* p = static_cast<const unsigned short*>(base) + at;
+    if (vec && n_valid >= 4) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      v[0] = __uint_as_float(t.x << 16);
+      v[1] = __uint_as_float(t.x & 0xFFFF0000u);
+      v[2] = __uint_as_float(t.y << 16);
+      v[3] = __uint_as_float(t.y & 0xFFFF0000u);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = q < n_valid ? bf16_bits_to_f32(p[q]) : 0.0f;
+    }
+    return;
+  }
+  const float* p = static_cast<const float*>(base) + at;
   if (vec && n_valid >= 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
@@ -416,7 +600,24 @@ __device__ __forceinline__ void load4(const float* p, int n_valid, bool vec, flo
   }
 }
 
-__device__ __forceinline__ void store4(float* p, int n_valid, bool vec, const float v[4]) {
+// the inverse of load4; a bf16 array takes the upper halves of v, which
+// stored_value has made exact bf16 values
+__device__ __forceinline__ void store4(void* base, size_t at, bool bf16_store, int n_valid,
+                                       bool vec, const float v[4]) {
+  if (bf16_store) {
+    unsigned short* p = static_cast<unsigned short*>(base) + at;
+    if (vec && n_valid >= 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(
+          (__float_as_uint(v[0]) >> 16) | (__float_as_uint(v[1]) & 0xFFFF0000u),
+          (__float_as_uint(v[2]) >> 16) | (__float_as_uint(v[3]) & 0xFFFF0000u));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < n_valid) p[q] = (unsigned short)(__float_as_uint(v[q]) >> 16);
+    }
+    return;
+  }
+  float* p = static_cast<float*>(base) + at;
   if (vec && n_valid >= 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
@@ -448,12 +649,12 @@ dp_kernel(const DpArgs a) {
   __shared__ __align__(16) float As[2][DP_KC][DP_TC];
   __shared__ __align__(16) float Ds[2][DP_KC][DP_TS];
   extern __shared__ __align__(16) float dyn[];  // EPI_DM only (DM_SMEM bytes)
-  float* __restrict__ M = a.M;
   const float* __restrict__ AT = a.AT;
   const float* __restrict__ dYT = a.dYT;
   const int c = a.c, s = a.s, K1 = a.K1;
   const bool vec = a.vec != 0;
   const bool norm_grad = a.lam1 != 0.0f || a.two_lam2 != 0.0f;
+  const bool m_bf16 = a.m_bf16 != 0, mom_bf16 = a.mom_bf16 != 0, sr = a.sr != 0;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;   // 16 cell groups of 4 cells
   const int tx = tid & 15;   // 16 spot groups: tx*4.. and 64+tx*4..
@@ -553,19 +754,29 @@ dp_kernel(const DpArgs a) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (!cvalid[i]) continue;
-      const size_t row = (size_t)(c0 + ty * 4 + i) * s;
+      const int cell = c0 + ty * 4 + i;
+      const size_t row = (size_t)cell * s;
+      // stochastic-rounding keys of this cell's M, mu and nu (salts 1, 2, 3)
+      uint32_t key_m = 0, key_mu = 0, key_nu = 0;
+      if (UPDATE && sr) {
+        key_m = sr_key(a.t, (uint32_t)cell, 1u);
+        if (EPI == EPI_ADAM) {
+          key_mu = sr_key(a.t, (uint32_t)cell, 2u);
+          key_nu = sr_key(a.t, (uint32_t)cell, 3u);
+        }
+      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int spot = s0 + half * 64 + tx * 4;
         const int n_valid = min(4, s - spot);
         if (n_valid <= 0) continue;
         float x[4], mv[4], vv[4], cf[4], dmv[4];
-        load4(M + row + spot, n_valid, vec, x);
+        load4(a.M, row + spot, m_bf16, n_valid, vec, x);
         if (EPI == EPI_ADAM) {
-          load4(a.mu + row + spot, n_valid, vec, mv);
-          load4(a.nu + row + spot, n_valid, vec, vv);
+          load4(a.mu, row + spot, mom_bf16, n_valid, vec, mv);
+          load4(a.nu, row + spot, mom_bf16, n_valid, vec, vv);
         }
-        if (EPI == EPI_ADAFACTOR) load4(a.colf + spot, n_valid, vec, cf);
+        if (EPI == EPI_ADAFACTOR) load4(a.colf, spot, false, n_valid, vec, cf);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           if (q >= n_valid) continue;
@@ -585,27 +796,29 @@ dp_kernel(const DpArgs a) {
               const float nun = BETA2 * vv[q] + ONE_MINUS_BETA2 * (g * g);
               const float m_hat = mun * inv_bc1;
               const float v_hat = nun * inv_bc2;
-              x[q] = x[q] - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
-              mv[q] = mun;
-              vv[q] = nun;
+              const float xn = x[q] - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+              x[q] = stored_value(xn, m_bf16, sr, key_m, spot + q);
+              mv[q] = stored_value(mun, mom_bf16, sr, key_mu, spot + q);
+              vv[q] = stored_value(nun, mom_bf16, sr, key_nu, spot + q);
             } else if constexpr (EPI == EPI_ADAFACTOR) {
-              x[q] = x[q] - a.lr * ((g * crf[i]) * cf[q]);
+              const float xn = x[q] - a.lr * ((g * crf[i]) * cf[q]);
+              x[q] = stored_value(xn, m_bf16, sr, key_m, spot + q);
             } else {
               dmv[q] = g;
               pt[i][half * 4 + q] = P;
             }
-            if (UPDATE) {
+            if (UPDATE) {  // the next stats see the stored value
               stats_push(nm[i], nl[i], nu_[i], x[q]);
               if (NORMS) norms_push(ns1[i], ns2[i], x[q]);
             }
           }
         }
-        if (UPDATE) store4(M + row + spot, n_valid, vec, x);
+        if (UPDATE) store4(a.M, row + spot, m_bf16, n_valid, vec, x);
         if (EPI == EPI_ADAM) {
-          store4(a.mu + row + spot, n_valid, vec, mv);
-          store4(a.nu + row + spot, n_valid, vec, vv);
+          store4(a.mu, row + spot, mom_bf16, n_valid, vec, mv);
+          store4(a.nu, row + spot, mom_bf16, n_valid, vec, vv);
         }
-        if (EPI == EPI_DM) store4(a.dM + row + spot, n_valid, vec, dmv);
+        if (EPI == EPI_DM) store4(a.dM, row + spot, false, n_valid, vec, dmv);
       }
     }
     if constexpr (EPI == EPI_DM) {
@@ -819,10 +1032,11 @@ cudaError_t launch_dp(bool with_dh, bool norms, DpArgs a, int nsplit, float* out
   return cudaGetLastError();
 }
 
-DpArgs dp_args(const float* M, const float* AT, const float* dYT, const float* dh,
-               const float* m, const float* l, int c, int s, int K1, int vec) {
+DpArgs dp_args(const void* M, const float* AT, const float* dYT, const float* dh,
+               const float* m, const float* l, int c, int s, int K1, int vec, int m_bf16) {
   DpArgs a = {};
-  a.M = const_cast<float*>(M);
+  a.M = const_cast<void*>(M);
+  a.m_bf16 = m_bf16;
   a.AT = AT;
   a.dYT = dYT;
   a.dh = dh;
@@ -843,53 +1057,85 @@ DpArgs dp_args(const float* M, const float* AT, const float* dYT, const float* d
 // launches; 0 means the kernels were enqueued.
 //
 // Shared arguments of the dP-tile entry points: AT (k + 1, c) = [A | w]^T;
-// dYT (k + 1, s) = [dY | dq]^T; dh, m, l, r: (c,); vec != 0 allows 16-byte
-// accesses along spots (s % 4 == 0 and every (c, s) / (s,) base 16-byte
-// aligned); nsplit: spot-axis splits (see dp_kernel); lam1 and two_lam2: the
-// L1 strength and twice the L2 strength (0 and 0 without the norm terms).
+// dYT (k + 1, s) = [dY | dq]^T (f32, the A and dY rows rounded to bf16 by
+// the caller under a bf16 compute type: a product of two bf16 is exact in
+// f32, so the tile is JAX's bf16 x bf16 -> f32 dot up to summation order);
+// dh, m, l, r: (c,); vec != 0 allows 16-byte (f32) or 8-byte (bf16)
+// accesses of 4 entries along spots (s % 4 == 0 and every (c, s) / (s,)
+// base aligned so); nsplit: spot-axis splits (see dp_kernel); lam1 and
+// two_lam2: the L1 strength and twice the L2 strength (0 and 0 without the
+// norm terms); m_bf16 (and mom_bf16): M's (mu's and nu's) storage is bf16;
+// sr: the updates store by stochastic rounding seeded by step t (else
+// round to nearest even).
 // ---------------------------------------------------------------------------
 
-extern "C" int tg_rowstats(const float* M, float* m, float* l, float* u, int c,
-                           int s, void* stream) {
+template <bool NORMS>
+cudaError_t launch_rowstats(const void* M, float* m, float* l, float* u, float* s1,
+                            float* s2, int c, int s, int m_bf16, cudaStream_t st) {
   const int warps_per_block = RS_THREADS / 32;
   const dim3 grid((c + warps_per_block - 1) / warps_per_block);
-  rowstats_kernel<false><<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(
-      M, m, l, u, nullptr, nullptr, c, s);
-  return (int)cudaGetLastError();
+  if (m_bf16)
+    rowstats_kernel<NORMS, bf16><<<grid, RS_THREADS, 0, st>>>(
+        static_cast<const bf16*>(M), m, l, u, s1, s2, c, s);
+  else
+    rowstats_kernel<NORMS, float><<<grid, RS_THREADS, 0, st>>>(
+        static_cast<const float*>(M), m, l, u, s1, s2, c, s);
+  return cudaGetLastError();
+}
+
+extern "C" int tg_rowstats(const void* M, float* m, float* l, float* u, int c,
+                           int s, int m_bf16, void* stream) {
+  return (int)launch_rowstats<false>(M, m, l, u, nullptr, nullptr, c, s, m_bf16,
+                                     (cudaStream_t)stream);
 }
 
 // as tg_rowstats, plus s1 = sum |M| and s2 = sum M^2 over M > PAD_GUARD
-extern "C" int tg_rowstats_norms(const float* M, float* m, float* l, float* u,
-                                 float* s1, float* s2, int c, int s, void* stream) {
-  const int warps_per_block = RS_THREADS / 32;
-  const dim3 grid((c + warps_per_block - 1) / warps_per_block);
-  rowstats_kernel<true><<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(
-      M, m, l, u, s1, s2, c, s);
-  return (int)cudaGetLastError();
+extern "C" int tg_rowstats_norms(const void* M, float* m, float* l, float* u,
+                                 float* s1, float* s2, int c, int s, int m_bf16,
+                                 void* stream) {
+  return (int)launch_rowstats<true>(M, m, l, u, s1, s2, c, s, m_bf16,
+                                    (cudaStream_t)stream);
 }
 
-// partial: (nsplit, s, k + 1) scratch; Y: (s, k); q: (s,)
-extern "C" int tg_project(const float* M, const float* A, const float* w,
+// partial: (nsplit, s, k + 1) scratch; Y: (s, k); q: (s,); M f32 or bf16
+// (m_bf16), A f32 or bf16 (a_bf16; then its rows are lda apart, lda a
+// multiple of 8 entries, 16-byte aligned, zeros from column k on), w f32
+extern "C" int tg_project(const void* M, const void* A, const float* w,
                           const float* m, const float* l, float* partial,
                           float* Y, float* q, int c, int s, int k, int nsplit,
-                          void* stream) {
+                          int m_bf16, int a_bf16, int lda, void* stream) {
   const int K1 = k + 1;
   int cells_per_split = (c + nsplit - 1) / nsplit;
   cells_per_split = (cells_per_split + PJ_BC - 1) / PJ_BC * PJ_BC;
   const dim3 grid((s + PJ_BS - 1) / PJ_BS, (K1 + PJ_BJ - 1) / PJ_BJ, nsplit);
-  project_kernel<<<grid, PJ_THREADS, 0, (cudaStream_t)stream>>>(
-      M, A, w, m, l, partial, c, s, k, cells_per_split);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* Mf = static_cast<const float*>(M);
+  const bf16* Mb = static_cast<const bf16*>(M);
+  const float* Af = static_cast<const float*>(A);
+  const bf16* Ab = static_cast<const bf16*>(A);
+  if (m_bf16 && a_bf16)
+    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mb, Ab, w, m, l, partial, c, s, k,
+                                                lda, cells_per_split);
+  else if (m_bf16)
+    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mb, Af, w, m, l, partial, c, s, k,
+                                                lda, cells_per_split);
+  else if (a_bf16)
+    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mf, Ab, w, m, l, partial, c, s, k,
+                                                lda, cells_per_split);
+  else
+    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mf, Af, w, m, l, partial, c, s, k,
+                                                lda, cells_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_ext_reduce(partial, Y, q, s, k, nsplit, (cudaStream_t)stream);
+  return (int)launch_ext_reduce(partial, Y, q, s, k, nsplit, st);
 }
 
 // r_part: (nsplit, c) scratch; r: (c,)
-extern "C" int tg_rbar(const float* M, const float* AT, const float* dYT,
+extern "C" int tg_rbar(const void* M, const float* AT, const float* dYT,
                        const float* dh, const float* m, const float* l,
                        float* r_part, float* r, int c, int s, int K1, int with_dh,
-                       int vec, int nsplit, void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+                       int vec, int nsplit, int m_bf16, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, m_bf16);
   a.row_part = r_part;
   return (int)launch_dp<EPI_RBAR>(with_dh != 0, false, a, nsplit, r, nullptr, nullptr,
                                   nullptr, nullptr, (cudaStream_t)stream);
@@ -898,14 +1144,15 @@ extern "C" int tg_rbar(const float* M, const float* AT, const float* dYT,
 // M, mu, nu: (c, s), updated in place; st_part: (5, nsplit, c) scratch;
 // m_out, l_out, u_out [, s1_out, s2_out when with_norms]: (c,) stats of the
 // stored M.
-extern "C" int tg_dm_adam(float* M, const float* AT, const float* dYT,
+extern "C" int tg_dm_adam(void* M, const float* AT, const float* dYT,
                           const float* dh, const float* m, const float* l,
-                          const float* r, float* mu, float* nu, float* st_part,
+                          const float* r, void* mu, void* nu, float* st_part,
                           float* m_out, float* l_out, float* u_out, float* s1_out,
                           float* s2_out, int c, int s, int K1, int with_dh,
                           int with_norms, float lr, float bc1, float bc2, float lam1,
-                          float two_lam2, int vec, int nsplit, void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+                          float two_lam2, int vec, int nsplit, int m_bf16,
+                          int mom_bf16, int sr, int t, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, m_bf16);
   a.r = r;
   a.mu = mu;
   a.nu = nu;
@@ -915,18 +1162,21 @@ extern "C" int tg_dm_adam(float* M, const float* AT, const float* dYT,
   a.bc2 = bc2;
   a.lam1 = lam1;
   a.two_lam2 = two_lam2;
+  a.mom_bf16 = mom_bf16;
+  a.sr = sr;
+  a.t = (unsigned)t;
   return (int)launch_dp<EPI_ADAM>(with_dh != 0, with_norms != 0, a, nsplit, m_out,
                                   l_out, u_out, s1_out, s2_out, (cudaStream_t)stream);
 }
 
 // vr_part: (nsplit, c) and vc_part: (ceil(c / 64), s) scratch; vr: (c,) =
 // sum over spots of g^2; vc: (s,) = sum over cells of g^2
-extern "C" int tg_gsq(const float* M, const float* AT, const float* dYT,
+extern "C" int tg_gsq(const void* M, const float* AT, const float* dYT,
                       const float* dh, const float* m, const float* l, const float* r,
                       float* vr_part, float* vc_part, float* vr, float* vc, int c,
                       int s, int K1, int with_dh, float lam1, float two_lam2, int vec,
-                      int nsplit, void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+                      int nsplit, int m_bf16, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, m_bf16);
   a.r = r;
   a.row_part = vr_part;
   a.col_part = vc_part;
@@ -949,7 +1199,7 @@ extern "C" int tg_dm_backward(const float* M, const float* AT, const float* dYT,
                               const float* l, const float* r, float* dM, float* ext_part,
                               float* dA, float* dw, int c, int s, int K1, int with_dh,
                               int vec, int nsplit, void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, 0);
   a.r = r;
   a.dM = dM;
   a.dYE = dYE;
@@ -960,15 +1210,15 @@ extern "C" int tg_dm_backward(const float* M, const float* AT, const float* dYT,
 
 // M: (c, s), updated in place; rowf: (c,); colf: (s,); st_part and the stats
 // outputs as for tg_dm_adam
-extern "C" int tg_dm_adafactor(float* M, const float* AT, const float* dYT,
+extern "C" int tg_dm_adafactor(void* M, const float* AT, const float* dYT,
                                const float* dh, const float* m, const float* l,
                                const float* r, const float* rowf, const float* colf,
                                float* st_part, float* m_out, float* l_out,
                                float* u_out, float* s1_out, float* s2_out, int c,
                                int s, int K1, int with_dh, int with_norms, float lr,
                                float lam1, float two_lam2, int vec, int nsplit,
-                               void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec);
+                               int m_bf16, int sr, int t, void* stream) {
+  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, m_bf16);
   a.r = r;
   a.rowf = rowf;
   a.colf = colf;
@@ -976,6 +1226,8 @@ extern "C" int tg_dm_adafactor(float* M, const float* AT, const float* dYT,
   a.lr = lr;
   a.lam1 = lam1;
   a.two_lam2 = two_lam2;
+  a.sr = sr;
+  a.t = (unsigned)t;
   return (int)launch_dp<EPI_ADAFACTOR>(with_dh != 0, with_norms != 0, a, nsplit, m_out,
                                        l_out, u_out, s1_out, s2_out,
                                        (cudaStream_t)stream);

@@ -16,6 +16,7 @@ import pandas as pd
 import torch
 
 from . import adlite
+from .ops.core import softmax_row_chunks
 from .utils import annotate_gene_sparsity
 
 __all__ = [
@@ -39,12 +40,17 @@ def projected_expression_from_logits(M_logits: torch.Tensor, X) -> np.ndarray:
     """``softmax(M)ᵀ @ X`` computed where the trained logits live.
 
     The softmax and the product run on ``M_logits``' device (``torch.matmul``
-    in full f32), and only the (spots × genes) result is fetched, once.
+    in full f32; logits stored in bf16 are normalized in f32), a chunk of
+    cells at a time so that softmax(M) is never whole on the device, and
+    only the (spots × genes) result is fetched, once.
     """
     X_dev = torch.tensor(np.asarray(X, dtype=np.float32), device=M_logits.device)
+    out = torch.zeros((M_logits.shape[1], X_dev.shape[1]), dtype=torch.float32,
+                      device=M_logits.device)
     with torch.no_grad():
-        P = torch.softmax(M_logits, dim=1)
-        return (P.T @ X_dev).cpu().numpy()
+        for r0, P in softmax_row_chunks(M_logits):
+            out += P.T @ X_dev[r0:r0 + P.shape[0]]
+    return out.cpu().numpy()
 
 
 def _column_cosine(A, B):

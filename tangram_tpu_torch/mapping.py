@@ -5,9 +5,10 @@ mapping_utils.py:20, ``adata_to_cluster_expression`` ref
 mapping_utils.py:103, ``map_cells_to_space`` ref mapping_utils.py:141):
 AnnData in, AnnData out, feeding the PyTorch training engine in
 :mod:`tangram_tpu_torch.models.mapper`. ``cells``, ``clusters`` and
-``constrained`` modes with Adam or Adafactor, the L1/L2 terms and f32
-storage are ported; every other option keeps the JAX package's keyword and
-raises ``NotImplementedError`` naming its ROADMAP item.
+``constrained`` modes with Adam or Adafactor, the L1/L2 terms, and f32 or
+bf16 storage with round-to-nearest or stochastic rounding are ported;
+every other option keeps the JAX package's keyword and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -229,17 +230,9 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     return report
 
 
-def _reject_unported(mesh, dtypes, rounding, init_method, graph_format,
-                     early_stop_tol):
+def _reject_unported(mesh, init_method, graph_format, early_stop_tol):
     if mesh is not None:
         raise unported("mesh", "queue A11 (multi-GPU)")
-    for name, dt in dtypes.items():
-        if dt != "float32":
-            raise unported(f"{name}={dt!r}", "queue A4 (bf16 and stochastic rounding)")
-    if rounding == "stochastic":
-        raise unported("rounding='stochastic'", "queue A4 (bf16 and stochastic rounding)")
-    if rounding != "nearest":
-        raise ValueError(f'rounding must be "nearest" or "stochastic", got {rounding!r}')
     if init_method not in ("auto", "numpy"):
         raise unported(f"init_method={init_method!r}",
                        "queue A6 (schedules and early stop)")
@@ -304,6 +297,14 @@ def map_cells_to_space(
     moments: c + s floats of optimizer state instead of 2·c·s). In
     ``constrained`` mode the result's ``obs['F_out']`` holds each cell's
     learned filter probability.
+
+    ``param_dtype``, ``moment_dtype`` and ``compute_dtype``
+    (``"float32"`` or ``"bfloat16"``) and ``rounding`` (``"nearest"`` or
+    ``"stochastic"``) act on the fused loops, as in the JAX package: bf16
+    logits and Adam moments halve the training state, and stochastic
+    rounding keeps their updates unbiased. The autograd and reference loops
+    train in f32, and stochastic rounding there raises ``ValueError``. The
+    returned mapping is f32 either way.
     """
     del early_stop_window
     lambda_d = _check_mapping_args(
@@ -316,12 +317,9 @@ def map_cells_to_space(
             "early_stop_tol is not supported in constrained mode (the "
             "count/filter penalties keep moving the score target)"
         )
-    _reject_unported(
-        mesh,
-        {"moment_dtype": moment_dtype, "compute_dtype": compute_dtype,
-         "param_dtype": param_dtype},
-        rounding, init_method, graph_format, early_stop_tol,
-    )
+    _reject_unported(mesh, init_method, graph_format, early_stop_tol)
+    low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
+                         param_dtype=param_dtype, rounding=rounding)
 
     if mode == "clusters":
         adata_sc = adata_to_cluster_expression(
@@ -358,6 +356,7 @@ def map_cells_to_space(
             impl=impl,
             init_method=init_method,
             optimizer=optimizer,
+            **low_precision,
         )
         mapping_matrix, F_out, training_history = mapper.train(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
@@ -383,6 +382,7 @@ def map_cells_to_space(
             lambda_geary=lambda_geary,
             impl=impl,
             optimizer=optimizer,
+            **low_precision,
         )
         mapping_matrix, training_history = mapper.train(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,

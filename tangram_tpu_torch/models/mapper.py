@@ -1,7 +1,9 @@
 """The mapping optimizer: PyTorch training loops over the fused steps.
 
 Counterpart of ``tangram_tpu/models/mapper.py`` for single-device training
-with Adam or Adafactor and f32 storage:
+with Adam or Adafactor, in f32 or with the JAX package's low-precision
+options (``param_dtype``, ``moment_dtype``, ``compute_dtype``, ``rounding``;
+they apply to the fused loops, as in JAX):
 
 * :func:`fit_mapping` — the functional core, with three loops: the fused
   loops (``ops/fused_step.py``, unconstrained and constrained: the streamed
@@ -27,11 +29,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.core import resolve_impl, unported
+from ..ops.core import resolve_impl, softmax_row_chunks, unported
 from ..ops.cuda_core import _rowstats
 from ..ops.fused_step import (
     ADAFACTOR_EPS,
     _adam_vector,
+    _check_rounding,
     adafactor_decay,
     adam_scalars,
     fused_constrained_step,
@@ -139,8 +142,50 @@ def _check_optimizer(optimizer: str) -> str:
     return optimizer
 
 
+#: the storage and compute types the port trains in
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype_name(dtype) -> str:
+    """``"float32"`` for "float32", torch.float32 or np.float32, and so on."""
+    if isinstance(dtype, str):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    try:
+        return np.dtype(dtype).name
+    except TypeError:
+        return str(dtype)
+
+
+def _check_low_precision(rounding: str, param_dtype, moment_dtype) -> None:
+    """The JAX package's checks of the rounding option (``Mapper`` and
+    ``fit_mapping``): one of the two names, and with stochastic rounding
+    f32 or bf16 storage."""
+    if _check_rounding(rounding):
+        for name, dt in (("param_dtype", param_dtype), ("moment_dtype", moment_dtype)):
+            if _dtype_name(dt) not in DTYPES:
+                raise ValueError(f"rounding='stochastic' supports float32/bfloat16 "
+                                 f"storage; got {name}={dt!r}")
+
+
+def _torch_dtype(name: str, dtype) -> torch.dtype:
+    key = _dtype_name(dtype)
+    if key not in DTYPES:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {dtype!r}")
+    return DTYPES[key]
+
+
 def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer,
-                record):
+                record, param_dtype, moment_dtype, compute_dtype, rounding):
+    """The fused unconstrained loop. M is cast to ``param_dtype`` here (a
+    new tensor when its type differs) and a fresh Adam carry takes
+    ``moment_dtype``, as the JAX fused branches do; Adafactor's factor
+    vectors stay f32."""
+    M = M.to(param_dtype)
+    if opt_state is None:
+        opt_state = (init_fused_opt_state(M, moment_dtype) if optimizer == "adam"
+                     else init_fused_adafactor_state(M))
     step = (fused_unconstrained_step if optimizer == "adam"
             else fused_unconstrained_step_adafactor)
     count, v1, v2 = opt_state
@@ -148,20 +193,30 @@ def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer,
     rows = []
     for t in range(num_epochs):
         M, count, v1, v2, stats, terms = step(
-            M, count, v1, v2, stats, data, lw, learning_rate
+            M, count, v1, v2, stats, data, lw, learning_rate,
+            compute_dtype=compute_dtype, rounding=rounding,
         )
         rows.append(record(terms, M, t))
     return M, (count, v1, v2), rows
 
 
 def _fused_constrained_loop(params, opt_state, data, lw, num_epochs, learning_rate,
-                            record):
-    (M, F), (count, (mu, muF), (nu, nuF)) = params, opt_state
+                            record, param_dtype, moment_dtype, compute_dtype,
+                            rounding):
+    """The fused constrained loop: M cast to ``param_dtype`` and its fresh
+    moments of ``moment_dtype``; F and its moments stay f32."""
+    M, F = params
+    M = M.to(param_dtype)
+    if opt_state is None:
+        _, mu, nu = init_fused_opt_state(M, moment_dtype)
+        opt_state = (0, (mu, torch.zeros_like(F)), (nu, torch.zeros_like(F)))
+    count, (mu, muF), (nu, nuF) = opt_state
     stats = tuple(_rowstats(M))
     rows = []
     for t in range(num_epochs):
         (M, F), count, (mu, muF), (nu, nuF), stats, terms = fused_constrained_step(
-            M, F, count, mu, nu, muF, nuF, stats, data, lw, learning_rate)
+            M, F, count, mu, nu, muF, nuF, stats, data, lw, learning_rate,
+            compute_dtype=compute_dtype, rounding=rounding)
         rows.append(record(terms, M, t))
     return (M, F), (count, (mu, muF), (nu, nuF)), rows
 
@@ -274,10 +329,22 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
                 optimizer: str = "adam", constrained: bool = False,
                 fused: bool = True, with_val: bool = False,
                 val_data: Optional[MapperData] = None, val_each: int = 1,
-                step_offset: int = 0):
+                step_offset: int = 0, moment_dtype="float32",
+                compute_dtype="float32", param_dtype="float32",
+                rounding: str = "nearest"):
     """Run ``num_epochs`` optimizer steps on ``params``: the logits ``M``,
     or ``(M, F)`` with ``constrained`` (F the filter logits (cells,); the
     data then needs ``target_count``).
+
+    ``param_dtype``, ``moment_dtype`` and ``compute_dtype`` (``"float32"``
+    or ``"bfloat16"``) and ``rounding`` (``"nearest"`` or
+    ``"stochastic"``) are the JAX package's low-precision options, and like
+    there they act on the fused loops only: M is stored in ``param_dtype``
+    (the returned M keeps it), Adam's mu and nu in ``moment_dtype`` (a
+    constrained F's moments and Adafactor's factors stay f32), A and dY
+    enter the kernels in ``compute_dtype``, and the updates store by
+    ``rounding``. The autograd loop trains f32 whatever they say, and
+    stochastic rounding off the fused loops is a ``ValueError``.
 
     ``optimizer`` is ``"adam"`` (the reference's, the default) or
     ``"adafactor"`` (factored second moments: c + s floats of state instead
@@ -311,24 +378,38 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     _check_optimizer(optimizer)
     M = params[0] if constrained else params
     resolved = resolve_impl(impl, M)
-    if M.dtype != torch.float32:
-        raise unported(f"param dtype {M.dtype}", "queue A4 (bf16 and stochastic rounding)")
-    if opt_state is None:
-        opt_state = _init_opt_state(params, optimizer, constrained)
+    use_fused = (fused and resolved != "reference"
+                 and (optimizer == "adam" or not constrained))
+    if rounding == "stochastic" and not use_fused:
+        # training with biased nearest rounding instead is the drift that
+        # stochastic rounding exists to prevent: reject, as the JAX package
+        raise ValueError(
+            "rounding='stochastic' is implemented in the fused step; the "
+            "autograd and reference loops store round-to-nearest. Use "
+            "impl='kernels' or impl='fused' with fused=True (constrained mode "
+            "with optimizer='adam'), or drop the rounding option.")
+    _check_low_precision(rounding, param_dtype, moment_dtype)
+    low = [_torch_dtype(name, dt) for name, dt in (
+        ("param_dtype", param_dtype), ("moment_dtype", moment_dtype),
+        ("compute_dtype", compute_dtype))] + [rounding]
+    if not use_fused and M.dtype != torch.float32:
+        raise unported(f"a {M.dtype} M on the autograd loop (a bf16 MapperCore)",
+                       "queue A4 (bf16 MapperCore)")
     term_keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
     keys = term_keys + (VAL_KEYS if with_val else [])
     record = _recorder(term_keys, with_val, data if val_data is None else val_data,
                        int(val_each), int(step_offset), resolved)
     num_epochs = int(num_epochs)
-    use_fused = (fused and resolved != "reference"
-                 and (optimizer == "adam" or not constrained))
     if use_fused and constrained:
         params, opt_state, rows = _fused_constrained_loop(
-            params, opt_state, data, lw, num_epochs, learning_rate, record)
+            params, opt_state, data, lw, num_epochs, learning_rate, record, *low)
     elif use_fused:
         params, opt_state, rows = _fused_loop(
-            params, opt_state, data, lw, num_epochs, learning_rate, optimizer, record)
+            params, opt_state, data, lw, num_epochs, learning_rate, optimizer, record,
+            *low)
     else:
+        if opt_state is None:
+            opt_state = _init_opt_state(params, optimizer, constrained)
         params, opt_state, rows = _autograd_loop(
             params, opt_state, data, lw, num_epochs, learning_rate, optimizer,
             constrained, resolved, record)
@@ -340,8 +421,23 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     return params, history
 
 
-def _final_softmax(M):
-    return torch.softmax(M, dim=1)
+def _final_softmax(M) -> np.ndarray:
+    """The returned mapping, softmax(M) in f32 on the host."""
+    out = np.empty(tuple(M.shape), dtype=np.float32)
+    for r0, P in softmax_row_chunks(M):
+        out[r0:r0 + P.shape[0]] = P.cpu().numpy()
+    return out
+
+
+def _upload_logits(M, device, impl, low_precision, fused=True):
+    """The host logits ``M`` on ``device``, in the fused loop's storage type
+    when training will take that loop: cast on the host, so that the device
+    never holds the f32 init beside the copy that the fused loop would make
+    (the JAX package donates it). Rejects a bad impl."""
+    resolved = resolve_impl(impl, torch.empty(0, device=device))
+    if fused and resolved != "reference":
+        M = M.to(_torch_dtype("param_dtype", low_precision["param_dtype"]))
+    return M.to(device)
 
 
 def _print_epoch(terms_at_t, names):
@@ -406,11 +502,14 @@ class Mapper:
     ``NotImplementedError`` naming their ROADMAP item.
 
     ``device=None`` means ``"cuda"`` (raises if CUDA is absent); pass
-    ``device="cpu"`` for the plain PyTorch path. ``impl`` and ``optimizer``
-    are as for :func:`fit_mapping`. ``train_genes_idx`` and
-    ``val_genes_idx`` select the training and validation genes (columns of
-    S and G); like the reference, validation scores the TRAINING genes
-    unless ``emulate_reference_val_quirk=False``.
+    ``device="cpu"`` for the plain PyTorch path. ``impl``, ``optimizer``
+    and the low-precision options (``moment_dtype``, ``compute_dtype``,
+    ``param_dtype``, ``rounding``) are as for :func:`fit_mapping`; an
+    invalid ``rounding``, or stochastic rounding of a type other than f32
+    or bf16, raises here. ``train_genes_idx`` and ``val_genes_idx`` select
+    the training and validation genes (columns of S and G); like the
+    reference, validation scores the TRAINING genes unless
+    ``emulate_reference_val_quirk=False``.
     """
 
     def __init__(
@@ -437,11 +536,18 @@ class Mapper:
         impl: str = "auto",
         emulate_reference_val_quirk: bool = True,
         optimizer: str = "adam",
+        moment_dtype: str = "float32",
+        compute_dtype: str = "float32",
+        param_dtype: str = "float32",
+        rounding: str = "nearest",
     ):
         self.device = resolve_device(device)
         self.random_state = random_state
         self.impl = impl
         self.optimizer = _check_optimizer(optimizer)
+        _check_low_precision(rounding, param_dtype, moment_dtype)
+        self.low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
+                                  param_dtype=param_dtype, rounding=rounding)
         self.lw = LossWeights(
             lambda_g1=float(lambda_g1),
             lambda_d=float(lambda_d),
@@ -478,8 +584,8 @@ class Mapper:
         self._val_S, self._val_G = (
             (S_train, G_train) if emulate_reference_val_quirk else genes(val_genes_idx))
         self.data = MapperData(S=S_train, G=G_train, d=dev(d), d_source=dev(d_source))
-        self.M = init_logits(S.shape[0], G.shape[0], random_state, self.device)
-        resolve_impl(impl, self.M)  # reject a bad impl before training
+        self.M = _upload_logits(init_logits(S.shape[0], G.shape[0], random_state),
+                                self.device, impl, self.low_precision)
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100, val_each=None,
               early_stop_tol=None, early_stop_window=100):
@@ -490,8 +596,8 @@ class Mapper:
         chunk. With ``val_each``, the validation metrics of the post-step
         logits are recorded every ``val_each`` epochs (the ``val_*`` lists of
         ``training_history``). The logits are updated in place and
-        ``self.M`` stays bound to the trained tensor. ``M_probs`` is the row
-        softmax, on the host.
+        ``self.M`` is bound to the trained tensor (in ``param_dtype`` after
+        the fused loop). ``M_probs`` is the row softmax in f32, on the host.
         """
         del early_stop_window
         if early_stop_tol is not None:
@@ -509,7 +615,7 @@ class Mapper:
                                return_opt_state=True, optimizer=self.optimizer,
                                with_val=with_val, val_data=val_data,
                                val_each=int(val_each) if with_val else 1,
-                               step_offset=epoch)
+                               step_offset=epoch, **self.low_precision)
 
         self.M, history = _train_chunked(
             run_chunk, self.M, num_epochs,
@@ -519,7 +625,7 @@ class Mapper:
         training_history = _history_lists(history, HISTORY_KEYS, with_val,
                                            int(val_each) if with_val else 1)
         _warn_if_diverged(training_history)
-        output = _final_softmax(self.M).cpu().numpy()
+        output = _final_softmax(self.M)
         return output, training_history
 
 
@@ -530,9 +636,11 @@ class MapperConstrained:
     adds a count term pulling Σσ(F) to ``target_count`` (the number of
     spots by default) and a term pushing σ(F) to 0 or 1.
 
-    ``device``, ``impl`` and ``optimizer`` are as for :class:`Mapper`; with
-    Adam the kernels run the fused constrained step, with Adafactor the
-    autograd loop through the kernels' ``MapperCore``. ``adata_map`` warm
+    ``device``, ``impl``, ``optimizer`` and the low-precision options are
+    as for :class:`Mapper`; with Adam the kernels run the fused constrained
+    step (M in ``param_dtype``, its moments in ``moment_dtype``, F and its
+    moments f32), with Adafactor the autograd loop through the kernels'
+    ``MapperCore`` (f32; stochastic rounding raises). ``adata_map`` warm
     starts M from the log of its mapping (F is still drawn N(0, 1)).
     ``mesh`` waits for queue A11. Training-history values are floats (the
     reference stringifies them, ``mapping_optimizer.py:630``).
@@ -556,6 +664,10 @@ class MapperConstrained:
         init_method: str = "auto",
         impl: str = "auto",
         mesh=None,
+        moment_dtype: str = "float32",
+        compute_dtype: str = "float32",
+        param_dtype: str = "float32",
+        rounding: str = "nearest",
         optimizer: str = "adam",
     ):
         if mesh is not None:
@@ -565,6 +677,9 @@ class MapperConstrained:
         self.random_state = random_state
         self.impl = impl
         self.optimizer = _check_optimizer(optimizer)
+        _check_low_precision(rounding, param_dtype, moment_dtype)
+        self.low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
+                                  param_dtype=param_dtype, rounding=rounding)
         S = np.asarray(S, dtype=np.float32)
         G = np.asarray(G, dtype=np.float32)
         n_cells, n_spots = S.shape[0], G.shape[0]
@@ -588,12 +703,13 @@ class MapperConstrained:
         )
         if adata_map is not None:
             P0 = np.asarray(adata_map.X, dtype=np.float32)
-            self.M = dev(np.log(np.clip(P0, 1e-12, None)))
+            M = torch.from_numpy(np.log(np.clip(P0, 1e-12, None)))
             self.F = init_logits(1, n_cells, random_state, self.device)[0]
         else:
-            self.M, self.F = init_constrained_logits(n_cells, n_spots, random_state,
-                                                     init_method, self.device)
-        resolve_impl(impl, self.M)  # reject a bad impl before training
+            M, F = init_constrained_logits(n_cells, n_spots, random_state, init_method)
+            self.F = F.to(self.device)
+        self.M = _upload_logits(M, self.device, impl, self.low_precision,
+                                fused=self.optimizer == "adam")
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100):
         """Returns ``(M_probs, F_probs, training_history)`` like the
@@ -607,7 +723,7 @@ class MapperConstrained:
             return fit_mapping(params, self.data, self.lw, chunk, learning_rate,
                                impl=self.impl, opt_state=opt_state,
                                return_opt_state=True, optimizer=self.optimizer,
-                               constrained=True)
+                               constrained=True, **self.low_precision)
 
         (self.M, self.F), history = _train_chunked(
             run_chunk, (self.M, self.F), num_epochs,
@@ -617,6 +733,6 @@ class MapperConstrained:
         training_history = {k: [float(v) for v in history.get(k, ())]
                             for k in CONSTRAINED_HISTORY_KEYS}
         _warn_if_diverged(training_history)
-        output = _final_softmax(self.M).cpu().numpy()
+        output = _final_softmax(self.M)
         F_out = torch.sigmoid(self.F).cpu().numpy()
         return output, F_out, training_history

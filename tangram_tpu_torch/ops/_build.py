@@ -38,18 +38,19 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes, in the order of csrc/mapper_kernels.cu
 SIGNATURES = {
-    "tg_rowstats": (_P, _P, _P, _P, _I, _I, _P),
-    "tg_rowstats_norms": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "tg_project": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "tg_rbar": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tg_rowstats": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "tg_rowstats_norms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "tg_project": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tg_rbar": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "tg_dm_adam": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
+                   _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
+                   _P),
     "tg_gsq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-               _I, _I, _I, _I, _F, _F, _I, _I, _P),
+               _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     "tg_dm_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P),
     "tg_dm_adafactor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mapper_core", "mapper_core_reference", "resolve_impl", "unported"]
+__all__ = ["mapper_core", "mapper_core_reference", "resolve_impl", "softmax_row_chunks",
+           "unported"]
 
 IMPLS = ("auto", "kernels", "fused", "reference")
 
@@ -87,3 +88,17 @@ def mapper_core(M, A, w, impl: str):
     from .cuda_core import MapperCore
 
     return MapperCore.apply(M.contiguous(), A.contiguous(), w.contiguous())
+
+
+#: rows of M per chunk of the row softmaxes that leave training (~128 MB of
+#: f32 at the tutorial width)
+SOFTMAX_CHUNK_ELEMENTS = 1 << 25
+
+
+def softmax_row_chunks(M):
+    """(start row, f32 softmax of a chunk of M's rows) in row order: the
+    mapping in f32 without an f32 copy of all of M (stored in bf16 under
+    ``param_dtype``) or of all of softmax(M) on its device at once."""
+    rows = max(1, SOFTMAX_CHUNK_ELEMENTS // max(M.shape[1], 1))
+    for r0 in range(0, M.shape[0], rows):
+        yield r0, torch.softmax(M[r0:r0 + rows].float(), dim=1)

@@ -11,6 +11,11 @@ sits beside it. There is no other path: a CUDA launch that fails raises.
 
 The kernels never pad the gene axis (the JAX package pads k to 128 lanes
 for the TPU); they mask ragged tiles themselves.
+
+M may be stored in bf16 (the JAX package's ``param_dtype``), and A and dY
+may come rounded to bf16 (its ``compute_dtype``): the kernels read them
+in their type and compute in f32, as the JAX kernels do. The unfused
+backward (``_dm_backward``, ``MapperCore``'s gradient) takes f32 only.
 """
 
 from __future__ import annotations
@@ -22,16 +27,36 @@ import torch
 __all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
            "_project", "_rbar", "_backward"]
 
+#: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
+#: A for project) counts as ``name + ".bf16"``
+BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
+                "dm_adafactor")
+
 #: launches of each kernel since the last :func:`reset_launches`;
 #: ``backward_rbar`` counts the rbar kernel when :func:`_backward` runs it
-LAUNCHES = {"rowstats": 0, "project": 0, "rbar": 0, "dm_adam": 0,
-            "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0,
-            "backward_rbar": 0, "dm_backward": 0}
+LAUNCHES = dict.fromkeys(
+    ["rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
+     "dm_adafactor", "backward_rbar", "dm_backward"]
+    + [name + ".bf16" for name in BF16_KERNELS], 0)
+
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str, *storage: torch.Tensor) -> None:
+    """Add one to ``name``'s count, or to ``name.bf16``'s when any of the
+    ``storage`` tensors is bf16."""
+    bf16 = any(t.dtype == torch.bfloat16 for t in storage)
+    LAUNCHES[name + ".bf16" if bf16 else name] += 1
+
+
+def is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
 
 
 def kernels_for(*tensors: torch.Tensor):
@@ -50,12 +75,13 @@ def kernels_for(*tensors: torch.Tensor):
     return load_kernels()
 
 
-def check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    """Raise unless ``t`` is a contiguous f32 tensor of ``shape`` — what the
-    kernels take. The wrappers check CPU tensors too, so the CPU tests hold
-    callers to the same contract."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def check(name: str, t: torch.Tensor, shape: tuple, dtypes=F32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` and one of
+    ``dtypes`` (f32 by default) — what the kernels take. The wrappers check
+    CPU tensors too, so the CPU tests hold callers to the same contract."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} must be {names}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -67,9 +93,11 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def vec4_ok(s: int, *tensors: torch.Tensor) -> int:
-    """1 when the kernels may use 16-byte accesses along spots of each
-    tensor, (c, s) or (s,)."""
-    return int(s % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    """1 when the kernels may access 4 entries at once along spots of each
+    tensor, (c, s) or (s,): s % 4 == 0 and each base aligned to 4 entries
+    (16 bytes in f32, 8 in bf16)."""
+    return int(s % 4 == 0
+               and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
 
 
 # ---------------------------------------------------------------------------
@@ -78,16 +106,19 @@ def vec4_ok(s: int, *tensors: torch.Tensor) -> int:
 
 
 def _rowstats_plain(M):
-    """Per-cell m = max, l = Σ exp(M − m), u = Σ exp(M − m)·M, each (c, 1)."""
+    """Per-cell m = max, l = Σ exp(M − m), u = Σ exp(M − m)·M, each (c, 1)
+    f32, from M read as f32."""
+    M = M.float()
     m = M.amax(dim=1, keepdim=True)
     e = torch.exp(M - m)
     return m, e.sum(dim=1, keepdim=True), (e * M).sum(dim=1, keepdim=True)
 
 
 def _rowstats(M):
-    """Softmax row stats of M (c, s) → (m, l, u), each (c, 1) f32."""
+    """Softmax row stats of M (c, s), f32 or bf16 → (m, l, u), each (c, 1)
+    f32."""
     c, s = M.shape
-    check("M", M, (c, s))
+    check("M", M, (c, s), F32_BF16)
     lib = kernels_for(M)
     if lib is None:
         return _rowstats_plain(M)
@@ -96,8 +127,8 @@ def _rowstats(M):
     if c:
         with torch.cuda.device(M.device):
             lib.call("tg_rowstats", M.data_ptr(), m.data_ptr(), l.data_ptr(),
-                     u.data_ptr(), c, s, stream_of(M))
-        LAUNCHES["rowstats"] += 1
+                     u.data_ptr(), c, s, is_bf16(M), stream_of(M))
+        count_launch("rowstats", M)
     return m, l, u
 
 
@@ -118,18 +149,49 @@ def project_splits(c: int, s: int, k: int, sm_count: int) -> int:
     return max(1, min(want, math.ceil(c / 512), 16))
 
 
+def _rows_of_8(A):
+    """A bf16 A (c, k) as the project kernel copies it, 16 bytes at a time:
+    its rows padded with zeros to a multiple of 8 entries (a bf16 copy, as
+    the JAX package pads k for the TPU), and that row stride."""
+    c, k = A.shape
+    k8 = -(-k // 8) * 8
+    if k8 == k and A.data_ptr() % 16 == 0:
+        return A, k
+    A8 = torch.zeros((c, k8), dtype=A.dtype, device=A.device)
+    A8[:, :k] = A
+    return A8, k8
+
+
 def _project_plain(M, A, w, m, l):
-    P = torch.exp(M - m) * (1.0 / l)
-    return P.T @ A, w @ P
+    P = torch.exp(M.float() - m) * (1.0 / l)
+    # Y = PᵀA takes P in A's type (JAX's P.astype(A.dtype)); q = wP the f32 P
+    PA = P.to(A.dtype).float() if A.dtype != torch.float32 else P
+    return PA.T @ A.float(), w @ P
+
+
+def project_rounding_slack(M, A, m, l, window: int = 16):
+    """(s, k): how far Y = bf16(P)ᵀ A may move when P is formed by another
+    exp (the kernel's, JAX's) a few f32 ulps away. An entry of P within
+    ``window`` f32 ulps of a bf16 rounding midpoint may round to either
+    neighbour, one bf16 ulp apart, so Y moves by at most Σ_c (that ulp)·|A|
+    over those entries. The measure for checking Y of a bf16 A beside
+    summation order."""
+    P = torch.exp(M.float() - m) * (1.0 / l)
+    bits = P.view(torch.int32)
+    near = ((bits & 0xFFFF) - 0x8000).abs() <= window
+    ulp = (bits & 0x7F800000).view(torch.float32) * 2.0 ** -7
+    return (near * ulp).T @ A.float().abs()
 
 
 def _project(M, A, w, m, l):
     """Y = Pᵀ A (s, k) and q = w P (s,), with P = exp(M − m)/l recomputed
-    from the row stats; P is never stored."""
+    from the row stats; P is never stored. M and A are f32 or bf16; with a
+    bf16 A, Y takes P rounded to bf16 (f32 accumulation) and q the f32 P,
+    as ``pallas_core._project_kernel``."""
     c, s = M.shape
     k = A.shape[1]
-    check("M", M, (c, s))
-    check("A", A, (c, k))
+    check("M", M, (c, s), F32_BF16)
+    check("A", A, (c, k), F32_BF16)
     check("w", w, (c,))
     check("m", m, (c, 1))
     check("l", l, (c, 1))
@@ -142,12 +204,14 @@ def _project(M, A, w, m, l):
     partial = torch.empty((nsplit, s, k + 1), dtype=torch.float32, device=dev)
     Y = torch.empty((s, k), dtype=torch.float32, device=dev)
     q = torch.empty((s,), dtype=torch.float32, device=dev)
+    A_in, lda = _rows_of_8(A) if A.dtype == torch.bfloat16 else (A, k)
     if s:
         with torch.cuda.device(dev):
-            lib.call("tg_project", M.data_ptr(), A.data_ptr(), w.data_ptr(),
+            lib.call("tg_project", M.data_ptr(), A_in.data_ptr(), w.data_ptr(),
                      m.data_ptr(), l.data_ptr(), partial.data_ptr(),
-                     Y.data_ptr(), q.data_ptr(), c, s, k, nsplit, stream_of(M))
-        LAUNCHES["project"] += 1
+                     Y.data_ptr(), q.data_ptr(), c, s, k, nsplit, is_bf16(M),
+                     is_bf16(A), lda, stream_of(M))
+        count_launch("project", M, A)
     return Y, q
 
 
@@ -178,30 +242,36 @@ def _ext(X, v):
 
 
 def _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh):
-    """Materialized P and dP = A dYᵀ + w ⊗ dq [+ dh ⊙ (log P + 1)]."""
+    """Materialized P and dP = A dYᵀ + w ⊗ dq [+ dh ⊙ (log P + 1)], all f32
+    (M, A and dY read as f32: a bf16 A times a bf16 dY is exact in f32)."""
+    M = M.float()
     P = torch.exp(M - m) * (1.0 / l)
-    dP = A @ dY.T + w[:, None] * dq[None, :]
+    dP = A.float() @ dY.float().T + w[:, None] * dq[None, :]
     if with_dh:
         dP = dP + dh[:, None] * ((M - m - torch.log(l)) + 1.0)
     return P, dP
 
 
-def _check_dp_args(M, A, w, m, l, dY, dq, dh):
+def _check_dp_args(M, A, w, m, l, dY, dq, dh, dtypes=F32_BF16):
+    """Shapes and types of the dP-tile kernels' shared inputs: M, A and dY
+    of ``dtypes``, the vectors f32."""
     c, s = M.shape
     k = A.shape[1]
-    for name, t, shape in (("M", M, (c, s)), ("A", A, (c, k)), ("w", w, (c,)),
-                           ("m", m, (c, 1)), ("l", l, (c, 1)),
-                           ("dY", dY, (s, k)), ("dq", dq, (s,)),
-                           ("dh", dh, (c,))):
-        check(name, t, shape)
+    for name, t, shape, types in (("M", M, (c, s), dtypes), ("A", A, (c, k), dtypes),
+                                  ("w", w, (c,), F32), ("m", m, (c, 1), F32),
+                                  ("l", l, (c, 1), F32), ("dY", dY, (s, k), dtypes),
+                                  ("dq", dq, (s,), F32), ("dh", dh, (c,), F32)):
+        check(name, t, shape, types)
     return c, s, k
 
 
 def _dp_kernel_args(M, A, w, dY, dq):
     """(AT, dYT, nsplit, stream) shared by the dP-tile entry points:
-    AT = [A | w]ᵀ (k + 1, c) and dYT = [dY | dq]ᵀ (k + 1, s)."""
+    AT = [A | w]ᵀ (k + 1, c) and dYT = [dY | dq]ᵀ (k + 1, s), f32. A bf16 A
+    and dY (the compute type) keep their bf16 values in f32 staging, and the
+    w and dq rows stay f32, as JAX's dP = dot(A_bf16, dY_bf16) + w ⊗ dq."""
     c, s = M.shape
-    return (_ext(A, w).T.contiguous(), _ext(dY, dq).T.contiguous(),
+    return (_ext(A.float(), w).T.contiguous(), _ext(dY.float(), dq).T.contiguous(),
             dp_splits(c, s, _sm_count(M)), stream_of(M))
 
 
@@ -218,9 +288,11 @@ def _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
 def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"):
     """r_c = Σ_s P ⊙ dP (c, 1): the row reduction of the softmax VJP.
     ``with_dh=False`` drops the entropy cotangent path (λ_r = 0). A launch
-    counts in ``LAUNCHES[counter]``: ``"rbar"`` in the fused steps,
-    ``"backward_rbar"`` as the first pass of :func:`_backward`."""
-    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
+    counts in ``LAUNCHES[counter]``: ``"rbar"`` (``"rbar.bf16"`` with a
+    bf16 M) in the fused steps, ``"backward_rbar"`` as the first pass of
+    :func:`_backward` (f32 only)."""
+    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh,
+                             F32_BF16 if counter == "rbar" else F32)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh)
     if lib is None:
         return _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
@@ -232,8 +304,8 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"
             lib.call("tg_rbar", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
                      dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
                      r.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M),
-                     nsplit, stream)
-        LAUNCHES[counter] += 1
+                     nsplit, is_bf16(M), stream)
+        count_launch(counter, M)
     return r
 
 
@@ -250,8 +322,9 @@ def _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh=True):
 def _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh: bool = True):
     """The softmax VJP through the core, given ``r`` from :func:`_rbar`
     with the same ``dh``: dM = P ⊙ (dP − r) (c, s), dA = P dY (c, k) and
-    dw = P dq (c,). P and dP are formed tile by tile and never stored."""
-    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
+    dw = P dq (c,). P and dP are formed tile by tile and never stored. f32
+    only: a bf16 ``MapperCore`` is not ported yet."""
+    c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh, F32)
     check("r", r, (c, 1))
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r)
     if lib is None:
@@ -301,7 +374,9 @@ class MapperCore(torch.autograd.Function):
     streamed :func:`_backward` as its VJP: the counterpart of
     ``mapper_core_pallas``. The forward runs the rowstats and project
     kernels and saves M, A, w and the row stats (never P); on CPU tensors
-    every wrapper runs its twin. Inputs must be contiguous f32."""
+    every wrapper runs its twin. Inputs are contiguous f32; the forward alone
+    also takes a bf16 M (the validation metrics of bf16 storage), the
+    backward raises for it."""
 
     @staticmethod
     def forward(ctx, M, A, w):

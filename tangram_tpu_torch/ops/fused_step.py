@@ -1,7 +1,6 @@
 """The fused training steps: backward softmax-VJP + optimizer in streamed passes.
 
-Counterpart of ``tangram_tpu/ops/fused_step.py`` for the unconstrained
-modes with f32 storage and round-to-nearest. The Adam step, per step:
+Counterpart of ``tangram_tpu/ops/fused_step.py``. The Adam step, per step:
 
 1. project kernel  → Y = PᵀA, q = wP from the carried row stats
 2. epilogue        → loss terms and (dY, dq, dh) by ``torch.autograd.grad``
@@ -31,6 +30,14 @@ M (and mu, nu) are updated **in place** by the update kernels: the
 counterpart of the JAX kernels' ``input_output_aliases`` and of buffer
 donation. Callers that need the old values keep a copy.
 
+Low precision, as the JAX steps: M may be stored in bf16, and Adam's mu
+and nu too (Adafactor's factor vectors and the constrained filter's
+moments stay f32); ``compute_dtype`` rounds A and dY before the kernels
+(w, dq, dh, the stats and the update stay f32). The updates compute in f32
+and store to nearest even, or with ``rounding="stochastic"`` by
+:func:`_sr_cast`, keyed by the step count, the cell and the array, and
+emit the next stats from the stored values.
+
 Adam is torch/optax Adam (b1 = 0.9, b2 = 0.999, eps = 1e-8 after the sqrt,
 bias correction with the incremented count); Adafactor is optax
 ``adafactor`` as ``tangram_tpu.models.mapper.make_adafactor`` configures
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 
 from .cuda_core import (
-    LAUNCHES,
+    F32_BF16,
     _check_dp_args,
     _dp_kernel_args,
     _dp_plain,
@@ -55,6 +62,8 @@ from .cuda_core import (
     _rowstats,
     _rowstats_plain,
     check,
+    count_launch,
+    is_bf16,
     kernels_for,
     stream_of,
     vec4_ok,
@@ -89,6 +98,88 @@ ADAFACTOR_DECAY = 0.8  # optax's power-schedule exponent: 1 − (t+1)^−0.8
 # path plants NEG_BIG logits in spot-pad columns). The port plants none,
 # but the same inputs must give the same answer.
 PAD_GUARD = -1e20
+
+ROUNDINGS = ("nearest", "stochastic")
+
+
+# ---------------------------------------------------------------------------
+# stochastic rounding: the JAX package's counter hash, keyed per cell row
+# ---------------------------------------------------------------------------
+#
+# uint32 arithmetic on int64 tensors: values stay below 2**32 and every
+# product is formed in 16-bit halves, so nothing overflows int64.
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x, m: int):
+    """x · m mod 2**32 for an int64 tensor ``x`` of uint32 values."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _wang_hash(x):
+    """The JAX package's 32-bit Wang hash (``fused_step._wang_hash``) of an
+    int64 tensor of uint32 values."""
+    x = (x ^ 61) ^ (x >> 16)
+    x = _mul32(x, 9)
+    x = x ^ (x >> 4)
+    x = _mul32(x, 0x27D4EB2D)
+    return x ^ (x >> 15)
+
+
+def _sr_bits(n: int, seed):
+    """(rows, n) random bits: row i as ``_tile_random_bits((1, n),
+    seed_i)`` draws them for a one-row tile, wang(j ^ wang(seed_i ·
+    0x9E3779B9)); ``seed`` is a (rows, 1) int64 tensor of uint32 values."""
+    key = _wang_hash(_mul32(seed, 0x9E3779B9))
+    return _wang_hash(torch.arange(n, device=seed.device) ^ key)
+
+
+def _sr_cast(val, dtype, seed):
+    """Stochastic f32 → bf16 cast of each row of ``val`` (rows, n), row i
+    bit for bit as the JAX package's ``_sr_cast(val[i][None, :], bf16,
+    seed_i)``: add 16 random bits below the bf16 mantissa and truncate
+    (unbiased: E[stored] = value). ``seed`` is an int or a (rows, 1) int64
+    tensor of uint32 values. For an f32 ``dtype``, the identity. Works in
+    row chunks, so its int64 temporaries stay near 2**22 entries."""
+    if dtype == torch.float32:
+        return val
+    if dtype != torch.bfloat16:
+        raise TypeError(f"stochastic rounding stores float32 or bfloat16, not {dtype}")
+    rows, n = val.shape
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=val.device)
+    seed = seed.reshape(-1, 1).expand(rows, 1)
+    out = torch.empty((rows, n), dtype=dtype, device=val.device)
+    step = max(1, (1 << 22) // max(n, 1))
+    for r0 in range(0, rows, step):
+        v = val[r0:r0 + step].float().contiguous()
+        bits = _sr_bits(n, seed[r0:r0 + step])
+        u = ((v.view(torch.int32).to(torch.int64) & _U32) + (bits & 0xFFFF)) & 0xFFFF0000
+        u = torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+        out[r0:r0 + step] = u.view(torch.float32).to(dtype)  # exact: low bits are 0
+    return out
+
+
+def _stored(val, dtype, rounding: str, step: int, salt: int):
+    """What an update kernel stores for the f32 values ``val`` (c, s) in an
+    array of ``dtype``: ``val`` itself in f32; in bf16 the nearest even (as
+    ``astype``), or stochastically :func:`_sr_cast` of cell row c with seed
+    wang(step ^ c·0x85EBCA6B) ^ salt — JAX's per-(step, tile, array) seed
+    with one cell row as the tile. ``salt`` is 1, 2, 3 for M, mu, nu."""
+    if dtype == torch.float32:
+        return val
+    if rounding == "stochastic":
+        cells = torch.arange(val.shape[0], device=val.device)[:, None]
+        base = _wang_hash((step & _U32) ^ _mul32(cells, 0x85EBCA6B))
+        return _sr_cast(val, dtype, base ^ salt)
+    return val.to(dtype)
+
+
+def _check_rounding(rounding: str) -> bool:
+    """True for stochastic rounding; raises for anything but the two."""
+    if rounding not in ROUNDINGS:
+        raise ValueError(f'rounding must be "nearest" or "stochastic", got {rounding!r}')
+    return rounding == "stochastic"
 
 
 def adam_scalars(step: int, learning_rate: float):
@@ -143,17 +234,18 @@ def _next_stat_buffers(M, nsplit: int, with_norms: bool):
 
 
 def _rowstats_norms_plain(M):
+    M = M.float()
     z = torch.where(M > PAD_GUARD, M, torch.zeros_like(M))
     return _rowstats_plain(M) + (z.abs().sum(dim=1, keepdim=True),
                                  (z * z).sum(dim=1, keepdim=True))
 
 
 def _rowstats_norms(M):
-    """Softmax row stats of M plus its L1/L2 norms per cell:
+    """Softmax row stats of M (f32 or bf16) plus its L1/L2 norms per cell:
     (m, l, u, s1 = Σ|M|, s2 = ΣM²), each (c, 1) f32; the norms sum only
     entries above ``PAD_GUARD``."""
     c, s = M.shape
-    check("M", M, (c, s))
+    check("M", M, (c, s), F32_BF16)
     lib = kernels_for(M)
     if lib is None:
         return _rowstats_norms_plain(M)
@@ -161,8 +253,8 @@ def _rowstats_norms(M):
     if c:
         with torch.cuda.device(M.device):
             lib.call("tg_rowstats_norms", M.data_ptr(),
-                     *(t.data_ptr() for t in out), c, s, stream_of(M))
-        LAUNCHES["rowstats_norms"] += 1
+                     *(t.data_ptr() for t in out), c, s, is_bf16(M), stream_of(M))
+        count_launch("rowstats_norms", M)
     return tuple(out)
 
 
@@ -172,41 +264,51 @@ def _rowstats_norms(M):
 
 
 def _dm_adam_plain(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh=True,
-                   lam_l1=0.0, lam_l2=0.0, with_norms=False):
+                   lam_l1=0.0, lam_l2=0.0, with_norms=False, rounding="nearest",
+                   step=0):
     lr, bc1, bc2 = scalars
-    P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    g = _grad_plain(M, P, dP, r, lam_l1, lam_l2)
-    mu_new = BETA1 * mu + (1.0 - BETA1) * g
-    nu_new = BETA2 * nu + (1.0 - BETA2) * (g * g)
+    Mf = M.float()
+    P, dP = _dp_plain(Mf, A, w, m, l, dY, dq, dh, with_dh)
+    g = _grad_plain(Mf, P, dP, r, lam_l1, lam_l2)
+    mu_new = BETA1 * mu.float() + (1.0 - BETA1) * g
+    nu_new = BETA2 * nu.float() + (1.0 - BETA2) * (g * g)
     inv_bc1 = float(np.float32(1.0) / np.float32(bc1))
     inv_bc2 = float(np.float32(1.0) / np.float32(bc2))
     m_hat = mu_new * inv_bc1
     v_hat = nu_new * inv_bc2
-    M.copy_(M - lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS))
-    mu.copy_(mu_new)
-    nu.copy_(nu_new)
+    M_new = Mf - lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
+    M.copy_(_stored(M_new, M.dtype, rounding, step, 1))
+    mu.copy_(_stored(mu_new, mu.dtype, rounding, step, 2))
+    nu.copy_(_stored(nu_new, nu.dtype, rounding, step, 3))
     stats = _rowstats_norms_plain(M) if with_norms else _rowstats_plain(M)
     return (M, mu, nu) + stats
 
 
 def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True,
-             lam_l1: float = 0.0, lam_l2: float = 0.0, with_norms: bool = False):
+             lam_l1: float = 0.0, lam_l2: float = 0.0, with_norms: bool = False,
+             rounding: str = "nearest", step: int = 0):
     """Backward + Adam + next-step row stats in one streamed pass.
 
     ``scalars`` is ``(lr, bc1, bc2)`` from :func:`adam_scalars`; the
-    gradient includes λ₁·sign(M) + 2λ₂·M. Updates M, mu and nu **in place**
-    and returns ``(M, mu, nu, m', l', u'[, s1', s2'])``, the primed values
-    being the (c, 1) softmax stats (and with ``with_norms`` the L1/L2 norms)
-    of the new M.
+    gradient includes λ₁·sign(M) + 2λ₂·M. M, A and dY are f32 or bf16, mu
+    and nu f32 or bf16. Updates M, mu and nu **in place**, each stored in
+    its own type to nearest even or, with ``rounding="stochastic"``, by
+    :func:`_stored` keyed by ``step`` (the incremented count), and returns
+    ``(M, mu, nu, m', l', u'[, s1', s2'])``, the primed values being the
+    (c, 1) softmax stats (and with ``with_norms`` the L1/L2 norms) of the
+    stored M.
     """
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
     check("r", r, (c, 1))
-    check("mu", mu, (c, s))
-    check("nu", nu, (c, s))
+    check("mu", mu, (c, s), F32_BF16)
+    check("nu", nu, (c, s), F32_BF16)
+    sr = _check_rounding(rounding)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r, mu, nu)
     if lib is None:
         return _dm_adam_plain(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
-                              with_dh, lam_l1, lam_l2, with_norms)
+                              with_dh, lam_l1, lam_l2, with_norms, rounding, step)
+    if mu.dtype != nu.dtype:
+        raise TypeError(f"mu and nu must share a type, got {mu.dtype} and {nu.dtype}")
     lr, bc1, bc2 = scalars
     AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
     st_part, out, ptrs = _next_stat_buffers(M, nsplit, with_norms)
@@ -217,8 +319,9 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
                      mu.data_ptr(), nu.data_ptr(), st_part.data_ptr(), *ptrs,
                      c, s, k + 1, int(with_dh), int(with_norms), lr, bc1, bc2,
                      *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M, mu, nu),
-                     nsplit, stream)
-        LAUNCHES["dm_adam"] += 1
+                     nsplit, is_bf16(M), is_bf16(mu), int(sr), step & 0x7FFFFFFF,
+                     stream)
+        count_launch("dm_adam", M, mu, nu)
     return (M, mu, nu) + tuple(out)
 
 
@@ -229,7 +332,7 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
 
 def _gsq_plain(M, A, w, m, l, dY, dq, dh, r, lam_l1, lam_l2, with_dh=True):
     P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    gsq = _grad_plain(M, P, dP, r, lam_l1, lam_l2) ** 2
+    gsq = _grad_plain(M.float(), P, dP, r, lam_l1, lam_l2) ** 2
     return gsq.sum(dim=1), gsq.sum(dim=0)
 
 
@@ -256,8 +359,9 @@ def _gsq(M, A, w, m, l, dY, dq, dh, r, lam_l1: float, lam_l2: float,
                  dh.data_ptr(), m.data_ptr(), l.data_ptr(), r.data_ptr(),
                  vr_part.data_ptr(), vc_part.data_ptr(), vr.data_ptr(),
                  vc.data_ptr(), c, s, k + 1, int(with_dh),
-                 *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M), nsplit, stream)
-    LAUNCHES["gsq"] += 1
+                 *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M), nsplit, is_bf16(M),
+                 stream)
+    count_launch("gsq", M)
     return vr, vc
 
 
@@ -297,28 +401,33 @@ def factored_rms_vectors(count: int, vr, vc, vr_sum, vc_sum, c_actual: int,
 
 
 def _dm_adafactor_plain(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr, lam_l1,
-                        lam_l2, with_norms=False, with_dh=True):
-    P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    g = _grad_plain(M, P, dP, r, lam_l1, lam_l2)
-    M.copy_(M - lr * (g * rowf[:, None] * colf[None, :]))
+                        lam_l2, with_norms=False, with_dh=True, rounding="nearest",
+                        step=0):
+    Mf = M.float()
+    P, dP = _dp_plain(Mf, A, w, m, l, dY, dq, dh, with_dh)
+    g = _grad_plain(Mf, P, dP, r, lam_l1, lam_l2)
+    M_new = Mf - lr * (g * rowf[:, None] * colf[None, :])
+    M.copy_(_stored(M_new, M.dtype, rounding, step, 1))
     stats = _rowstats_norms_plain(M) if with_norms else _rowstats_plain(M)
     return (M,) + stats
 
 
 def _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr: float,
                   lam_l1: float, lam_l2: float, with_norms: bool,
-                  with_dh: bool = True):
+                  with_dh: bool = True, rounding: str = "nearest", step: int = 0):
     """Adafactor update + next-step row stats in one streamed pass:
-    M −= lr · g · rowf[c] · colf[s] **in place**, with no moment matrices.
-    Returns ``(M, m', l', u'[, s1', s2'])`` of the new M."""
+    M −= lr · g · rowf[c] · colf[s] **in place**, with no moment matrices,
+    M stored in its type (f32 or bf16) as :func:`_dm_adam` stores it.
+    Returns ``(M, m', l', u'[, s1', s2'])`` of the stored M."""
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
     check("r", r, (c, 1))
     check("rowf", rowf, (c,))
     check("colf", colf, (s,))
+    sr = _check_rounding(rounding)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r, rowf, colf)
     if lib is None:
         return _dm_adafactor_plain(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr,
-                                   lam_l1, lam_l2, with_norms, with_dh)
+                                   lam_l1, lam_l2, with_norms, with_dh, rounding, step)
     AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
     st_part, out, ptrs = _next_stat_buffers(M, nsplit, with_norms)
     if c:
@@ -329,8 +438,8 @@ def _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr: float,
                      st_part.data_ptr(), *ptrs, c, s, k + 1, int(with_dh),
                      int(with_norms), float(np.float32(lr)),
                      *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M, colf), nsplit,
-                     stream)
-        LAUNCHES["dm_adafactor"] += 1
+                     is_bf16(M), int(sr), step & 0x7FFFFFFF, stream)
+        count_launch("dm_adafactor", M)
     return (M,) + tuple(out)
 
 
@@ -339,9 +448,12 @@ def _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr: float,
 # ---------------------------------------------------------------------------
 
 
-def init_fused_opt_state(M):
-    """(count, mu, nu) — the fused path's Adam carry; count is a host int."""
-    return 0, torch.zeros_like(M), torch.zeros_like(M)
+def init_fused_opt_state(M, moment_dtype=torch.float32):
+    """(count, mu, nu) — the fused path's Adam carry; count is a host int,
+    mu and nu zeros of ``moment_dtype`` (f32 or bf16: half the state; the
+    update still computes in f32)."""
+    return (0, torch.zeros(M.shape, dtype=moment_dtype, device=M.device),
+            torch.zeros(M.shape, dtype=moment_dtype, device=M.device))
 
 
 def init_fused_adafactor_state(M):
@@ -366,10 +478,13 @@ def initial_stats(M, lw: LossWeights):
     return tuple(_rowstats(M))
 
 
-def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights):
-    """Projection forward, epilogue + its gradient, and the rbar pass.
-    Returns what the update kernels need plus the per-term loss report."""
+def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights,
+                              compute_dtype):
+    """Projection forward, epilogue + its gradient, and the rbar pass, with
+    A and dY rounded to ``compute_dtype`` before the kernels. Returns what
+    the update kernels need plus the per-term loss report."""
     A, w = unconstrained_inputs(M, data, lw)
+    A = A.to(compute_dtype)
     need_norms = _needs_norms(lw)
     if need_norms:
         m, l, u, s1, s2 = stats
@@ -390,7 +505,7 @@ def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights):
     # contiguous operands.
     dq = torch.zeros_like(q) if dq is None else dq.contiguous()
     dh = torch.zeros_like(h) if dh is None else dh.contiguous()
-    dY = dY.contiguous()
+    dY = dY.contiguous().to(compute_dtype)
     terms = {key: v.detach() for key, v in terms.items()}
 
     with_dh = lw.lambda_r != 0
@@ -400,23 +515,27 @@ def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights):
 
 @torch.no_grad()
 def fused_unconstrained_step(M, count: int, mu, nu, stats, data: MapperData,
-                             lw: LossWeights, learning_rate: float):
+                             lw: LossWeights, learning_rate: float,
+                             compute_dtype=torch.float32, rounding: str = "nearest"):
     """One fused Adam step.
 
     ``stats`` are the carried row stats of M (from :func:`initial_stats` or
     the previous step), so a step makes three streamed passes over M:
     projection, rbar, and backward + Adam (which also emits the next
-    stats). M, mu and nu are updated in place.
+    stats). M, mu and nu are updated in place, in their own types (f32 or
+    bf16), rounded to nearest or stochastically (``rounding``); A and dY go
+    to the kernels in ``compute_dtype``.
 
     Returns ``(M, count + 1, mu, nu, stats_new, terms)``; ``terms`` are
     0-d tensors on M's device, measured at M before the update.
     """
     A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms = (
-        _unconstrained_cotangents(M, stats, data, lw))
+        _unconstrained_cotangents(M, stats, data, lw, compute_dtype))
     count_new = count + 1
     out = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu,
                    adam_scalars(count_new, learning_rate), with_dh=with_dh,
-                   lam_l1=lw.lambda_l1, lam_l2=lw.lambda_l2, with_norms=need_norms)
+                   lam_l1=lw.lambda_l1, lam_l2=lw.lambda_l2, with_norms=need_norms,
+                   rounding=rounding, step=count_new)
     M, mu, nu = out[:3]
     return M, count_new, mu, nu, tuple(out[3:]), terms
 
@@ -424,17 +543,19 @@ def fused_unconstrained_step(M, count: int, mu, nu, stats, data: MapperData,
 @torch.no_grad()
 def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
                                        data: MapperData, lw: LossWeights,
-                                       learning_rate: float):
+                                       learning_rate: float,
+                                       compute_dtype=torch.float32,
+                                       rounding: str = "nearest"):
     """One fused Adafactor step: the contract of
-    :func:`fused_unconstrained_step` with the (c,) / (s,) factor vectors in
-    place of the (c, s) Adam moments. Four streamed passes over M:
-    projection, rbar, grad² statistics, and the update (which also emits
-    the next stats); M is updated in place.
+    :func:`fused_unconstrained_step` with the (c,) / (s,) f32 factor
+    vectors in place of the (c, s) Adam moments. Four streamed passes over
+    M: projection, rbar, grad² statistics, and the update (which also emits
+    the next stats); M is updated in place, in its own type.
 
     Returns ``(M, count + 1, vr_new, vc_new, stats_new, terms)``.
     """
     A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms = (
-        _unconstrained_cotangents(M, stats, data, lw))
+        _unconstrained_cotangents(M, stats, data, lw, compute_dtype))
     c, s = M.shape
     vr_sum, vc_sum = _gsq(M, A, w, m, l, dY, dq, dh, r, lw.lambda_l1,
                           lw.lambda_l2, with_dh=with_dh)
@@ -442,7 +563,7 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
                                                       vc_sum, c, s)
     out = _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, learning_rate,
                         lw.lambda_l1, lw.lambda_l2, with_norms=need_norms,
-                        with_dh=with_dh)
+                        with_dh=with_dh, rounding=rounding, step=count + 1)
     return out[0], count + 1, vr_new, vc_new, tuple(out[1:]), terms
 
 
@@ -458,7 +579,8 @@ def _adam_vector(x, g, mu, nu, lr: float, bc1: float, bc2: float):
 
 @torch.no_grad()
 def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
-                           data: MapperData, lw: LossWeights, learning_rate: float):
+                           data: MapperData, lw: LossWeights, learning_rate: float,
+                           compute_dtype=torch.float32, rounding: str = "nearest"):
     """One fused Adam step of the constrained mapper (M and the filter
     logits F): reference ``MapperConstrained._loss_fn``
     (``mapping_optimizer.py:495-587``), Adam over ``[M, F]`` (``:607``).
@@ -471,11 +593,14 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
         dL/dF = dF_direct + (1 − w)·(r − dh·(h + 1))
 
     with dF_direct (the count, filter and density-denominator terms) from
-    the epilogue's gradient. M, mu, nu, F, muF and nuF are updated in place.
+    the epilogue's gradient. M, mu, nu, F, muF and nuF are updated in place;
+    ``compute_dtype`` and ``rounding`` apply to M's passes as in
+    :func:`fused_unconstrained_step`, while F and its moments stay f32.
 
     Returns ``((M, F), count + 1, (mu, muF), (nu, nuF), stats_new, terms)``.
     """
     A, w = constrained_inputs(F, data)
+    A = A.to(compute_dtype)
     m, l, u = stats
     Y, q = _project(M, A, w, m, l)
     h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
@@ -488,7 +613,7 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
     # q is unused without a density prior; the kernels take contiguous
     # operands, and dh is the scalar cotangent of Σh broadcast over cells
     dq = torch.zeros_like(q) if dq is None else dq.contiguous()
-    dY = dY.contiguous()
+    dY = dY.contiguous().to(compute_dtype)
     dh = dhs.expand(M.shape[0]).contiguous()
     terms = {key: v.detach() for key, v in terms.items()}
 
@@ -499,6 +624,7 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
     count_new = count + 1
     scalars = adam_scalars(count_new, learning_rate)
     M, mu, nu, m2, l2, u2 = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
-                                     with_dh=with_dh)
+                                     with_dh=with_dh, rounding=rounding,
+                                     step=count_new)
     F, muF, nuF = _adam_vector(F, gF, muF, nuF, *scalars)
     return (M, F), count_new, (mu, muF), (nu, nuF), (m2, l2, u2), terms

@@ -234,11 +234,180 @@ def test_kernels_fit_matches_cpu_reference(dev):
     cc.reset_launches()
     M_k, h_k = fit_mapping(torch.from_numpy(M0).to(dev), data_on(dev), lw, 25,
                            impl="kernels")
-    assert cc.LAUNCHES == {"rowstats": 1, "project": 25, "rbar": 25, "dm_adam": 25,
-                           "rowstats_norms": 0, "gsq": 0, "dm_adafactor": 0,
-                           "backward_rbar": 0, "dm_backward": 0}
+    assert cc.LAUNCHES == dict(dict.fromkeys(cc.LAUNCHES, 0), rowstats=1, project=25,
+                               rbar=25, dm_adam=25)
     M_r, h_r = fit_mapping(torch.from_numpy(M0.copy()), data_on("cpu"), lw, 25,
                            impl="reference")
     np.testing.assert_allclose(h_k["total_loss"].cpu().numpy(),
                                h_r["total_loss"].numpy(), rtol=3e-4, atol=3e-5)
     np.testing.assert_allclose(M_k.cpu().numpy(), M_r.numpy(), atol=3e-3)
+
+
+# ---------------------------------------------------------------------------
+# bf16 storage and stochastic rounding
+# ---------------------------------------------------------------------------
+#
+# The kernels read bf16 M, mu, nu, A and dY, compute in f32 and store bf16
+# as their twins do. Stored values: within 1 bf16 ulp of the twin's, and
+# apart in at most 1e-3 of the entries (or one entry): the two round the
+# same f32 value up to summation order, to nearest or with the same random
+# bits. f32 outputs as above, except Y from a bf16 A and the next stats of
+# an update. Y takes P rounded to bf16 first: an entry of P that the two
+# sides' exp put a few f32 ulps apart near a bf16 rounding midpoint may
+# round to either neighbour, so Y is held to Y_RTOL of max |twin| beyond
+# the most such entries can move it (cc.project_rounding_slack), and a Y
+# of the unrounded P must miss by more. The next stats (from the stored M)
+# at 2**-7.
+
+BF16_KEYS = ("M", "A", "dY", "mu", "nu")
+Y_RTOL = 2e-5
+
+
+def bf16_inputs(c, s, k, dev, pad=False):
+    x = inputs(c, s, k, dev, pad=pad)
+    return {key: v.to(torch.bfloat16) if key in BF16_KEYS else v for key, v in x.items()}
+
+
+def assert_stored_close(got, want, rtol=1e-4):
+    """Within 1 bf16 ulp beyond the f32 kernels' tolerance (rtol of the
+    largest value: it matters where an update cancels, as mu near 0), and
+    apart in at most 1e-3 of the entries or one."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w = got.float(), want.float()
+    e = torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+    scale = float(w[w.abs() < -fs.PAD_GUARD].abs().max())
+    diff = (g - w).abs()
+    over = float(((diff - rtol * scale).clamp_min(0) / torch.exp2(e - 7)).max())
+    apart = int((diff > 0).sum())
+    assert over <= 1.0 and apart <= max(1, 1e-3 * w.numel()), (over, apart)
+
+
+def assert_update_close(got, want, n_store):
+    for g, w in zip(got[:n_store], want[:n_store]):
+        assert_stored_close(g, w)
+    for g, w in zip(got[n_store:], want[n_store:]):
+        assert_close(g, w, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_bf16_forward_kernels_match_twins(dev, c, s, k):
+    x = bf16_inputs(c, s, k, dev, pad=True)
+    M = x["M"]
+    cc.reset_launches()
+    for g, w in zip(cc._rowstats(M), cc._rowstats_plain(M)):
+        assert_close(g, w, rtol=1e-5)
+    for g, w in zip(fs._rowstats_norms(M), fs._rowstats_norms_plain(M)):
+        assert_close(g, w, rtol=1e-5)
+    x = bf16_inputs(c, s, k, dev)
+    M = x["M"]
+    m, l, _ = cc._rowstats_plain(M)
+    for A in (x["A"], x["A"].float()):
+        Y, q = cc._project(M, A, x["w"], m, l)
+        Yp, qp = cc._project_plain(M, A, x["w"], m, l)
+        assert_close(q, qp)
+        if A.dtype == torch.float32:
+            assert_close(Y, Yp)
+            continue
+        # P rounded to bf16: within Y_RTOL beyond the rounding slack, and a
+        # Y of the unrounded P misses by more
+        slack = cc.project_rounding_slack(M, A, m, l)
+        scale = float(Yp.abs().max())
+        assert float(((Y - Yp).abs() - slack).max()) <= Y_RTOL * scale
+        P = torch.exp(M.float() - m) * (1.0 / l)
+        assert float(((P.T @ A.float() - Y).abs() - slack).max()) > Y_RTOL * scale
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == {
+        "rowstats.bf16": 1, "rowstats_norms.bf16": 1, "project.bf16": 2}
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_bf16_backward_kernels_match_twins(dev, c, s, k, with_dh, rounding):
+    """rbar, dm_adam (bf16 M, mu, nu; with and without norms), gsq and
+    dm_adafactor on bf16 M, A and dY."""
+    x = bf16_inputs(c, s, k, dev, pad=True)
+    m, l, _ = cc._rowstats_plain(x["M"])
+    args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = cc._rbar_plain(*args, with_dh=with_dh)
+    assert_close(fs._rbar(*args, with_dh=with_dh), r)
+    sr = dict(rounding=rounding, step=5)
+    for norm_kw in ({}, dict(lam_l1=NORMS[0], lam_l2=NORMS[1], with_norms=True)):
+        k_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
+        p_state = [x["M"].clone(), x["mu"].clone(), x["nu"].clone()]
+        got = fs._dm_adam(k_state[0], *args[1:], r, *k_state[1:], fs.adam_scalars(5, 0.1),
+                          with_dh=with_dh, **norm_kw, **sr)
+        want = fs._dm_adam_plain(p_state[0], *args[1:], r, *p_state[1:],
+                                 fs.adam_scalars(5, 0.1), with_dh, **norm_kw, **sr)
+        assert got[0] is k_state[0]
+        assert_update_close(got, want, 3)
+    for lam in ((0.0, 0.0), NORMS):
+        vr_vc = fs._gsq_plain(*args, r, *lam, with_dh=with_dh)
+        for g, w in zip(fs._gsq(*args, r, *lam, with_dh=with_dh), vr_vc):
+            assert_close(g, w)
+        c_, s_ = x["M"].shape
+        _, _, rowf, colf = fs.factored_rms_vectors(
+            0, torch.zeros_like(vr_vc[0]), torch.zeros_like(vr_vc[1]), *vr_vc, c_, s_)
+        with_norms = lam != (0.0, 0.0)
+        Mk, Mp = x["M"].clone(), x["M"].clone()
+        got = fs._dm_adafactor(Mk, *args[1:], r, rowf, colf, 0.1, *lam,
+                               with_norms=with_norms, with_dh=with_dh, **sr)
+        want = fs._dm_adafactor_plain(Mp, *args[1:], r, rowf, colf, 0.1, *lam,
+                                      with_norms, with_dh, **sr)
+        assert_update_close(got, want, 1)
+
+
+@pytest.mark.parametrize("m_dtype,mom_dtype", [(torch.bfloat16, torch.bfloat16),
+                                               (torch.float32, torch.bfloat16),
+                                               (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_stochastic_rounding_kernel_draws_the_twins_bits(dev, c, s, k, m_dtype,
+                                                         mom_dtype):
+    """With zero cotangents the Adam update is elementwise (g = 0), so the
+    kernel and its twin form the same f32 values; stochastic rounding must
+    then store the same bits in every array of bf16 storage."""
+    x = inputs(c, s, k, dev)
+    zero = dict(dY=torch.zeros_like(x["dY"]), dq=torch.zeros_like(x["dq"]),
+                dh=torch.zeros_like(x["dh"]))
+    M, mu, nu = x["M"].to(m_dtype), x["mu"].to(mom_dtype), x["nu"].to(mom_dtype)
+    m, l, _ = cc._rowstats_plain(M)
+    args = (x["A"], x["w"], m, l, zero["dY"], zero["dq"], zero["dh"],
+            torch.zeros_like(m))
+    kw = dict(with_dh=False, rounding="stochastic", step=7)
+    got = fs._dm_adam(M.clone(), *args, mu.clone(), nu.clone(), fs.adam_scalars(7, 0.1),
+                      **kw)
+    want = fs._dm_adam_plain(M.clone(), *args, mu.clone(), nu.clone(),
+                             fs.adam_scalars(7, 0.1), **kw)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16 else g,
+                           w.view(torch.int16) if w.dtype == torch.bfloat16 else w)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_kernels_fit_bf16_matches_cpu_twins(dev, optimizer):
+    """The fused loop at bf16 with stochastic rounding: the kernels against
+    the twins on the CPU, 25 epochs at the JAX package's bf16 tolerance on
+    the losses (3e-2), every launch a bf16 variant."""
+    rng = np.random.default_rng(1)
+    S = (rng.poisson(2.0, (60, 9)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (90, 9)) + 0.1).astype(np.float32)
+    M0 = rng.normal(0, 1, (60, 90)).astype(np.float32)
+    lw = LossWeights(lambda_g2=0.5, lambda_r=0.01)
+    opts = dict(param_dtype="bfloat16", moment_dtype="bfloat16",
+                compute_dtype="bfloat16", rounding="stochastic", optimizer=optimizer)
+    cc.reset_launches()
+    M_k, h_k = fit_mapping(torch.from_numpy(M0).to(dev),
+                           MapperData(torch.from_numpy(S).to(dev),
+                                      torch.from_numpy(G).to(dev)),
+                           lw, 25, impl="kernels", **opts)
+    update = "dm_adam" if optimizer == "adam" else "dm_adafactor"
+    want = {"rowstats.bf16": 1, "project.bf16": 25, "rbar.bf16": 25, update + ".bf16": 25}
+    if optimizer == "adafactor":
+        want["gsq.bf16"] = 25
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == want
+    assert M_k.dtype == torch.bfloat16
+    M_r, h_r = fit_mapping(torch.from_numpy(M0.copy()),
+                           MapperData(torch.from_numpy(S), torch.from_numpy(G)),
+                           lw, 25, impl="fused", **opts)
+    np.testing.assert_allclose(h_k["main_loss"].cpu().numpy(), h_r["main_loss"].numpy(),
+                               rtol=3e-2, atol=3e-2)

@@ -284,11 +284,6 @@ def test_missing_pp_adatas_raises():
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mode="constrained", target_count=10, mesh=object()), "A11"),
     (dict(mesh=object()), "A11"),
-    (dict(param_dtype="bfloat16"), "A4"),
-    (dict(moment_dtype="bfloat16"), "A4"),
-    (dict(rounding="stochastic"), "A4"),
-    (dict(mode="constrained", target_count=10, param_dtype="bfloat16"), "A4"),
-    (dict(optimizer="adafactor", rounding="stochastic"), "A4"),
     (dict(lambda_moran=0.1), "A2"),
     (dict(lambda_ct_islands=0.1), "A2"),
     (dict(graph_format="knn"), "A2"),
