@@ -4,7 +4,8 @@
     python3 chip_smoke.py                  # every phase, as a release check
     python3 chip_smoke.py --phases device,build,kernels   # a subset
     python3 chip_smoke.py --phases device,build,kernels --shapes ragged,clusters
-    python3 chip_smoke.py --profile        # also print a torch.profiler table
+    python3 chip_smoke.py --profile        # also a torch.profiler table and the
+                                           # dP tile's phase shares
 
 Phases (each prints its own lines; any failure exits non-zero before the
 last line):
@@ -21,8 +22,14 @@ last line):
               one forward + backward of the kernels' MapperCore against
               autograd through the materialized core (tutorial shape);
               median times from CUDA events, each kernel's bound (the least
-              time the card could take for its work) and the cuBLAS f32
-              GEMM time at each contraction's shape; --shapes picks the
+              time the card could take for its work; an f32 contraction
+              at the faster of the FMA pipes and 3xTF32 on the tensor
+              cores) and the cuBLAS f32 GEMM time at each contraction's
+              shape; at every shape the f32-accuracy witness of the
+              tensor-core dP tile (rbar, dm_adam): against float64 twins
+              the kernel errs at most 4x what the f32 twin errs, and a twin
+              with A and dY rounded once to TF32 misses it by more than 10x
+              that; --shapes picks the
               shapes (ragged, clusters, tutorial). At the ragged and
               clusters shapes every buffer a kernel writes sits between two
               bands of sentinel words that must stay intact (out-of-bounds
@@ -94,6 +101,9 @@ RAGGED = (37, 53, 7)
 KERNEL_SHAPES = {"ragged": RAGGED, "clusters": CLUSTERS, "tutorial": SHAPE}
 EPOCHS = 100
 SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
+# the kernels of the tensor-core dP tile have their own source
+TENSOR_SOURCE = "tangram_tpu_torch/csrc/dp_tensor_kernels.cu"
+TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "rbar.bf16", "dm_adam.bf16")
 REPLACES = {
     "rowstats": "tangram_tpu/ops/pallas_core.py:97",
     "project": "tangram_tpu/ops/pallas_core.py:159",
@@ -118,10 +128,14 @@ ADAFACTOR_KERNELS = ("rowstats_norms", "gsq", "dm_adafactor")
 BACKWARD_KERNELS = ("backward_rbar", "dm_backward")
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s, f32 FMA-pipe flop/s outside the tensor cores, and the tensor
-# cores' bf16 flop/s (bf16 operands, f32 accumulation). A kernel's bound is
-# the largest of its bytes over the first and its flops of each type over
-# that type's rate (the two pipes run side by side).
+# cores' TF32 and bf16 flop/s (f32 accumulation). A kernel's bound is the
+# largest of its bytes over the first and its flops of each type over that
+# type's rate (the pipes run side by side). An f32 contraction may run on
+# either pipe at f32 accuracy: as FMAs, or as three TF32 products of split
+# operands (3xTF32) on the tensor cores; its time is the smaller of the two,
+# whatever the kernel does.
 HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S = 3.35e12, 67e12, 989e12
+TF32_FLOPS_PER_S, TF32_PASSES = 495e12, 3
 
 # L1/L2 strengths of the adafactor phase and of the reference phase's
 # L1/L2 runs; the adafactor phase prints how large their gradient is
@@ -146,6 +160,9 @@ GUARD, GUARD_BITS = 4096, 0x7FA1DEAD
 # contractions sum 26,000 (project), 250 (rbar, dm_adam) or 9,852
 # (dm_backward's dA and dw) terms, so order alone moves the last ~4 bits of
 # the largest values. MapperCore's gradients are held to dm_backward's.
+# rbar and dm_adam form A dY^T on the tensor cores from TF32 parts of the
+# f32 operands (3xTF32), which keeps f32 accuracy; F32_WITNESS holds them to
+# it beside RTOL.
 RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
         "rowstats_norms": 1e-5, "backward_rbar": 1e-4, "dm_backward": 1e-4,
         "gsq": 1e-4, "dm_adafactor": 1e-4}
@@ -163,6 +180,16 @@ RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
 # most that ulp, l and u by as much of one term): 2**-7.
 RTOL.update({f"{name}.bf16": RTOL[name] for name in BF16_KERNELS})
 Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
+# The f32-accuracy witness of the tensor-core dP tile (rbar's r; dm_adam's
+# M, mu, nu and next stats; entropy cotangent off, the timed case), against a
+# float64 twin of the same function on the same f32 inputs: the kernel's
+# largest error is at most F32_WITNESS[0] times the f32 twin's largest error
+# (both differ from float64 by f32 rounding and summation order only), and
+# a twin whose A and dY are rounded once to TF32, the fault a single
+# tensor-core pass would be, misses the kernel by more than F32_WITNESS[1]
+# times that margin on r and on mu (where the gradient enters linearly), so
+# the check can see the fault it exists for.
+F32_WITNESS = (4.0, 10.0)
 # bf16 stores of the updates: every stored value within BF16_ULPS of the
 # twin's beyond what the f32 kernel's tolerance allows (RTOL of the largest
 # value; it matters where the update cancels, as mu near 0), and at most
@@ -245,47 +272,70 @@ SEED = 1
 
 
 def kernel_work(name, c, s, k):
-    """(bytes, f32 flops, bf16 flops) that kernel ``name`` must move and do
-    at (c, s, k): each input read once and each output written once, and
-    its contractions at 2 flops per multiply-add (the dP tile [A|w]
-    [dY|dq]ᵀ, or project's Pᵀ [A|w], 2·c·s·(k+1); dm_backward adds P [dY |
-    dq]). A ".bf16" variant, as the main path runs it (all three dtypes
-    bf16), moves M, mu, nu, A and dY in 2 bytes; the A·dY (or bf16(P)ᵀA)
-    part of its contraction has bf16 operands with f32 accumulation, the
-    tensor cores' type, and only the w ⊗ dq (or wP) part, 2·c·s, stays
-    f32. The elementwise work per (cell, spot) entry (exp, the gradient,
-    the optimizer update, rounding: 5-30 flops) is counted only where there
-    is no contraction (the row stats); beside an f32 contraction it adds
-    4-12%, and a bf16 variant's bytes outweigh it."""
+    """(bytes, elementwise f32 flops, f32 contraction flops, bf16
+    contraction flops) that kernel ``name`` must move and do at (c, s, k):
+    each input read once and each output written once, and its contractions
+    at 2 flops per multiply-add (the dP tile [A|w] [dY|dq]ᵀ, or project's
+    Pᵀ [A|w], 2·c·s·(k+1); dm_backward adds P [dY | dq]). A ".bf16"
+    variant, as the main path runs it (all three dtypes bf16), moves M, mu,
+    nu, A and dY in 2 bytes; the A·dY (or bf16(P)ᵀA) part of its
+    contraction has bf16 operands with f32 accumulation, the tensor cores'
+    type, and only the rank-one w ⊗ dq (or wP) part, 2·c·s, stays f32, on
+    the FMA pipes. The elementwise work per (cell, spot) entry (exp, the
+    gradient, the optimizer update, rounding: 5-30 flops) is counted only
+    where there is no contraction (the row stats); beside an f32
+    contraction it adds little, and a bf16 variant's bytes outweigh it."""
     base, _, variant = name.partition(".")
     bf16 = variant == "bf16"
     e = 2 if bf16 else 4  # bytes per element of M, mu, nu, A and dY
     cs, K1 = c * s, k + 1
     # M, [A|w], [dY|dq], dh, m, l
     dp_in = e * cs + e * (c * k + s * k) + 4 * (c + s + 3 * c)
-    f32_ops, bf16_ops = (2 * cs, 2 * cs * k) if bf16 else (2 * cs * K1, 0)
+    ops = (2 * cs, 0, 2 * cs * k) if bf16 else (0, 2 * cs * K1, 0)
+    twice = tuple(2 * n for n in ops)
     work = {
-        "rowstats": (e * cs + 12 * c, 4 * cs, 0),
-        "rowstats_norms": (e * cs + 20 * c, 7 * cs, 0),
-        "project": (e * cs + e * c * k + 4 * (c + 2 * c + s * K1), f32_ops, bf16_ops),
-        "rbar": (dp_in + 4 * c, f32_ops, bf16_ops),
-        "backward_rbar": (dp_in + 4 * c, f32_ops, bf16_ops),
+        "rowstats": (e * cs + 12 * c, 4 * cs, 0, 0),
+        "rowstats_norms": (e * cs + 20 * c, 7 * cs, 0, 0),
+        "project": (e * cs + e * c * k + 4 * (c + 2 * c + s * K1), *ops),
+        "rbar": (dp_in + 4 * c, *ops),
+        "backward_rbar": (dp_in + 4 * c, *ops),
         # r; M/mu/nu read and written (M's read is in dp_in)
-        "dm_adam": (dp_in + 5 * e * cs + 4 * (c + 3 * c), f32_ops, bf16_ops),
-        "gsq": (dp_in + 4 * (c + c + s), f32_ops, bf16_ops),
-        "dm_adafactor": (dp_in + e * cs + 4 * (c + c + s + 3 * c), f32_ops, bf16_ops),
-        "dm_backward": (dp_in + 4 * (c + cs + c * K1), 2 * f32_ops, 2 * bf16_ops),
+        "dm_adam": (dp_in + 5 * e * cs + 4 * (c + 3 * c), *ops),
+        "gsq": (dp_in + 4 * (c + c + s), *ops),
+        "dm_adafactor": (dp_in + e * cs + 4 * (c + c + s + 3 * c), *ops),
+        "dm_backward": (dp_in + 4 * (c + cs + c * K1), *twice),
     }
     return work[base]
 
 
 def bound_ms(name, shape):
-    """(the least ms the card could take for kernel ``name`` at ``shape``,
-    "bytes" or "operations": which sets it)."""
-    nbytes, f32_ops, bf16_ops = kernel_work(name, *shape)
+    """(the least ms the card could take for kernel ``name`` at ``shape``;
+    "bytes" or "operations": which sets it; the pipe behind "operations").
+    An f32 contraction counts at the faster of the FMA pipes and 3xTF32 on
+    the tensor cores, whichever the kernel uses."""
+    nbytes, f32_ops, f32_dot, bf16_dot = kernel_work(name, *shape)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(f32_ops / F32_FLOPS_PER_S, bf16_ops / BF16_FLOPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops, pipe = max(
+        (f32_ops / F32_FLOPS_PER_S, "f32 FMA"),
+        min((f32_dot / F32_FLOPS_PER_S, "f32 FMA"),
+            (TF32_PASSES * f32_dot / TF32_FLOPS_PER_S, "3xTF32 tensor cores")),
+        (bf16_dot / BF16_FLOPS_PER_S, "bf16 tensor cores"))
+    if t_bytes >= t_ops * 1e3:
+        return t_bytes, "bytes", "HBM"
+    return t_ops * 1e3, "operations", pipe
+
+
+def dp_l2_bytes(c, s, k, sm_count):
+    """Bytes the tensor-core dP tile (rbar, dm_adam) moves through L2 per
+    launch for its operands, as its design reckons them: every block streams
+    its spot tiles' dY rows whole (Kp f32 each), and copies its 64 resident
+    A rows once (once per spot tile when K is deeper than one panel of 256)."""
+    from tangram_tpu_torch.ops import cuda_core as cc
+
+    Kp = -(-k // 32) * 32
+    groups, nsplit = math.ceil(c / 64), cc.dp_splits(c, s, sm_count)
+    a_loads = nsplit if Kp <= 256 else math.ceil(s / 128)
+    return groups * (s * Kp * 4 + a_loads * 64 * Kp * 4)
 
 
 def say(phase: str, msg: str) -> None:
@@ -361,6 +411,89 @@ def rel_err(got, ref) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
+def check_f32_accuracy(shape, x, m, l, scalars):
+    """The f32-accuracy witness of the tensor-core dP tile (F32_WITNESS):
+    rbar's r and dm_adam's M, mu, nu and next stats against float64 twins of
+    the same functions on the same f32 inputs, beside the f32 twins and
+    beside f32 twins whose A and dY were rounded once to TF32. A takes a
+    seeded fraction on top of the kernel phase's counts: small integers are
+    exact in TF32 and would leave the rounded twin only dY's error to show
+    (real expression matrices are normalized floats). nu is kept away from
+    0 (half its scale added): where nu and the gradient both vanish, Adam's
+    normalized step divides two roundings, a few entries in 2.6e8 move by
+    1e-4 on either side, and the largest error says where those fell, not
+    how accurate the product is."""
+    import torch
+
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops import fused_step as fs
+
+    M, A, w, dY, dq, dh = x["M"], x["A"], x["w"], x["dY"], x["dq"], x["dh"]
+    gen = torch.Generator(device=A.device).manual_seed(17)
+    A = A + torch.rand(A.shape, generator=gen, device=A.device)
+    A_t, dY_t = cc.tf32_split(A)[0], cc.tf32_split(dY)[0]
+    r_p = cc._rbar_plain(M, A, w, m, l, dY, dq, dh, False)
+    nu = x["nu"] + 0.5 * float(x["nu"].max())
+    f32 = np.float32
+    lr, bc1, bc2 = scalars
+    b1, b2 = float(f32(fs.BETA1)), float(f32(fs.BETA2))
+    omb1, omb2 = float(f32(1.0 - fs.BETA1)), float(f32(1.0 - fs.BETA2))
+    inv_bc1, inv_bc2 = float(f32(1.0) / f32(bc1)), float(f32(1.0) / f32(bc2))
+    eps = float(f32(fs.ADAM_EPS))
+
+    # the float64 twins: P, dP, r, then the Adam update and the next stats
+    Md = M.double()
+    P = torch.exp(Md - m.double()) / l.double()
+    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    want = {"r": (P * dP).sum(dim=1, keepdim=True)}
+    g = P * (dP - r_p.double())
+    del P, dP
+    mu64 = b1 * x["mu"].double() + omb1 * g
+    nu64 = b2 * nu.double() + omb2 * (g * g)
+    del g
+    M64 = Md - lr * (mu64 * inv_bc1) / (torch.sqrt(nu64 * inv_bc2) + eps)
+    del Md
+    m64 = M64.amax(dim=1, keepdim=True)
+    e = torch.exp(M64 - m64)
+    want.update({"M": M64, "mu": mu64, "nu": nu64, "m'": m64,
+                 "l'": e.sum(dim=1, keepdim=True),
+                 "u'": (e * M64).sum(dim=1, keepdim=True)})
+    del e
+
+    def adam(run, A_in, dY_in):
+        out = run(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, x["mu"].clone(),
+                  nu.clone(), scalars, False)
+        return dict(zip(("M", "mu", "nu", "m'", "l'", "u'"), out))
+
+    sides = {}
+    for side, rbar, run, A_in, dY_in in (
+            ("kernel", fs._rbar, fs._dm_adam, A, dY),
+            ("f32 twin", cc._rbar_plain, fs._dm_adam_plain, A, dY),
+            ("TF32 twin", cc._rbar_plain, fs._dm_adam_plain, A_t, dY_t)):
+        sides[side] = dict(adam(run, A_in, dY_in),
+                           r=rbar(M, A_in, w, m, l, dY_in, dq, dh, False))
+    bad = []
+    for name, ref in want.items():
+        real = ref.abs() < 1e20  # a padding sentinel's own rounding aside
+        err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
+                        for side in ("kernel", "f32 twin"))
+        miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
+        margin = F32_WITNESS[0] * err_p
+        seen = name in ("r", "mu")
+        say("kernels", f"f32 accuracy {shape} {name}: against float64 the kernel errs by "
+            f"{err_k:.3e}, the f32 twin by {err_p:.3e} (kernel must stay within "
+            f"{F32_WITNESS[0]:.0f}x: {margin:.3e}); a twin with A and dY rounded to TF32 "
+            f"misses the kernel by {miss:.3e}"
+            + (f" (must exceed {F32_WITNESS[1]:.0f}x the margin: "
+               f"{F32_WITNESS[1] * margin:.3e})" if seen else ""))
+        if not err_k <= margin:
+            bad.append(f"{name}: the kernel is less accurate than f32")
+        if seen and not miss > F32_WITNESS[1] * margin:
+            bad.append(f"{name}: the check cannot see a single TF32 pass")
+    if bad:
+        fail(f"f32-accuracy witness at {shape}: " + "; ".join(bad))
+
+
 def compare_kernels(shape, dev, results, timed):
     import torch
 
@@ -429,6 +562,15 @@ def compare_kernels(shape, dev, results, timed):
         time_pair("project", lambda: cc._project(M, A, w, m, l),
                   lambda: cc._project_plain(M, A, w, m, l))
 
+    # the operands of the tensor-core dP tile, built once as a fused step
+    # builds them (its A operand once per fit); the checks below let the
+    # wrappers build their own, the timed calls take these
+    ops = cc.dp_operands(A, dY)
+    if timed:
+        say("kernels", f"dP-tile operands at {shape}: A's {cuda_ms(lambda: cc.dp_operand(A), runs):.3f} "
+            f"ms (once per unconstrained fit), dY's "
+            f"{cuda_ms(lambda: cc.dp_operand(dY), runs):.3f} ms (once per step); "
+            f"{(ops.A_op.numel() + ops.dY_op.numel()) * 4 / 2**30:.3f} GiB")
     for with_dh in (False, True):
         tag = f"{shape} with_dh={with_dh}"
         args = (M, A, w, m, l, dY, dq, dh)
@@ -436,7 +578,8 @@ def compare_kernels(shape, dev, results, timed):
         r_p = cc._rbar_plain(*args, with_dh=with_dh)
         check("rbar", [("r", r_k, r_p)], tag)
         if timed and not with_dh:
-            time_pair("rbar", lambda: fs._rbar(*args, with_dh=False),
+            # as the fused steps call it: the step's operands built once
+            time_pair("rbar", lambda: fs._rbar(*args, with_dh=False, operands=ops),
                       lambda: cc._rbar_plain(*args, with_dh=False))
 
         # the norm cases' λ, scaled to this case's softmax gradient
@@ -466,7 +609,7 @@ def compare_kernels(shape, dev, results, timed):
             if timed and not with_dh:
                 kernel = lambda: fs._dm_adam(  # noqa: E731
                     Mk, A, w, m, l, dY, dq, dh, r_p, muk, nuk, scalars,
-                    with_dh=False, **kw)
+                    with_dh=False, operands=ops, **kw)
                 twin = lambda: fs._dm_adam_plain(  # noqa: E731
                     Mp, A, w, m, l, dY, dq, dh, r_p, mup, nup, scalars, False, **kw)
                 if kw:
@@ -527,6 +670,7 @@ def compare_kernels(shape, dev, results, timed):
             time_pair("dm_backward", lambda: cc._dm_backward(*args, r_p, with_dh=True),
                       lambda: cc._dm_backward_plain(*args, r_p, with_dh=True))
 
+    check_f32_accuracy(shape, x, m, l, scalars)
     if shape == SHAPE:
         check_mapper_core(x)
     if timed:
@@ -655,12 +799,15 @@ def compare_bf16_kernels(shape, dev, results, timed):
                   lambda: cc._project_plain(M, A, w, m, l))
 
     lam = (1e-3, 1e-3)
+    ops = cc.dp_operands(A, dY)  # bf16 values, one exact product
+    if ops.split:
+        fail("bf16 A and dY must take the single exact product")
     for with_dh in (False, True):
         args = (M, A, w, m, l, dY, dq, dh)
         r_k, r_p = fs._rbar(*args, with_dh=with_dh), cc._rbar_plain(*args, with_dh=with_dh)
         check("rbar.bf16", [("r", r_k, r_p)], f"{shape} with_dh={with_dh}")
         if timed and not with_dh:
-            time_pair("rbar.bf16", lambda: fs._rbar(*args, with_dh=False),
+            time_pair("rbar.bf16", lambda: fs._rbar(*args, with_dh=False, operands=ops),
                       lambda: cc._rbar_plain(*args, with_dh=False))
         for rounding in ("nearest", "stochastic"):
             tag = f"{shape} with_dh={with_dh} {rounding}"
@@ -679,7 +826,7 @@ def compare_bf16_kernels(shape, dev, results, timed):
                 if timed and not with_dh and not norms and rounding == "stochastic":
                     time_pair("dm_adam.bf16", lambda: fs._dm_adam(
                         k_state[0], *args[1:], r_p, *k_state[1:], scalars, with_dh=False,
-                        **kw), lambda: fs._dm_adam_plain(
+                        operands=ops, **kw), lambda: fs._dm_adam_plain(
                         p_state[0], *args[1:], r_p, *p_state[1:], scalars, False, **kw))
                 del k_state, p_state, out_k, out_p
             for lam_c in ((0.0, 0.0), lam):
@@ -1333,6 +1480,54 @@ def profile_steps(mapper, steps=5):
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
 
 
+def profile_dp_tile(dev):
+    """Where rbar and dm_adam (f32 and bf16) spend their cycles at the
+    tutorial shape: a second build of the kernels with -DTG_DP_PROFILE
+    counts, in warps 0 and 15 of every block, the clock cycles of each phase
+    of the tile loop; printed as shares of their sum beside each kernel's
+    time in that build (the counters cost a few percent)."""
+    import ctypes
+
+    import torch
+
+    from tangram_tpu_torch.ops import _build
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops import fused_step as fs
+
+    lib = _build.load_kernels(("-DTG_DP_PROFILE",))
+    plain, _build.load_kernels = _build.load_kernels, lambda: lib
+    try:
+        x = kernel_inputs(*SHAPE, seed=11, dev=dev)
+        m, l, _ = cc._rowstats_plain(x["M"])
+        scalars = fs.adam_scalars(3, 0.1)
+        bf = torch.bfloat16
+        for tag, cast, kw in (("f32", lambda t: t, {}),
+                              ("bf16", lambda t: t.to(bf),
+                               dict(rounding="stochastic", step=3))):
+            M, A, dY = cast(x["M"]), cast(x["A"]), cast(x["dY"])
+            args = (M, A, x["w"], m, l, dY, x["dq"], x["dh"])
+            ops = cc.dp_operands(A, dY)
+            r = cc._rbar_plain(*args, with_dh=False)
+            state = [M.clone(), cast(x["mu"]), cast(x["nu"])]
+            for name, run in (
+                    ("rbar", lambda: fs._rbar(*args, with_dh=False, operands=ops)),
+                    ("dm_adam", lambda: fs._dm_adam(
+                        state[0], *args[1:], r, *state[1:], scalars, with_dh=False,
+                        operands=ops, **kw))):
+                clocks = (ctypes.c_ulonglong * 4)()
+                lib.call("tg_dp_profile_read", clocks)  # clear
+                ms = cuda_ms(run, 10)
+                lib.call("tg_dp_profile_read", clocks)
+                total = float(sum(clocks)) or 1.0
+                shares = ", ".join(f"{what} {100 * n / total:.1f}%" for what, n in zip(
+                    ("epilogue and loop", "waits and barriers", "issuing copies",
+                     "product"), clocks))
+                say("profile", f"{name} {tag} at {SHAPE}: {ms:.3f} ms with the "
+                    f"counters; cycles of warps 0 and 15: {shares}")
+    finally:
+        _build.load_kernels = plain
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1341,7 +1536,8 @@ def main(argv=None) -> int:
                     help="the kernel phase's shapes, a subset of "
                     + ",".join(KERNEL_SHAPES) + " (times come from tutorial)")
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler table of 5 fused steps")
+                    help="print a torch.profiler table of 5 fused steps and the "
+                    "phase shares of the tensor-core dP tile (a second build)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1405,10 +1601,15 @@ def main(argv=None) -> int:
             say("kernels", f"{shape} checked in {time.perf_counter() - t0:.1f} s")
         for name, r in results.items():
             if "ms" in r:
-                bound, by = bound_ms(name, SHAPE)
+                bound, by, pipe = bound_ms(name, SHAPE)
                 say("kernels", f"{name}: kernel {r['ms']:.3f} ms, twin "
-                    f"{r['plain_ms']:.3f} ms, bound {bound:.3f} ms ({by}) at {SHAPE} "
-                    f"({card})")
+                    f"{r['plain_ms']:.3f} ms, bound {bound:.3f} ms ({by}: {pipe}) at "
+                    f"{SHAPE} ({card})")
+        sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+        say("kernels", f"rbar and dm_adam at {SHAPE}: "
+            f"{cuda_core.dp_splits(*SHAPE[:2], sm_count)} spot splits per 64-cell group; "
+            f"their A and dY operands move {dp_l2_bytes(*SHAPE, sm_count) / 1e9:.2f} GB "
+            f"through L2 per launch, as reckoned from the tile shape")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
@@ -1637,9 +1838,13 @@ def main(argv=None) -> int:
         if args.profile:
             profile_steps(mapper)
 
+    if args.profile:
+        profile_dp_tile(dev)
     say("done", f"{time.perf_counter() - t_start:.1f} s in all")
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda",
+         "source": TENSOR_SOURCE if name in TENSOR_KERNELS else SOURCE,
+         "replaces": REPLACES[name],
          "launches": None if launches is None else launches.get(name),
          "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
          "plain_ms": r.get("plain_ms"), "bound_ms": bound_ms(name, SHAPE)[0],

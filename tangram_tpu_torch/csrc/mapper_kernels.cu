@@ -24,15 +24,19 @@
 // cross-thread reduction has a fixed order, so all kernels are
 // deterministic (no atomics).
 //
-// Precision: every product is a plain f32 FMA on the CUDA cores, i.e. IEEE
-// f32 by construction. Tensor-core TF32 would keep about three decimal
-// digits, the class of fault that degraded the JAX package's held-out score
-// on the TPU. The price: project and the four dP-tile kernels each do about
-// 2 * c * s * (k + 1) flops per call (1.3e11 at the 26,000 x 9,852 x 249
-// tutorial shape), which makes them compute-bound on the H100's f32 CUDA
-// cores, not memory-bound. Faster variants (3xTF32 or bf16-split tensor-core
-// products via wgmma, TMA loads, one shared dP recompute for rbar and the
-// update) are later work.
+// This file holds the row stats, the projection and the f32 FMA dP tile
+// (gsq, dm_adafactor, dm_backward); tg_rbar and tg_dm_adam are in
+// dp_tensor_kernels.cu, on the tensor-core dP tile; common.cuh holds what
+// both share.
+//
+// Precision: every product in this file is a plain f32 FMA on the CUDA
+// cores, i.e. IEEE f32 by construction. One tensor-core TF32 pass would keep
+// about three decimal digits, the class of fault that degraded the JAX
+// package's held-out score on the TPU; the tensor-core tile takes three
+// passes over split operands and keeps f32 accuracy. The price here: project
+// and the three FMA dP-tile kernels each do about 2 * c * s * (k + 1) flops
+// per call (1.3e11 at the 26,000 x 9,852 x 249 tutorial shape), which makes
+// them bound by the FMA pipes and, before those, by shared-memory loads.
 //
 // All shared memory is static and below 48 KB per block, except the
 // dm_backward tile's 64 KB of dynamic shared memory, for which the launch
@@ -49,134 +53,15 @@
 // STORED value into the next step's stats, as _emit_next_stats does, so
 // the next softmax normalizes the M it will read. M's type is a template
 // parameter of rowstats and project (their loads differ in shape), and a
-// uniform runtime flag of the dP-tile kernels beside mu/nu's type and the
-// rounding (their loads sit in the epilogue, a few instructions per
-// element beside its 2 (k + 1) flops). dm_backward takes f32 only.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+// uniform runtime flag of the dP-tile kernels beside the rounding (their
+// loads sit in the epilogue, a few instructions per element beside its
+// 2 (k + 1) flops). dm_backward takes f32 only.
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
-
-constexpr float NEG_BIG = -1e30f;
-// Entries at or below PAD_GUARD are padding sentinels of the JAX package's
-// sharded path: they take no L1/L2 norm and no norm gradient.
-constexpr float PAD_GUARD = -1e20f;
-constexpr float BETA1 = 0.9f;
-constexpr float BETA2 = 0.999f;
-constexpr float ONE_MINUS_BETA1 = 0.1f;    // f32(1.0 - 0.9)
-constexpr float ONE_MINUS_BETA2 = 0.001f;  // f32(1.0 - 0.999)
-constexpr float ADAM_EPS = 1e-8f;
-
-// ---------------------------------------------------------------------------
-// online softmax statistics: m = max, l = sum exp(x - m), u = sum exp(x - m) x
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void stats_push(float& m, float& l, float& u, float x) {
-  if (x > m) {
-    const float scale = expf(m - x);
-    l = l * scale + 1.0f;
-    u = u * scale + x;
-    m = x;
-  } else {
-    const float e = expf(x - m);
-    l += e;
-    u = fmaf(e, x, u);
-  }
-}
-
-__device__ __forceinline__ void stats_merge(float& m, float& l, float& u,
-                                            float m2, float l2, float u2) {
-  const float mn = fmaxf(m, m2);
-  const float a = expf(m - mn);
-  const float b = expf(m2 - mn);
-  l = l * a + l2 * b;
-  u = u * a + u2 * b;
-  m = mn;
-}
-
-// merge over the lanes of an aligned group of `width` lanes (butterfly)
-__device__ __forceinline__ void stats_reduce(float& m, float& l, float& u, int width) {
-  for (int off = width / 2; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float l2 = __shfl_xor_sync(0xffffffffu, l, off);
-    const float u2 = __shfl_xor_sync(0xffffffffu, u, off);
-    stats_merge(m, l, u, m2, l2, u2);
-  }
-}
-
-// sum over the lanes of an aligned group of `width` lanes (butterfly)
-__device__ __forceinline__ float sum_reduce(float v, int width) {
-  for (int off = width / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// the L1/L2 norm sums take real entries only: x > PAD_GUARD, else 0
-__device__ __forceinline__ float norm_value(float x) { return x > PAD_GUARD ? x : 0.0f; }
-
-__device__ __forceinline__ void norms_push(float& s1, float& s2, float x) {
-  const float z = norm_value(x);
-  s1 += fabsf(z);
-  s2 = fmaf(z, z, s2);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 storage and stochastic rounding
-// ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf16;
-
-// a bf16 is the upper half of an f32: widening is a shift, exact
-__device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_f32(const bf16* p) {
-  return bf16_bits_to_f32(__ldg(reinterpret_cast<const unsigned short*>(p)));
-}
-
-// f32 -> bf16 -> f32, round to nearest even (jnp's astype)
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// the JAX package's 32-bit Wang hash (fused_step.py::_wang_hash), mod 2^32
-__device__ __forceinline__ uint32_t wang_hash(uint32_t x) {
-  x = (x ^ 61u) ^ (x >> 16);
-  x = x * 9u;
-  x = x ^ (x >> 4);
-  x = x * 0x27D4EB2Du;
-  return x ^ (x >> 15);
-}
-
-// Stochastic-rounding key of one (step t, cell, array salt): JAX's per-tile
-// seed with the tile taken as one cell row, base = wang(t ^ cell 0x85EBCA6B),
-// then _tile_random_bits' key wang((base ^ salt) 0x9E3779B9). The bits of
-// entry (cell, spot) are wang(spot ^ key): they depend on no tiling, so the
-// kernels and their twin draw the same bits for the same f32 value.
-__device__ __forceinline__ uint32_t sr_key(uint32_t t, uint32_t cell, uint32_t salt) {
-  const uint32_t base = wang_hash(t ^ (cell * 0x85EBCA6Bu));
-  return wang_hash((base ^ salt) * 0x9E3779B9u);
-}
-
-// what an entry of f32 value v keeps when stored: v itself in f32 storage;
-// in bf16 the nearest-even bf16, or (sr) the bf16 that _sr_cast gives: add
-// 16 random bits below the bf16 mantissa and truncate (unbiased). The
-// result is an exact bf16, returned as f32.
-__device__ __forceinline__ float stored_value(float v, bool bf16_store, bool sr,
-                                              uint32_t key, int spot) {
-  if (!bf16_store) return v;
-  if (!sr) return round_bf16(v);
-  const uint32_t bits = wang_hash((uint32_t)spot ^ key);
-  return __uint_as_float((__float_as_uint(v) + (bits & 0xFFFFu)) & 0xFFFF0000u);
-}
 
 // ---------------------------------------------------------------------------
 // rowstats — replaces tangram_tpu/ops/pallas_core.py::_rowstats;
@@ -256,32 +141,6 @@ constexpr int PJ_BJ = 256;   // A_ext columns per block
 constexpr int PJ_BC = 16;    // cells per chunk
 constexpr int PJ_THREADS = 256;
 
-// 4-byte asynchronous copy global -> shared; valid == false writes zeros
-__device__ __forceinline__ void cp_async_f32(float* smem, const float* gmem, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-
-// 16-byte asynchronous copy global -> shared (both 16-byte aligned);
-// valid == false writes zeros
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed copy groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename TM, typename TA>
 __global__ void __launch_bounds__(PJ_THREADS, 2)
@@ -471,12 +330,21 @@ cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows
 }
 
 // ---------------------------------------------------------------------------
-// dP tiles — one kernel, four epilogues:
-//   EPI_RBAR       replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
-//                  pallas_core._rbar_kernel / _dp_tile)
-//   EPI_ADAM       replaces tangram_tpu/ops/fused_step.py::_dm_adam
-//                  (_dm_adam_kernel, _grad_tile, _emit_next_stats, _sr_cast),
-//                  L1/L2 terms, bf16 M/mu/nu and stochastic rounding included
+// dP tiles. Two kernels form dP = A dY^T + w (x) dq tile by tile:
+//
+//   the tensor-core tile (dp_tensor_kernels.cu): rbar and dm_adam. A dY^T
+//   as three TF32 products of split f32 operands (one exact product for
+//   bf16 operands) by mma.sync, w (x) dq added in the epilogue; A resident
+//   in shared memory, dY streamed, M/mu/nu staged by cp.async under the
+//   product; one block of 512 threads per SM. Bound: rbar by the tensor
+//   cores' 3xTF32 rate, dm_adam by its 6 GB of M, mu, nu. See that file.
+//
+//   the f32 FMA tile (below): one kernel, three epilogues. Bound by
+//   shared-memory loads, then the FMA pipes (2.7 FMAs per shared-memory
+//   float from a 4 x 8 register tile). gsq's column sums across cell blocks
+//   and dm's second product over spots need designs of their own before
+//   they move to the tensor-core tile.
+//
 //   EPI_GSQ        replaces tangram_tpu/ops/fused_step.py::_gsq (_gsq_kernel)
 //   EPI_ADAFACTOR  replaces tangram_tpu/ops/fused_step.py::_dm_adafactor
 //                  (_dm_adafactor_kernel), bf16 M and stochastic rounding
@@ -492,32 +360,29 @@ cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows
 // current one computes); each thread holds a 4-cell x 8-spot register tile.
 // The epilogue reads M (and mu, nu, or colf) for those elements, recomputes
 // P from (m, l), adds dh (log P + 1) when WITH_DH, forms the gradient
-// g = P (dP - r) + lam1 sign(M) + 2 lam2 M in one place (grad_elem, the
-// counterpart of _grad_tile), so Adam, gsq and Adafactor see the same g, and
-//   rbar:      accumulates r_c += P dP per cell;
-//   adam:      the exact Adam update (eps after the sqrt), stores M, mu, nu
-//              in place;
+// g = P (dP - r) + lam1 sign(M) + 2 lam2 M in one place (grad_elem in
+// common.cuh, the counterpart of _grad_tile), so Adam (on the tensor-core
+// tile), gsq and Adafactor see the same g, and
 //   gsq:       accumulates g^2 per cell (vr) and per spot (vc, below);
 //   adafactor: M -= lr g rowf[c] colf[s], stored in place;
 //   dm:        stores dM = g (without L1/L2 terms) to its own array, and adds
 //              P [dY | dq] over the tile to [dA | dw] (see the EPI_DM block);
-// and the two updates fold the stored M into the next step's online
+// and the update folds the stored M into the next step's online
 // (m, l, u) [and, with NORMS, its s1 = sum |M|, s2 = sum M^2].
 // A block owns whole rows, so its per-cell sums need no merge across
 // blocks: the 16 threads sharing a cell group reduce by shuffle in a fixed
 // order. With few cells (clusters mode has tens) that would leave most of
 // the card idle, so the spot tiles are also shared out over `nsplit` blocks
 // per cell group (grid.y); each writes the row sums of its spot range and
-// dp_merge adds them (r, vr, s1, s2) or merges them (m, l, u) in split
+// dp_merge adds them (vr, s1, s2) or merges them (m, l, u) in split
 // order. gsq's per-spot sums cross the cell blocks: the 16 cell groups of a
 // block add their column sums through shared memory in a fixed order, each
 // cell block writes one row of a (ceil(c / 64), s) partial, and col_sum adds
 // the rows in block order (the counterpart of the TPU kernel's column
 // partials).
-// Bound: f32 FMA, like project (gsq and adafactor do the same 2 c s (k+1)
-// flops as rbar); adam also moves 3 reads and 3 writes of c x s f32 (6 GB
-// per step at the tutorial shape), adafactor 1 read and 1 write. dm does
-// twice the flops of rbar (its second product P [dY | dq]) and writes dM.
+// Bound: f32 FMA, like project (gsq and adafactor do 2 c s (k+1) flops
+// each); adafactor also moves 1 read and 1 write of c x s. dm does twice
+// the flops (its second product P [dY | dq]) and writes dM.
 //
 // dm's second product reduces over spots, the axis the block walks, into a
 // (64 cells x (k + 1)) result that is far too large for registers (250
@@ -542,33 +407,31 @@ constexpr int DM_KC = 64;    // [dY | dq] columns per chunk of dm's second produ
 // blocks fit on an SM
 constexpr size_t DM_SMEM = (size_t)DP_TS * (DP_TC + DM_KC) * sizeof(float);
 
-enum Epilogue : int { EPI_RBAR = 0, EPI_ADAM = 1, EPI_GSQ = 2, EPI_ADAFACTOR = 3, EPI_DM = 4 };
+enum Epilogue : int { EPI_GSQ = 0, EPI_ADAFACTOR = 1, EPI_DM = 2 };
 
 // Everything a dP-tile kernel reads or writes; a pointer an epilogue does
 // not use may be null.
 struct DpArgs {
-  void* M;                // (c, s) f32 or bf16; updated in place by adam and adafactor
+  void* M;                // (c, s) f32 or bf16; updated in place by adafactor
   const float* AT;        // (K1, c) = [A | w]^T
   const float* dYT;       // (K1, s) = [dY | dq]^T
   const float* dh;        // (c,)
   const float* m;         // (c,) row max
   const float* l;         // (c,) row sum of exp
-  const float* r;         // (c,) softmax-VJP row term (adam, gsq, adafactor)
-  void* mu;               // (c, s) Adam moments, f32 or bf16, in place
-  void* nu;
+  const float* r;         // (c,) softmax-VJP row term
   const float* rowf;      // (c,) Adafactor row factor
   const float* colf;      // (s,) Adafactor column factor
-  float* row_part;        // (nsplit, c) row sums: r (rbar) or vr (gsq)
+  float* row_part;        // (nsplit, c) row sums vr (gsq)
   float* col_part;        // (ceil(c / DP_TC), s) gsq column sums per cell block
   float* st_part;         // (5, nsplit, c) next stats m, l, u, s1, s2 (updates)
   float* dM;              // (c, s) dm's gradient output
   const float* dYE;       // (s, K1) = [dY | dq], row-major (dm's second product)
   float* ext_part;        // (nsplit, c, K1) dm's [dA | dw] partials
   int c, s, K1, vec, tiles_per_split;
-  float lr, bc1, bc2;     // lr: adam, adafactor; bc1, bc2: adam
+  float lr;               // adafactor
   float lam1, two_lam2;   // L1 and 2 * L2 strength; both 0 without norms
-  int m_bf16, mom_bf16;   // M's and mu/nu's storage is bf16 (else f32)
-  int sr;                 // the updates round stochastically (else to nearest)
+  int m_bf16;             // M's storage is bf16 (else f32)
+  int sr;                 // the update rounds stochastically (else to nearest)
   unsigned t;             // the step count that seeds stochastic rounding
 };
 
@@ -627,25 +490,12 @@ __device__ __forceinline__ void store4(void* base, size_t at, bool bf16_store, i
   }
 }
 
-// the loss gradient of one element: softmax VJP plus the L1/L2 terms on the
-// raw logit; sign(0) = 0 as jnp.sign gives, and sentinels take no norm term
-__device__ __forceinline__ float grad_elem(float P, float dP, float r, float x,
-                                           float lam1, float two_lam2, bool norm_grad) {
-  float g = P * (dP - r);
-  if (norm_grad) {
-    const float z = norm_value(x);
-    const float sgn = (float)((z > 0.0f) - (z < 0.0f));
-    g = g + lam1 * sgn;
-    g = g + two_lam2 * z;
-  }
-  return g;
-}
 
 template <bool WITH_DH, int EPI, bool NORMS>
 __global__ void __launch_bounds__(DP_THREADS, 2)
 dp_kernel(const DpArgs a) {
-  constexpr bool UPDATE = EPI == EPI_ADAM || EPI == EPI_ADAFACTOR;
-  constexpr bool ROW_SUM = EPI == EPI_RBAR || EPI == EPI_GSQ;
+  constexpr bool UPDATE = EPI == EPI_ADAFACTOR;
+  constexpr bool ROW_SUM = EPI == EPI_GSQ;
   __shared__ __align__(16) float As[2][DP_KC][DP_TC];
   __shared__ __align__(16) float Ds[2][DP_KC][DP_TS];
   extern __shared__ __align__(16) float dyn[];  // EPI_DM only (DM_SMEM bytes)
@@ -654,7 +504,7 @@ dp_kernel(const DpArgs a) {
   const int c = a.c, s = a.s, K1 = a.K1;
   const bool vec = a.vec != 0;
   const bool norm_grad = a.lam1 != 0.0f || a.two_lam2 != 0.0f;
-  const bool m_bf16 = a.m_bf16 != 0, mom_bf16 = a.mom_bf16 != 0, sr = a.sr != 0;
+  const bool m_bf16 = a.m_bf16 != 0, sr = a.sr != 0;
   const int tid = threadIdx.x;
   const int ty = tid >> 4;   // 16 cell groups of 4 cells
   const int tx = tid & 15;   // 16 spot groups: tx*4.. and 64+tx*4..
@@ -673,14 +523,12 @@ dp_kernel(const DpArgs a) {
       cinvl[i] = 1.0f / l;
       clogl[i] = logf(l);
       if (WITH_DH) cdh[i] = a.dh[cell];
-      if (EPI != EPI_RBAR) cr[i] = a.r[cell];
+      cr[i] = a.r[cell];
       if (EPI == EPI_ADAFACTOR) crf[i] = a.rowf[cell];
     }
   }
-  const float inv_bc1 = 1.0f / a.bc1;
-  const float inv_bc2 = 1.0f / a.bc2;
 
-  float racc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // r (rbar) or vr (gsq)
+  float racc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // vr (gsq)
   float nm[4] = {NEG_BIG, NEG_BIG, NEG_BIG, NEG_BIG};
   float nl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float nu_[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -756,26 +604,15 @@ dp_kernel(const DpArgs a) {
       if (!cvalid[i]) continue;
       const int cell = c0 + ty * 4 + i;
       const size_t row = (size_t)cell * s;
-      // stochastic-rounding keys of this cell's M, mu and nu (salts 1, 2, 3)
-      uint32_t key_m = 0, key_mu = 0, key_nu = 0;
-      if (UPDATE && sr) {
-        key_m = sr_key(a.t, (uint32_t)cell, 1u);
-        if (EPI == EPI_ADAM) {
-          key_mu = sr_key(a.t, (uint32_t)cell, 2u);
-          key_nu = sr_key(a.t, (uint32_t)cell, 3u);
-        }
-      }
+      // stochastic-rounding key of this cell's M (salt 1)
+      const uint32_t key_m = UPDATE && sr ? sr_key(a.t, (uint32_t)cell, 1u) : 0u;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int spot = s0 + half * 64 + tx * 4;
         const int n_valid = min(4, s - spot);
         if (n_valid <= 0) continue;
-        float x[4], mv[4], vv[4], cf[4], dmv[4];
+        float x[4], cf[4], dmv[4];
         load4(a.M, row + spot, m_bf16, n_valid, vec, x);
-        if (EPI == EPI_ADAM) {
-          load4(a.mu, row + spot, mom_bf16, n_valid, vec, mv);
-          load4(a.nu, row + spot, mom_bf16, n_valid, vec, vv);
-        }
         if (EPI == EPI_ADAFACTOR) load4(a.colf, spot, false, n_valid, vec, cf);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -783,41 +620,24 @@ dp_kernel(const DpArgs a) {
           const float P = expf(x[q] - cm[i]) * cinvl[i];
           float dP = acc[i][half * 4 + q];
           if (WITH_DH) dP += cdh[i] * ((x[q] - cm[i] - clogl[i]) + 1.0f);
-          if constexpr (EPI == EPI_RBAR) {
-            racc[i] = fmaf(P, dP, racc[i]);
+          const float g = grad_elem(P, dP, cr[i], x[q], a.lam1, a.two_lam2, norm_grad);
+          if constexpr (EPI == EPI_GSQ) {
+            const float g2 = g * g;
+            racc[i] += g2;
+            csum[half * 4 + q] += g2;
+          } else if constexpr (EPI == EPI_ADAFACTOR) {
+            const float xn = x[q] - a.lr * ((g * crf[i]) * cf[q]);
+            x[q] = stored_value(xn, m_bf16, sr, key_m, spot + q);
           } else {
-            const float g = grad_elem(P, dP, cr[i], x[q], a.lam1, a.two_lam2, norm_grad);
-            if constexpr (EPI == EPI_GSQ) {
-              const float g2 = g * g;
-              racc[i] += g2;
-              csum[half * 4 + q] += g2;
-            } else if constexpr (EPI == EPI_ADAM) {
-              const float mun = BETA1 * mv[q] + ONE_MINUS_BETA1 * g;
-              const float nun = BETA2 * vv[q] + ONE_MINUS_BETA2 * (g * g);
-              const float m_hat = mun * inv_bc1;
-              const float v_hat = nun * inv_bc2;
-              const float xn = x[q] - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
-              x[q] = stored_value(xn, m_bf16, sr, key_m, spot + q);
-              mv[q] = stored_value(mun, mom_bf16, sr, key_mu, spot + q);
-              vv[q] = stored_value(nun, mom_bf16, sr, key_nu, spot + q);
-            } else if constexpr (EPI == EPI_ADAFACTOR) {
-              const float xn = x[q] - a.lr * ((g * crf[i]) * cf[q]);
-              x[q] = stored_value(xn, m_bf16, sr, key_m, spot + q);
-            } else {
-              dmv[q] = g;
-              pt[i][half * 4 + q] = P;
-            }
-            if (UPDATE) {  // the next stats see the stored value
-              stats_push(nm[i], nl[i], nu_[i], x[q]);
-              if (NORMS) norms_push(ns1[i], ns2[i], x[q]);
-            }
+            dmv[q] = g;
+            pt[i][half * 4 + q] = P;
+          }
+          if (UPDATE) {  // the next stats see the stored value
+            stats_push(nm[i], nl[i], nu_[i], x[q]);
+            if (NORMS) norms_push(ns1[i], ns2[i], x[q]);
           }
         }
         if (UPDATE) store4(a.M, row + spot, m_bf16, n_valid, vec, x);
-        if (EPI == EPI_ADAM) {
-          store4(a.mu, row + spot, mom_bf16, n_valid, vec, mv);
-          store4(a.nu, row + spot, mom_bf16, n_valid, vec, vv);
-        }
         if (EPI == EPI_DM) store4(a.dM, row + spot, false, n_valid, vec, dmv);
       }
     }
@@ -932,41 +752,6 @@ dp_kernel(const DpArgs a) {
   }
 }
 
-// In split order, (nsplit, c) partials -> (c,) outputs:
-//   !STATS: out0 = the sum of the row partials (r or vr);
-//   STATS:  (out0, out1, out2) = the online-stats merge of (m, l, u) and,
-//           with NORMS, (out3, out4) = the sums of s1 and s2.
-template <bool STATS, bool NORMS>
-__global__ void dp_merge_kernel(const float* __restrict__ part, float* __restrict__ out0,
-                                float* __restrict__ out1, float* __restrict__ out2,
-                                float* __restrict__ out3, float* __restrict__ out4, int c,
-                                int nsplit) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= c) return;
-  if (!STATS) {
-    float acc = 0.0f;
-    for (int z = 0; z < nsplit; ++z) acc += part[(size_t)z * c + cell];
-    out0[cell] = acc;
-    return;
-  }
-  const size_t plane = (size_t)nsplit * c;
-  float mm = NEG_BIG, ll = 0.0f, uu = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for (int z = 0; z < nsplit; ++z) {
-    const size_t e = (size_t)z * c + cell;
-    stats_merge(mm, ll, uu, part[e], part[plane + e], part[2 * plane + e]);
-    if (NORMS) {
-      s1 += part[3 * plane + e];
-      s2 += part[4 * plane + e];
-    }
-  }
-  out0[cell] = mm;
-  out1[cell] = ll;
-  out2[cell] = uu;
-  if (NORMS) {
-    out3[cell] = s1;
-    out4[cell] = s2;
-  }
-}
 
 // vc[spot] = the sum of the (rows, s) gsq column partials, in row order
 __global__ void col_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
@@ -1009,7 +794,7 @@ cudaError_t launch_dp(bool with_dh, bool norms, DpArgs a, int nsplit, float* out
   const dim3 grid((a.c + DP_TC - 1) / DP_TC, nsplit);
   const int merge_blocks = (a.c + 255) / 256;
   cudaError_t err;
-  if constexpr (EPI == EPI_RBAR || EPI == EPI_GSQ) {
+  if constexpr (EPI == EPI_GSQ) {
     err = launch_dp_kernel<EPI, false>(with_dh, a, grid, st);
     if (err != cudaSuccess) return err;
     dp_merge_kernel<false, false><<<merge_blocks, 256, 0, st>>>(
@@ -1046,7 +831,6 @@ DpArgs dp_args(const void* M, const float* AT, const float* dYT, const float* dh
   a.s = s;
   a.K1 = K1;
   a.vec = vec;
-  a.bc1 = a.bc2 = 1.0f;
   return a;
 }
 
@@ -1056,7 +840,9 @@ DpArgs dp_args(const void* M, const float* AT, const float* dYT, const float* dh
 // C entry points (loaded with ctypes). Each returns the cudaError_t of its
 // launches; 0 means the kernels were enqueued.
 //
-// Shared arguments of the dP-tile entry points: AT (k + 1, c) = [A | w]^T;
+// Shared arguments of the f32 FMA dP-tile entry points (tg_gsq,
+// tg_dm_adafactor, tg_dm_backward; tg_rbar and tg_dm_adam, with operands in
+// another layout, are in dp_tensor_kernels.cu): AT (k + 1, c) = [A | w]^T;
 // dYT (k + 1, s) = [dY | dq]^T (f32, the A and dY rows rounded to bf16 by
 // the caller under a bf16 compute type: a product of two bf16 is exact in
 // f32, so the tile is JAX's bf16 x bf16 -> f32 dot up to summation order);
@@ -1064,9 +850,8 @@ DpArgs dp_args(const void* M, const float* AT, const float* dYT, const float* dh
 // accesses of 4 entries along spots (s % 4 == 0 and every (c, s) / (s,)
 // base aligned so); nsplit: spot-axis splits (see dp_kernel); lam1 and
 // two_lam2: the L1 strength and twice the L2 strength (0 and 0 without the
-// norm terms); m_bf16 (and mom_bf16): M's (mu's and nu's) storage is bf16;
-// sr: the updates store by stochastic rounding seeded by step t (else
-// round to nearest even).
+// norm terms); m_bf16: M's storage is bf16; sr: the update stores by
+// stochastic rounding seeded by step t (else round to nearest even).
 // ---------------------------------------------------------------------------
 
 template <bool NORMS>
@@ -1128,45 +913,6 @@ extern "C" int tg_project(const void* M, const void* A, const float* w,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_ext_reduce(partial, Y, q, s, k, nsplit, st);
-}
-
-// r_part: (nsplit, c) scratch; r: (c,)
-extern "C" int tg_rbar(const void* M, const float* AT, const float* dYT,
-                       const float* dh, const float* m, const float* l,
-                       float* r_part, float* r, int c, int s, int K1, int with_dh,
-                       int vec, int nsplit, int m_bf16, void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, m_bf16);
-  a.row_part = r_part;
-  return (int)launch_dp<EPI_RBAR>(with_dh != 0, false, a, nsplit, r, nullptr, nullptr,
-                                  nullptr, nullptr, (cudaStream_t)stream);
-}
-
-// M, mu, nu: (c, s), updated in place; st_part: (5, nsplit, c) scratch;
-// m_out, l_out, u_out [, s1_out, s2_out when with_norms]: (c,) stats of the
-// stored M.
-extern "C" int tg_dm_adam(void* M, const float* AT, const float* dYT,
-                          const float* dh, const float* m, const float* l,
-                          const float* r, void* mu, void* nu, float* st_part,
-                          float* m_out, float* l_out, float* u_out, float* s1_out,
-                          float* s2_out, int c, int s, int K1, int with_dh,
-                          int with_norms, float lr, float bc1, float bc2, float lam1,
-                          float two_lam2, int vec, int nsplit, int m_bf16,
-                          int mom_bf16, int sr, int t, void* stream) {
-  DpArgs a = dp_args(M, AT, dYT, dh, m, l, c, s, K1, vec, m_bf16);
-  a.r = r;
-  a.mu = mu;
-  a.nu = nu;
-  a.st_part = st_part;
-  a.lr = lr;
-  a.bc1 = bc1;
-  a.bc2 = bc2;
-  a.lam1 = lam1;
-  a.two_lam2 = two_lam2;
-  a.mom_bf16 = mom_bf16;
-  a.sr = sr;
-  a.t = (unsigned)t;
-  return (int)launch_dp<EPI_ADAM>(with_dh != 0, with_norms != 0, a, nsplit, m_out,
-                                  l_out, u_out, s1_out, s2_out, (cudaStream_t)stream);
 }
 
 // vr_part: (nsplit, c) and vc_part: (ceil(c / 64), s) scratch; vr: (c,) =

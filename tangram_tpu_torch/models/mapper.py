@@ -43,6 +43,7 @@ from ..ops.fused_step import (
     init_fused_adafactor_state,
     init_fused_opt_state,
     initial_stats,
+    unconstrained_a_operand,
 )
 from ..ops.losses import (
     VAL_METRIC_KEYS,
@@ -190,11 +191,13 @@ def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer,
             else fused_unconstrained_step_adafactor)
     count, v1, v2 = opt_state
     stats = initial_stats(M, lw)
+    # A does not move between steps: its dP-tile operand is built once
+    A_op = unconstrained_a_operand(M, data, lw, compute_dtype)
     rows = []
     for t in range(num_epochs):
         M, count, v1, v2, stats, terms = step(
             M, count, v1, v2, stats, data, lw, learning_rate,
-            compute_dtype=compute_dtype, rounding=rounding,
+            compute_dtype=compute_dtype, rounding=rounding, A_op=A_op,
         )
         rows.append(record(terms, M, t))
     return M, (count, v1, v2), rows

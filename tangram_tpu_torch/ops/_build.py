@@ -2,8 +2,10 @@
 
 ``nvcc`` compiles the sources into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes) for
-Hopper's ``sm_90a``. The library goes to ``<repo>/build/kernels/``, named
-by a hash of the sources and flags, and is reused while the hash matches.
+Hopper's ``sm_90a``: one ``nvcc -c`` per ``.cu`` file, all started together,
+then one link. The library goes to ``<repo>/build/kernels/``, named by a
+hash of the sources (headers included) and flags, and is reused while the
+hash matches.
 It is loaded with :mod:`ctypes`; every entry point takes device pointers
 and the CUDA stream as ``c_void_p``, sizes as ``c_int`` and scalars as
 ``c_float``, and returns the launch's ``cudaError_t``.
@@ -32,19 +34,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# entry point -> argtypes, in the order of csrc/mapper_kernels.cu
+# entry point -> argtypes, as csrc/*.cu declare them
 SIGNATURES = {
     "tg_rowstats": (_P, _P, _P, _P, _I, _I, _I, _P),
     "tg_rowstats_norms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "tg_project": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "tg_rbar": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "tg_dm_adam": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
-                   _P),
+    "tg_rbar": (_P,) * 10 + (_I,) * 9 + (_P,),
+    "tg_dm_adam": (_P,) * 17 + (_I,) * 5 + (_F,) * 5 + (_I,) * 9 + (_P,),
     "tg_gsq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
     "tg_dm_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -90,45 +90,67 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(nvcc: str) -> str:
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(nvcc: str, flags: tuple) -> str:
     h = hashlib.sha256()
-    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    for src in _sources():
+    h.update(" ".join((nvcc,) + flags).encode())
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=1)
-def load_kernels() -> KernelLibrary:
-    """Build (if needed) and load the kernel library, once per process."""
+@functools.lru_cache(maxsize=2)
+def load_kernels(extra_flags: tuple = ()) -> KernelLibrary:
+    """Build (if needed) and load the kernel library, once per process and
+    set of ``extra_flags`` (``-D...`` for nvcc; the wrappers take the
+    library built with none)."""
     nvcc = _nvcc()
-    digest = _digest(nvcc)
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    digest = _digest(nvcc, flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"mapper_kernels-{digest}.so"
     log_path = lib_path.with_suffix(".log")
     seconds = 0.0
     if not lib_path.exists():
         t0 = time.perf_counter()
-        # build into a private name, then rename: concurrent builders never
+        # build under private names, then rename: concurrent builds never
         # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                "nvcc failed building the tangram_tpu_torch kernels:\n"
-                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objects = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+            cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)]
+                    for obj, src in zip(objects, _sources())]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for cmd in cmds]
+            logs = [proc.communicate()[0] for proc in procs]
+            lib_tmp = os.path.join(tmp, "lib.so")
+            link = [nvcc, "-shared", "-o", lib_tmp, *objects]
+            failed = [i for i, proc in enumerate(procs) if proc.returncode != 0]
+            if not failed:
+                proc = subprocess.run(link, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                cmds.append(link)
+                logs.append(proc.stdout)
+                if proc.returncode != 0:
+                    failed = [len(cmds) - 1]
+            if failed:
+                raise RuntimeError(
+                    "nvcc failed building the tangram_tpu_torch kernels:\n"
+                    + "\n".join(" ".join(cmds[i]) + "\n" + logs[i] for i in failed)
+                )
+            log_path.write_text("".join(logs))
+            os.replace(lib_tmp, lib_path)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    if hasattr(lib, "tg_dp_profile_read"):  # built with -DTG_DP_PROFILE
+        lib.tg_dp_profile_read.argtypes = (_P,)
+        lib.tg_dp_profile_read.restype = ctypes.c_int
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib=lib, path=lib_path, build_seconds=seconds, log=log)

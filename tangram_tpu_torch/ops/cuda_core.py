@@ -5,7 +5,8 @@ Counterpart of ``tangram_tpu/ops/pallas_core.py`` (``_rowstats``,
 ``_project``, ``_backward`` and the ``mapper_core_pallas`` custom VJP) and
 of ``tangram_tpu/ops/fused_step.py::_rbar``. Each wrapper takes the JAX
 function's arguments and returns its outputs in the same shapes. On a CUDA tensor it launches the
-hand-written kernel from ``csrc/mapper_kernels.cu`` (and counts the launch
+hand-written kernel from ``csrc/`` (``mapper_kernels.cu``; rbar from
+``dp_tensor_kernels.cu``, the tensor-core dP tile) (and counts the launch
 in :data:`LAUNCHES`); on a CPU tensor it runs the plain PyTorch twin that
 sits beside it. There is no other path: a CUDA launch that fails raises.
 
@@ -21,11 +22,13 @@ backward (``_dm_backward``, ``MapperCore``'s gradient) takes f32 only.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
-           "_project", "_rbar", "_backward"]
+           "_project", "_rbar", "_backward", "tf32_split", "DpOperands",
+           "dp_operand", "dp_operands"]
 
 #: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
 #: A for project) counts as ``name + ".bf16"``
@@ -90,6 +93,14 @@ def check(name: str, t: torch.Tensor, shape: tuple, dtypes=F32) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def vec2_ok(s: int, *tensors: torch.Tensor) -> int:
+    """1 when the tensor-core dP tile may access 2 entries at once along
+    spots of each (c, s) tensor: s even and each base aligned to 2 entries
+    (8 bytes in f32, 4 in bf16)."""
+    return int(s % 2 == 0
+               and all(t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors))
 
 
 def vec4_ok(s: int, *tensors: torch.Tensor) -> int:
@@ -220,16 +231,47 @@ def _project(M, A, w, m, l):
 # ---------------------------------------------------------------------------
 
 
-def dp_splits(c: int, s: int, sm_count: int) -> int:
+def dp_fma_splits(c: int, s: int, sm_count: int) -> int:
     """How many blocks share the spot tiles of one 64-cell group in the
-    dP-tile kernels (rbar, dm_adam, gsq, dm_adafactor, dm_backward): 1 when
-    the cell groups alone give about two blocks per SM (cells mode), up to
-    one 128-spot tile per block when there are few cells (clusters mode has
+    f32 FMA dP-tile kernels (gsq, dm_adafactor, dm_backward): 1 when the
+    cell groups alone give about two blocks per SM (cells mode), up to one
+    128-spot tile per block when there are few cells (clusters mode has
     tens)."""
     tiles = math.ceil(s / 128)
     want = math.ceil(2 * sm_count / math.ceil(c / 64))
     per = math.ceil(tiles / max(1, min(want, tiles)))
     return math.ceil(tiles / per)
+
+
+_TC_CELLS = 64     # cells per block of the tensor-core dP tile
+_TC_SPOTS = 128    # spots per tile
+_TC_K = 32         # the operands' K is padded to a multiple of this
+_TC_BLOCKS_PER_SM = 1
+# what a block pays once, whatever its share of the spot tiles (the copy of
+# its resident A panel, the final reduction), in spot tiles
+_TC_BLOCK_OVERHEAD = 0.5
+
+
+def dp_splits(c: int, s: int, sm_count: int) -> int:
+    """How many blocks share the 128-spot tiles of one 64-cell group in the
+    tensor-core dP-tile kernels (rbar, dm_adam). One block is resident per
+    SM, and the blocks of a launch run in waves of sm_count; 407 cell
+    groups alone (the tutorial shape) fill 3.08 waves and leave most of the
+    fourth idle. So the split is the one with the least estimated time,
+    waves × (tiles per block + the block's fixed cost), the fewest blocks
+    on a tie: 7 at the tutorial shape (11 tiles each, 21.6 waves), one tile
+    per block for clusters mode's one cell group."""
+    groups, tiles = math.ceil(c / _TC_CELLS), math.ceil(s / _TC_SPOTS)
+    slots = _TC_BLOCKS_PER_SM * sm_count
+    best, best_cost = 1, math.inf
+    for n in range(1, tiles + 1):
+        per = math.ceil(tiles / n)
+        if math.ceil(tiles / per) != n:  # the same blocks as a smaller n
+            continue
+        cost = math.ceil(groups * n / slots) * (per + _TC_BLOCK_OVERHEAD)
+        if cost < best_cost:
+            best, best_cost = n, cost
+    return best
 
 
 def _sm_count(t: torch.Tensor) -> int:
@@ -266,13 +308,117 @@ def _check_dp_args(M, A, w, m, l, dY, dq, dh, dtypes=F32_BF16):
 
 
 def _dp_kernel_args(M, A, w, dY, dq):
-    """(AT, dYT, nsplit, stream) shared by the dP-tile entry points:
-    AT = [A | w]ᵀ (k + 1, c) and dYT = [dY | dq]ᵀ (k + 1, s), f32. A bf16 A
-    and dY (the compute type) keep their bf16 values in f32 staging, and the
-    w and dq rows stay f32, as JAX's dP = dot(A_bf16, dY_bf16) + w ⊗ dq."""
+    """(AT, dYT, nsplit, stream) shared by the f32 FMA dP-tile entry points
+    (gsq, dm_adafactor, dm_backward): AT = [A | w]ᵀ (k + 1, c) and dYT =
+    [dY | dq]ᵀ (k + 1, s), f32. A bf16 A and dY (the compute type) keep
+    their bf16 values in f32 staging, and the w and dq rows stay f32, as
+    JAX's dP = dot(A_bf16, dY_bf16) + w ⊗ dq."""
     c, s = M.shape
     return (_ext(A.float(), w).T.contiguous(), _ext(dY.float(), dq).T.contiguous(),
-            dp_splits(c, s, _sm_count(M)), stream_of(M))
+            dp_fma_splits(c, s, _sm_count(M)), stream_of(M))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core dP tile (rbar, dm_adam): 3×TF32 and its operands
+# ---------------------------------------------------------------------------
+
+
+def tf32_split(x):
+    """``(hi, lo)`` of an f32 tensor: ``hi`` is x rounded to TF32 (10
+    mantissa bits: round to nearest on the 13 dropped bits, ties away from
+    zero, as the card's ``cvt.rna.tf32.f32``; truncated instead where
+    rounding up would overflow) and ``lo`` is x − hi (exact in f32) rounded
+    the same way. Both have 13 zero low bits; hi + lo is within 2⁻²¹ of x
+    relative to x, and lo is 0 for a bf16-representable x. By integer
+    arithmetic on the bits, the same on the CPU and the card. The plain
+    version of the split inside the kernel, which forms hi by Veltkamp's
+    product on the FMA pipes (ties to even) and leaves lo's last bit to the
+    tensor core's truncation: the same hi up to ties, the same accuracy."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split takes float32, got {x.dtype}")
+
+    def round_tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        up = (bits + 0x1000) & ~0x1FFF
+        overflow = (up & 0x7F800000) == 0x7F800000
+        return torch.where(overflow, bits & ~0x1FFF, up).view(torch.float32)
+
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def tf32_product_plain(A, dY, terms: int = 3):
+    """A dYᵀ as the tensor-core tile forms it from f32 operands: the sum of
+    ``lo·hi + hi·lo + hi·hi`` of their :func:`tf32_split` parts (the small
+    terms first), each product with f32 accumulation; ``terms=1`` is the
+    single TF32 pass ``hi·hi``, which loses f32 accuracy."""
+    a_hi, a_lo = tf32_split(A)
+    d_hi, d_lo = tf32_split(dY)
+    if terms == 1:
+        return a_hi @ d_hi.T
+    return (a_lo @ d_hi.T + a_hi @ d_lo.T) + a_hi @ d_hi.T
+
+
+def dp_operand(X):
+    """A contraction operand of the tensor-core dP tile: X (n, k), f32 or
+    bf16, as a contiguous f32 (n, Kp) array, K-major, its columns padded
+    with zeros to Kp, the next multiple of 32 (rows of 128 bytes: what the
+    kernel's 16-byte asynchronous copies and its K chunks of 32 take). A
+    bf16 X keeps its values, which are exact in TF32."""
+    n, k = X.shape
+    Kp = max(_TC_K, -(-k // _TC_K) * _TC_K)
+    op = torch.zeros((n, Kp), dtype=torch.float32, device=X.device)
+    op[:, :k] = X
+    return op
+
+
+class DpOperands(NamedTuple):
+    """The contraction operands of dP = A dYᵀ for the tensor-core tile:
+    ``A_op`` (c, Kp) and ``dY_op`` (s, Kp) from :func:`dp_operand`, and
+    ``split``: whether the tile takes three TF32 products of their split
+    parts (f32 inputs) or one product (both inputs bf16: exact)."""
+
+    A_op: torch.Tensor
+    dY_op: torch.Tensor
+    split: bool
+
+
+def dp_operands(A, dY, A_op=None) -> DpOperands:
+    """The operands of one step's dP tiles, built once for the rbar and
+    dm_adam kernels; ``A_op`` is ``dp_operand(A)`` when the caller has it
+    already (A does not change between the steps of an unconstrained fit)."""
+    split = not (A.dtype == torch.bfloat16 and dY.dtype == torch.bfloat16)
+    return DpOperands(dp_operand(A) if A_op is None else A_op, dp_operand(dY), split)
+
+
+def dp_from_operands_plain(ops: DpOperands, w, dq):
+    """dP = A dYᵀ + w ⊗ dq from the kernel's operands, as the tensor-core
+    tile computes it (the split products, then the rank-one term in f32)."""
+    product = (tf32_product_plain(ops.A_op, ops.dY_op) if ops.split
+               else ops.A_op @ ops.dY_op.T)
+    return product + w[:, None] * dq[None, :]
+
+
+def _check_operands(ops: DpOperands, A, dY) -> int:
+    """Raise unless ``ops`` fits A (c, k) and dY (s, k); returns Kp."""
+    Kp = ops.A_op.shape[1]
+    if Kp % _TC_K or Kp < A.shape[1]:
+        raise ValueError(f"operands of depth {Kp} do not fit k = {A.shape[1]}")
+    check("A_op", ops.A_op, (A.shape[0], Kp))
+    check("dY_op", ops.dY_op, (dY.shape[0], Kp))
+    if ops.A_op.data_ptr() % 16 or ops.dY_op.data_ptr() % 16:
+        raise ValueError("the dP operands must be 16-byte aligned")
+    return Kp
+
+
+def stage_granule(s: int, t: torch.Tensor) -> int:
+    """Bytes per asynchronous copy by which the tensor-core tile stages the
+    rows of ``t`` (c, s) in shared memory: the largest of 16, 8 and 4 that
+    divides a row's length in bytes and the base address; 0 when there is
+    none (a bf16 array with an odd s), which the kernel copies entry by
+    entry."""
+    row_bytes = s * t.element_size()
+    return next((g for g in (16, 8, 4) if row_bytes % g == 0 and t.data_ptr() % g == 0), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -285,26 +431,34 @@ def _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
     return (P * dP).sum(dim=1, keepdim=True)
 
 
-def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"):
+def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar",
+          operands: DpOperands | None = None):
     """r_c = Σ_s P ⊙ dP (c, 1): the row reduction of the softmax VJP.
     ``with_dh=False`` drops the entropy cotangent path (λ_r = 0). A launch
     counts in ``LAUNCHES[counter]``: ``"rbar"`` (``"rbar.bf16"`` with a
     bf16 M) in the fused steps, ``"backward_rbar"`` as the first pass of
-    :func:`_backward` (f32 only)."""
+    :func:`_backward` (f32 only). ``operands`` are ``dp_operands(A, dY)``
+    when the caller has built them for the step already; the kernel reads A
+    and dY from them (the CPU twin from A and dY themselves)."""
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh,
                              F32_BF16 if counter == "rbar" else F32)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh)
+    if operands is not None:
+        _check_operands(operands, A, dY)
     if lib is None:
         return _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
+    ops = dp_operands(A, dY) if operands is None else operands
+    Kp = ops.A_op.shape[1]
+    nsplit = dp_splits(c, s, _sm_count(M))
     r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
     r = torch.empty((c, 1), dtype=torch.float32, device=M.device)
     if c:
         with torch.cuda.device(M.device):
-            lib.call("tg_rbar", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
+            lib.call("tg_rbar", M.data_ptr(), ops.A_op.data_ptr(),
+                     ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(),
                      dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
-                     r.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M),
-                     nsplit, is_bf16(M), stream)
+                     r.data_ptr(), c, s, Kp, int(with_dh), vec2_ok(s, M), nsplit,
+                     is_bf16(M), int(ops.split), stage_granule(s, M), stream_of(M))
         count_launch(counter, M)
     return r
 

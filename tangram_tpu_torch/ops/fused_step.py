@@ -54,9 +54,15 @@ import torch
 
 from .cuda_core import (
     F32_BF16,
+    DpOperands,
     _check_dp_args,
+    _check_operands,
     _dp_kernel_args,
     _dp_plain,
+    _sm_count,
+    dp_operand,
+    dp_operands,
+    dp_splits,
     _project,
     _rbar,
     _rowstats,
@@ -65,7 +71,9 @@ from .cuda_core import (
     count_launch,
     is_bf16,
     kernels_for,
+    stage_granule,
     stream_of,
+    vec2_ok,
     vec4_ok,
 )
 from .losses import (
@@ -88,6 +96,7 @@ __all__ = [
     "adam_scalars",
     "adafactor_decay",
     "factored_rms_vectors",
+    "unconstrained_a_operand",
 ]
 
 BETA1, BETA2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -286,7 +295,8 @@ def _dm_adam_plain(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh=True,
 
 def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True,
              lam_l1: float = 0.0, lam_l2: float = 0.0, with_norms: bool = False,
-             rounding: str = "nearest", step: int = 0):
+             rounding: str = "nearest", step: int = 0,
+             operands: DpOperands | None = None):
     """Backward + Adam + next-step row stats in one streamed pass.
 
     ``scalars`` is ``(lr, bc1, bc2)`` from :func:`adam_scalars`; the
@@ -296,7 +306,8 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
     :func:`_stored` keyed by ``step`` (the incremented count), and returns
     ``(M, mu, nu, m', l', u'[, s1', s2'])``, the primed values being the
     (c, 1) softmax stats (and with ``with_norms`` the L1/L2 norms) of the
-    stored M.
+    stored M. ``operands`` are ``dp_operands(A, dY)`` when the caller has
+    built them for the step already (see :func:`_rbar`).
     """
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
     check("r", r, (c, 1))
@@ -304,23 +315,29 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
     check("nu", nu, (c, s), F32_BF16)
     sr = _check_rounding(rounding)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r, mu, nu)
+    if operands is not None:
+        _check_operands(operands, A, dY)
     if lib is None:
         return _dm_adam_plain(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
                               with_dh, lam_l1, lam_l2, with_norms, rounding, step)
     if mu.dtype != nu.dtype:
         raise TypeError(f"mu and nu must share a type, got {mu.dtype} and {nu.dtype}")
     lr, bc1, bc2 = scalars
-    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
+    ops = dp_operands(A, dY) if operands is None else operands
+    Kp = ops.A_op.shape[1]
+    nsplit = dp_splits(c, s, _sm_count(M))
     st_part, out, ptrs = _next_stat_buffers(M, nsplit, with_norms)
     if c:
         with torch.cuda.device(M.device):
-            lib.call("tg_dm_adam", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
+            lib.call("tg_dm_adam", M.data_ptr(), ops.A_op.data_ptr(),
+                     ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(),
                      dh.data_ptr(), m.data_ptr(), l.data_ptr(), r.data_ptr(),
                      mu.data_ptr(), nu.data_ptr(), st_part.data_ptr(), *ptrs,
-                     c, s, k + 1, int(with_dh), int(with_norms), lr, bc1, bc2,
-                     *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M, mu, nu),
+                     c, s, Kp, int(with_dh), int(with_norms), lr, bc1, bc2,
+                     *_norm_scalars(lam_l1, lam_l2), vec2_ok(s, M, mu, nu),
                      nsplit, is_bf16(M), is_bf16(mu), int(sr), step & 0x7FFFFFFF,
-                     stream)
+                     int(ops.split), stage_granule(s, M),
+                     min(stage_granule(s, mu), stage_granule(s, nu)), stream_of(M))
         count_launch("dm_adam", M, mu, nu)
     return (M, mu, nu) + tuple(out)
 
@@ -478,11 +495,21 @@ def initial_stats(M, lw: LossWeights):
     return tuple(_rowstats(M))
 
 
+def unconstrained_a_operand(M, data: MapperData, lw: LossWeights,
+                            compute_dtype=torch.float32):
+    """The A operand of the unconstrained steps' dP tiles, ``dp_operand`` of
+    A in ``compute_dtype``. A (the gene-masked S) does not depend on M's
+    values, so a training loop builds it once and hands it to every step."""
+    A, _ = unconstrained_inputs(M, data, lw)
+    return dp_operand(A.to(compute_dtype))
+
+
 def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights,
-                              compute_dtype):
+                              compute_dtype, A_op=None):
     """Projection forward, epilogue + its gradient, and the rbar pass, with
-    A and dY rounded to ``compute_dtype`` before the kernels. Returns what
-    the update kernels need plus the per-term loss report."""
+    A and dY rounded to ``compute_dtype`` before the kernels. Builds the dP
+    tiles' operands once for the step (A's from ``A_op`` when given).
+    Returns what the update kernels need plus the per-term loss report."""
     A, w = unconstrained_inputs(M, data, lw)
     A = A.to(compute_dtype)
     need_norms = _needs_norms(lw)
@@ -509,14 +536,16 @@ def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights,
     terms = {key: v.detach() for key, v in terms.items()}
 
     with_dh = lw.lambda_r != 0
-    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh)
-    return A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms
+    ops = dp_operands(A, dY, A_op)
+    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, operands=ops)
+    return A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, ops
 
 
 @torch.no_grad()
 def fused_unconstrained_step(M, count: int, mu, nu, stats, data: MapperData,
                              lw: LossWeights, learning_rate: float,
-                             compute_dtype=torch.float32, rounding: str = "nearest"):
+                             compute_dtype=torch.float32, rounding: str = "nearest",
+                             A_op=None):
     """One fused Adam step.
 
     ``stats`` are the carried row stats of M (from :func:`initial_stats` or
@@ -524,18 +553,19 @@ def fused_unconstrained_step(M, count: int, mu, nu, stats, data: MapperData,
     projection, rbar, and backward + Adam (which also emits the next
     stats). M, mu and nu are updated in place, in their own types (f32 or
     bf16), rounded to nearest or stochastically (``rounding``); A and dY go
-    to the kernels in ``compute_dtype``.
+    to the kernels in ``compute_dtype``. ``A_op`` is
+    :func:`unconstrained_a_operand` when the loop has built it already.
 
     Returns ``(M, count + 1, mu, nu, stats_new, terms)``; ``terms`` are
     0-d tensors on M's device, measured at M before the update.
     """
-    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms = (
-        _unconstrained_cotangents(M, stats, data, lw, compute_dtype))
+    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, ops = (
+        _unconstrained_cotangents(M, stats, data, lw, compute_dtype, A_op))
     count_new = count + 1
     out = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu,
                    adam_scalars(count_new, learning_rate), with_dh=with_dh,
                    lam_l1=lw.lambda_l1, lam_l2=lw.lambda_l2, with_norms=need_norms,
-                   rounding=rounding, step=count_new)
+                   rounding=rounding, step=count_new, operands=ops)
     M, mu, nu = out[:3]
     return M, count_new, mu, nu, tuple(out[3:]), terms
 
@@ -545,7 +575,7 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
                                        data: MapperData, lw: LossWeights,
                                        learning_rate: float,
                                        compute_dtype=torch.float32,
-                                       rounding: str = "nearest"):
+                                       rounding: str = "nearest", A_op=None):
     """One fused Adafactor step: the contract of
     :func:`fused_unconstrained_step` with the (c,) / (s,) f32 factor
     vectors in place of the (c, s) Adam moments. Four streamed passes over
@@ -554,8 +584,8 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
 
     Returns ``(M, count + 1, vr_new, vc_new, stats_new, terms)``.
     """
-    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms = (
-        _unconstrained_cotangents(M, stats, data, lw, compute_dtype))
+    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, _ = (
+        _unconstrained_cotangents(M, stats, data, lw, compute_dtype, A_op))
     c, s = M.shape
     vr_sum, vc_sum = _gsq(M, A, w, m, l, dY, dq, dh, r, lw.lambda_l1,
                           lw.lambda_l2, with_dh=with_dh)
@@ -618,13 +648,15 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
     terms = {key: v.detach() for key, v in terms.items()}
 
     with_dh = lw.lambda_r != 0  # λ_r = 0 ⇒ dh ≡ 0
-    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh)
+    # A = S ⊙ σ(F) moves with F, so both operands are built every step, once
+    ops = dp_operands(A, dY)
+    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, operands=ops)
     gF = dF_direct + (1.0 - w) * (r[:, 0] - dh * (h + 1.0))
 
     count_new = count + 1
     scalars = adam_scalars(count_new, learning_rate)
     M, mu, nu, m2, l2, u2 = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
                                      with_dh=with_dh, rounding=rounding,
-                                     step=count_new)
+                                     step=count_new, operands=ops)
     F, muF, nuF = _adam_vector(F, gF, muF, nuF, *scalars)
     return (M, F), count_new, (mu, muF), (nu, nuF), (m2, l2, u2), terms

@@ -12,7 +12,11 @@ tutorial shape.
 Tolerance: max |kernel − twin| ≤ 1e-4 · max |twin| per output (1e-5 for the
 row stats): both are IEEE f32 and differ only in summation order. The L1/L2
 cases plant one padding sentinel in M and take the scale of the other
-entries.
+entries. rbar and dm_adam form A·dYᵀ on the tensor cores from TF32 parts of
+the f32 operands (3×TF32); the witness test holds them to f32 accuracy
+against float64. The shapes cover one resident A panel and two (k = 300),
+even and odd row lengths (16-, 8- and 4-byte staging copies, the bf16
+element path, paired and single stores), and a single ragged tile.
 """
 
 import numpy as np
@@ -113,6 +117,69 @@ def test_dm_backward_kernel_matches_twin(dev, c, s, k, with_dh):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert_close(g, w)
+
+
+WITNESS = (4.0, 10.0)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_tensor_core_tile_keeps_f32_accuracy(dev, c, s, k):
+    """rbar's r and dm_adam's mu against float64: the kernel errs at most 4×
+    what the f32 twin errs, and a twin whose A and dY were rounded once to
+    TF32 (a single tensor-core pass) misses the kernel by more than 10×
+    that margin. With the entropy cotangent off, as chip_smoke.py's witness:
+    dh's term would drown the product's error."""
+    x = inputs(c, s, k, dev, seed=3)
+    M, A, w, dY, dq, dh = (x[n] for n in ("M", "A", "w", "dY", "dq", "dh"))
+    # floats, not counts: small integers are exact in TF32 and hide the fault
+    A = A + torch.rand_like(A)
+    m, l, _ = cc._rowstats_plain(M)
+    A_t, dY_t = cc.tf32_split(A)[0], cc.tf32_split(dY)[0]
+    P = torch.exp(M.double() - m.double()) / l.double()
+    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    r64 = (P * dP).sum(dim=1, keepdim=True)
+    r_p = cc._rbar_plain(M, A, w, m, l, dY, dq, dh, False)
+    mu64 = (float(np.float32(fs.BETA1)) * x["mu"].double()
+            + float(np.float32(1.0 - fs.BETA1)) * (P * (dP - r_p.double())))
+    scalars = fs.adam_scalars(3, 0.1)
+
+    def run(rbar, adam, A_in, dY_in):
+        r = rbar(M, A_in, w, m, l, dY_in, dq, dh, False)
+        out = adam(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, x["mu"].clone(),
+                   x["nu"].clone(), scalars, False)
+        return r, out[1]
+
+    kernel = run(fs._rbar, fs._dm_adam, A, dY)
+    twin = run(cc._rbar_plain, fs._dm_adam_plain, A, dY)
+    rounded = run(cc._rbar_plain, fs._dm_adam_plain, A_t, dY_t)
+    for got, plain, tf32, want in zip(kernel, twin, rounded, (r64, mu64)):
+        margin = WITNESS[0] * float((plain.double() - want).abs().max())
+        assert float((got.double() - want).abs().max()) <= margin
+        assert float((tf32 - got).abs().max()) > WITNESS[1] * margin
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_prebuilt_operands_and_repeats_give_the_same_bits(dev, c, s, k):
+    """rbar and dm_adam with the step's prebuilt operands store what they
+    store when they build their own, and a repeat stores the same bits (no
+    atomics, a fixed reduction order), in f32 and with bf16 inputs."""
+    for make in (inputs, bf16_inputs):
+        x = make(c, s, k, dev)
+        m, l, _ = cc._rowstats_plain(x["M"])
+        args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+        ops = cc.dp_operands(x["A"], x["dY"])
+        assert ops.split == (x["A"].dtype == torch.float32)
+        r = fs._rbar(*args)
+        assert torch.equal(r, fs._rbar(*args, operands=ops))
+        assert torch.equal(r, fs._rbar(*args, operands=ops))
+        scalars = fs.adam_scalars(3, 0.1)
+        outs = [fs._dm_adam(x["M"].clone(), *args[1:], r, x["mu"].clone(), x["nu"].clone(),
+                            scalars, operands=operands)
+                for operands in (None, ops, ops)]
+        for other in outs[1:]:
+            for a, b in zip(outs[0], other):
+                assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                                   b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
 
 
 def core_gradients(M, A, w, cts, core):

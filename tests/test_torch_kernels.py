@@ -366,12 +366,193 @@ def test_project_split_count():
 
 
 def test_dp_split_count():
-    """The spot split of the rbar / dm_adam kernels: none in cells mode at
-    the tutorial shape, one 128-spot tile per block for clusters mode."""
-    assert cc.dp_splits(26_000, 9_852, sm_count=132) == 1
+    """The spot split of the rbar / dm_adam kernels (the tensor-core tile,
+    one block of 64 cells x 128-spot tiles per SM): at the tutorial shape the
+    split that fills whole waves of 132 blocks best (7: 2,849 blocks, 21.6
+    waves, 11 tiles each), one 128-spot tile per block for clusters mode's
+    one cell group, none where one tile is all there is."""
+    assert cc.dp_splits(26_000, 9_852, sm_count=132) == 7
     assert cc.dp_splits(22, 9_852, sm_count=132) == 77
-    assert cc.dp_splits(5_000, 9_852, sm_count=132) == 4
+    assert cc.dp_splits(5_000, 9_852, sm_count=132) == 5
     assert cc.dp_splits(64, 100, sm_count=132) == 1
+    # every block gets at least one tile, and no split is empty
+    for c, s in ((26_000, 9_852), (5_000, 9_852), (130, 1_000), (64, 129)):
+        n = cc.dp_splits(c, s, sm_count=132)
+        tiles = -(-s // 128)
+        assert 1 <= n <= tiles and -(-tiles // -(-tiles // n)) == n
+
+
+def test_dp_fma_split_count():
+    """The spot split of the f32 FMA tile (gsq, dm_adafactor, dm_backward):
+    none in cells mode at the tutorial shape, one 128-spot tile per block
+    for clusters mode."""
+    assert cc.dp_fma_splits(26_000, 9_852, sm_count=132) == 1
+    assert cc.dp_fma_splits(22, 9_852, sm_count=132) == 77
+    assert cc.dp_fma_splits(5_000, 9_852, sm_count=132) == 4
+    assert cc.dp_fma_splits(64, 100, sm_count=132) == 1
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core dP tile: the TF32 split, its product and the operands
+# ---------------------------------------------------------------------------
+
+
+def split_inputs(seed=0, n=4096):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, n).astype(np.float32) * np.float32(10.0) ** rng.integers(-6, 6, n)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def test_tf32_split_parts_are_tf32_and_sum_to_x():
+    x = split_inputs()
+    hi, lo = cc.tf32_split(x)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    # hi + lo is exact in f32 (no overlap), so the sum is taken in f64
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert float((err / x.double().abs()).max()) <= 2.0 ** -21
+    # hi alone is x to TF32's 11 significant bits
+    assert float(((hi.double() - x.double()).abs() / x.double().abs()).max()) <= 2.0 ** -11
+
+
+def test_tf32_split_of_bf16_values_has_no_low_part():
+    x = split_inputs(1).to(torch.bfloat16).float()
+    hi, lo = cc.tf32_split(x)
+    assert torch.equal(hi, x)
+    assert int((lo != 0).sum()) == 0
+
+
+def test_tf32_split_edge_values_stay_finite():
+    big = float(np.finfo(np.float32).max)
+    x = torch.tensor([0.0, -0.0, 1e-45, -1e-40, 1.17549435e-38, big, -big, 1.0, -3.0],
+                     dtype=torch.float32)
+    hi, lo = cc.tf32_split(x)
+    assert bool(torch.isfinite(hi).all()) and bool(torch.isfinite(lo).all())
+    assert float((hi[:2].abs() + lo[:2].abs()).max()) == 0.0
+    # the largest f32 is truncated, not rounded up to infinity
+    assert float(hi[5]) <= big and float(hi[6]) >= -big
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert float((err[4:] / x[4:].double().abs()).max()) <= 2.0 ** -21
+    with pytest.raises(TypeError, match="float32"):
+        cc.tf32_split(x.double())
+
+
+def test_three_tf32_terms_keep_f32_accuracy_and_one_does_not():
+    """K = 250: the three-term product of split operands within 1e-6 of a
+    float64 product (of its largest entry), the single TF32 pass beyond
+    1e-4: the fault the kernels' accuracy witness exists for."""
+    rng = np.random.default_rng(0)
+    A = torch.from_numpy(rng.normal(0, 1, (64, 250)).astype(np.float32))
+    dY = torch.from_numpy(rng.normal(0, 1, (96, 250)).astype(np.float32))
+    want = A.double() @ dY.double().T
+    scale = float(want.abs().max())
+    three = float((cc.tf32_product_plain(A, dY).double() - want).abs().max()) / scale
+    one = float((cc.tf32_product_plain(A, dY, terms=1).double() - want).abs().max()) / scale
+    assert three <= 1e-6 < 1e-4 < one, (three, one)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES + [(5, 9, 33), (3, 4, 64)])
+def test_dp_operands_layout_reproduces_dp(c, s, k):
+    """The operand arrays: K-major f32, K padded with zeros to a multiple
+    of 32, 16-byte aligned; their product plus the rank-one term is
+    A dY^T + w (x) dq."""
+    x = make_inputs(c, s, k)
+    A, dY, w, dq = T(x["A"]), T(x["dY"]), T(x["w"]), T(x["dq"])
+    ops = cc.dp_operands(A, dY)
+    Kp = ops.A_op.shape[1]
+    assert Kp % 32 == 0 and 0 <= Kp - k < 32 and ops.split
+    assert tuple(ops.A_op.shape) == (c, Kp) and tuple(ops.dY_op.shape) == (s, Kp)
+    assert ops.A_op.is_contiguous() and ops.dY_op.is_contiguous()
+    assert ops.A_op.data_ptr() % 16 == 0 and ops.dY_op.data_ptr() % 16 == 0
+    assert torch.equal(ops.A_op[:, :k], A) and torch.equal(ops.dY_op[:, :k], dY)
+    assert float(ops.A_op[:, k:].abs().sum()) == 0 and float(ops.dY_op[:, k:].abs().sum()) == 0
+    want = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    got = cc.dp_from_operands_plain(ops, w, dq)
+    assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    # a prebuilt A operand is taken as it is
+    again = cc.dp_operands(A, dY, ops.A_op)
+    assert again.A_op is ops.A_op and torch.equal(again.dY_op, ops.dY_op)
+
+
+def test_dp_operands_of_bf16_inputs_take_one_exact_product():
+    x = make_inputs(40, 70, 19)
+    bf = torch.bfloat16
+    A, dY, w, dq = T(x["A"]).to(bf), T(x["dY"]).to(bf), T(x["w"]), T(x["dq"])
+    ops = cc.dp_operands(A, dY)
+    assert not ops.split and ops.A_op.dtype == ops.dY_op.dtype == torch.float32
+    assert torch.equal(ops.A_op[:, :19], A.float())
+    # every value is exact in TF32, so the split would find no low part
+    assert int((cc.tf32_split(ops.dY_op)[1] != 0).sum()) == 0
+    want = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    got = cc.dp_from_operands_plain(ops, w, dq)
+    assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    # one bf16 operand alone still takes the split
+    assert cc.dp_operands(A, dY.float()).split and cc.dp_operands(A.float(), dY).split
+
+
+def test_stage_granule_follows_row_alignment():
+    """The bytes per staging copy of the tensor-core tile: what divides the
+    row length and the base; none for a bf16 array with an odd row."""
+    f32, bf = torch.float32, torch.bfloat16
+    assert cc.stage_granule(9_852, torch.zeros((2, 9_852), dtype=f32)) == 16
+    assert cc.stage_granule(9_852, torch.zeros((2, 9_852), dtype=bf)) == 8
+    assert cc.stage_granule(53, torch.zeros((2, 53), dtype=f32)) == 4
+    assert cc.stage_granule(54, torch.zeros((2, 54), dtype=bf)) == 4
+    assert cc.stage_granule(53, torch.zeros((2, 53), dtype=bf)) == 0
+    assert cc.stage_granule(600, torch.zeros((2, 600), dtype=bf)) == 16
+    base = torch.zeros(16 + 2 * 8, dtype=f32)
+    assert cc.stage_granule(8, base[1:17].view(2, 8)) == 4  # a base 4 bytes off
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_rbar_and_dm_adam_with_prebuilt_operands_match_jax(c, s, k, with_dh):
+    """The wrappers as the fused steps call them, with the step's operands
+    built once: equal to the JAX kernels at the twins' tolerance, and to
+    the call without operands bit for bit."""
+    x = make_inputs(c, s, k)
+    m, l, _ = jax_stats(x["M"])
+    args = torch_args(x, m, l)
+    ops = cc.dp_operands(args[1], args[5])
+    r = fs._rbar(*args, with_dh=with_dh, operands=ops)
+    assert torch.equal(r, fs._rbar(*args, with_dh=with_dh))
+    r_j = np.asarray(jax_rbar(x, m, l, with_dh))
+    close(r, r_j)
+    lr, bc1, bc2 = fs.adam_scalars(3, 0.1)
+    want = jfs._dm_adam(*jax_args(x, m, l), jnp.asarray(r_j), jnp.asarray(x["mu"]),
+                        jnp.asarray(x["nu"]), jnp.asarray([[lr, bc1, bc2, 3.0]], jnp.float32),
+                        0.0, 0.0, with_norms=False, with_dh=with_dh)
+    got = fs._dm_adam(*args, T(r_j), T(x["mu"]), T(x["nu"]), (lr, bc1, bc2),
+                      with_dh=with_dh, operands=ops)
+    for g, w in zip(got, want):
+        close(g, w)
+    # operands that do not fit the inputs are refused, on the CPU too
+    with pytest.raises(ValueError):
+        fs._rbar(*args, with_dh=with_dh, operands=cc.dp_operands(args[1][:-1], args[5]))
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_fused_steps_take_the_loops_a_operand(optimizer):
+    """A step handed the loop's prebuilt A operand equals the step that
+    builds its own, bit for bit."""
+    x = make_inputs(12, 20, 3)
+    data = MapperData(S=T(x["A"]), G=T(np.abs(x["dY"][:, :3]) + 0.1))
+    lw = LossWeights(lambda_g2=0.5, lambda_r=0.01, lambda_l1=0.01)
+    step = (fs.fused_unconstrained_step if optimizer == "adam"
+            else fs.fused_unconstrained_step_adafactor)
+    outs = []
+    for prebuilt in (False, True):
+        M = T(x["M"])
+        state = (fs.init_fused_opt_state(M) if optimizer == "adam"
+                 else fs.init_fused_adafactor_state(M))
+        A_op = fs.unconstrained_a_operand(M, data, lw) if prebuilt else None
+        if prebuilt:
+            assert tuple(A_op.shape) == (12, 32) and torch.equal(A_op[:, :3], data.S)
+        out = step(M, *state, fs.initial_stats(M, lw), data, lw, 0.1, A_op=A_op)
+        outs.append((out[0], out[2], out[3]) + tuple(out[4]))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_reject_mixed_devices():
