@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels   # a subset
     python3 chip_smoke.py --phases device,build,kernels --shapes ragged,clusters
     python3 chip_smoke.py --profile        # also a torch.profiler table and the
-                                           # dP tile's phase shares
+                                           # tensor-core kernels' phase shares
 
 Phases (each prints its own lines; any failure exits non-zero before the
 last line):
@@ -26,10 +26,10 @@ last line):
               at the faster of the FMA pipes and 3xTF32 on the tensor
               cores) and the cuBLAS f32 GEMM time at each contraction's
               shape; at every shape the f32-accuracy witness of the
-              tensor-core dP tile (rbar, dm_adam): against float64 twins
-              the kernel errs at most 4x what the f32 twin errs, and a twin
-              with A and dY rounded once to TF32 misses it by more than 10x
-              that; --shapes picks the
+              tensor-core kernels (rbar, dm_adam; project's Y and q):
+              against float64 twins the kernel errs at most 4x what the f32
+              twin errs, and a twin with A and dY (P) rounded once to TF32
+              misses it by more than 10x that; --shapes picks the
               shapes (ragged, clusters, tutorial). At the ragged and
               clusters shapes every buffer a kernel writes sits between two
               bands of sentinel words that must stay intact (out-of-bounds
@@ -61,8 +61,9 @@ last line):
               constrained, Adam, stochastic; (d) cells, Adafactor + L1/L2,
               stochastic; each beside its f32 run from the same seed (that
               of phase 4, 7 or 6), with launch counts, rows summing to 1,
-              final score, ms/step and peak device memory, and two 10-step
-              runs of (a) that must store the same bits
+              final score, ms/step and peak device memory; then two 10-step
+              runs from one start that must store the same bits, for f32
+              Adam, f32 Adafactor + L1/L2, constrained Adam (M and F) and (a)
 9. reference  10 epochs of the kernels against the materialized reference
               loop at the tutorial shape for Adam, Adam + L1/L2, Adafactor
               + L1/L2 (also stepped one epoch at a time, with one kernel
@@ -104,6 +105,9 @@ SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
 # the kernels of the tensor-core dP tile have their own source
 TENSOR_SOURCE = "tangram_tpu_torch/csrc/dp_tensor_kernels.cu"
 TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "rbar.bf16", "dm_adam.bf16")
+# and so has the projection on the tensor cores
+PROJECT_SOURCE = "tangram_tpu_torch/csrc/project_tc_kernels.cu"
+PROJECT_KERNELS = ("project", "project.bf16")
 REPLACES = {
     "rowstats": "tangram_tpu/ops/pallas_core.py:97",
     "project": "tangram_tpu/ops/pallas_core.py:159",
@@ -160,9 +164,9 @@ GUARD, GUARD_BITS = 4096, 0x7FA1DEAD
 # contractions sum 26,000 (project), 250 (rbar, dm_adam) or 9,852
 # (dm_backward's dA and dw) terms, so order alone moves the last ~4 bits of
 # the largest values. MapperCore's gradients are held to dm_backward's.
-# rbar and dm_adam form A dY^T on the tensor cores from TF32 parts of the
-# f32 operands (3xTF32), which keeps f32 accuracy; F32_WITNESS holds them to
-# it beside RTOL.
+# rbar and dm_adam form A dY^T, and project P^T [A | w], on the tensor cores
+# from TF32 parts of the f32 operands (3xTF32), which keeps f32 accuracy;
+# F32_WITNESS holds them to it beside RTOL.
 RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
         "rowstats_norms": 1e-5, "backward_rbar": 1e-4, "dm_backward": 1e-4,
         "gsq": 1e-4, "dm_adafactor": 1e-4}
@@ -188,7 +192,14 @@ Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
 # a twin whose A and dY are rounded once to TF32, the fault a single
 # tensor-core pass would be, misses the kernel by more than F32_WITNESS[1]
 # times that margin on r and on mu (where the gradient enters linearly), so
-# the check can see the fault it exists for.
+# the check can see the fault it exists for. project's Y and q (a sum over
+# all c cells) are held the same way against a float64 projection, beside
+# a twin whose P was rounded once to TF32: on the kernel phase's counts plus
+# a fraction (every term >= 0, where a truncated running sum on the tensor
+# cores would show as a one-sided bias) for accuracy alone, since at 26,000
+# cells one TF32 rounding of P averages out to about the error of an f32 sum
+# itself; and on the same operands made signed (A centred per column, w of
+# random sign), where it does not, for accuracy and for the rounded twin.
 F32_WITNESS = (4.0, 10.0)
 # bf16 stores of the updates: every stored value within BF16_ULPS of the
 # twin's beyond what the f32 kernel's tolerance allows (RTOL of the largest
@@ -338,6 +349,13 @@ def dp_l2_bytes(c, s, k, sm_count):
     return groups * (s * Kp * 4 + a_loads * 64 * Kp * 4)
 
 
+def project_l2_bytes(c, s, k):
+    """Bytes the project kernel moves through L2 per launch for its X =
+    [A | w] operand, as its design reckons them: every 64-spot tile reads
+    every cell's row of X (k + 1 rounded up to 4 columns, f32) once."""
+    return math.ceil(s / 64) * c * (-(-(k + 1) // 4) * 4) * 4
+
+
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
@@ -412,10 +430,11 @@ def rel_err(got, ref) -> tuple[float, float]:
 
 
 def check_f32_accuracy(shape, x, m, l, scalars):
-    """The f32-accuracy witness of the tensor-core dP tile (F32_WITNESS):
+    """The f32-accuracy witness of the tensor-core kernels (F32_WITNESS):
     rbar's r and dm_adam's M, mu, nu and next stats against float64 twins of
     the same functions on the same f32 inputs, beside the f32 twins and
-    beside f32 twins whose A and dY were rounded once to TF32. A takes a
+    beside f32 twins whose A and dY were rounded once to TF32; then
+    project's Y and q, beside a twin whose P was rounded once. A takes a
     seeded fraction on top of the kernel phase's counts: small integers are
     exact in TF32 and would leave the rounded twin only dY's error to show
     (real expression matrices are normalized floats). nu is kept away from
@@ -473,16 +492,12 @@ def check_f32_accuracy(shape, x, m, l, scalars):
         sides[side] = dict(adam(run, A_in, dY_in),
                            r=rbar(M, A_in, w, m, l, dY_in, dq, dh, False))
     bad = []
-    for name, ref in want.items():
-        real = ref.abs() < 1e20  # a padding sentinel's own rounding aside
-        err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
-                        for side in ("kernel", "f32 twin"))
-        miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
+
+    def judge(name, err_k, err_p, miss, seen, rounded):
         margin = F32_WITNESS[0] * err_p
-        seen = name in ("r", "mu")
         say("kernels", f"f32 accuracy {shape} {name}: against float64 the kernel errs by "
             f"{err_k:.3e}, the f32 twin by {err_p:.3e} (kernel must stay within "
-            f"{F32_WITNESS[0]:.0f}x: {margin:.3e}); a twin with A and dY rounded to TF32 "
+            f"{F32_WITNESS[0]:.0f}x: {margin:.3e}); a twin with {rounded} rounded to TF32 "
             f"misses the kernel by {miss:.3e}"
             + (f" (must exceed {F32_WITNESS[1]:.0f}x the margin: "
                f"{F32_WITNESS[1] * margin:.3e})" if seen else ""))
@@ -490,6 +505,33 @@ def check_f32_accuracy(shape, x, m, l, scalars):
             bad.append(f"{name}: the kernel is less accurate than f32")
         if seen and not miss > F32_WITNESS[1] * margin:
             bad.append(f"{name}: the check cannot see a single TF32 pass")
+
+    for name, ref in want.items():
+        real = ref.abs() < 1e20  # a padding sentinel's own rounding aside
+        err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
+                        for side in ("kernel", "f32 twin"))
+        miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
+        seen = name in ("r", "mu")
+        judge(name, err_k, err_p, miss, seen, "A and dY")
+    del want, sides
+
+    # project: Y and q against a float64 projection (F32_WITNESS's note)
+    c = M.shape[0]
+    P64 = torch.exp(M.double() - m.double()) / l.double()
+    P_t = cc.tf32_split(torch.exp(M - m) * (1.0 / l))[0]
+    sign = torch.where(torch.rand(c, generator=gen, device=A.device) < 0.5, -1.0, 1.0)
+    for data, A_in, w_in, seen in (("counts", A, w, False),
+                                   ("signed", A - A.mean(dim=0), w * sign, True)):
+        want = dict(zip("Yq", (P64.T @ A_in.double(), w_in.double() @ P64)))
+        sides = {"kernel": cc._project(M, A_in, w_in, m, l),
+                 "f32 twin": cc._project_plain(M, A_in, w_in, m, l),
+                 "TF32 twin": (P_t.T @ A_in, w_in @ P_t)}
+        for i, name in enumerate("Yq"):
+            err_k, err_p = (float((sides[side][i].double() - want[name]).abs().max())
+                            for side in ("kernel", "f32 twin"))
+            miss = float((sides["TF32 twin"][i] - sides["kernel"][i]).abs().max())
+            judge(f"project {name} ({data})", err_k, err_p, miss, seen, "P")
+        del want, sides
     if bad:
         fail(f"f32-accuracy witness at {shape}: " + "; ".join(bad))
 
@@ -1376,15 +1418,12 @@ def bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs, con_map
     run's, steady ms/step, the peak device memory of the mapping and what
     training adds, both above what was resident. The f32 numbers come from
     ``f32_runs`` (the cells, adafactor and constrained phases', from the
-    same seed); what they lack is measured here. Then two 10-step runs of
-    configuration (a) from the same start, which must store the same bits.
-    Returns the bf16 variants' launch counts, each from the first
+    same seed); what they lack is measured here. Returns the bf16 variants' launch counts, each from the first
     configuration that runs it: (a) for rowstats, project, rbar and
     dm_adam, (d) for rowstats_norms, gsq and dm_adafactor."""
     import torch
 
     import tangram_tpu_torch as tgt
-    from tangram_tpu_torch.models.mapper import fit_mapping
     from tangram_tpu_torch.ops import cuda_core
 
     launches = {}
@@ -1450,17 +1489,36 @@ def bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs, con_map
         if not abs(main - f32["main"]) <= BF16_SCORE_TOL:
             fail(f"bf16 {label}: the final score strays from the f32 run's")
 
-    # determinism: two runs from the same start store the same bits
-    low = dict(BF16_STORAGE, rounding="stochastic")
-    outs = []
-    for _ in range(2):
-        M, _ = fit_mapping(cells_mapper.M.clone(), cells_mapper.data, cells_mapper.lw, 10,
-                           impl="kernels", **low)
-        outs.append(M.view(torch.int16))
-    if not torch.equal(*outs):
-        fail("bf16: two stochastic-rounding runs from the same start differ")
-    say("bf16", "two 10-step runs of (a) from the same start stored the same bits")
     return launches
+
+
+def check_fit_repeats(cells_mapper, norm_lw, con_mapper, epochs=10):
+    """Two fit_mapping runs of ``epochs`` steps from one start must store
+    the same bits, in f32 Adam, f32 Adafactor + L1/L2, constrained Adam (M
+    and F) and bf16 Adam with stochastic rounding (configuration (a)): every
+    kernel reduces in a fixed order and the loops draw nothing at random
+    after the start, so a difference is a fault, not chance."""
+    import torch
+
+    from tangram_tpu_torch.models.mapper import fit_mapping
+
+    cases = (("f32 Adam", cells_mapper, cells_mapper.lw, "adam", {}),
+             ("f32 Adafactor + L1/L2", cells_mapper, norm_lw, "adafactor", {}),
+             ("constrained Adam", con_mapper, con_mapper.lw, "adam", {}),
+             ("(a) bf16 Adam, stochastic", cells_mapper, cells_mapper.lw, "adam",
+              dict(BF16_STORAGE, rounding="stochastic")))
+    for label, mapper, lw, opt, low in cases:
+        runs = []
+        for _ in range(2):
+            params, constrained = start_params(mapper, low.get("param_dtype"))
+            params, _ = fit_mapping(params, mapper.data, lw, epochs, impl="kernels",
+                                    optimizer=opt, constrained=constrained, **low)
+            runs.append([t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+                         for t in (params if constrained else (params,))])
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"repeat: two {epochs}-step {label} runs from the same start differ")
+        say("repeat", f"two {epochs}-step {label} runs from the same start stored the "
+            f"same bits ({'M and F' if len(runs[0]) == 2 else 'M'})")
 
 
 def profile_steps(mapper, steps=5):
@@ -1481,12 +1539,18 @@ def profile_steps(mapper, steps=5):
 
 
 def profile_dp_tile(dev):
-    """Where rbar and dm_adam (f32 and bf16) spend their cycles at the
-    tutorial shape: a second build of the kernels with -DTG_DP_PROFILE
-    counts, in warps 0 and 15 of every block, the clock cycles of each phase
-    of the tile loop; printed as shares of their sum beside each kernel's
-    time in that build (the counters cost a few percent)."""
+    """Where rbar, dm_adam and project (f32 and bf16) spend their cycles at
+    the tutorial shape: a second build of the kernels with -DTG_DP_PROFILE
+    counts, in two warps of every block (0 and 15 of the dP tile; of
+    project, product warp 0 and forming warp 8), the clock cycles of each
+    phase of the tile or chunk loop;
+    printed as shares of their sum beside each kernel's time in that build
+    (the counters cost a few percent). Then project's two sides each alone,
+    from two more builds (their outputs meaningless): the copies and the
+    forming with the product skipped, and the product with the copies and
+    the forming skipped."""
     import ctypes
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -1494,7 +1558,9 @@ def profile_dp_tile(dev):
     from tangram_tpu_torch.ops import cuda_core as cc
     from tangram_tpu_torch.ops import fused_step as fs
 
-    lib = _build.load_kernels(("-DTG_DP_PROFILE",))
+    builds = (("-DTG_DP_PROFILE",), ("-DTG_PJ_FORM_ONLY",), ("-DTG_PJ_PRODUCT_ONLY",))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        lib, form_only, product_only = pool.map(_build.load_kernels, builds)
     plain, _build.load_kernels = _build.load_kernels, lambda: lib
     try:
         x = kernel_inputs(*SHAPE, seed=11, dev=dev)
@@ -1524,6 +1590,31 @@ def profile_dp_tile(dev):
                      "product"), clocks))
                 say("profile", f"{name} {tag} at {SHAPE}: {ms:.3f} ms with the "
                     f"counters; cycles of warps 0 and 15: {shares}")
+            clocks = (ctypes.c_ulonglong * 10)()
+            lib.call("tg_pj_profile_read", clocks)  # clear
+            ms = cuda_ms(lambda: cc._project(M, A, x["w"], m, l), 10)
+            lib.call("tg_pj_profile_read", clocks)
+
+            def phase_shares(part, names):
+                total = float(sum(part)) or 1.0
+                return ", ".join(f"{what} {100 * n / total:.1f}%"
+                                 for what, n in zip(names, part) if what)
+
+            say("profile", f"project {tag} at {SHAPE}: {ms:.3f} ms with the counters; "
+                "cycles of product warp 0: " + phase_shares(
+                    clocks[:5], ("epilogue and loop", "waiting for a formed chunk", "", "",
+                                 "product")) + "; of forming warp 8: " + phase_shares(
+                    clocks[5:9], ("loop", "waits for copies, a free buffer and the "
+                                  "other forming warps", "issuing copies",
+                                  "forming P and X")))
+            sides = []
+            for side, side_lib in (("copies and forming alone", form_only),
+                                   ("product alone", product_only)):
+                _build.load_kernels = lambda side_lib=side_lib: side_lib
+                sides.append(f"{side} {cuda_ms(lambda: cc._project(M, A, x['w'], m, l), 10):.3f}"
+                             " ms")
+            _build.load_kernels = lambda: lib
+            say("profile", f"project {tag} at {SHAPE}, each side alone: " + ", ".join(sides))
     finally:
         _build.load_kernels = plain
 
@@ -1537,7 +1628,7 @@ def main(argv=None) -> int:
                     + ",".join(KERNEL_SHAPES) + " (times come from tutorial)")
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 fused steps and the "
-                    "phase shares of the tensor-core dP tile (a second build)")
+                    "phase shares of the tensor-core kernels (a second build)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1610,6 +1701,11 @@ def main(argv=None) -> int:
             f"{cuda_core.dp_splits(*SHAPE[:2], sm_count)} spot splits per 64-cell group; "
             f"their A and dY operands move {dp_l2_bytes(*SHAPE, sm_count) / 1e9:.2f} GB "
             f"through L2 per launch, as reckoned from the tile shape")
+        say("kernels", f"project at {SHAPE}: "
+            f"{cuda_core.project_splits(*SHAPE, sm_count)} cell splits of "
+            f"{math.ceil(SHAPE[1] / 64)} spot tiles; [A | w] moves "
+            f"{project_l2_bytes(*SHAPE) / 1e9:.2f} GB through L2 per launch, as reckoned "
+            f"from the tile shape")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
@@ -1810,6 +1906,8 @@ def main(argv=None) -> int:
         counts = bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs,
                             con_mapper)
         launches = dict(launches or {}, **counts)
+        con_mapper = con_mapper or mapper_for(ad_sc, ad_sp, dev, "constrained")
+        check_fit_repeats(cells_mapper, norm_lw, con_mapper)
 
     if "reference" in phases:
         mapper = cells_mapper
@@ -1843,7 +1941,8 @@ def main(argv=None) -> int:
     say("done", f"{time.perf_counter() - t_start:.1f} s in all")
     kernels = [
         {"name": name, "route": "cuda",
-         "source": TENSOR_SOURCE if name in TENSOR_KERNELS else SOURCE,
+         "source": (TENSOR_SOURCE if name in TENSOR_KERNELS else
+                    PROJECT_SOURCE if name in PROJECT_KERNELS else SOURCE),
          "replaces": REPLACES[name],
          "launches": None if launches is None else launches.get(name),
          "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),

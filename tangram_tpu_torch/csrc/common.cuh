@@ -1,7 +1,9 @@
 // Device helpers shared by the kernel sources of this directory: the online
 // softmax statistics, bf16 storage and stochastic rounding, the loss
-// gradient of one element, asynchronous copies, and the merge of per-split
-// row partials. Everything sits in an anonymous namespace, so each source
+// gradient of one element, asynchronous copies, the merges of per-split
+// partials (rows; the (rows, k + 1) partials of project and dm_backward),
+// the TF32 split and the tensor-core products (mma.sync, TF32 and bf16).
+// Everything sits in an anonymous namespace, so each source
 // that includes this file gets its own copy.
 
 #pragma once
@@ -146,6 +148,20 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool v
                "r"(src_bytes));
 }
 
+// asynchronous copy global -> shared of the first src_bytes (0..BYTES) of
+// BYTES bytes (4, 8 or 16; both addresses aligned to BYTES); the rest reads
+// zero
+template <int BYTES>
+__device__ __forceinline__ void cp_async_part(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+                 "n"(BYTES), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -204,6 +220,85 @@ __global__ void dp_merge_kernel(const float* __restrict__ part, float* __restric
     out3[cell] = s1;
     out4[cell] = s2;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// f32 products on the tensor cores (3xTF32) and bf16 products
+// ---------------------------------------------------------------------------
+
+// x = hi + lo exactly: hi is x rounded to TF32's 11 significant bits, by
+// Veltkamp's product (8193 x - 8192 x, the first rounded to f32, the
+// difference exact), and lo = x - hi has at most 12, of which the tensor
+// core drops the last (it ignores an operand's low 13 bits): 2^-22 of x.
+// Three full-rate FMA-pipe instructions; cvt.rna.tf32.f32 gives the same hi
+// up to ties, but two of them per operand held the whole kernel to the
+// conversion unit's rate (3.3 ms of the product loop at the tutorial shape).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = __fmaf_rn(x, -8192.0f, __fmul_rn(x, 8193.0f));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+// d += a b: a 16 x 8 (row-major fragment), b 8 x 8 (column fragment), TF32
+// operands, f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b: the first product of a chain, onto zero
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
+
+// d = a b: a 16 x 16 (row-major fragment), b 16 x 8 (column fragment), bf16
+// operands (two to a register, the lower k in the lower half), f32
+// accumulation; the products are exact, the first of a chain onto zero
+__device__ __forceinline__ void mma_bf16_first(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+}
+
+
+// The sum over the splits of a (nsplit, rows, k + 1) partial, in split
+// order, split into its first k columns X (rows, k) and its last v (rows,):
+// Y and q for project, dA and dw for dm_backward.
+__global__ void ext_reduce_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ X, float* __restrict__ v,
+                                  int rows, int k, int nsplit) {
+  const int K1 = k + 1;
+  const size_t n = (size_t)rows * K1;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float acc = 0.0f;
+    for (int z = 0; z < nsplit; ++z) acc += partial[(size_t)z * n + e];
+    const size_t row = e / K1;
+    const int col = (int)(e % K1);
+    if (col < k) X[row * k + col] = acc;
+    else v[row] = acc;
+  }
+}
+
+cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows, int k,
+                              int nsplit, cudaStream_t st) {
+  const size_t n = (size_t)rows * (k + 1);
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  ext_reduce_kernel<<<blocks, 256, 0, st>>>(partial, X, v, rows, k, nsplit);
+  return cudaGetLastError();
 }
 
 }  // namespace

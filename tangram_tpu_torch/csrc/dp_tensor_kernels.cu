@@ -23,7 +23,7 @@
 // The design.
 //  * f32 accuracy on the tensor cores (3xTF32). Each f32 operand x is split
 //    in registers after the shared-memory load into hi = tf32(x) and
-//    lo = x - hi (split_tf32 below), and the tile sums
+//    lo = x - hi (split_tf32 in common.cuh), and the tile sums
 //    lo*hi + hi*lo + hi*hi with f32 accumulation, the small terms first, as
 //    CUTLASS's OpMultiplyAddFastF32 does. The dropped lo*lo term is 2^-22 of
 //    the product. The tensor cores truncate their running sum where an f32
@@ -163,53 +163,6 @@ struct TcArgs {
   int sr;                // the update rounds stochastically (else to nearest)
   unsigned t;            // the step count that seeds stochastic rounding
 };
-
-// x = hi + lo exactly: hi is x rounded to TF32's 11 significant bits, by
-// Veltkamp's product (8193 x - 8192 x, the first rounded to f32, the
-// difference exact), and lo = x - hi has at most 12, of which the tensor
-// core drops the last (it ignores an operand's low 13 bits): 2^-22 of x.
-// Three full-rate FMA-pipe instructions; cvt.rna.tf32.f32 gives the same hi
-// up to ties, but two of them per operand held the whole kernel to the
-// conversion unit's rate (3.3 ms of the product loop at the tutorial shape).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const float h = __fmaf_rn(x, -8192.0f, __fmul_rn(x, 8193.0f));
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(x, h));
-}
-
-// d += a b: a 16 x 8 (row-major fragment), b 8 x 8 (column fragment), TF32
-// operands, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a b: the first product of a chain, onto zero
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
-}
-
-// asynchronous copy global -> shared of the first src_bytes (> 0) of BYTES
-// bytes (4, 8 or 16; both addresses aligned to BYTES); the rest reads zero
-template <int BYTES>
-__device__ __forceinline__ void cp_async_part(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-                 "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
-                 "n"(BYTES), "r"(src_bytes));
-}
 
 // Start the copy of the (rows x cols) corner of a (c, s) array of entries of
 // esz bytes, from entry `at` of its first row, into a staging tile with rows

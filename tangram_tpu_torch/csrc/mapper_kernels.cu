@@ -7,6 +7,7 @@
 //   tg_rowstats        per-cell online softmax stats m, l, u        (init only)
 //   tg_rowstats_norms  the same plus s1 = sum |M|, s2 = sum M^2     (init, L1/L2)
 //   tg_project         Y = P^T A and q = w P                       (every step)
+//                      (project_tc_kernels.cu)
 //   tg_rbar            r_c = sum_s P * dP                          (every step)
 //   tg_dm_adam         g = P (dP - r) [+ L1/L2 gradient], exact Adam in
 //                      place on M/mu/nu, and the next step's m, l, u
@@ -24,19 +25,19 @@
 // cross-thread reduction has a fixed order, so all kernels are
 // deterministic (no atomics).
 //
-// This file holds the row stats, the projection and the f32 FMA dP tile
-// (gsq, dm_adafactor, dm_backward); tg_rbar and tg_dm_adam are in
-// dp_tensor_kernels.cu, on the tensor-core dP tile; common.cuh holds what
-// both share.
+// This file holds the row stats and the f32 FMA dP tile (gsq, dm_adafactor,
+// dm_backward); tg_rbar and tg_dm_adam are in dp_tensor_kernels.cu, on the
+// tensor-core dP tile, and tg_project in project_tc_kernels.cu, on the
+// tensor cores too; common.cuh holds what they share.
 //
 // Precision: every product in this file is a plain f32 FMA on the CUDA
 // cores, i.e. IEEE f32 by construction. One tensor-core TF32 pass would keep
 // about three decimal digits, the class of fault that degraded the JAX
-// package's held-out score on the TPU; the tensor-core tile takes three
-// passes over split operands and keeps f32 accuracy. The price here: project
-// and the three FMA dP-tile kernels each do about 2 * c * s * (k + 1) flops
-// per call (1.3e11 at the 26,000 x 9,852 x 249 tutorial shape), which makes
-// them bound by the FMA pipes and, before those, by shared-memory loads.
+// package's held-out score on the TPU; the tensor-core kernels take three
+// passes over split operands and keep f32 accuracy. The price here: the
+// three FMA dP-tile kernels each do about 2 * c * s * (k + 1) flops per call
+// (1.3e11 at the 26,000 x 9,852 x 249 tutorial shape), which makes them
+// bound by the FMA pipes and, before those, by shared-memory loads.
 //
 // All shared memory is static and below 48 KB per block, except the
 // dm_backward tile's 64 KB of dynamic shared memory, for which the launch
@@ -52,12 +53,10 @@
 // jnp's astype) or stochastically (stored_value below), and fold the
 // STORED value into the next step's stats, as _emit_next_stats does, so
 // the next softmax normalizes the M it will read. M's type is a template
-// parameter of rowstats and project (their loads differ in shape), and a
+// parameter of rowstats (its loads differ in shape), and a
 // uniform runtime flag of the dP-tile kernels beside the rounding (their
 // loads sit in the epilogue, a few instructions per element beside its
 // 2 (k + 1) flops). dm_backward takes f32 only.
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -105,228 +104,6 @@ rowstats_kernel(const TM* __restrict__ M, float* __restrict__ m_out,
       s2_out[row] = s2;
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// project — replaces tangram_tpu/ops/pallas_core.py::_project
-//
-// Y = P^T A and q = w P reduce over cells, the axis that crosses the softmax
-// rows. w rides along as column k of A_ext = [A | w], so one contraction
-// gives both (column k of the result is q). A block owns 64 spots x 256
-// columns of A_ext and loops over its share of the cells in chunks of 16.
-// The raw M chunk and the A_ext chunk arrive by cp.async into a double
-// buffer, so the next chunk's loads (M from HBM, A from L2) are in flight
-// while the current chunk computes; P is recomputed from (m, l) into shared
-// memory, and each thread accumulates an 8 x 8 register tile.
-// The cells are split into `nsplit` contiguous ranges (grid.z) to fill the
-// card; each range writes its own partial sums, and ext_reduce adds them
-// in a fixed order. Bound: f32 FMA (2 c s (k+1) flops); M is read once,
-// A_ext (26 MB) once per spot tile, mostly from L2.
-//
-// M of type bf16 cannot go by 4-byte cp.async per element, and pairs of
-// bf16 misalign every other row when s is odd; so the next chunk of a bf16
-// M is loaded into registers (4 a thread) before the current chunk
-// computes and lands in shared memory after it. A bf16 A (compute_dtype)
-// arrives by 16-byte cp.async into a bf16 tile (the wrapper pads its rows
-// to a multiple of 8 entries, lda), widened to f32 by shifts in the product
-// loop, and w into its own small tile. With a bf16 A, JAX rounds P
-// to bf16 for Y = P^T A and keeps the f32 P for q = w P: here each P is
-// rounded once, into a second tile (Pr) that every column of A takes, and
-// in the block holding column k (w) the first 64 threads, one per spot, sum
-// w times the f32 P of each chunk for q, outside the product loop.
-// ---------------------------------------------------------------------------
-
-constexpr int PJ_BS = 64;    // spots per block
-constexpr int PJ_BJ = 256;   // A_ext columns per block
-constexpr int PJ_BC = 16;    // cells per chunk
-constexpr int PJ_THREADS = 256;
-
-
-template <typename TM, typename TA>
-__global__ void __launch_bounds__(PJ_THREADS, 2)
-project_kernel(const TM* __restrict__ M, const TA* __restrict__ A,
-               const float* __restrict__ w, const float* __restrict__ mrow,
-               const float* __restrict__ lrow, float* __restrict__ partial,
-               int c, int s, int k, int lda, int cells_per_split) {
-  constexpr bool M_BF16 = std::is_same<TM, bf16>::value;
-  constexpr bool A_BF16 = std::is_same<TA, bf16>::value;
-  constexpr int M_PER_THREAD = PJ_BC * PJ_BS / PJ_THREADS;  // 4
-  __shared__ __align__(16) float Ms[2][PJ_BC][PJ_BS];
-  // [A | w] in f32, or a bf16 A and w apart
-  __shared__ __align__(16) float As[2][A_BF16 ? 1 : PJ_BC][A_BF16 ? 4 : PJ_BJ];
-  __shared__ __align__(16) unsigned short Ab[2][A_BF16 ? PJ_BC : 1][A_BF16 ? PJ_BJ : 8];
-  __shared__ __align__(16) float Ws[2][PJ_BC];
-  __shared__ __align__(16) float Ps[PJ_BC][PJ_BS];
-  __shared__ __align__(16) float Pr[A_BF16 ? PJ_BC : 1][PJ_BS];  // bf16(P), as f32
-  const int tid = threadIdx.x;
-  const int ty = tid >> 5;   // 8 spot groups of 8 spots
-  const int tx = tid & 31;   // 32 column groups: tx*4.. and 128+tx*4..
-  const int s0 = blockIdx.x * PJ_BS;
-  const int j0 = blockIdx.y * PJ_BJ;
-  const int K1 = k + 1;
-  const int c_begin = blockIdx.z * cells_per_split;
-  const int c_end = min(c, c_begin + cells_per_split);
-  // the P tile that the columns of A take
-  const float (*PY)[PJ_BS] = A_BF16 ? Pr : Ps;
-  // with a bf16 A: column k (w) in this block, and whether this thread sums
-  // q for spot s0 + tid
-  const int wcol = k - j0;
-  const bool q_thread = A_BF16 && wcol >= 0 && wcol < PJ_BJ && tid < PJ_BS;
-  float mreg[M_PER_THREAD];  // a bf16 M's next chunk, in flight
-
-  // start the loads of the chunk at cell c0 into buffer b (a bf16 M into
-  // mreg, for land_m to store)
-  auto issue = [&](int c0, int b) {
-#pragma unroll
-    for (int q = 0; q < M_PER_THREAD; ++q) {
-      const int e = tid + q * PJ_THREADS;
-      const int cc = e / PJ_BS, ss = e % PJ_BS;
-      const int cell = c0 + cc, spot = s0 + ss;
-      const bool ok = cell < c_end && spot < s;
-      if constexpr (M_BF16)
-        mreg[q] = ok ? load_f32(M + (size_t)cell * s + spot) : 0.0f;
-      else
-        cp_async_f32(&Ms[b][cc][ss], ok ? M + (size_t)cell * s + spot : M, ok);
-    }
-    if constexpr (A_BF16) {
-      // 16 rows of 32 segments of 8 entries; a segment at or past lda (a
-      // multiple of 8) is zeros, as are the pad columns from k to lda
-      for (int e = tid; e < PJ_BC * (PJ_BJ / 8); e += PJ_THREADS) {
-        const int cc = e / (PJ_BJ / 8), j = j0 + e % (PJ_BJ / 8) * 8;
-        const int cell = c0 + cc;
-        const bool ok = cell < c_end && j < lda;
-        cp_async_16(&Ab[b][cc][j - j0], ok ? A + (size_t)cell * lda + j : A, ok);
-      }
-      if (tid < PJ_BC) {
-        const bool in = c0 + tid < c_end;
-        cp_async_f32(&Ws[b][tid], in ? w + c0 + tid : w, in);
-      }
-    } else {
-      for (int e = tid; e < PJ_BC * PJ_BJ; e += PJ_THREADS) {
-        const int cc = e / PJ_BJ, jj = e % PJ_BJ;
-        const int cell = c0 + cc, j = j0 + jj;
-        const bool in = cell < c_end;
-        const float* src = (in && j < k) ? A + (size_t)cell * k + j
-                           : (in && j == k) ? w + cell : A;
-        cp_async_f32(&As[b][cc][jj], src, in && j <= k);
-      }
-    }
-    cp_async_commit();
-  };
-  auto land_m = [&](int b) {
-    if constexpr (M_BF16) {
-#pragma unroll
-      for (int q = 0; q < M_PER_THREAD; ++q) {
-        const int e = tid + q * PJ_THREADS;
-        Ms[b][e / PJ_BS][e % PJ_BS] = mreg[q];
-      }
-    }
-  };
-
-  float acc[8][8];
-  float qsum = 0.0f;  // with a bf16 A: q of spot s0 + tid from the f32 P
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  if (c_begin < c_end) {
-    issue(c_begin, 0);
-    land_m(0);
-  }
-  int buf = 0;
-  for (int c0 = c_begin; c0 < c_end; c0 += PJ_BC, buf ^= 1) {
-    const bool more = c0 + PJ_BC < c_end;
-    if (more) {
-      issue(c0 + PJ_BC, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this chunk's copies are visible to every thread
-    for (int e = tid; e < PJ_BC * PJ_BS; e += PJ_THREADS) {
-      const int cc = e / PJ_BS, ss = e % PJ_BS;
-      const int cell = c0 + cc, spot = s0 + ss;
-      float p = 0.0f;
-      if (cell < c_end && spot < s)
-        p = expf(Ms[buf][cc][ss] - mrow[cell]) * (1.0f / lrow[cell]);
-      Ps[cc][ss] = p;
-      if constexpr (A_BF16) Pr[cc][ss] = round_bf16(p);
-    }
-    __syncthreads();
-    if (q_thread) {
-#pragma unroll
-      for (int cc = 0; cc < PJ_BC; ++cc) qsum = fmaf(Ws[buf][cc], Ps[cc][tid], qsum);
-    }
-#pragma unroll
-    for (int cc = 0; cc < PJ_BC; ++cc) {
-      const float4 p0 = *reinterpret_cast<const float4*>(&PY[cc][ty * 8]);
-      const float4 p1 = *reinterpret_cast<const float4*>(&PY[cc][ty * 8 + 4]);
-      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      float a[8];
-      if constexpr (A_BF16) {
-        const uint2 r0 = *reinterpret_cast<const uint2*>(&Ab[buf][cc][tx * 4]);
-        const uint2 r1 = *reinterpret_cast<const uint2*>(&Ab[buf][cc][128 + tx * 4]);
-        const uint32_t pair[4] = {r0.x, r0.y, r1.x, r1.y};
-#pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          a[2 * h] = __uint_as_float(pair[h] << 16);
-          a[2 * h + 1] = __uint_as_float(pair[h] & 0xFFFF0000u);
-        }
-      } else {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][cc][tx * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][cc][128 + tx * 4]);
-        a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], a[j], acc[i][j]);
-    }
-    if (more) land_m(buf ^ 1);  // Ms[buf ^ 1] was last read a chunk ago
-    __syncthreads();  // Ps and As/Ab/Ws[buf] are free for the next chunk's writes
-  }
-
-  float* out = partial + (size_t)blockIdx.z * s * K1;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int spot = s0 + ty * 8 + i;
-    if (spot >= s) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j0 + (j < 4 ? tx * 4 + j : 128 + tx * 4 + (j - 4));
-      if (col < K1 && !(A_BF16 && col == k)) out[(size_t)spot * K1 + col] = acc[i][j];
-    }
-  }
-  if (q_thread && s0 + tid < s) out[(size_t)(s0 + tid) * K1 + k] = qsum;
-}
-
-// The sum over the splits of a (nsplit, rows, k + 1) partial, in split
-// order, split into its first k columns X (rows, k) and its last v (rows,):
-// Y and q for project, dA and dw for dm_backward.
-__global__ void ext_reduce_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ X, float* __restrict__ v,
-                                  int rows, int k, int nsplit) {
-  const int K1 = k + 1;
-  const size_t n = (size_t)rows * K1;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.0f;
-    for (int z = 0; z < nsplit; ++z) acc += partial[(size_t)z * n + e];
-    const size_t row = e / K1;
-    const int col = (int)(e % K1);
-    if (col < k) X[row * k + col] = acc;
-    else v[row] = acc;
-  }
-}
-
-cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows, int k,
-                              int nsplit, cudaStream_t st) {
-  const size_t n = (size_t)rows * (k + 1);
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  ext_reduce_kernel<<<blocks, 256, 0, st>>>(partial, X, v, rows, k, nsplit);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -380,9 +157,9 @@ cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows
 // cell block writes one row of a (ceil(c / 64), s) partial, and col_sum adds
 // the rows in block order (the counterpart of the TPU kernel's column
 // partials).
-// Bound: f32 FMA, like project (gsq and adafactor do 2 c s (k+1) flops
-// each); adafactor also moves 1 read and 1 write of c x s. dm does twice
-// the flops (its second product P [dY | dq]) and writes dM.
+// Bound: f32 FMA (gsq and adafactor do 2 c s (k+1) flops each); adafactor
+// also moves 1 read and 1 write of c x s. dm does twice the flops (its
+// second product P [dY | dq]) and writes dM.
 //
 // dm's second product reduces over spots, the axis the block walks, into a
 // (64 cells x (k + 1)) result that is far too large for registers (250
@@ -393,8 +170,8 @@ cudaError_t launch_ext_reduce(const float* partial, float* X, float* v, int rows
 // 4-cell x 4-column register tile per chunk, and adds it into the block's
 // own slice of a (nsplit, c, k + 1) partial in device memory: the first
 // tile writes, later ones add (read-modify-write of addresses no other
-// thread touches, mostly L2 hits). ext_reduce then adds the splits in
-// order. Deterministic, no atomics, like the rest.
+// thread touches, mostly L2 hits). ext_reduce (common.cuh) then adds the
+// splits in order. Deterministic, no atomics, like the rest.
 // ---------------------------------------------------------------------------
 
 constexpr int DP_TC = 64;    // cells per block
@@ -880,39 +657,6 @@ extern "C" int tg_rowstats_norms(const void* M, float* m, float* l, float* u,
                                  void* stream) {
   return (int)launch_rowstats<true>(M, m, l, u, s1, s2, c, s, m_bf16,
                                     (cudaStream_t)stream);
-}
-
-// partial: (nsplit, s, k + 1) scratch; Y: (s, k); q: (s,); M f32 or bf16
-// (m_bf16), A f32 or bf16 (a_bf16; then its rows are lda apart, lda a
-// multiple of 8 entries, 16-byte aligned, zeros from column k on), w f32
-extern "C" int tg_project(const void* M, const void* A, const float* w,
-                          const float* m, const float* l, float* partial,
-                          float* Y, float* q, int c, int s, int k, int nsplit,
-                          int m_bf16, int a_bf16, int lda, void* stream) {
-  const int K1 = k + 1;
-  int cells_per_split = (c + nsplit - 1) / nsplit;
-  cells_per_split = (cells_per_split + PJ_BC - 1) / PJ_BC * PJ_BC;
-  const dim3 grid((s + PJ_BS - 1) / PJ_BS, (K1 + PJ_BJ - 1) / PJ_BJ, nsplit);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float* Mf = static_cast<const float*>(M);
-  const bf16* Mb = static_cast<const bf16*>(M);
-  const float* Af = static_cast<const float*>(A);
-  const bf16* Ab = static_cast<const bf16*>(A);
-  if (m_bf16 && a_bf16)
-    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mb, Ab, w, m, l, partial, c, s, k,
-                                                lda, cells_per_split);
-  else if (m_bf16)
-    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mb, Af, w, m, l, partial, c, s, k,
-                                                lda, cells_per_split);
-  else if (a_bf16)
-    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mf, Ab, w, m, l, partial, c, s, k,
-                                                lda, cells_per_split);
-  else
-    project_kernel<<<grid, PJ_THREADS, 0, st>>>(Mf, Af, w, m, l, partial, c, s, k,
-                                                lda, cells_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_ext_reduce(partial, Y, q, s, k, nsplit, st);
 }
 
 // vr_part: (nsplit, c) and vc_part: (ceil(c / 64), s) scratch; vr: (c,) =

@@ -42,7 +42,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tg_rowstats": (_P, _P, _P, _P, _I, _I, _I, _P),
     "tg_rowstats_norms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "tg_project": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tg_project": (_P,) * 8 + (_I,) * 8 + (_P,),
     "tg_rbar": (_P,) * 10 + (_I,) * 9 + (_P,),
     "tg_dm_adam": (_P,) * 17 + (_I,) * 5 + (_F,) * 5 + (_I,) * 9 + (_P,),
     "tg_gsq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -149,8 +149,9 @@ def load_kernels(extra_flags: tuple = ()) -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    if hasattr(lib, "tg_dp_profile_read"):  # built with -DTG_DP_PROFILE
-        lib.tg_dp_profile_read.argtypes = (_P,)
-        lib.tg_dp_profile_read.restype = ctypes.c_int
+    for name in ("tg_dp_profile_read", "tg_pj_profile_read"):
+        if hasattr(lib, name):  # built with -DTG_DP_PROFILE
+            getattr(lib, name).argtypes = (_P,)
+            getattr(lib, name).restype = ctypes.c_int
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib=lib, path=lib_path, build_seconds=seconds, log=log)

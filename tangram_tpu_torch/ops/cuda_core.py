@@ -6,7 +6,8 @@ Counterpart of ``tangram_tpu/ops/pallas_core.py`` (``_rowstats``,
 of ``tangram_tpu/ops/fused_step.py::_rbar``. Each wrapper takes the JAX
 function's arguments and returns its outputs in the same shapes. On a CUDA tensor it launches the
 hand-written kernel from ``csrc/`` (``mapper_kernels.cu``; rbar from
-``dp_tensor_kernels.cu``, the tensor-core dP tile) (and counts the launch
+``dp_tensor_kernels.cu``, the tensor-core dP tile; the projection from
+``project_tc_kernels.cu``, on the tensor cores too) (and counts the launch
 in :data:`LAUNCHES`); on a CPU tensor it runs the plain PyTorch twin that
 sits beside it. There is no other path: a CUDA launch that fails raises.
 
@@ -28,7 +29,7 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
            "_project", "_rbar", "_backward", "tf32_split", "DpOperands",
-           "dp_operand", "dp_operands"]
+           "dp_operand", "dp_operands", "project_operand", "project_tf32_plain"]
 
 #: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
 #: A for project) counts as ``name + ".bf16"``
@@ -149,15 +150,31 @@ def _rowstats(M):
 
 _PJ_SPOTS = 64    # spots per block of the project kernel
 _PJ_COLS = 256    # columns of [A | w] per block
+_PJ_CELLS = 16    # cells per chunk (one fresh tensor-core accumulator)
+# what a block pays once, whatever its share of the cells (filling its copy
+# ring, writing its partial), in chunks
+_PJ_BLOCK_OVERHEAD = 4
 
 
 def project_splits(c: int, s: int, k: int, sm_count: int) -> int:
     """How many contiguous cell ranges the project kernel reduces over in
-    parallel: enough blocks for about eight per SM, each range at least 512
-    cells (fewer splits for few cells — clusters mode has tens)."""
+    parallel (grid.z). One block is resident per SM and the blocks of a
+    launch run in waves of sm_count, so the split is the one with the least
+    estimated time, waves × (chunks of 16 cells per block + the block's
+    fixed cost), the fewest splits on a tie: 6 at the tutorial shape (154
+    spot tiles × 6 = 924 blocks, exactly 7 waves of 132), 1 for clusters
+    mode's few cells, whose 154 spot tiles fill the card alone."""
     base = math.ceil(s / _PJ_SPOTS) * math.ceil((k + 1) / _PJ_COLS)
-    want = math.ceil(8 * sm_count / max(base, 1))
-    return max(1, min(want, math.ceil(c / 512), 16))
+    chunks = max(1, math.ceil(c / _PJ_CELLS))
+    best, best_cost = 1, math.inf
+    for n in range(1, min(chunks, 4 * sm_count) + 1):
+        per = math.ceil(chunks / n)
+        if math.ceil(chunks / per) != n:  # the same blocks as a smaller n
+            continue
+        cost = math.ceil(base * n / sm_count) * (per + _PJ_BLOCK_OVERHEAD)
+        if cost < best_cost:
+            best, best_cost = n, cost
+    return best
 
 
 def _rows_of_8(A):
@@ -173,11 +190,44 @@ def _rows_of_8(A):
     return A8, k8
 
 
+def project_operand(A, w):
+    """The X operand of the project kernel and its row stride: for an f32 A,
+    [A | w] (c, ldx) f32 with ldx = k + 1 rounded up to a multiple of 4 and
+    zeros beyond column k (16-byte rows, what the kernel's asynchronous
+    copies take); for a bf16 A, A's rows padded to 8 entries
+    (:func:`_rows_of_8`), w apart, since q = wP takes the f32 P. Built per
+    call: a copy of 26.6 MB at the tutorial shape, 0.02 ms of HBM traffic
+    against the kernel's milliseconds."""
+    c, k = A.shape
+    if A.dtype == torch.bfloat16:
+        return _rows_of_8(A)
+    ldx = -(-(k + 1) // 4) * 4
+    X = torch.zeros((c, ldx), dtype=torch.float32, device=A.device)
+    X[:, :k] = A
+    X[:, k] = w
+    return X, ldx
+
+
+def _project_p(M, m, l):
+    return torch.exp(M.float() - m) * (1.0 / l)
+
+
 def _project_plain(M, A, w, m, l):
-    P = torch.exp(M.float() - m) * (1.0 / l)
+    P = _project_p(M, m, l)
     # Y = PᵀA takes P in A's type (JAX's P.astype(A.dtype)); q = wP the f32 P
     PA = P.to(A.dtype).float() if A.dtype != torch.float32 else P
     return PA.T @ A.float(), w @ P
+
+
+def project_tf32_plain(M, A, w, m, l, terms: int = 3):
+    """(Y, q) of an f32 A as the tensor-core project kernel forms them: the
+    product Pᵀ [A | w] of the TF32 parts of P and of X = [A | w]
+    (:func:`tf32_product_plain`: ``lo·hi + hi·lo + hi·hi``, the small terms
+    first, f32 accumulation), split into its first k columns and its last;
+    ``terms=1`` is the single TF32 pass, which loses f32 accuracy."""
+    X = _ext(A, w)
+    Y_ext = tf32_product_plain(_project_p(M, m, l).T.contiguous(), X.T.contiguous(), terms)
+    return Y_ext[:, :-1], Y_ext[:, -1]
 
 
 def project_rounding_slack(M, A, m, l, window: int = 16):
@@ -210,18 +260,19 @@ def _project(M, A, w, m, l):
     if lib is None:
         return _project_plain(M, A, w, m, l)
     dev = M.device
-    nsplit = project_splits(
-        c, s, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    nsplit = project_splits(c, s, k, _sm_count(M))
     partial = torch.empty((nsplit, s, k + 1), dtype=torch.float32, device=dev)
     Y = torch.empty((s, k), dtype=torch.float32, device=dev)
     q = torch.empty((s,), dtype=torch.float32, device=dev)
-    A_in, lda = _rows_of_8(A) if A.dtype == torch.bfloat16 else (A, k)
+    X, ldx = project_operand(A, w)
+    # the kernel copies w, m and l 16 bytes at a time
+    w, m, l = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (w, m, l))
     if s:
         with torch.cuda.device(dev):
-            lib.call("tg_project", M.data_ptr(), A_in.data_ptr(), w.data_ptr(),
-                     m.data_ptr(), l.data_ptr(), partial.data_ptr(),
-                     Y.data_ptr(), q.data_ptr(), c, s, k, nsplit, is_bf16(M),
-                     is_bf16(A), lda, stream_of(M))
+            lib.call("tg_project", M.data_ptr(), X.data_ptr(), w.data_ptr(),
+                     m.data_ptr(), l.data_ptr(), partial.data_ptr(), Y.data_ptr(),
+                     q.data_ptr(), c, s, k, ldx, nsplit, is_bf16(M), is_bf16(A),
+                     stage_granule(s, M), stream_of(M))
         count_launch("project", M, A)
     return Y, q
 

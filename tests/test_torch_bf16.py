@@ -238,6 +238,26 @@ def test_project_twin_matches_jax_on_bf16(c, s, k, a_bf16):
     assert float(((P.T @ A.float() - Yj).abs() - slack).max()) > 1e-5 * scale
 
 
+def test_project_bf16_a_takes_one_exact_pass_and_q_the_f32_p():
+    """What the tensor-core kernel forms with a bf16 A: Y is bf16(P)ᵀ A with
+    exact products and f32 sums (one bf16 pass: within 1e-6 of the float64
+    product of the same rounded operands), q = wP from the f32 P (within
+    1e-6 of float64; a q of bf16(P) misses by more than 1e-4), and its X
+    operand is A's bf16 rows padded to 8 entries, w apart."""
+    x = make_inputs(300, 50, 13)
+    M, A, w = T(x["M"], True), T(x["A"], True), T(x["w"])
+    m, l, _ = cc._rowstats_plain(M)
+    Y, q = cc._project(M, A, w, m, l)
+    P = torch.exp(M.double() - m.double()) / l.double()
+    Pb = (torch.exp(M.float() - m) * (1.0 / l)).to(torch.bfloat16).double()
+    for got, want in ((Y, Pb.T @ A.double()), (q, w.double() @ P)):
+        assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    q_rounded = w.double() @ Pb
+    assert float((q_rounded - w.double() @ P).abs().max()) > 1e-4 * float(q.abs().max())
+    X, lda = cc.project_operand(A, w)
+    assert X.dtype == torch.bfloat16 and lda == 16 and torch.equal(X[:, :13], A)
+
+
 def jax_rbar(x, m, l, with_dh):
     return np.asarray(jfs._rbar(*jax_args(x, m, l), with_dh=with_dh))
 

@@ -12,9 +12,9 @@ tutorial shape.
 Tolerance: max |kernel − twin| ≤ 1e-4 · max |twin| per output (1e-5 for the
 row stats): both are IEEE f32 and differ only in summation order. The L1/L2
 cases plant one padding sentinel in M and take the scale of the other
-entries. rbar and dm_adam form A·dYᵀ on the tensor cores from TF32 parts of
-the f32 operands (3×TF32); the witness test holds them to f32 accuracy
-against float64. The shapes cover one resident A panel and two (k = 300),
+entries. rbar and dm_adam form A·dYᵀ, and project Pᵀ[A | w], on the tensor
+cores from TF32 parts of the f32 operands (3×TF32); the witness tests hold
+them to f32 accuracy against float64. The shapes cover one resident A panel and two (k = 300),
 even and odd row lengths (16-, 8- and 4-byte staging copies, the bf16
 element path, paired and single stores), and a single ragged tile.
 """
@@ -43,6 +43,7 @@ def dev():
 
 PAD = -1e25  # a padding sentinel, below PAD_GUARD
 NORMS = (0.01, 0.02)  # (lambda_l1, lambda_l2)
+WITNESS = (4.0, 10.0)  # the f32-accuracy witness (chip_smoke.F32_WITNESS)
 
 
 def inputs(c, s, k, dev, seed=0, pad=False):
@@ -83,6 +84,70 @@ def test_forward_kernels_match_twins(dev, c, s, k):
     assert cc.LAUNCHES["project"] == before["project"] + 1
 
 
+# project's own paths: ragged c, s and k; two column panels (k = 300);
+# clusters mode's 22 cells over 9,852 spots; the staging of M's rows (f32
+# rows of 56, 54 and 53 entries: 16-, 8- and 4-byte copies; bf16 rows of
+# 56, 52, 54 and 53 entries: 16, 8 and 4 bytes, and entry by entry); a PAD
+# sentinel in each
+PROJECT_SHAPES = [(37, 53, 7), (70, 301, 300), (22, 9_852, 249), (1_000, 56, 255),
+                  (33, 54, 256), (530, 52, 9)]
+
+
+@pytest.mark.parametrize("a_bf16", [False, True])
+@pytest.mark.parametrize("m_bf16", [False, True])
+@pytest.mark.parametrize("c,s,k", PROJECT_SHAPES)
+def test_project_kernel_matches_twin_and_repeats(dev, c, s, k, m_bf16, a_bf16):
+    """The tensor-core project kernel against its twin (a bf16 A: Y by the
+    bf16 rule below, beyond the slack of P's rounding), counted once under
+    its name, and two repeats that give the same bits."""
+    bf = torch.bfloat16
+    x = inputs(c, s, k, dev, pad=True)
+    M = x["M"].to(bf) if m_bf16 else x["M"]
+    A = x["A"].to(bf) if a_bf16 else x["A"]
+    m, l, _ = cc._rowstats_plain(M)
+    cc.reset_launches()
+    Y, q = cc._project(M, A, x["w"], m, l)
+    name = "project.bf16" if m_bf16 or a_bf16 else "project"
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == {name: 1}
+    Yp, qp = cc._project_plain(M, A, x["w"], m, l)
+    assert_close(q, qp)
+    if a_bf16:
+        slack = cc.project_rounding_slack(M, A, m, l)
+        assert float(((Y - Yp).abs() - slack).max()) <= Y_RTOL * float(Yp.abs().max())
+    else:
+        assert_close(Y, Yp)
+    for _ in range(2):
+        Y2, q2 = cc._project(M, A, x["w"], m, l)
+        assert torch.equal(Y, Y2) and torch.equal(q, q2)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("c,s,k", [(37, 53, 7), (2_000, 301, 40), (22, 9_852, 249)])
+def test_project_keeps_f32_accuracy(dev, c, s, k, signed):
+    """Y and q against a float64 projection: the kernel errs at most 4×
+    what the f32 twin errs; on signed operands (A centred, w of random
+    sign) a twin whose P was rounded once to TF32 misses the kernel by more
+    than 10× that margin (on the counts, all terms >= 0, one rounding of P
+    averages out over deep sums, as chip_smoke.py's witness notes)."""
+    x = inputs(c, s, k, dev, seed=3)
+    M, A, w = x["M"], x["A"] + torch.rand_like(x["A"]), x["w"]
+    if signed:
+        A = A - A.mean(dim=0)
+        w = w * torch.where(torch.rand_like(w) < 0.5, -1.0, 1.0)
+    m, l, _ = cc._rowstats_plain(M)
+    P = torch.exp(M.double() - m.double()) / l.double()
+    P_t = cc.tf32_split(torch.exp(M - m) * (1.0 / l))[0]
+    want = (P.T @ A.double(), w.double() @ P)
+    got = cc._project(M, A, w, m, l)
+    plain = cc._project_plain(M, A, w, m, l)
+    rounded = (P_t.T @ A, w @ P_t)
+    for g, p, r, t in zip(got, plain, rounded, want):
+        margin = WITNESS[0] * float((p.double() - t).abs().max())
+        assert float((g.double() - t).abs().max()) <= margin
+        if signed:
+            assert float((r - g).abs().max()) > WITNESS[1] * margin
+
+
 @pytest.mark.parametrize("with_dh", [False, True])
 @pytest.mark.parametrize("c,s,k", SHAPES)
 def test_backward_kernels_match_twins(dev, c, s, k, with_dh):
@@ -118,8 +183,6 @@ def test_dm_backward_kernel_matches_twin(dev, c, s, k, with_dh):
         assert g.shape == w.shape
         assert_close(g, w)
 
-
-WITNESS = (4.0, 10.0)
 
 
 @pytest.mark.parametrize("c,s,k", SHAPES)

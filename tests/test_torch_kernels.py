@@ -358,11 +358,21 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
 
 
 def test_project_split_count():
-    """The cell split of the project kernel: about eight blocks per SM at the
-    tutorial shape, none for clusters mode's few cells."""
-    assert cc.project_splits(26_000, 9_852, 249, sm_count=132) == 7
+    """The cell split of the project kernel (one block of 64 spots x 256
+    columns per SM): at the tutorial shape the split that fills whole waves
+    of 132 blocks (6: 154 spot tiles x 6 = 924 blocks, 7 waves), none for
+    clusters mode's few cells (154 spot tiles alone), one wave of 132
+    blocks where one spot tile is all there is, fewer with two column
+    panels (k = 300)."""
+    assert cc.project_splits(26_000, 9_852, 249, sm_count=132) == 6
     assert cc.project_splits(22, 9_852, 249, sm_count=132) == 1
-    assert cc.project_splits(10**6, 64, 3, sm_count=132) == 16
+    assert cc.project_splits(10**6, 64, 3, sm_count=132) == 132
+    assert cc.project_splits(26_000, 9_852, 300, sm_count=132) == 3
+    # every split owns whole 16-cell chunks, and none is empty
+    for c, s, k in ((26_000, 9_852, 249), (5_000, 9_852, 249), (37, 53, 7), (530, 52, 9)):
+        n = cc.project_splits(c, s, k, sm_count=132)
+        chunks = -(-c // 16)
+        assert 1 <= n <= chunks and -(-chunks // -(-chunks // n)) == n
 
 
 def test_dp_split_count():
@@ -450,6 +460,80 @@ def test_three_tf32_terms_keep_f32_accuracy_and_one_does_not():
     three = float((cc.tf32_product_plain(A, dY).double() - want).abs().max()) / scale
     one = float((cc.tf32_product_plain(A, dY, terms=1).double() - want).abs().max()) / scale
     assert three <= 1e-6 < 1e-4 < one, (three, one)
+
+
+def fractional(x, seed=5):
+    """Counts plus a seeded fraction: small integers are exact in TF32 and
+    would hide a rounded operand."""
+    rng = np.random.default_rng(seed)
+    return (x + rng.random(x.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_project_tf32_twin_matches_jax_and_float64(c, s, k):
+    """project's Y and q as the tensor-core kernel forms them (the three-term
+    TF32 product of P and [A | w]) against the JAX kernel (interpret mode)
+    at the twins' tolerance, and against a float64 projection within 1e-6 of
+    its largest entry."""
+    x = make_inputs(c, s, k)
+    A = fractional(x["A"])
+    m, l, _ = jax_stats(x["M"])
+    Yj, qj = jpc._project(jnp.asarray(x["M"]), jpc._pad_k(jnp.asarray(A)),
+                          jnp.asarray(x["w"]), jnp.asarray(m), jnp.asarray(l))
+    Y, q = cc.project_tf32_plain(T(x["M"]), T(A), T(x["w"]), T(m), T(l))
+    assert tuple(Y.shape) == (s, k) and tuple(q.shape) == (s,)
+    close(Y, np.asarray(Yj)[:, :k])
+    close(q, qj)
+    P = torch.exp(T(x["M"]).double() - T(m).double()) / T(l).double()
+    for got, want in ((Y, P.T @ T(A).double()), (q, T(x["w"]).double() @ P)):
+        assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_project_single_tf32_pass_misses(signed):
+    """2,000 cells: the three-term product within 1e-6 of a float64
+    projection (of its largest entry), a single TF32 pass beyond 1e-5 on
+    the counts (every term >= 0) and beyond 1e-4 on signed operands, where
+    its rounding does not average out; the fault the kernel's accuracy
+    witness exists for."""
+    rng = np.random.default_rng(4)
+    c, s, k = 2_000, 40, 12
+    M = T(rng.normal(0, 1, (c, s)))
+    A = fractional(rng.poisson(1.5, (c, k)))
+    w = rng.random(c) / c
+    if signed:
+        A, w = A - A.mean(axis=0), w * np.where(rng.random(c) < 0.5, -1.0, 1.0)
+    A, w = T(A), T(w)
+    m, l, _ = cc._rowstats_plain(M)
+    P = torch.exp(M.double() - m.double()) / l.double()
+    want = (P.T @ A.double(), w.double() @ P)
+
+    def err(terms):
+        got = cc.project_tf32_plain(M, A, w, m, l, terms)
+        return max(float((g.double() - t).abs().max()) / float(t.abs().max())
+                   for g, t in zip(got, want))
+
+    three, one = err(3), err(1)
+    assert three <= 1e-6 < (1e-4 if signed else 1e-5) < one, (three, one)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 7, 249, 255, 256, 300])
+def test_project_operand_layout(k):
+    """The project kernel's X operand: for an f32 A, [A | w] with rows of
+    k + 1 rounded up to 4 entries (16 bytes) and zeros beyond; for a bf16 A,
+    A's rows padded to 8 entries (16 bytes), w apart."""
+    x = make_inputs(9, 5, k)
+    A, w = T(x["A"]), T(x["w"])
+    X, ldx = cc.project_operand(A, w)
+    assert X.dtype == torch.float32 and tuple(X.shape) == (9, ldx) and X.is_contiguous()
+    assert ldx % 4 == 0 and 0 <= ldx - (k + 1) < 4 and X.data_ptr() % 16 == 0
+    assert torch.equal(X[:, :k], A) and torch.equal(X[:, k], w)
+    assert float(X[:, k + 1:].abs().sum()) == 0
+    Ab = A.to(torch.bfloat16)
+    Xb, lda = cc.project_operand(Ab, w)
+    assert Xb.dtype == torch.bfloat16 and tuple(Xb.shape) == (9, lda) and Xb.is_contiguous()
+    assert lda % 8 == 0 and 0 <= lda - k < 8 and Xb.data_ptr() % 16 == 0
+    assert torch.equal(Xb[:, :k], Ab) and float(Xb[:, k:].float().abs().sum()) == 0
 
 
 @pytest.mark.parametrize("c,s,k", SHAPES + [(5, 9, 33), (3, 4, 64)])
