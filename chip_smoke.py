@@ -14,19 +14,23 @@ last line):
 2. build      nvcc builds tangram_tpu_torch/csrc/*.cu for sm_90a
 3. kernels    each CUDA kernel against its plain PyTorch twin on seeded
               inputs at the tutorial shape (26,000 cells x 9,852 spots x 249
-              genes), at its clusters-mode shape (22 x 9,852 x 249) and at a
-              ragged small shape with one padding sentinel in M, with and
+              genes), at its clusters-mode shape (22 x 9,852 x 249), at a
+              ragged small shape with one padding sentinel in M and at a
+              deep one (k = 300 > 256: A in two panels, dm_backward's output
+              in two column panels; odd s: the bf16 element path), with and
               without the entropy cotangent and the L1/L2 terms (their λ
               scaled to each case's gradient, and each norm case shown to
               miss a twin with the norm gradient dropped or sign-flipped);
               one forward + backward of the kernels' MapperCore against
-              autograd through the materialized core (tutorial shape);
+              autograd through the materialized core (tutorial shape, f32
+              and a bf16 M, each with its launch counts);
               median times from CUDA events, each kernel's bound (the least
               time the card could take for its work; an f32 contraction
               at the faster of the FMA pipes and 3xTF32 on the tensor
               cores) and the cuBLAS f32 GEMM time at each contraction's
               shape; at every shape the f32-accuracy witness of the
-              tensor-core kernels (rbar, dm_adam; project's Y and q):
+              tensor-core kernels (rbar, dm_adam, dm_adafactor's M,
+              dm_backward's dM, dA and dw; project's Y and q):
               against float64 twins the kernel errs at most 4x what the f32
               twin errs, and a twin with A and dY (P) rounded once to TF32
               misses it by more than 10x that; --shapes picks the
@@ -35,10 +39,11 @@ last line):
               bands of sentinel words that must stay intact (out-of-bounds
               writes), and each kernel run three times on the same inputs
               must give the same bits (races: the kernels reduce in a fixed
-              order, with no atomics). Then the bf16 variants of rows 1-5,
-              8 and 9 the same way (bf16 M, mu, nu, A and dY; the updates
-              rounding to nearest and stochastically; stored values within
-              1 bf16 ulp of the twin's)
+              order, with no atomics). Then the bf16 variants of rows 1-9
+              the same way (bf16 M, mu, nu, A and dY; the backward's with a
+              bf16 M and f32 A and dY; the updates rounding to nearest and
+              stochastically; stored values within 1 bf16 ulp of the
+              twin's)
 4. cells      synthetic tutorial pair -> pp_adatas -> map_cells_to_space
               (cells mode, Adam, 100 epochs) -> project_genes ->
               compare_spatial_geneexp, with the kernels' launch counts and
@@ -63,7 +68,8 @@ last line):
               of phase 4, 7 or 6), with launch counts, rows summing to 1,
               final score, ms/step and peak device memory; then two 10-step
               runs from one start that must store the same bits, for f32
-              Adam, f32 Adafactor + L1/L2, constrained Adam (M and F) and (a)
+              Adam, f32 Adafactor + L1/L2, constrained Adam (M and F),
+              constrained Adafactor (the autograd loop) and (a)
 9. reference  10 epochs of the kernels against the materialized reference
               loop at the tutorial shape for Adam, Adam + L1/L2, Adafactor
               + L1/L2 (also stepped one epoch at a time, with one kernel
@@ -99,12 +105,15 @@ PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "const
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
-KERNEL_SHAPES = {"ragged": RAGGED, "clusters": CLUSTERS, "tutorial": SHAPE}
+DEEP = (150, 301, 300)            # k > 256 and an odd s
+KERNEL_SHAPES = {"ragged": RAGGED, "deep": DEEP, "clusters": CLUSTERS, "tutorial": SHAPE}
 EPOCHS = 100
 SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
 # the kernels of the tensor-core dP tile have their own source
 TENSOR_SOURCE = "tangram_tpu_torch/csrc/dp_tensor_kernels.cu"
-TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "rbar.bf16", "dm_adam.bf16")
+TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "dm_adafactor", "dm_backward",
+                  "rbar.bf16", "dm_adam.bf16", "dm_adafactor.bf16", "backward_rbar.bf16",
+                  "dm_backward.bf16")
 # and so has the projection on the tensor cores
 PROJECT_SOURCE = "tangram_tpu_torch/csrc/project_tc_kernels.cu"
 PROJECT_KERNELS = ("project", "project.bf16")
@@ -120,10 +129,11 @@ REPLACES = {
     "dm_adafactor": "tangram_tpu/ops/fused_step.py:574",
 }
 # the bf16 variants (bf16 M, and mu, nu, A or dY where the kernel takes
-# them; the updates also with stochastic rounding): the same TPU functions,
-# on their bf16 branches
+# them; the updates also with stochastic rounding; the backward's with f32
+# A and dY, as MapperCore hands them): the same TPU functions, on their
+# bf16 branches
 BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-                "dm_adafactor")
+                "dm_adafactor", "backward_rbar", "dm_backward")
 REPLACES.update({f"{name}.bf16": REPLACES[name] for name in BF16_KERNELS})
 # the kernels that the Adafactor + L1/L2 run carries, and those that the
 # constrained Adafactor run carries (their launch counts come from those
@@ -161,12 +171,13 @@ GUARD, GUARD_BITS = 4096, 0x7FA1DEAD
 # Both sides are IEEE f32; they differ only in summation order (the kernels
 # reduce per thread, then across lanes; the twins through cuBLAS and
 # PyTorch's reductions). Row stats sum 9,852 positive terms; the
-# contractions sum 26,000 (project), 250 (rbar, dm_adam) or 9,852
+# contractions sum 26,000 (project), 250 (the dP tile) or 9,852
 # (dm_backward's dA and dw) terms, so order alone moves the last ~4 bits of
 # the largest values. MapperCore's gradients are held to dm_backward's.
-# rbar and dm_adam form A dY^T, and project P^T [A | w], on the tensor cores
-# from TF32 parts of the f32 operands (3xTF32), which keeps f32 accuracy;
-# F32_WITNESS holds them to it beside RTOL.
+# The dP tile forms A dY^T (and dm_backward P [dY | dq]), and project
+# P^T [A | w], on the tensor cores from TF32 parts of the f32 operands
+# (3xTF32), which keeps f32 accuracy; F32_WITNESS holds them to it beside
+# RTOL.
 RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
         "rowstats_norms": 1e-5, "backward_rbar": 1e-4, "dm_backward": 1e-4,
         "gsq": 1e-4, "dm_adafactor": 1e-4}
@@ -185,14 +196,17 @@ RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
 RTOL.update({f"{name}.bf16": RTOL[name] for name in BF16_KERNELS})
 Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
 # The f32-accuracy witness of the tensor-core dP tile (rbar's r; dm_adam's
-# M, mu, nu and next stats; entropy cotangent off, the timed case), against a
-# float64 twin of the same function on the same f32 inputs: the kernel's
-# largest error is at most F32_WITNESS[0] times the f32 twin's largest error
-# (both differ from float64 by f32 rounding and summation order only), and
-# a twin whose A and dY are rounded once to TF32, the fault a single
-# tensor-core pass would be, misses the kernel by more than F32_WITNESS[1]
-# times that margin on r and on mu (where the gradient enters linearly), so
-# the check can see the fault it exists for. project's Y and q (a sum over
+# M, mu, nu and next stats; dm_adafactor's stored M; dm_backward's dM, dA
+# and dw; entropy cotangent off, the timed case), against a float64 twin of
+# the same function on the same f32 inputs: the kernel's largest error is
+# at most F32_WITNESS[0] times the f32 twin's largest error (both differ
+# from float64 by f32 rounding and summation order only), and a twin whose
+# A and dY (and for dm_backward's second product P and [dY | dq]) are
+# rounded once to TF32, the fault a single tensor-core pass would be,
+# misses the kernel by more than F32_WITNESS[1] times that margin on r, mu,
+# Adafactor's M and dM, dA, dw (where the products enter linearly; a CPU
+# estimate at the tutorial depth on 1,000 cells put that miss at 15-34
+# times the threshold), so the check can see the fault it exists for. project's Y and q (a sum over
 # all c cells) are held the same way against a float64 projection, beside
 # a twin whose P was rounded once to TF32: on the kernel phase's counts plus
 # a fraction (every term >= 0, where a truncated running sum on the tensor
@@ -292,17 +306,21 @@ def kernel_work(name, c, s, k):
     nu, A and dY in 2 bytes; the A·dY (or bf16(P)ᵀA) part of its
     contraction has bf16 operands with f32 accumulation, the tensor cores'
     type, and only the rank-one w ⊗ dq (or wP) part, 2·c·s, stays f32, on
-    the FMA pipes. The elementwise work per (cell, spot) entry (exp, the
+    the FMA pipes; the backward's (backward_rbar, dm_backward) take a bf16
+    M and dM with f32 A and dY, so their products stay f32. The
+    elementwise work per (cell, spot) entry (exp, the
     gradient, the optimizer update, rounding: 5-30 flops) is counted only
     where there is no contraction (the row stats); beside an f32
     contraction it adds little, and a bf16 variant's bytes outweigh it."""
     base, _, variant = name.partition(".")
     bf16 = variant == "bf16"
-    e = 2 if bf16 else 4  # bytes per element of M, mu, nu, A and dY
+    e = 2 if bf16 else 4  # bytes per element of M, mu, nu and dM
+    bf16_ops = bf16 and base not in BACKWARD_KERNELS
+    eo = 2 if bf16_ops else 4  # of A and dY
     cs, K1 = c * s, k + 1
     # M, [A|w], [dY|dq], dh, m, l
-    dp_in = e * cs + e * (c * k + s * k) + 4 * (c + s + 3 * c)
-    ops = (2 * cs, 0, 2 * cs * k) if bf16 else (0, 2 * cs * K1, 0)
+    dp_in = e * cs + eo * (c * k + s * k) + 4 * (c + s + 3 * c)
+    ops = (2 * cs, 0, 2 * cs * k) if bf16_ops else (0, 2 * cs * K1, 0)
     twice = tuple(2 * n for n in ops)
     work = {
         "rowstats": (e * cs + 12 * c, 4 * cs, 0, 0),
@@ -314,7 +332,7 @@ def kernel_work(name, c, s, k):
         "dm_adam": (dp_in + 5 * e * cs + 4 * (c + 3 * c), *ops),
         "gsq": (dp_in + 4 * (c + c + s), *ops),
         "dm_adafactor": (dp_in + e * cs + 4 * (c + c + s + 3 * c), *ops),
-        "dm_backward": (dp_in + 4 * (c + cs + c * K1), *twice),
+        "dm_backward": (dp_in + 4 * c + e * cs + 4 * c * K1, *twice),
     }
     return work[base]
 
@@ -434,7 +452,10 @@ def check_f32_accuracy(shape, x, m, l, scalars):
     rbar's r and dm_adam's M, mu, nu and next stats against float64 twins of
     the same functions on the same f32 inputs, beside the f32 twins and
     beside f32 twins whose A and dY were rounded once to TF32; then
-    project's Y and q, beside a twin whose P was rounded once. A takes a
+    dm_adafactor's stored M and dm_backward's dM, dA and dw the same way
+    (dm_backward's rounded twin also rounds P and [dY | dq] once in its
+    second product); then project's Y and q, beside a twin whose P was
+    rounded once. A takes a
     seeded fraction on top of the kernel phase's counts: small integers are
     exact in TF32 and would leave the rounded twin only dY's error to show
     (real expression matrices are normalized floats). nu is kept away from
@@ -513,6 +534,42 @@ def check_f32_accuracy(shape, x, m, l, scalars):
         miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
         seen = name in ("r", "mu")
         judge(name, err_k, err_p, miss, seen, "A and dY")
+    del want, sides
+
+    # dm_adafactor's stored M at the factors of the twin's own statistics,
+    # and dm_backward's dM, dA, dw: the products enter each linearly
+    c, s = M.shape
+    vr, vc = fs._gsq_plain(M, A, w, m, l, dY, dq, dh, r_p, 0.0, 0.0, with_dh=False)
+    _, _, rowf, colf = fs.factored_rms_vectors(
+        0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, c, s)
+    Md = M.double()
+    P = torch.exp(Md - m.double()) / l.double()
+    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    g = P * (dP - r_p.double())
+    del dP
+    lr = float(f32(0.1))
+    want = {"adafactor M": Md - lr * (g * rowf.double()[:, None] * colf.double()[None, :]),
+            "dM": g, "dA": P @ dY.double(), "dw": P @ dq.double()}
+    del Md, P, g
+    back = (M, A, w, m, l, dY, dq, dh, r_p)
+    sides = {}
+    for side, adafactor, backward, A_in, dY_in in (
+            ("kernel", fs._dm_adafactor, cc._dm_backward, A, dY),
+            ("f32 twin", fs._dm_adafactor_plain, cc._dm_backward_plain, A, dY),
+            ("TF32 twin", fs._dm_adafactor_plain,
+             lambda *a, with_dh: cc.dm_backward_tf32_plain(*a, with_dh=with_dh, terms=1),
+             A_t, dY_t)):
+        out = adafactor(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, rowf, colf, 0.1,
+                        0.0, 0.0, False, with_dh=False)
+        sides[side] = dict(zip(("dM", "dA", "dw"), backward(*back, with_dh=False)),
+                           **{"adafactor M": out[0]})
+    for name, ref in want.items():
+        real = ref.abs() < 1e20
+        err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
+                        for side in ("kernel", "f32 twin"))
+        miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
+        judge(name, err_k, err_p, miss, True,
+              "A and dY" if name == "adafactor M" else "A, dY, P and [dY | dq]")
     del want, sides
 
     # project: Y and q against a float64 projection (F32_WITNESS's note)
@@ -608,11 +665,15 @@ def compare_kernels(shape, dev, results, timed):
     # builds them (its A operand once per fit); the checks below let the
     # wrappers build their own, the timed calls take these
     ops = cc.dp_operands(A, dY)
+    bops = cc.backward_operands(A, dY, dq)  # the unfused backward's, once per backward
     if timed:
         say("kernels", f"dP-tile operands at {shape}: A's {cuda_ms(lambda: cc.dp_operand(A), runs):.3f} "
             f"ms (once per unconstrained fit), dY's "
             f"{cuda_ms(lambda: cc.dp_operand(dY), runs):.3f} ms (once per step); "
-            f"{(ops.A_op.numel() + ops.dY_op.numel()) * 4 / 2**30:.3f} GiB")
+            f"{(ops.A_op.numel() + ops.dY_op.numel()) * 4 / 2**30:.3f} GiB; the "
+            f"backward's A and [dY | dq] "
+            f"{cuda_ms(lambda: cc.backward_operands(A, dY, dq), runs):.3f} ms (once per "
+            f"backward)")
     for with_dh in (False, True):
         tag = f"{shape} with_dh={with_dh}"
         args = (M, A, w, m, l, dY, dq, dh)
@@ -688,33 +749,39 @@ def compare_kernels(shape, dev, results, timed):
             if timed and not with_dh and with_norms:  # the adafactor phase's case
                 time_pair("gsq", lambda: fs._gsq(*args, r_p, *lam, with_dh=False),
                           lambda: fs._gsq_plain(*args, r_p, *lam, with_dh=False))
+                # as the fused step calls it: the step's operands built once
                 time_pair("dm_adafactor", lambda: fs._dm_adafactor(
                     Mk, A, w, m, l, dY, dq, dh, r_p, rowf, colf, 0.1, *lam,
-                    with_norms=True, with_dh=False), lambda: fs._dm_adafactor_plain(
+                    with_norms=True, with_dh=False, operands=ops),
+                    lambda: fs._dm_adafactor_plain(
                     Mp, A, w, m, l, dY, dq, dh, r_p, rowf, colf, 0.1, *lam, True,
                     False))
             del Mk, Mp, out_k, out_p
 
         # the unfused backward: its rbar pass (always with the entropy
-        # cotangent, as pallas_core._backward), then dM, dA, dw
+        # cotangent, as pallas_core._backward), then dM, dA, dw; timed as
+        # _backward calls them, on the backward's operands built once
         if with_dh:
             r_k = cc._rbar(*args, with_dh=True, counter="backward_rbar")
             check("backward_rbar", [("r", r_k, r_p)], tag)
             if timed:
                 time_pair("backward_rbar",
-                          lambda: cc._rbar(*args, with_dh=True, counter="backward_rbar"),
+                          lambda: cc._rbar(*args, with_dh=True, counter="backward_rbar",
+                                           operands=bops),
                           lambda: cc._rbar_plain(*args, with_dh=True))
         out_k = cc._dm_backward(*args, r_p, with_dh=with_dh)
         out_p = cc._dm_backward_plain(*args, r_p, with_dh=with_dh)
         check("dm_backward", zip(("dM", "dA", "dw"), out_k, out_p), tag)
         del out_k, out_p
         if timed and with_dh:  # the constrained path's case (dh from λ_r·Σh)
-            time_pair("dm_backward", lambda: cc._dm_backward(*args, r_p, with_dh=True),
+            time_pair("dm_backward",
+                      lambda: cc._dm_backward(*args, r_p, with_dh=True, operands=bops),
                       lambda: cc._dm_backward_plain(*args, r_p, with_dh=True))
 
+    del bops
     check_f32_accuracy(shape, x, m, l, scalars)
     if shape == SHAPE:
-        check_mapper_core(x)
+        check_mapper_core(x, results)
     if timed:
         time_gemms(x)
     torch.cuda.synchronize()
@@ -731,12 +798,14 @@ def bf16_ulp(ref):
 
 
 def compare_bf16_kernels(shape, dev, results, timed):
-    """The bf16 variants of rows 1-5, 8 and 9 against their twins on the
-    same bf16 inputs: rowstats and rowstats_norms of a bf16 M; project with
-    a bf16 M and a bf16 A (the fused steps) or an f32 A (the validation
-    metrics); rbar, dm_adam (bf16 M, mu, nu), gsq and dm_adafactor with
-    bf16 M, A and dY, the updates rounding to nearest and stochastically.
-    Timed at the tutorial shape in the bf16 phase's configurations."""
+    """The bf16 variants of rows 1-9 against their twins on the same bf16
+    inputs: rowstats and rowstats_norms of a bf16 M; project with a bf16 M
+    and a bf16 A (the fused steps) or an f32 A (the validation metrics);
+    rbar, dm_adam (bf16 M, mu, nu), gsq and dm_adafactor with bf16 M, A
+    and dY, the updates rounding to nearest and stochastically;
+    backward_rbar and dm_backward with a bf16 M and f32 A and dY (and at
+    the tutorial shape MapperCore on a bf16 M). Timed at the tutorial shape
+    in the bf16 phase's configurations."""
     import torch
 
     from tangram_tpu_torch.ops import cuda_core as cc
@@ -764,10 +833,11 @@ def compare_bf16_kernels(shape, dev, results, timed):
                      f"rel {r:.3e}")
         results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0.0), worst)
 
-    def check_update(name, names, got, ref, n_store, tag):
+    def check_update(name, names, got, ref, n_store, tag, rest_rtol=NEXT_STATS_BF16_RTOL):
         """Stored bf16 outputs within BF16_ULPS of the twin's beyond the
         f32 kernel's own tolerance, apart in at most BF16_SHARE of the
-        entries; the next stats within NEXT_STATS_BF16_RTOL."""
+        entries; the other outputs (an update's next stats) within
+        ``rest_rtol``."""
         for what, g, r in zip(names[:n_store], got[:n_store], ref[:n_store]):
             if g.dtype != bf or r.dtype != bf:
                 fail(f"{name} {what} at {shape} is stored as {g.dtype}, not bf16")
@@ -790,7 +860,7 @@ def compare_bf16_kernels(shape, dev, results, timed):
                      f"({tag})")
             results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0.0), err)
         check(name, list(zip(names[n_store:], got[n_store:], ref[n_store:])), tag,
-              rtol=NEXT_STATS_BF16_RTOL)
+              rtol=rest_rtol)
 
     def time_pair(name, kernel, twin):
         results[name]["ms"] = cuda_ms(kernel, runs)
@@ -895,6 +965,33 @@ def compare_bf16_kernels(shape, dev, results, timed):
                         with_dh=False, **kw), lambda: fs._dm_adafactor_plain(
                         Mp, *args[1:], r_p, rowf, colf, 0.1, *lam, True, False, **kw))
                 del Mk, Mp, out_k, out_p
+
+    # the unfused backward on a bf16 M with f32 A and dY, as MapperCore
+    # hands them: dM stored in bf16, dA and dw f32; timed as _backward calls
+    # them, on the backward's operands built once
+    A32, dY32 = A.float(), dY.float()
+    bops = cc.backward_operands(A32, dY32, dq)
+    for with_dh in (False, True):
+        tag = f"{shape} with_dh={with_dh}"
+        args = (M, A32, w, m, l, dY32, dq, dh)
+        r_p = cc._rbar_plain(*args, with_dh=with_dh)
+        r_k = cc._rbar(*args, with_dh=with_dh, counter="backward_rbar")
+        check("backward_rbar.bf16", [("r", r_k, r_p)], tag)
+        out_k = cc._dm_backward(*args, r_p, with_dh=with_dh)
+        out_p = cc._dm_backward_plain(*args, r_p, with_dh=with_dh)
+        check_update("dm_backward.bf16", ("dM", "dA", "dw"), out_k, out_p, 1, tag,
+                     rest_rtol=RTOL["dm_backward.bf16"])
+        del out_k, out_p
+        if timed and with_dh:
+            time_pair("backward_rbar.bf16", lambda: cc._rbar(
+                *args, with_dh=True, counter="backward_rbar", operands=bops),
+                lambda: cc._rbar_plain(*args, with_dh=True))
+            time_pair("dm_backward.bf16", lambda: cc._dm_backward(
+                *args, r_p, with_dh=True, operands=bops),
+                lambda: cc._dm_backward_plain(*args, r_p, with_dh=True))
+    del bops
+    if shape == SHAPE:
+        check_mapper_core(dict(x, A=A32, dY=dY32), results)
     torch.cuda.synchronize()
     if not torch.equal(M.cpu(), M_host):
         fail(f"a bf16 kernel or twin at {shape} wrote into its input M")
@@ -911,29 +1008,49 @@ def core_gradients(core, M, A, w, cts):
         return torch.autograd.grad(loss, leaves)
 
 
-def check_mapper_core(x):
+def check_mapper_core(x, results):
     """One forward + backward of mapper_core(impl="kernels") (rowstats,
     project, backward_rbar, dm_backward) against autograd through the
-    materialized core, with the kernel phase's cotangents (dY, dq, dh);
-    each gradient within dm_backward's RTOL."""
+    materialized core, with the kernel phase's cotangents (dY, dq, dh). The
+    launch counts are set to 0 before and read after: each kernel once, its
+    .bf16 variant with a bf16 M (no training loop takes a bf16 M through
+    MapperCore, so this run gives the kernels line the launches of
+    backward_rbar.bf16 and dm_backward.bf16). Each gradient within
+    dm_backward's RTOL; a bf16 M's dM, stored in bf16, within one bf16 ulp
+    beyond that of the reference's f32 gradient of the same bf16 values."""
+    import torch
+
     from tangram_tpu_torch.ops import cuda_core as cc
     from tangram_tpu_torch.ops.core import mapper_core, mapper_core_reference
 
+    M, A, w = x["M"], x["A"], x["w"]
+    bf16 = M.dtype == torch.bfloat16
+    names = [n + (".bf16" if bf16 else "")
+             for n in ("rowstats", "project", "backward_rbar", "dm_backward")]
     cts = (x["dY"], x["dq"], x["dh"])
-    before = {n: cc.LAUNCHES[n] for n in ("rowstats", "project", "backward_rbar",
-                                          "dm_backward")}
-    got = core_gradients(lambda *t: mapper_core(*t, "kernels"), x["M"], x["A"], x["w"],
-                         cts)
-    ran = {n: cc.LAUNCHES[n] - v for n, v in before.items()}
-    if ran != dict.fromkeys(before, 1):
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    got = core_gradients(lambda *t: mapper_core(*t, "kernels"), M, A, w, cts)
+    torch.cuda.synchronize()
+    ran = {n: v for n, v in cc.LAUNCHES.items() if v}
+    if ran != dict.fromkeys(names, 1):
         fail(f"mapper_core(impl='kernels') launched {ran}")
-    want = core_gradients(mapper_core_reference, x["M"], x["A"], x["w"], cts)
+    if bf16:
+        for name in names[2:]:
+            results[name]["launches"] = ran[name]
+    want = core_gradients(mapper_core_reference, M.float(), A, w, cts)
+    tag = "bf16 M" if bf16 else "f32"
     for what, g, ref in zip(("dM", "dA", "dw"), got, want):
-        a, r = rel_err(g, ref)
-        say("kernels", f"MapperCore {SHAPE} {what} against autograd through the "
+        a, r = rel_err(g.float(), ref)
+        say("kernels", f"MapperCore {SHAPE} {tag} {what} against autograd through the "
             f"materialized core: max_abs_err={a:.3e} rel={r:.3e} "
-            f"(tol rel {RTOL['dm_backward']:.0e})")
-        if not r <= RTOL["dm_backward"]:
+            f"(tol rel {RTOL['dm_backward']:.0e}" + (", then 1 bf16 ulp)"
+                                                      if bf16 and what == "dM" else ")"))
+        if bf16 and what == "dM":
+            over = ((g.float() - ref).abs() - RTOL["dm_backward"] * float(ref.abs().max()))
+            if g.dtype != M.dtype or not float((over / bf16_ulp(ref)).max()) <= BF16_ULPS:
+                fail(f"MapperCore's bf16 dM disagrees with autograd through the reference core")
+        elif not r <= RTOL["dm_backward"]:
             fail(f"MapperCore's {what} disagrees with autograd through the reference core")
 
 
@@ -1060,6 +1177,7 @@ def check_repeatable(shape, dev, repeats=3):
     mb, lb, _ = cc._rowstats_plain(Mb)
     argsb = (Mb, x["A"].to(bf), x["w"], mb, lb, x["dY"].to(bf), x["dq"], x["dh"])
     rb = cc._rbar_plain(*argsb)
+    rb32 = cc._rbar_plain(Mb, *args[1:3], mb, lb, *args[5:])
     vrb, vcb = fs._gsq_plain(*argsb, rb, 0.0, 0.0)
     _, _, rowfb, colfb = fs.factored_rms_vectors(
         0, torch.zeros_like(vrb), torch.zeros_like(vcb), vrb, vcb, c, s)
@@ -1075,6 +1193,11 @@ def check_repeatable(shape, dev, repeats=3):
         "gsq.bf16": lambda: fs._gsq(*argsb, rb, *lam),
         "dm_adafactor.bf16": lambda: fs._dm_adafactor(
             Mb.clone(), *argsb[1:], rb, rowfb, colfb, 0.1, *lam, with_norms=True, **sr),
+        # the backward's on a bf16 M, with f32 A and dY
+        "backward_rbar.bf16": lambda: (cc._rbar(Mb, *args[1:3], mb, lb, *args[5:],
+                                                counter="backward_rbar"),),
+        "dm_backward.bf16": lambda: cc._dm_backward(Mb, *args[1:3], mb, lb, *args[5:],
+                                                    rb32),
     })
     for name, run in runs.items():
         first = [t.clone() for t in run()]
@@ -1495,7 +1618,9 @@ def bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs, con_map
 def check_fit_repeats(cells_mapper, norm_lw, con_mapper, epochs=10):
     """Two fit_mapping runs of ``epochs`` steps from one start must store
     the same bits, in f32 Adam, f32 Adafactor + L1/L2, constrained Adam (M
-    and F) and bf16 Adam with stochastic rounding (configuration (a)): every
+    and F), constrained Adafactor (the autograd loop through MapperCore:
+    backward_rbar and dm_backward) and bf16 Adam with stochastic rounding
+    (configuration (a)): every
     kernel reduces in a fixed order and the loops draw nothing at random
     after the start, so a difference is a fault, not chance."""
     import torch
@@ -1505,6 +1630,7 @@ def check_fit_repeats(cells_mapper, norm_lw, con_mapper, epochs=10):
     cases = (("f32 Adam", cells_mapper, cells_mapper.lw, "adam", {}),
              ("f32 Adafactor + L1/L2", cells_mapper, norm_lw, "adafactor", {}),
              ("constrained Adam", con_mapper, con_mapper.lw, "adam", {}),
+             ("constrained Adafactor", con_mapper, con_mapper.lw, "adafactor", {}),
              ("(a) bf16 Adam, stochastic", cells_mapper, cells_mapper.lw, "adam",
               dict(BF16_STORAGE, rounding="stochastic")))
     for label, mapper, lw, opt, low in cases:
@@ -1539,7 +1665,8 @@ def profile_steps(mapper, steps=5):
 
 
 def profile_dp_tile(dev):
-    """Where rbar, dm_adam and project (f32 and bf16) spend their cycles at
+    """Where rbar, dm_adam, dm_adafactor (f32 and bf16), dm_backward (f32)
+    and project (f32 and bf16) spend their cycles at
     the tutorial shape: a second build of the kernels with -DTG_DP_PROFILE
     counts, in two warps of every block (0 and 15 of the dP tile; of
     project, product warp 0 and forming warp 8), the clock cycles of each
@@ -1575,11 +1702,21 @@ def profile_dp_tile(dev):
             ops = cc.dp_operands(A, dY)
             r = cc._rbar_plain(*args, with_dh=False)
             state = [M.clone(), cast(x["mu"]), cast(x["nu"])]
-            for name, run in (
-                    ("rbar", lambda: fs._rbar(*args, with_dh=False, operands=ops)),
+            vr, vc = fs._gsq_plain(*args, r, 0.0, 0.0, with_dh=False)
+            _, _, rowf, colf = fs.factored_rms_vectors(
+                0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, *SHAPE[:2])
+            runs = [("rbar", lambda: fs._rbar(*args, with_dh=False, operands=ops)),
                     ("dm_adam", lambda: fs._dm_adam(
                         state[0], *args[1:], r, *state[1:], scalars, with_dh=False,
-                        operands=ops, **kw))):
+                        operands=ops, **kw)),
+                    ("dm_adafactor", lambda: fs._dm_adafactor(
+                        state[0], *args[1:], r, rowf, colf, 0.1, 0.0, 0.0, False,
+                        with_dh=False, operands=ops, **kw))]
+            if tag == "f32":
+                bops = cc.backward_operands(A, dY, x["dq"])
+                runs.append(("dm_backward", lambda: cc._dm_backward(
+                    *args, r, with_dh=True, operands=bops)))
+            for name, run in runs:
                 clocks = (ctypes.c_ulonglong * 4)()
                 lib.call("tg_dp_profile_read", clocks)  # clear
                 ms = cuda_ms(run, 10)
@@ -1944,7 +2081,9 @@ def main(argv=None) -> int:
          "source": (TENSOR_SOURCE if name in TENSOR_KERNELS else
                     PROJECT_SOURCE if name in PROJECT_KERNELS else SOURCE),
          "replaces": REPLACES[name],
-         "launches": None if launches is None else launches.get(name),
+         # a kernel no training loop launches (the bf16-M backward) counts
+         # its launches in the kernel phase's MapperCore run
+         "launches": r.get("launches", None if launches is None else launches.get(name)),
          "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
          "plain_ms": r.get("plain_ms"), "bound_ms": bound_ms(name, SHAPE)[0],
          "bound_by": bound_ms(name, SHAPE)[1],

@@ -1,15 +1,25 @@
-// The tensor-core dP tile (sm_90a): rbar and the fused Adam update.
+// The tensor-core dP tile (sm_90a): rbar, the fused Adam and Adafactor
+// updates, and the backward of the unfused core.
 //
-//   tg_rbar     replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
-//               pallas_core._rbar_kernel / _dp_tile), also as the first pass
-//               of pallas_core._backward
-//   tg_dm_adam  replaces tangram_tpu/ops/fused_step.py::_dm_adam
-//               (_dm_adam_kernel, _grad_tile, _emit_next_stats, _sr_cast),
-//               L1/L2 terms, bf16 M/mu/nu and stochastic rounding included
+//   tg_rbar             replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
+//                       pallas_core._rbar_kernel / _dp_tile), also as the
+//                       first pass of pallas_core._backward
+//   tg_dm_adam          replaces tangram_tpu/ops/fused_step.py::_dm_adam
+//                       (_dm_adam_kernel, _grad_tile, _emit_next_stats,
+//                       _sr_cast), L1/L2 terms, bf16 M/mu/nu and stochastic
+//                       rounding included
+//   tg_dm_adafactor_tc  replaces tangram_tpu/ops/fused_step.py::_dm_adafactor
+//                       (_dm_adafactor_kernel): M -= lr g rowf[c] colf[s] in
+//                       place and the next stats, bf16 M and stochastic
+//                       rounding included
+//   tg_dm_backward_tc   replaces the second call of
+//                       tangram_tpu/ops/pallas_core.py::_backward (_dm_kernel):
+//                       dM = P (dP - r) in M's type (f32 or bf16) and
+//                       [dA | dw] = P [dY | dq]
 //
-// Both form dP = A dY^T + w (x) dq [+ dh (x) (log P + 1)] tile by tile and
-// never store it. (The gsq, dm_adafactor and dm_backward epilogues stay on
-// the f32 FMA tile of mapper_kernels.cu.)
+// All form dP = A dY^T + w (x) dq [+ dh (x) (log P + 1)] tile by tile and
+// never store it. (gsq stays on the f32 FMA tile of mapper_kernels.cu: its
+// column sums cross the cell blocks and need a design of their own.)
 //
 // What bounds them on the H100. The product is 2 c s k flops (1.28e11 at
 // 26,000 x 9,852 x 249). On the f32 FMA pipes that is 1.9 ms at best, and a
@@ -19,6 +29,8 @@
 // operands give it back (below) and cost 0.78 ms at the card's TF32 peak.
 // rbar then reads M once (1.02 GB, 0.31 ms): operations bound it. dm_adam
 // reads and writes M, mu and nu (6.15 GB, 1.84 ms): bytes bound it.
+// dm_adafactor reads and writes M (2.05 GB, 0.61 ms): operations bound it.
+// dm_backward does two such products (1.55 ms) and reads M, writes dM.
 //
 // The design.
 //  * f32 accuracy on the tensor cores (3xTF32). Each f32 operand x is split
@@ -67,8 +79,9 @@
 //    registers. The wrapper picks by shape and alignment, and the small
 //    shapes of the checks run the narrow paths.
 //    One block of 512 threads per SM: A 65 KB + ring 54 KB + staging 102 KB
-//    (f32 M, mu, nu) + 1.5 KB of row constants = 222.5 KB of the 227 KB a
-//    block may have, <= 128 registers a thread. (Two blocks of 256 threads
+//    (f32 M, mu, nu) + 1.75 KB of row constants = 222.75 KB of the 227 KB a
+//    block may have (Adafactor stages M only: 154 KB; dm_backward M and the
+//    P tile: 188 KB), <= 128 registers a thread. (Two blocks of 256 threads
 //    per SM without staging, the first design, left the epilogue's loads
 //    exposed: dm_adam took 11.5 ms, an L2 prefetch changed nothing.)
 //  * 16 warps as 2 (cells) x 8 (spots), 32 x 16 per warp: 2 x 2 mma tiles,
@@ -84,11 +97,47 @@
 //  * Few cells (clusters mode) spread over the card by spot splits
 //    (grid.y), chosen by the wrapper to fill whole waves of one block per SM.
 //
+// dm_backward's second product, [dA | dw] = P [dY | dq] (64 cells x k + 1
+// per block), contracts over spots, the axis the block walks. On the FMA
+// tile it went through a P tile in shared memory and a read-modify-write of
+// a (nsplit, c, k + 1) partial in device memory on every spot tile. Here:
+//  * The epilogue writes the tile's P (f32, 0 at spots >= s) once to a
+//    padded (64 x 128) shared tile (33 KB; rows 132 words apart, so the
+//    A-fragment loads hit 32 banks), and the tile's [dY | dq] rows stream
+//    through the same ring a second time, as 8 chunks of 16 spots x up to
+//    256 columns (rows 264 words apart, conflict-free B fragments): the
+//    per-tile step sequence is the dP product's K chunks, then these 8.
+//    Streaming twice costs 4 GB more L2 reads per launch at the tutorial
+//    shape; keeping the tile's [dY | dq] resident for both products (128 KB
+//    of f32 at 128 spots) does not fit beside A and the staging, and a
+//    64-spot tile would halve the dP product's reuse of each A fragment.
+//    The operand of both products is [dY | dq] (s, Kp) with Kp >= k + 1: A's
+//    operand is 0 in column k, so the dP product ignores dq there.
+//  * Both factors split to 3xTF32 in registers, as in the dP product, and
+//    every chunk of 16 spots is summed into a fresh accumulator (6 mma, the
+//    first onto zero), then added to the block's sum by a rounded f32 add:
+//    P >= 0 summed over 9,852 spots is the case where a running tensor-core
+//    sum was 3-6x f32's error.
+//  * The block's (64 x 256) output stays in registers across all its spot
+//    tiles: the 16 warps take 4 (16 cells) x 4 (64 columns), 8 mma tiles
+//    and 32 accumulators a thread. The dP tile's 16 accumulators are dead
+//    by then (each tile's epilogue consumes them), and dm_backward keeps no
+//    per-cell stats, so the budget of 128 registers a thread (512 threads,
+//    one block per SM) holds: the products take the fragment shapes of the
+//    dP product, four n-tiles at a time. The output is written once per
+//    block to its split's slice of the partial, which ext_reduce adds in
+//    split order: no atomics, bit-identical repeats.
+//  * k + 1 > 256 columns: grid.z walks output panels of 256. Each panel's
+//    blocks form dP and P again (the dP product over all of K) and take
+//    their panel's columns of [dY | dq]; only panel 0 stores dM.
+//
 // The arithmetic of the epilogue is that of the JAX kernels: grad_elem, the
-// exact Adam update (eps after the sqrt), stored_value with per-cell-row
-// stochastic-rounding keys, next stats from the stored values, PAD_GUARD
-// sentinels out of the norms. Ragged edges: cells >= c and spots >= s are
-// zero-filled in the operands' copies and never touched in M, mu, nu.
+// exact Adam update (eps after the sqrt), the Adafactor update as
+// lr ((g rowf) colf), stored_value with per-cell-row stochastic-rounding
+// keys, next stats from the stored values, PAD_GUARD sentinels out of the
+// norms, dM rounded to nearest in M's type. Ragged edges: cells >= c and
+// spots >= s are zero-filled in the operands' copies and never touched in
+// M, mu, nu or dM.
 //
 // Every entry point launches on the given stream, does not synchronise,
 // allocates nothing and returns the cudaError_t of its launches.
@@ -108,12 +157,25 @@ constexpr int TC_WN = TC_TS / (8 * TC_NJ);  // spot warps, beside 2 cell warps
 constexpr int TC_THREADS = 2 * TC_WN * 32;
 constexpr int TC_DLD = TC_KC + 4;  // dY stage row stride, words
 constexpr int TC_SLD = TC_TS + 8;  // staging row stride, entries
-constexpr int TC_ROWC = 6;         // per-cell constants: m, 1/l, log l, dh, r, w
+constexpr int TC_ROWC = 7;         // per-cell constants: m, 1/l, log l, dh, r, w, rowf
+// dm_backward's second product P [dY | dq]
+constexpr int TC_ES = 16;                 // spots per chunk: one fresh accumulator
+constexpr int TC_EPANEL = 256;            // output columns per block (grid.z: panels)
+constexpr int TC_ELD = TC_EPANEL + 8;     // chunk row stride, words
+constexpr int TC_PLD = TC_TS + 4;         // P tile row stride, words
+constexpr int TC_ENJ = 8;                 // 8-column mma tiles per warp
+constexpr int TC_EWC = TC_EPANEL / (8 * TC_ENJ);  // column warps, beside 4 cell warps
+static_assert(TC_ES * TC_ELD <= TC_TS * TC_DLD, "a chunk of [dY | dq] fits a ring slot");
+static_assert((TC_TC / 16) * TC_EWC * 32 == TC_THREADS, "the second product's warps");
+static_assert(TC_ES == TC_KACC, "one fresh accumulator per chunk");
 
 // bytes of one staging tile of entries of esz bytes
 __host__ __device__ inline size_t tc_stage_bytes(int esz) {
   return (size_t)TC_TC * TC_SLD * esz;
 }
+
+// bytes of dm_backward's P tile
+constexpr size_t TC_P_BYTES = sizeof(float) * TC_TC * TC_PLD;
 
 // dynamic shared memory in bytes without the staging tiles
 inline size_t tc_smem_bytes(int kres) {
@@ -121,13 +183,13 @@ inline size_t tc_smem_bytes(int kres) {
                           (size_t)TC_ROWC * TC_TC);
 }
 
-enum TcEpilogue : int { TC_RBAR = 0, TC_ADAM = 1 };
+enum TcEpilogue : int { TC_RBAR = 0, TC_ADAM = 1, TC_ADAFACTOR = 2, TC_DM = 3 };
 
 // Built with -DTG_DP_PROFILE (chip_smoke.py --profile), warps 0 and 15 of
 // every block add the clock cycles they spend in each phase of the tile
 // loop to tg_dp_clocks: 0 the last tile's epilogue and the loop's own
 // bookkeeping, 1 waiting for copies and the barrier, 2 issuing the copies
-// (ring and staging), 3 the product. tg_dp_profile_read returns and clears
+// (ring and staging), 3 the products. tg_dp_profile_read returns and clears
 // them. Without the flag the marks compile to nothing.
 #ifdef TG_DP_PROFILE
 __device__ unsigned long long tg_dp_clocks[4];
@@ -142,20 +204,25 @@ __device__ unsigned long long tg_dp_clocks[4];
 #endif
 
 struct TcArgs {
-  void* M;              // (c, s) f32 or bf16; updated in place by adam
+  void* M;              // (c, s) f32 or bf16; updated in place by the updates
   const float* Aop;     // (c, Kp): A, K-major, zero-padded to Kp (multiple of 32)
-  const float* dYop;    // (s, Kp): dY, K-major, zero-padded
+  const float* dYop;    // (s, Kp): dY, K-major, zero-padded ([dY | dq] for dm)
   const float* w;       // (c,)
   const float* dq;      // (s,)
   const float* dh;      // (c,)
   const float* m;       // (c,) row max
   const float* l;       // (c,) row sum of exp
-  const float* r;       // (c,) softmax-VJP row term (adam)
+  const float* r;       // (c,) softmax-VJP row term (updates, dm)
+  const float* rowf;    // (c,) Adafactor row factor
+  const float* colf;    // (s,) Adafactor column factor
   void* mu;             // (c, s) Adam moments, f32 or bf16, in place
   void* nu;
+  void* dM;             // (c, s) dm's gradient, in M's type
   float* row_part;      // (nsplit, c) row sums r (rbar)
-  float* st_part;       // (5, nsplit, c) next stats m, l, u, s1, s2 (adam)
+  float* st_part;       // (5, nsplit, c) next stats m, l, u, s1, s2 (updates)
+  float* ext_part;      // (nsplit, c, K1) dm's [dA | dw] partials
   int c, s, Kp, kres, vec, tiles_per_split;
+  int K1;                // dm: k + 1, the columns of [dA | dw]
   int cp_m, cp_mom;      // bytes per staging copy of M / of mu and nu; 0: by element
   float lr, bc1, bc2;
   float lam1, two_lam2;  // L1 and 2 * L2 strength; both 0 without norms
@@ -246,6 +313,9 @@ template <bool WITH_DH, int EPI, bool NORMS, bool SPLIT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 dp_tc_kernel(const TcArgs a) {
   constexpr bool ADAM = EPI == TC_ADAM;
+  constexpr bool AFAC = EPI == TC_ADAFACTOR;
+  constexpr bool DM = EPI == TC_DM;
+  constexpr bool UPDATE = ADAM || AFAC;  // M in place and the next stats
   extern __shared__ __align__(16) float smem[];
   const int c = a.c, s = a.s, Kp = a.Kp, kres = a.kres;
   const int lda = kres + 4;
@@ -257,6 +327,7 @@ dp_tc_kernel(const TcArgs a) {
   char* Ms = reinterpret_cast<char*>(rc + TC_ROWC * TC_TC);  // [TC_TC][TC_SLD] of M's type
   char* MUs = Ms + tc_stage_bytes(esz_m);          // adam: the same of mu
   char* NUs = MUs + tc_stage_bytes(esz_mom);       // and of nu
+  float* Ps = reinterpret_cast<float*>(Ms + tc_stage_bytes(esz_m));  // dm: [TC_TC][TC_PLD]
   const float* __restrict__ Aop = a.Aop;
   const float* __restrict__ dYop = a.dYop;
   const bool vec = a.vec != 0;
@@ -268,19 +339,24 @@ dp_tc_kernel(const TcArgs a) {
   const int wn = warp % TC_WN;             // 8 spot parts of 16
   const int c0 = blockIdx.x * TC_TC;
   const int rows = min(TC_TC, c - c0);     // valid cells of this block
+  // dm: this block's panel of [dA | dw] columns; only panel 0 stores dM
+  const int col0 = blockIdx.z * TC_EPANEL;
+  const int width = min(TC_EPANEL, Kp - col0);
+  const bool store_dm = blockIdx.z == 0;
 
   // per-cell constants, read by the epilogue
   if (tid < TC_TC) {
     const int cell = c0 + tid;
-    float v[TC_ROWC] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float v[TC_ROWC] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (cell < c) {
       const float l = a.l[cell];
       v[0] = a.m[cell];
       v[1] = 1.0f / l;
       v[2] = logf(l);
       if (WITH_DH) v[3] = a.dh[cell];
-      if (ADAM) v[4] = a.r[cell];
+      if (EPI != TC_RBAR) v[4] = a.r[cell];
       v[5] = a.w[cell];
+      if (AFAC) v[6] = a.rowf[cell];
     }
 #pragma unroll
     for (int q = 0; q < TC_ROWC; ++q) rc[q * TC_TC + tid] = v[q];
@@ -295,13 +371,21 @@ dp_tc_kernel(const TcArgs a) {
   float nu_[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float ns1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float ns2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // dm: this thread's share of the block's [dA | dw] panel, in the second
+  // product's fragment layout (see the header note)
+  float out[TC_ENJ][4];
+#pragma unroll
+  for (int j = 0; j < TC_ENJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[j][q] = 0.0f;
 
-  const int n_k = Kp / TC_KC;        // dY chunks per tile
+  const int n_k = Kp / TC_KC;        // dY chunks of the dP product per tile
+  const int per_tile = n_k + (DM ? TC_TS / TC_ES : 0);  // dm: then the second product's
   const int cpp = kres / TC_KC;      // chunks per A panel
   const bool resident = kres == Kp;  // one panel: A stays for every tile
   const int tile0 = blockIdx.y * a.tiles_per_split;
   const int n_tiles = max(0, min((s + TC_TS - 1) / TC_TS - tile0, a.tiles_per_split));
-  const int n_steps = n_tiles * n_k;
+  const int n_steps = n_tiles * per_tile;
 
   // start the copy of the A panel at K offset kp (depth <= kres)
   auto load_a = [&](int kp) {
@@ -313,21 +397,35 @@ dp_tc_kernel(const TcArgs a) {
                   ok ? Aop + (size_t)(c0 + row) * Kp + kp + seg * 4 : Aop, ok);
     }
   };
-  // Start the copies of the next dY chunk to fetch into its ring slot (none
-  // past the block's last step), and move on: chunk pf_ki of tile pf_tile.
+  // Start the copies of the next chunk to fetch into its ring slot (none
+  // past the block's last step), and move on: chunk pf_ki of tile pf_tile,
+  // a (128 spots x 32 of K) chunk of the dP product or, for dm, a (16 spots
+  // x panel) chunk of the second product.
   int pf_step = 0, pf_tile = tile0, pf_ki = 0, pf_slot = 0;
   auto fetch_d = [&]() {
     const int s0 = pf_tile * TC_TS;
-    const int k0 = pf_ki * TC_KC;
+    const int ki = pf_ki;
     float* dst = Ds + pf_slot * (TC_TS * TC_DLD);
     const bool any = pf_step < n_steps;
     ++pf_step;
-    if (++pf_ki == n_k) {
+    if (++pf_ki == per_tile) {
       pf_ki = 0;
       ++pf_tile;
     }
     if (++pf_slot == TC_STAGES) pf_slot = 0;
     if (!any) return;
+    if (DM && ki >= n_k) {
+      const int r0 = s0 + (ki - n_k) * TC_ES;
+      const int segs = width / 4;
+      for (int e = tid; e < TC_ES * segs; e += TC_THREADS) {
+        const int row = e / segs, seg = e % segs;
+        const bool ok = r0 + row < s;
+        cp_async_16(&dst[row * TC_ELD + seg * 4],
+                    ok ? dYop + (size_t)(r0 + row) * Kp + col0 + seg * 4 : dYop, ok);
+      }
+      return;
+    }
+    const int k0 = ki * TC_KC;
 #pragma unroll
     for (int q = 0; q < TC_TS * (TC_KC / 4) / TC_THREADS; ++q) {
       const int e = tid + q * TC_THREADS;
@@ -347,8 +445,8 @@ dp_tc_kernel(const TcArgs a) {
     cp_async_commit();
   }
 
-  // step = (tile - tile0) * n_k + ki; chunk ki is chunk pc of its A panel;
-  // the chunk sits in ring slot `slot`
+  // step = (tile - tile0) * per_tile + ki; a chunk ki < n_k of the dP
+  // product is chunk pc of its A panel; the chunk sits in ring slot `slot`
   int tile = tile0, ki = 0, pc = 0, slot = 0;
 #ifdef TG_DP_PROFILE
   long long phase_clocks[4] = {0, 0, 0, 0};
@@ -358,6 +456,7 @@ dp_tc_kernel(const TcArgs a) {
     TG_DP_MARK(0)
     const int s0 = tile * TC_TS;
     const int cols = min(TC_TS, s - s0);  // valid spots of this tile
+    const bool dp_chunk = !DM || ki < n_k;  // else a chunk of dm's second product
     if (ki == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -366,17 +465,18 @@ dp_tc_kernel(const TcArgs a) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
     }
-    if (!resident && pc == 0 && step > 0) {
+    const bool new_panel = !resident && dp_chunk && pc == 0;
+    if (new_panel && step > 0) {
       __syncthreads();  // every warp is done with the panel in As
       load_a(ki * TC_KC);
       cp_async_commit();
     }
     // the copies of this step's chunk (and of a new A panel) have landed
-    if (!resident && pc == 0) cp_async_wait<0>();
+    if (new_panel) cp_async_wait<0>();
     else cp_async_wait<TC_STAGES - 2>();
     // visible to every thread; the slot of step - 1 is free, and at a tile's
     // first chunk every warp has left the last tile's epilogue and its
-    // staging tiles
+    // staging tiles (dm: and the last tile's second product, and its P tile)
     __syncthreads();
     TG_DP_MARK(1)
     if (ki == 0) {
@@ -394,10 +494,68 @@ dp_tc_kernel(const TcArgs a) {
 
     const float* Dsl = Ds + slot * (TC_TS * TC_DLD);
     const int ka = pc * TC_KC;
-    const bool tile_done = ki == n_k - 1;
+    const int kc = ki;  // this step's chunk of its tile
     if (++slot == TC_STAGES) slot = 0;
-    if (++pc == cpp) pc = 0;
-    if (++ki == n_k) ki = pc = 0;
+    if (dp_chunk && ++pc == cpp) pc = 0;
+    if (++ki == per_tile) {
+      ki = pc = 0;
+      ++tile;
+    }
+
+    if constexpr (DM) {
+      if (!dp_chunk) {
+        // [dA | dw] += P [dY | dq] over this chunk's 16 spots (header note):
+        // warp (wr, wc) takes cells wr*16.., columns wc*64.. of the panel
+        const int wr = warp / TC_EWC, wc = warp % TC_EWC;
+        const int sp = (kc - n_k) * TC_ES;  // the chunk's first spot in the tile
+        uint32_t phi[2][4], plo[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            // fragment slot v: row g + 8 (v & 1), k slot t4 + 4 (v >> 1)
+            const float p = Ps[(wr * 16 + g + 8 * (v & 1)) * TC_PLD + sp + ks * 8 + t4 +
+                               4 * (v >> 1)];
+            split_tf32(p, phi[ks][v], plo[ks][v]);
+          }
+#pragma unroll
+        for (int jg = 0; jg < TC_ENJ; jg += 4) {
+          if (wc * (8 * TC_ENJ) + jg * 8 >= width) break;  // past the panel (k small)
+          uint32_t bhi[4][2][2], blo[4][2][2];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+                split_tf32(Dsl[(ks * 8 + t4 + 4 * v) * TC_ELD + wc * (8 * TC_ENJ) +
+                               (jg + jj) * 8 + g],
+                           bhi[jj][ks][v], blo[jj][ks][v]);
+          // the four n-tiles take each term in turn (independent products),
+          // the small terms first, onto a fresh accumulator
+          float tmp[4][4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_tf32_first(tmp[jj], plo[0], bhi[jj][0]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_tf32(tmp[jj], phi[0], blo[jj][0]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_tf32(tmp[jj], plo[1], bhi[jj][1]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_tf32(tmp[jj], phi[1], blo[jj][1]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_tf32(tmp[jj], phi[0], bhi[jj][0]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) mma_tf32(tmp[jj], phi[1], bhi[jj][1]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) out[jg + jj][q] += tmp[jj][q];
+        }
+        TG_DP_MARK(3)
+        continue;
+      }
+    }
+
     // Each TC_KACC of K goes into fresh accumulators (tmp) and is added to
     // acc with a rounded f32 add (see the header note on truncation).
     // Which k of the chunk a fragment slot holds is free as long as A and
@@ -478,8 +636,7 @@ dp_tc_kernel(const TcArgs a) {
           for (int q = 0; q < 4; ++q) acc[i][j][q] += tmp[i][j][q];
     }
     TG_DP_MARK(3)
-    if (!tile_done) continue;
-    ++tile;
+    if (kc != n_k - 1) continue;
 
     // ---- the tile's epilogue, in the accumulator fragment's layout:
     // acc[i][j][h * 2 + q] is row wm*32 + i*16 + h*8 + g, column
@@ -489,7 +646,7 @@ dp_tc_kernel(const TcArgs a) {
       cp_async_wait<0>();
       __syncthreads();
     }
-    float dqv[TC_NJ][2];
+    float dqv[TC_NJ][2], cfv[TC_NJ][2];
     int nv[TC_NJ];
 #pragma unroll
     for (int j = 0; j < TC_NJ; ++j) {
@@ -497,6 +654,10 @@ dp_tc_kernel(const TcArgs a) {
       nv[j] = max(0, min(2, s - spot));
       dqv[j][0] = nv[j] > 0 ? __ldg(a.dq + spot) : 0.0f;
       dqv[j][1] = nv[j] > 1 ? __ldg(a.dq + spot + 1) : 0.0f;
+      if (AFAC) {
+        cfv[j][0] = nv[j] > 0 ? __ldg(a.colf + spot) : 0.0f;
+        cfv[j][1] = nv[j] > 1 ? __ldg(a.colf + spot + 1) : 0.0f;
+      }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -505,22 +666,42 @@ dp_tc_kernel(const TcArgs a) {
         const int ri = i * 2 + h;
         const int rl = wm * 32 + i * 16 + h * 8 + g;
         const int cell = c0 + rl;
-        if (cell >= c) continue;
+        if (cell >= c) continue;  // (dm: rows of P the block never outputs)
         const size_t row = (size_t)cell * s;
         const float cm = rc[rl], cinvl = rc[TC_TC + rl], clogl = rc[2 * TC_TC + rl];
         const float cdh = rc[3 * TC_TC + rl], cr = rc[4 * TC_TC + rl];
-        const float cw = rc[5 * TC_TC + rl];
+        const float cw = rc[5 * TC_TC + rl], crf = rc[6 * TC_TC + rl];
         // stochastic-rounding keys of this cell's M, mu and nu (salts 1, 2, 3)
         uint32_t key_m = 0, key_mu = 0, key_nu = 0;
+        if (UPDATE && sr) key_m = sr_key(a.t, (uint32_t)cell, 1u);
         if (ADAM && sr) {
-          key_m = sr_key(a.t, (uint32_t)cell, 1u);
           key_mu = sr_key(a.t, (uint32_t)cell, 2u);
           key_nu = sr_key(a.t, (uint32_t)cell, 3u);
         }
 #pragma unroll
         for (int j = 0; j < TC_NJ; ++j) {
-          if (nv[j] <= 0) continue;
           const int col = wn * (8 * TC_NJ) + j * 8 + 2 * t4;
+          if (DM) {
+            // P of spots >= s is 0: the second product sums over the tile
+            float pv[2] = {0.0f, 0.0f}, dmv[2];
+            if (nv[j] > 0) {
+              float x[2];
+              staged2(Ms, rl, col, m_bf16, x);
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                if (q >= nv[j]) continue;
+                const float P = expf(x[q] - cm) * cinvl;
+                float dP = fmaf(cw, dqv[j][q], acc[i][j][h * 2 + q]);
+                if (WITH_DH) dP += cdh * ((x[q] - cm - clogl) + 1.0f);
+                pv[q] = P;
+                dmv[q] = stored_value(P * (dP - cr), m_bf16, false, 0u, 0);
+              }
+              if (store_dm) store2(a.dM, row + s0 + col, m_bf16, nv[j], vec, dmv);
+            }
+            *reinterpret_cast<float2*>(Ps + rl * TC_PLD + col) = make_float2(pv[0], pv[1]);
+            continue;
+          }
+          if (nv[j] <= 0) continue;
           const int spot = s0 + col;
           float x[2], mv[2], vv[2];
           staged2(Ms, rl, col, m_bf16, x);
@@ -535,25 +716,30 @@ dp_tc_kernel(const TcArgs a) {
             const float P = expf(xq - cm) * cinvl;
             float dP = fmaf(cw, dqv[j][q], acc[i][j][h * 2 + q]);
             if (WITH_DH) dP += cdh * ((xq - cm - clogl) + 1.0f);
-            if constexpr (!ADAM) {
+            if constexpr (!UPDATE) {
               racc[ri] = fmaf(P, dP, racc[ri]);
             } else {
               const float gr = grad_elem(P, dP, cr, xq, a.lam1, a.two_lam2, norm_grad);
-              const float mun = BETA1 * mv[q] + ONE_MINUS_BETA1 * gr;
-              const float nun = BETA2 * vv[q] + ONE_MINUS_BETA2 * (gr * gr);
-              const float m_hat = mun * inv_bc1;
-              const float v_hat = nun * inv_bc2;
-              const float xn = xq - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+              float xn;
+              if constexpr (ADAM) {
+                const float mun = BETA1 * mv[q] + ONE_MINUS_BETA1 * gr;
+                const float nun = BETA2 * vv[q] + ONE_MINUS_BETA2 * (gr * gr);
+                const float m_hat = mun * inv_bc1;
+                const float v_hat = nun * inv_bc2;
+                xn = xq - a.lr * m_hat / (sqrtf(v_hat) + ADAM_EPS);
+                mv[q] = stored_value(mun, mom_bf16, sr, key_mu, spot + q);
+                vv[q] = stored_value(nun, mom_bf16, sr, key_nu, spot + q);
+              } else {
+                xn = xq - a.lr * ((gr * crf) * cfv[j][q]);
+              }
               x[q] = stored_value(xn, m_bf16, sr, key_m, spot + q);
-              mv[q] = stored_value(mun, mom_bf16, sr, key_mu, spot + q);
-              vv[q] = stored_value(nun, mom_bf16, sr, key_nu, spot + q);
               // the next stats see the stored value
               stats_push(nm[ri], nl[ri], nu_[ri], x[q]);
               if (NORMS) norms_push(ns1[ri], ns2[ri], x[q]);
             }
           }
+          if (UPDATE) store2(a.M, row + spot, m_bf16, nv[j], vec, x);
           if (ADAM) {
-            store2(a.M, row + spot, m_bf16, nv[j], vec, x);
             store2(a.mu, row + spot, mom_bf16, nv[j], vec, mv);
             store2(a.nu, row + spot, mom_bf16, nv[j], vec, vv);
           }
@@ -567,16 +753,34 @@ dp_tc_kernel(const TcArgs a) {
   if (lane == 0 && (warp == 0 || warp == 15))
     for (int q = 0; q < 4; ++q) atomicAdd(&tg_dp_clocks[q], (unsigned long long)phase_clocks[q]);
 #endif
+  cp_async_wait<0>();
+  if constexpr (DM) {
+    // the block's share of [dA | dw], once, into its split's slice; a split
+    // with no spot tiles writes zeros
+    const int wr = warp / TC_EWC, wc = warp % TC_EWC;
+#pragma unroll
+    for (int j = 0; j < TC_ENJ; ++j) {
+      const int col = col0 + wc * (8 * TC_ENJ) + j * 8 + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cell = c0 + wr * 16 + g + 8 * h;
+        if (cell >= c) continue;
+        float* o = a.ext_part + ((size_t)blockIdx.y * c + cell) * a.K1;
+        if (col < a.K1) o[col] = out[j][2 * h];
+        if (col + 1 < a.K1) o[col + 1] = out[j][2 * h + 1];
+      }
+    }
+    return;
+  }
   // ---- per-cell results: over the quad's 4 lanes by shuffle, then over the
   // 8 spot warps through shared memory in warp order
-  cp_async_wait<0>();
   __syncthreads();  // the ring is free: its first words hold the warps' partials
   float* red = Ds;  // [5][TC_WN][TC_TC]
   constexpr int PLANE = TC_WN * TC_TC;
 #pragma unroll
   for (int ri = 0; ri < 4; ++ri) {
-    if (!ADAM) racc[ri] = sum_reduce(racc[ri], 4);
-    if (ADAM) {
+    if (!UPDATE) racc[ri] = sum_reduce(racc[ri], 4);
+    if (UPDATE) {
       stats_reduce(nm[ri], nl[ri], nu_[ri], 4);
       if (NORMS) {
         ns1[ri] = sum_reduce(ns1[ri], 4);
@@ -586,8 +790,8 @@ dp_tc_kernel(const TcArgs a) {
     if (t4 == 0) {
       const int rl = wm * 32 + (ri >> 1) * 16 + (ri & 1) * 8 + g;
       const int at = wn * TC_TC + rl;
-      if (!ADAM) red[at] = racc[ri];
-      if (ADAM) {
+      if (!UPDATE) red[at] = racc[ri];
+      if (UPDATE) {
         red[at] = nm[ri];
         red[PLANE + at] = nl[ri];
         red[2 * PLANE + at] = nu_[ri];
@@ -601,12 +805,12 @@ dp_tc_kernel(const TcArgs a) {
   __syncthreads();
   if (tid < TC_TC && c0 + tid < c) {
     const size_t plane = (size_t)gridDim.y * c;
-    const size_t out = (size_t)blockIdx.y * c + (c0 + tid);
-    if (!ADAM) {
+    const size_t out_at = (size_t)blockIdx.y * c + (c0 + tid);
+    if (!UPDATE) {
       float v = 0.0f;
 #pragma unroll
       for (int q = 0; q < TC_WN; ++q) v += red[q * TC_TC + tid];
-      a.row_part[out] = v;
+      a.row_part[out_at] = v;
     } else {
       float mm = NEG_BIG, ll = 0.0f, uu = 0.0f, s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
@@ -618,12 +822,12 @@ dp_tc_kernel(const TcArgs a) {
           s2 += red[4 * PLANE + at];
         }
       }
-      a.st_part[out] = mm;
-      a.st_part[plane + out] = ll;
-      a.st_part[2 * plane + out] = uu;
+      a.st_part[out_at] = mm;
+      a.st_part[plane + out_at] = ll;
+      a.st_part[2 * plane + out_at] = uu;
       if (NORMS) {
-        a.st_part[3 * plane + out] = s1;
-        a.st_part[4 * plane + out] = s2;
+        a.st_part[3 * plane + out_at] = s1;
+        a.st_part[4 * plane + out_at] = s2;
       }
     }
   }
@@ -632,13 +836,21 @@ dp_tc_kernel(const TcArgs a) {
 template <int EPI, bool NORMS>
 cudaError_t launch_tc_kernel(bool with_dh, bool split, const TcArgs& a, dim3 grid,
                              cudaStream_t st) {
-  void (*kernel)(const TcArgs) =
-      with_dh ? (split ? dp_tc_kernel<true, EPI, NORMS, true>
-                       : dp_tc_kernel<true, EPI, NORMS, false>)
-              : (split ? dp_tc_kernel<false, EPI, NORMS, true>
-                       : dp_tc_kernel<false, EPI, NORMS, false>);
+  void (*kernel)(const TcArgs);
+  if constexpr (EPI == TC_DM) {
+    // the backward's A and dY are f32: always three TF32 products
+    if (!split) return cudaErrorInvalidValue;
+    kernel = with_dh ? dp_tc_kernel<true, EPI, NORMS, true>
+                     : dp_tc_kernel<false, EPI, NORMS, true>;
+  } else {
+    kernel = with_dh ? (split ? dp_tc_kernel<true, EPI, NORMS, true>
+                              : dp_tc_kernel<true, EPI, NORMS, false>)
+                     : (split ? dp_tc_kernel<false, EPI, NORMS, true>
+                              : dp_tc_kernel<false, EPI, NORMS, false>);
+  }
   size_t smem = tc_smem_bytes(a.kres) + tc_stage_bytes(a.m_bf16 ? 2 : 4);
   if (EPI == TC_ADAM) smem += 2 * tc_stage_bytes(a.mom_bf16 ? 2 : 4);
+  if (EPI == TC_DM) smem += TC_P_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -682,6 +894,28 @@ bool tc_granule_ok(int cp, int bf16_store) {
   return cp == 16 || cp == 8 || cp == 4 || (cp == 0 && bf16_store);
 }
 
+// the update kernels' launch and the merge of their next stats (and norms)
+template <int EPI>
+cudaError_t launch_update(bool with_dh, bool with_norms, bool split, const TcArgs& a,
+                          int nsplit, float* m_out, float* l_out, float* u_out,
+                          float* s1_out, float* s2_out, cudaStream_t st) {
+  const dim3 grid((a.c + TC_TC - 1) / TC_TC, nsplit);
+  const int merge_blocks = (a.c + 255) / 256;
+  cudaError_t err;
+  if (with_norms) {
+    err = launch_tc_kernel<EPI, true>(with_dh, split, a, grid, st);
+    if (err != cudaSuccess) return err;
+    dp_merge_kernel<true, true><<<merge_blocks, 256, 0, st>>>(
+        a.st_part, m_out, l_out, u_out, s1_out, s2_out, a.c, nsplit);
+  } else {
+    err = launch_tc_kernel<EPI, false>(with_dh, split, a, grid, st);
+    if (err != cudaSuccess) return err;
+    dp_merge_kernel<true, false><<<merge_blocks, 256, 0, st>>>(
+        a.st_part, m_out, l_out, u_out, nullptr, nullptr, a.c, nsplit);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -694,13 +928,14 @@ bool tc_granule_ok(int cp, int bf16_store) {
 // value is exact in TF32 (bf16 values under a bf16 compute type) and one
 // product is exact. w (c,) and dq (s,): the rank-one term, added in f32.
 // dh, m, l, r: (c,). vec != 0 allows 8-byte (f32) or 4-byte (bf16) stores
-// of 2 entries along spots of M, mu, nu (s even and every base aligned so).
-// cp_m (cp_mom): the bytes per asynchronous staging copy of M (of mu and
-// nu): 16, 8 or 4, dividing the row length in bytes and the base address;
-// 0 copies a bf16 array entry by entry. nsplit: spot-axis splits (grid.y).
-// lam1 and two_lam2: the L1 strength and twice the L2 strength; m_bf16 (and
-// mom_bf16): M's (mu's and nu's) storage is bf16; sr: the update stores by
-// stochastic rounding seeded by step t (else round to nearest even).
+// of 2 entries along spots of M, mu, nu, dM (s even and every base aligned
+// so). cp_m (cp_mom): the bytes per asynchronous staging copy of M (of mu
+// and nu): 16, 8 or 4, dividing the row length in bytes and the base
+// address; 0 copies a bf16 array entry by entry. nsplit: spot-axis splits
+// (grid.y). lam1 and two_lam2: the L1 strength and twice the L2 strength;
+// m_bf16 (and mom_bf16): M's (mu's and nu's) storage is bf16; sr: the update
+// stores by stochastic rounding seeded by step t (else round to nearest
+// even).
 // ---------------------------------------------------------------------------
 
 // r_part: (nsplit, c) scratch; r: (c,)
@@ -738,7 +973,6 @@ extern "C" int tg_dm_adam(void* M, const float* Aop, const float* dYop, const fl
   if (Kp <= 0 || Kp % TC_KC != 0 || !tc_granule_ok(cp_m, m_bf16) ||
       !tc_granule_ok(cp_mom, mom_bf16))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   TcArgs a = tc_args(M, Aop, dYop, w, dq, dh, m, l, c, s, Kp, vec, nsplit, m_bf16, cp_m);
   a.r = r;
   a.mu = mu;
@@ -753,21 +987,61 @@ extern "C" int tg_dm_adam(void* M, const float* Aop, const float* dYop, const fl
   a.mom_bf16 = mom_bf16;
   a.sr = sr;
   a.t = (unsigned)t;
-  const dim3 grid((c + TC_TC - 1) / TC_TC, nsplit);
-  const int merge_blocks = (c + 255) / 256;
-  cudaError_t err;
-  if (with_norms) {
-    err = launch_tc_kernel<TC_ADAM, true>(with_dh != 0, split != 0, a, grid, st);
-    if (err != cudaSuccess) return (int)err;
-    dp_merge_kernel<true, true><<<merge_blocks, 256, 0, st>>>(
-        st_part, m_out, l_out, u_out, s1_out, s2_out, c, nsplit);
-  } else {
-    err = launch_tc_kernel<TC_ADAM, false>(with_dh != 0, split != 0, a, grid, st);
-    if (err != cudaSuccess) return (int)err;
-    dp_merge_kernel<true, false><<<merge_blocks, 256, 0, st>>>(
-        st_part, m_out, l_out, u_out, nullptr, nullptr, c, nsplit);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_update<TC_ADAM>(with_dh != 0, with_norms != 0, split != 0, a, nsplit,
+                                     m_out, l_out, u_out, s1_out, s2_out,
+                                     (cudaStream_t)stream);
+}
+
+// M: (c, s), updated in place; rowf: (c,); colf: (s,); st_part and the stats
+// outputs as for tg_dm_adam
+extern "C" int tg_dm_adafactor_tc(void* M, const float* Aop, const float* dYop,
+                                  const float* w, const float* dq, const float* dh,
+                                  const float* m, const float* l, const float* r,
+                                  const float* rowf, const float* colf, float* st_part,
+                                  float* m_out, float* l_out, float* u_out, float* s1_out,
+                                  float* s2_out, int c, int s, int Kp, int with_dh,
+                                  int with_norms, float lr, float lam1, float two_lam2,
+                                  int vec, int nsplit, int m_bf16, int sr, int t, int split,
+                                  int cp_m, void* stream) {
+  if (Kp <= 0 || Kp % TC_KC != 0 || !tc_granule_ok(cp_m, m_bf16))
+    return (int)cudaErrorInvalidValue;
+  TcArgs a = tc_args(M, Aop, dYop, w, dq, dh, m, l, c, s, Kp, vec, nsplit, m_bf16, cp_m);
+  a.r = r;
+  a.rowf = rowf;
+  a.colf = colf;
+  a.st_part = st_part;
+  a.lr = lr;
+  a.lam1 = lam1;
+  a.two_lam2 = two_lam2;
+  a.sr = sr;
+  a.t = (unsigned)t;
+  return (int)launch_update<TC_ADAFACTOR>(with_dh != 0, with_norms != 0, split != 0, a,
+                                          nsplit, m_out, l_out, u_out, s1_out, s2_out,
+                                          (cudaStream_t)stream);
+}
+
+// dYEop: (s, Kp) = [dY | dq], zero-padded, Kp >= k + 1 (column k of Aop is
+// 0); r: (c,) from tg_rbar with the same dh; dM: (c, s) = P (dP - r) in M's
+// type, rounded to nearest; ext_part: (nsplit, c, k + 1) scratch; dA: (c, k)
+// = P dY; dw: (c,) = P dq
+extern "C" int tg_dm_backward_tc(const void* M, const float* Aop, const float* dYEop,
+                                 const float* w, const float* dq, const float* dh,
+                                 const float* m, const float* l, const float* r, void* dM,
+                                 float* ext_part, float* dA, float* dw, int c, int s, int k,
+                                 int Kp, int with_dh, int vec, int nsplit, int m_bf16,
+                                 int cp_m, void* stream) {
+  if (Kp <= k || Kp % TC_KC != 0 || !tc_granule_ok(cp_m, m_bf16))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  TcArgs a = tc_args(M, Aop, dYEop, w, dq, dh, m, l, c, s, Kp, vec, nsplit, m_bf16, cp_m);
+  a.r = r;
+  a.dM = dM;
+  a.ext_part = ext_part;
+  a.K1 = k + 1;
+  const dim3 grid((c + TC_TC - 1) / TC_TC, nsplit, (Kp + TC_EPANEL - 1) / TC_EPANEL);
+  const cudaError_t err = launch_tc_kernel<TC_DM, false>(with_dh != 0, true, a, grid, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_ext_reduce(ext_part, dA, dw, c, k, nsplit, st);
 }
 
 

@@ -396,8 +396,10 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
         ("param_dtype", param_dtype), ("moment_dtype", moment_dtype),
         ("compute_dtype", compute_dtype))] + [rounding]
     if not use_fused and M.dtype != torch.float32:
-        raise unported(f"a {M.dtype} M on the autograd loop (a bf16 MapperCore)",
-                       "queue A4 (bf16 MapperCore)")
+        # MapperCore takes a bf16 M; the optimizer written out on its
+        # gradient stores f32, where the JAX loop runs optax in M's type
+        raise unported(f"a {M.dtype} M on the autograd loop (its optimizer in bf16)",
+                       "queue A4 (the bf16 autograd optimizer)")
     term_keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
     keys = term_keys + (VAL_KEYS if with_val else [])
     record = _recorder(term_keys, with_val, data if val_data is None else val_data,

@@ -47,10 +47,8 @@ SIGNATURES = {
     "tg_dm_adam": (_P,) * 17 + (_I,) * 5 + (_F,) * 5 + (_I,) * 9 + (_P,),
     "tg_gsq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
-    "tg_dm_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P),
-    "tg_dm_adafactor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P),
+    "tg_dm_adafactor_tc": (_P,) * 17 + (_I,) * 5 + (_F,) * 3 + (_I,) * 7 + (_P,),
+    "tg_dm_backward_tc": (_P,) * 13 + (_I,) * 9 + (_P,),
 }
 
 

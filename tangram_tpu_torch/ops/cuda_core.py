@@ -5,11 +5,12 @@ Counterpart of ``tangram_tpu/ops/pallas_core.py`` (``_rowstats``,
 ``_project``, ``_backward`` and the ``mapper_core_pallas`` custom VJP) and
 of ``tangram_tpu/ops/fused_step.py::_rbar``. Each wrapper takes the JAX
 function's arguments and returns its outputs in the same shapes. On a CUDA tensor it launches the
-hand-written kernel from ``csrc/`` (``mapper_kernels.cu``; rbar from
-``dp_tensor_kernels.cu``, the tensor-core dP tile; the projection from
-``project_tc_kernels.cu``, on the tensor cores too) (and counts the launch
-in :data:`LAUNCHES`); on a CPU tensor it runs the plain PyTorch twin that
-sits beside it. There is no other path: a CUDA launch that fails raises.
+hand-written kernel from ``csrc/`` (``mapper_kernels.cu``; rbar and the
+unfused backward from ``dp_tensor_kernels.cu``, the tensor-core dP tile;
+the projection from ``project_tc_kernels.cu``, on the tensor cores too)
+(and counts the launch in :data:`LAUNCHES`); on a CPU tensor it runs the
+plain PyTorch twin that sits beside it. There is no other path: a CUDA
+launch that fails raises.
 
 The kernels never pad the gene axis (the JAX package pads k to 128 lanes
 for the TPU); they mask ragged tiles themselves.
@@ -17,7 +18,8 @@ for the TPU); they mask ragged tiles themselves.
 M may be stored in bf16 (the JAX package's ``param_dtype``), and A and dY
 may come rounded to bf16 (its ``compute_dtype``): the kernels read them
 in their type and compute in f32, as the JAX kernels do. The unfused
-backward (``_dm_backward``, ``MapperCore``'s gradient) takes f32 only.
+backward (``_backward``, ``MapperCore``'s gradient) takes an f32 or bf16 M
+with f32 A and dY, and returns dM in M's type, as ``pallas_core._backward``.
 """
 
 from __future__ import annotations
@@ -29,12 +31,13 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
            "_project", "_rbar", "_backward", "tf32_split", "DpOperands",
-           "dp_operand", "dp_operands", "project_operand", "project_tf32_plain"]
+           "dp_operand", "dp_operands", "backward_operands", "project_operand",
+           "project_tf32_plain", "dm_backward_tf32_plain", "ext_product_tf32_plain"]
 
 #: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
 #: A for project) counts as ``name + ".bf16"``
 BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-                "dm_adafactor")
+                "dm_adafactor", "backward_rbar", "dm_backward")
 
 #: launches of each kernel since the last :func:`reset_launches`;
 #: ``backward_rbar`` counts the rbar kernel when :func:`_backward` runs it
@@ -284,8 +287,8 @@ def _project(M, A, w, m, l):
 
 def dp_fma_splits(c: int, s: int, sm_count: int) -> int:
     """How many blocks share the spot tiles of one 64-cell group in the
-    f32 FMA dP-tile kernels (gsq, dm_adafactor, dm_backward): 1 when the
-    cell groups alone give about two blocks per SM (cells mode), up to one
+    f32 FMA dP-tile kernel, which only gsq still takes: 1 when the cell
+    groups alone give about two blocks per SM (cells mode), up to one
     128-spot tile per block when there are few cells (clusters mode has
     tens)."""
     tiles = math.ceil(s / 128)
@@ -305,8 +308,9 @@ _TC_BLOCK_OVERHEAD = 0.5
 
 def dp_splits(c: int, s: int, sm_count: int) -> int:
     """How many blocks share the 128-spot tiles of one 64-cell group in the
-    tensor-core dP-tile kernels (rbar, dm_adam). One block is resident per
-    SM, and the blocks of a launch run in waves of sm_count; 407 cell
+    tensor-core dP-tile kernels (rbar, dm_adam, dm_adafactor, dm_backward).
+    One block is resident per SM, and the blocks of a launch run in waves
+    of sm_count; 407 cell
     groups alone (the tutorial shape) fill 3.08 waves and leave most of the
     fourth idle. So the split is the one with the least estimated time,
     waves × (tiles per block + the block's fixed cost), the fewest blocks
@@ -346,11 +350,11 @@ def _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh):
 
 
 def _check_dp_args(M, A, w, m, l, dY, dq, dh, dtypes=F32_BF16):
-    """Shapes and types of the dP-tile kernels' shared inputs: M, A and dY
-    of ``dtypes``, the vectors f32."""
+    """Shapes and types of the dP-tile kernels' shared inputs: M f32 or
+    bf16, A and dY of ``dtypes``, the vectors f32."""
     c, s = M.shape
     k = A.shape[1]
-    for name, t, shape, types in (("M", M, (c, s), dtypes), ("A", A, (c, k), dtypes),
+    for name, t, shape, types in (("M", M, (c, s), F32_BF16), ("A", A, (c, k), dtypes),
                                   ("w", w, (c,), F32), ("m", m, (c, 1), F32),
                                   ("l", l, (c, 1), F32), ("dY", dY, (s, k), dtypes),
                                   ("dq", dq, (s,), F32), ("dh", dh, (c,), F32)):
@@ -359,9 +363,9 @@ def _check_dp_args(M, A, w, m, l, dY, dq, dh, dtypes=F32_BF16):
 
 
 def _dp_kernel_args(M, A, w, dY, dq):
-    """(AT, dYT, nsplit, stream) shared by the f32 FMA dP-tile entry points
-    (gsq, dm_adafactor, dm_backward): AT = [A | w]ᵀ (k + 1, c) and dYT =
-    [dY | dq]ᵀ (k + 1, s), f32. A bf16 A and dY (the compute type) keep
+    """(AT, dYT, nsplit, stream) of the f32 FMA dP-tile entry point, which
+    only gsq still takes: AT = [A | w]ᵀ (k + 1, c) and dYT = [dY | dq]ᵀ
+    (k + 1, s), f32, built per call. A bf16 A and dY (the compute type) keep
     their bf16 values in f32 staging, and the w and dq rows stay f32, as
     JAX's dP = dot(A_bf16, dY_bf16) + w ⊗ dq."""
     c, s = M.shape
@@ -370,7 +374,8 @@ def _dp_kernel_args(M, A, w, dY, dq):
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core dP tile (rbar, dm_adam): 3×TF32 and its operands
+# the tensor-core dP tile (rbar, the updates, dm_backward): 3×TF32 and its
+# operands
 # ---------------------------------------------------------------------------
 
 
@@ -410,14 +415,16 @@ def tf32_product_plain(A, dY, terms: int = 3):
     return (a_lo @ d_hi.T + a_hi @ d_lo.T) + a_hi @ d_hi.T
 
 
-def dp_operand(X):
+def dp_operand(X, depth: int | None = None):
     """A contraction operand of the tensor-core dP tile: X (n, k), f32 or
     bf16, as a contiguous f32 (n, Kp) array, K-major, its columns padded
-    with zeros to Kp, the next multiple of 32 (rows of 128 bytes: what the
-    kernel's 16-byte asynchronous copies and its K chunks of 32 take). A
-    bf16 X keeps its values, which are exact in TF32."""
+    with zeros to Kp, the first multiple of 32 at or past ``depth`` (k by
+    default; rows of 128 bytes: what the kernel's 16-byte asynchronous
+    copies and its K chunks of 32 take). A bf16 X keeps its values, which
+    are exact in TF32."""
     n, k = X.shape
-    Kp = max(_TC_K, -(-k // _TC_K) * _TC_K)
+    depth = k if depth is None else depth
+    Kp = max(_TC_K, -(-depth // _TC_K) * _TC_K)
     op = torch.zeros((n, Kp), dtype=torch.float32, device=X.device)
     op[:, :k] = X
     return op
@@ -425,13 +432,16 @@ def dp_operand(X):
 
 class DpOperands(NamedTuple):
     """The contraction operands of dP = A dYᵀ for the tensor-core tile:
-    ``A_op`` (c, Kp) and ``dY_op`` (s, Kp) from :func:`dp_operand`, and
+    ``A_op`` (c, Kp) and ``dY_op`` (s, Kp) from :func:`dp_operand`,
     ``split``: whether the tile takes three TF32 products of their split
-    parts (f32 inputs) or one product (both inputs bf16: exact)."""
+    parts (f32 inputs) or one product (both inputs bf16: exact), and
+    ``ext``: whether ``dY_op`` is [dY | dq] with ``A_op`` 0 in column k
+    (:func:`backward_operands`, what dm_backward's second product takes)."""
 
     A_op: torch.Tensor
     dY_op: torch.Tensor
     split: bool
+    ext: bool = False
 
 
 def dp_operands(A, dY, A_op=None) -> DpOperands:
@@ -440,6 +450,17 @@ def dp_operands(A, dY, A_op=None) -> DpOperands:
     already (A does not change between the steps of an unconstrained fit)."""
     split = not (A.dtype == torch.bfloat16 and dY.dtype == torch.bfloat16)
     return DpOperands(dp_operand(A) if A_op is None else A_op, dp_operand(dY), split)
+
+
+def backward_operands(A, dY, dq) -> DpOperands:
+    """The operands of the unfused backward's two kernels, built once per
+    backward: ``A_op`` = A and ``dY_op`` = [dY | dq], both f32 and padded
+    with zeros to a depth past k (column k of ``A_op`` is 0, so the dP
+    product ignores dq there; dm_backward's second product P [dY | dq]
+    takes it). Always the split product: the backward's A and dY are f32."""
+    k = A.shape[1]
+    return DpOperands(dp_operand(A, k + 1), dp_operand(_ext(dY.float(), dq), k + 1),
+                      True, True)
 
 
 def dp_from_operands_plain(ops: DpOperands, w, dq):
@@ -486,11 +507,12 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"
           operands: DpOperands | None = None):
     """r_c = Σ_s P ⊙ dP (c, 1): the row reduction of the softmax VJP.
     ``with_dh=False`` drops the entropy cotangent path (λ_r = 0). A launch
-    counts in ``LAUNCHES[counter]``: ``"rbar"`` (``"rbar.bf16"`` with a
-    bf16 M) in the fused steps, ``"backward_rbar"`` as the first pass of
-    :func:`_backward` (f32 only). ``operands`` are ``dp_operands(A, dY)``
-    when the caller has built them for the step already; the kernel reads A
-    and dY from them (the CPU twin from A and dY themselves)."""
+    counts in ``LAUNCHES[counter]`` (``counter + ".bf16"`` with a bf16 M):
+    ``"rbar"`` in the fused steps, ``"backward_rbar"`` as the first pass of
+    :func:`_backward` (A and dY f32 there). ``operands`` are
+    ``dp_operands(A, dY)`` (or :func:`backward_operands`) when the caller
+    has built them already; the kernel reads A and dY from them (the CPU
+    twin from A and dY themselves)."""
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh,
                              F32_BF16 if counter == "rbar" else F32)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh)
@@ -521,34 +543,66 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"
 
 def _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh=True):
     P, dP = _dp_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    return P * (dP - r), P @ dY, P @ dq
+    return (P * (dP - r)).to(M.dtype), P @ dY, P @ dq
 
 
-def _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh: bool = True):
+def ext_product_tf32_plain(P, dY, dq, terms: int = 3):
+    """(dA, dw) = P [dY | dq] as the dm_backward kernel's second product
+    forms it: :func:`tf32_product_plain` of P (c, s) and [dY | dq] over the
+    spot axis; ``terms=1`` is the single TF32 pass, which loses f32
+    accuracy."""
+    out = tf32_product_plain(P, _ext(dY, dq).T.contiguous(), terms)
+    return out[:, :-1], out[:, -1]
+
+
+def dm_backward_tf32_plain(M, A, w, m, l, dY, dq, dh, r, with_dh=True, terms: int = 3):
+    """(dM, dA, dw) as the dm_backward kernel forms them: dP from the TF32
+    parts of A and dY plus w ⊗ dq in f32, then [dA | dw] from the TF32
+    parts of P and [dY | dq] (:func:`ext_product_tf32_plain`), dM in M's
+    type; ``terms=1`` takes a single TF32 pass in both products."""
+    Mf = M.float()
+    P = torch.exp(Mf - m) * (1.0 / l)
+    dP = tf32_product_plain(A, dY, terms) + w[:, None] * dq[None, :]
+    if with_dh:
+        dP = dP + dh[:, None] * ((Mf - m - torch.log(l)) + 1.0)
+    dA, dw = ext_product_tf32_plain(P, dY, dq, terms)
+    return (P * (dP - r)).to(M.dtype), dA, dw
+
+
+def _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh: bool = True,
+                 operands: DpOperands | None = None):
     """The softmax VJP through the core, given ``r`` from :func:`_rbar`
-    with the same ``dh``: dM = P ⊙ (dP − r) (c, s), dA = P dY (c, k) and
-    dw = P dq (c,). P and dP are formed tile by tile and never stored. f32
-    only: a bf16 ``MapperCore`` is not ported yet."""
+    with the same ``dh``: dM = P ⊙ (dP − r) (c, s) in M's type (f32 or
+    bf16, rounded to nearest, as ``pallas_core._dm_kernel``), dA = P dY
+    (c, k) and dw = P dq (c,) in f32. P and dP are formed tile by tile and
+    never stored. A and dY are f32. ``operands`` are
+    :func:`backward_operands` when the caller has built them already (the
+    kernel reads A, dY and dq's copy from them)."""
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh, F32)
     check("r", r, (c, 1))
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r)
+    if operands is not None:
+        _check_operands(operands, A, dY)
+        if not operands.ext or operands.A_op.shape[1] <= k:
+            raise ValueError("dm_backward takes backward_operands(A, dY, dq)")
     if lib is None:
         return _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh)
     dev = M.device
-    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
-    dYE = _ext(dY, dq)
+    ops = backward_operands(A, dY, dq) if operands is None else operands
+    nsplit = dp_splits(c, s, _sm_count(M))
     dM = torch.empty_like(M)
     ext_part = torch.empty((nsplit, c, k + 1), dtype=torch.float32, device=dev)
     dA = torch.empty((c, k), dtype=torch.float32, device=dev)
     dw = torch.empty((c,), dtype=torch.float32, device=dev)
     if c:
         with torch.cuda.device(dev):
-            lib.call("tg_dm_backward", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
-                     dYE.data_ptr(), dh.data_ptr(), m.data_ptr(), l.data_ptr(),
-                     r.data_ptr(), dM.data_ptr(), ext_part.data_ptr(), dA.data_ptr(),
-                     dw.data_ptr(), c, s, k + 1, int(with_dh), vec4_ok(s, M, dM),
-                     nsplit, stream)
-        LAUNCHES["dm_backward"] += 1
+            lib.call("tg_dm_backward_tc", M.data_ptr(), ops.A_op.data_ptr(),
+                     ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(), dh.data_ptr(),
+                     m.data_ptr(), l.data_ptr(), r.data_ptr(), dM.data_ptr(),
+                     ext_part.data_ptr(), dA.data_ptr(), dw.data_ptr(), c, s, k,
+                     ops.A_op.shape[1], int(with_dh), vec2_ok(s, dM), nsplit, is_bf16(M),
+                     stage_granule(s, M), stream_of(M))
+        count_launch("dm_backward", M)
     return dM, dA, dw
 
 
@@ -560,10 +614,15 @@ def _backward_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
 def _backward(M, A, w, m, l, dY, dq, dh, with_dh: bool = True):
     """The VJP of the core (Y, q, h) → (dM, dA, dw) in two streamed
     passes, as ``pallas_core._backward``: the rbar kernel (counted as
-    ``backward_rbar``), then the dm_backward kernel. ``with_dh=False`` is for
-    a backward where h had no cotangent at all."""
-    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, counter="backward_rbar")
-    return _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh=with_dh)
+    ``backward_rbar``), then the dm_backward kernel, both on the operands
+    of :func:`backward_operands`, built once. M is f32 or bf16 (dM comes
+    back in its type), A and dY f32. ``with_dh=False`` is for a backward
+    where h had no cotangent at all."""
+    _check_dp_args(M, A, w, m, l, dY, dq, dh, F32)
+    ops = backward_operands(A, dY, dq)
+    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, counter="backward_rbar",
+              operands=ops)
+    return _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh=with_dh, operands=ops)
 
 
 def _forward_parts(M, A, w):
@@ -579,9 +638,10 @@ class MapperCore(torch.autograd.Function):
     streamed :func:`_backward` as its VJP: the counterpart of
     ``mapper_core_pallas``. The forward runs the rowstats and project
     kernels and saves M, A, w and the row stats (never P); on CPU tensors
-    every wrapper runs its twin. Inputs are contiguous f32; the forward alone
-    also takes a bf16 M (the validation metrics of bf16 storage), the
-    backward raises for it."""
+    every wrapper runs its twin. Inputs are contiguous; A and w f32, M f32
+    or bf16 (the validation metrics of bf16 storage, and a bf16 M's
+    gradient, which comes back in bf16 as ``mapper_core_pallas`` gives
+    it)."""
 
     @staticmethod
     def forward(ctx, M, A, w):
@@ -598,8 +658,8 @@ class MapperCore(torch.autograd.Function):
         # contiguous f32, so zeros stand in for a missing one; a missing dh
         # also lets the kernels drop the entropy path.
         with_dh = dh is not None
-        dY = torch.zeros((M.shape[1], A.shape[1]), dtype=M.dtype, device=M.device) \
-            if dY is None else dY.contiguous()
-        dq = torch.zeros_like(M[0]) if dq is None else dq.contiguous()
+        f32 = dict(dtype=torch.float32, device=M.device)
+        dY = torch.zeros((M.shape[1], A.shape[1]), **f32) if dY is None else dY.contiguous()
+        dq = torch.zeros(M.shape[1], **f32) if dq is None else dq.contiguous()
         dh = torch.zeros_like(w) if dh is None else dh.contiguous()
         return _backward(M, A, w, m, l, dY, dq, dh, with_dh=with_dh)

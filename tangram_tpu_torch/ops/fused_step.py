@@ -431,31 +431,38 @@ def _dm_adafactor_plain(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr, lam_l1,
 
 def _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr: float,
                   lam_l1: float, lam_l2: float, with_norms: bool,
-                  with_dh: bool = True, rounding: str = "nearest", step: int = 0):
+                  with_dh: bool = True, rounding: str = "nearest", step: int = 0,
+                  operands: DpOperands | None = None):
     """Adafactor update + next-step row stats in one streamed pass:
     M −= lr · g · rowf[c] · colf[s] **in place**, with no moment matrices,
     M stored in its type (f32 or bf16) as :func:`_dm_adam` stores it.
-    Returns ``(M, m', l', u'[, s1', s2'])`` of the stored M."""
+    Returns ``(M, m', l', u'[, s1', s2'])`` of the stored M. ``operands``
+    are ``dp_operands(A, dY)`` when the caller has built them for the step
+    already (see :func:`_rbar`)."""
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
     check("r", r, (c, 1))
     check("rowf", rowf, (c,))
     check("colf", colf, (s,))
     sr = _check_rounding(rounding)
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r, rowf, colf)
+    if operands is not None:
+        _check_operands(operands, A, dY)
     if lib is None:
         return _dm_adafactor_plain(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr,
                                    lam_l1, lam_l2, with_norms, with_dh, rounding, step)
-    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
+    ops = dp_operands(A, dY) if operands is None else operands
+    nsplit = dp_splits(c, s, _sm_count(M))
     st_part, out, ptrs = _next_stat_buffers(M, nsplit, with_norms)
     if c:
         with torch.cuda.device(M.device):
-            lib.call("tg_dm_adafactor", M.data_ptr(), AT.data_ptr(),
-                     dYT.data_ptr(), dh.data_ptr(), m.data_ptr(), l.data_ptr(),
-                     r.data_ptr(), rowf.data_ptr(), colf.data_ptr(),
-                     st_part.data_ptr(), *ptrs, c, s, k + 1, int(with_dh),
-                     int(with_norms), float(np.float32(lr)),
-                     *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M, colf), nsplit,
-                     is_bf16(M), int(sr), step & 0x7FFFFFFF, stream)
+            lib.call("tg_dm_adafactor_tc", M.data_ptr(), ops.A_op.data_ptr(),
+                     ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(), dh.data_ptr(),
+                     m.data_ptr(), l.data_ptr(), r.data_ptr(), rowf.data_ptr(),
+                     colf.data_ptr(), st_part.data_ptr(), *ptrs, c, s,
+                     ops.A_op.shape[1], int(with_dh), int(with_norms),
+                     float(np.float32(lr)), *_norm_scalars(lam_l1, lam_l2),
+                     vec2_ok(s, M), nsplit, is_bf16(M), int(sr), step & 0x7FFFFFFF,
+                     int(ops.split), stage_granule(s, M), stream_of(M))
         count_launch("dm_adafactor", M)
     return (M,) + tuple(out)
 
@@ -580,11 +587,12 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
     :func:`fused_unconstrained_step` with the (c,) / (s,) f32 factor
     vectors in place of the (c, s) Adam moments. Four streamed passes over
     M: projection, rbar, grad² statistics, and the update (which also emits
-    the next stats); M is updated in place, in its own type.
+    the next stats); M is updated in place, in its own type. rbar and the
+    update take the step's dP operands, built once.
 
     Returns ``(M, count + 1, vr_new, vc_new, stats_new, terms)``.
     """
-    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, _ = (
+    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, ops = (
         _unconstrained_cotangents(M, stats, data, lw, compute_dtype, A_op))
     c, s = M.shape
     vr_sum, vc_sum = _gsq(M, A, w, m, l, dY, dq, dh, r, lw.lambda_l1,
@@ -593,7 +601,8 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
                                                       vc_sum, c, s)
     out = _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, learning_rate,
                         lw.lambda_l1, lw.lambda_l2, with_norms=need_norms,
-                        with_dh=with_dh, rounding=rounding, step=count + 1)
+                        with_dh=with_dh, rounding=rounding, step=count + 1,
+                        operands=ops)
     return out[0], count + 1, vr_new, vc_new, tuple(out[1:]), terms
 
 

@@ -356,6 +356,40 @@ def test_dm_adafactor_twin_matches_jax_on_bf16(norms, rounding):
     check_update(got, want, 1, rounding == "stochastic")
 
 
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_mapper_core_on_bf16_m_matches_jax(c, s, k):
+    """Rows 6-7 with a bf16 M: ``MapperCore`` forward and backward (the
+    twins on the CPU) against ``jax.vjp`` of ``mapper_core_pallas`` on the
+    same bf16 M, f32 A and w and seeded cotangents: Y, q, h, dA and dw in
+    f32 at rtol = atol = 1e-5, dM stored in bf16 by both, within one bf16
+    ulp beyond 1e-5 of its largest entry."""
+    import jax
+
+    x = make_inputs(c, s, k)
+    rng = np.random.default_rng(9)
+    cts = [rng.normal(0, 1, shape).astype(np.float32) for shape in ((s, k), (s,), (c,))]
+    out_j, vjp = jax.vjp(jpc.mapper_core_pallas, J(x["M"], True), J(x["A"]), J(x["w"]))
+    grads_j = vjp(tuple(J(g) for g in cts))
+    assert grads_j[0].dtype == jnp.bfloat16
+    with torch.enable_grad():
+        leaves = [T(x["M"], True).requires_grad_(), T(x["A"]).requires_grad_(),
+                  T(x["w"]).requires_grad_()]
+        outs = cc.MapperCore.apply(*leaves)
+        loss = sum((o * T(g)).sum() for o, g in zip(outs, cts))
+        grads = torch.autograd.grad(loss, leaves)
+    for g, w in zip(outs, out_j):
+        assert g.dtype == torch.float32
+        close(g.detach(), w)
+    dM, dA, dw = grads
+    assert dM.dtype == torch.bfloat16 and dA.dtype == dw.dtype == torch.float32
+    want = f32(grads_j[0])
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    excess = np.abs(f32(dM) - want) - 1e-5 * np.abs(want).max()
+    assert (excess / ulp).max() <= 1.0
+    close(dA, grads_j[1])
+    close(dw, grads_j[2])
+
+
 def test_update_stats_come_from_the_stored_values():
     """The next stats are those of the stored bf16 M, not of the f32 values
     before rounding: recomputed from the stored M they agree at f32
@@ -380,10 +414,14 @@ def test_wrappers_take_bf16_only_where_jax_does():
         cc._rowstats(T(x["M"]).half())
     with pytest.raises(TypeError, match="w must be float32"):
         cc._project(args[0], args[1], args[2].to(torch.bfloat16), args[3], args[4])
-    with pytest.raises(TypeError, match="M must be float32"):  # no bf16 MapperCore
+    # the unfused backward takes a bf16 M (MapperCore's gradient) with the
+    # f32 A and cotangent dY that MapperCore hands it
+    with pytest.raises(TypeError, match="A must be float32"):
         cc._dm_backward(*args, r)
-    with pytest.raises(TypeError, match="M must be float32"):
+    with pytest.raises(TypeError, match="A must be float32"):
         cc._backward(*args)
+    with pytest.raises(TypeError, match="dY must be float32"):
+        cc._backward(args[0], args[1].float(), *args[2:])
     with pytest.raises(ValueError, match="rounding"):
         tfs._dm_adam(args[0].clone(), *args[1:], r, T(x["mu"]), T(x["nu"]),
                      tfs.adam_scalars(1, 0.1), rounding="Stochastic")

@@ -12,9 +12,11 @@ tutorial shape.
 Tolerance: max |kernel − twin| ≤ 1e-4 · max |twin| per output (1e-5 for the
 row stats): both are IEEE f32 and differ only in summation order. The L1/L2
 cases plant one padding sentinel in M and take the scale of the other
-entries. rbar and dm_adam form A·dYᵀ, and project Pᵀ[A | w], on the tensor
+entries. The dP tile (rbar, dm_adam, dm_adafactor, dm_backward) forms
+A·dYᵀ, dm_backward also P·[dY | dq], and project Pᵀ[A | w], on the tensor
 cores from TF32 parts of the f32 operands (3×TF32); the witness tests hold
-them to f32 accuracy against float64. The shapes cover one resident A panel and two (k = 300),
+them to f32 accuracy against float64. The shapes cover one resident A
+panel and two (k = 300; dm_backward's output then in two column panels),
 even and odd row lengths (16-, 8- and 4-byte staging copies, the bf16
 element path, paired and single stores), and a single ragged tile.
 """
@@ -271,6 +273,142 @@ def test_mapper_core_kernels_match_autograd_reference(dev, c, s, k):
         ("rowstats", "project", "backward_rbar", "dm_backward"), 1)
     want = core_gradients(x["M"], x["A"], x["w"], cts, mapper_core_reference)
     for g, w in zip(got, want):
+        assert_close(g, w)
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_bf16_m_backward_kernels_match_twins_and_repeat(dev, c, s, k, with_dh):
+    """backward_rbar and dm_backward on a bf16 M with f32 A and dY (what
+    MapperCore hands them), counted as their .bf16 variants: r, dA and dw
+    as the f32 outputs, dM stored in bf16 within one bf16 ulp beyond the
+    f32 tolerance; two repeats store the same bits, with the backward's
+    operands built once or by each call."""
+    x = inputs(c, s, k, dev, pad=True)
+    M = x["M"].to(torch.bfloat16)
+    m, l, _ = cc._rowstats_plain(M)
+    args = (M, x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = cc._rbar_plain(*args, with_dh=with_dh)
+    cc.reset_launches()
+    assert_close(cc._rbar(*args, with_dh=with_dh, counter="backward_rbar"), r)
+    got = cc._dm_backward(*args, r, with_dh=with_dh)
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == {
+        "backward_rbar.bf16": 1, "dm_backward.bf16": 1}
+    want = cc._dm_backward_plain(*args, r, with_dh=with_dh)
+    assert_stored_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert_close(g, w)
+    ops = cc.backward_operands(x["A"], x["dY"], x["dq"])
+    for operands in (None, ops, ops):
+        again = cc._dm_backward(*args, r, with_dh=with_dh, operands=operands)
+        assert torch.equal(again[0].view(torch.int16), got[0].view(torch.int16))
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_backward_repeats_give_the_same_bits(dev, c, s, k):
+    """f32 dM, dA and dw of three runs on the same inputs, with the
+    backward's operands built once or by each call: the same bits (no
+    atomics; the splits' partials added in order)."""
+    x = inputs(c, s, k, dev)
+    m, l, _ = cc._rowstats_plain(x["M"])
+    args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = cc._rbar_plain(*args)
+    ops = cc.backward_operands(x["A"], x["dY"], x["dq"])
+    first = cc._dm_backward(*args, r)
+    for operands in (ops, ops, None):
+        for a, b in zip(first, cc._dm_backward(*args, r, operands=operands)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_backward_and_adafactor_keep_f32_accuracy(dev, c, s, k):
+    """dm_backward's dM, dA, dw and dm_adafactor's stored M against
+    float64: the kernel errs at most 4× what the f32 twin errs, and a twin
+    with a single TF32 pass (A and dY, and P and [dY | dq] in dm_backward's
+    second product, rounded once) misses the kernel by more than 10× that
+    margin. Entropy cotangent off, as chip_smoke.py's witness."""
+    x = inputs(c, s, k, dev, seed=3)
+    M, A, w, dY, dq, dh = (x[n] for n in ("M", "A", "w", "dY", "dq", "dh"))
+    A = A + torch.rand_like(A)
+    m, l, _ = cc._rowstats_plain(M)
+    args = (M, A, w, m, l, dY, dq, dh)
+    r = cc._rbar_plain(*args, False)
+    vr, vc = fs._gsq_plain(*args, r, 0.0, 0.0, with_dh=False)
+    _, _, rowf, colf = fs.factored_rms_vectors(
+        0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, c, s)
+    P = torch.exp(M.double() - m.double()) / l.double()
+    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    g = P * (dP - r.double())
+    lr = float(np.float32(0.1))
+    want = (g, P @ dY.double(), P @ dq.double(),
+            M.double() - lr * (g * rowf.double()[:, None] * colf.double()[None, :]))
+    A_t, dY_t = cc.tf32_split(A)[0], cc.tf32_split(dY)[0]
+
+    def run(backward, adafactor, A_in, dY_in):
+        out = adafactor(M.clone(), A_in, w, m, l, dY_in, dq, dh, r, rowf, colf, 0.1,
+                        0.0, 0.0, False, with_dh=False)
+        return tuple(backward(*args, r, with_dh=False)) + (out[0],)
+
+    kernel = run(cc._dm_backward, fs._dm_adafactor, A, dY)
+    twin = run(cc._dm_backward_plain, fs._dm_adafactor_plain, A, dY)
+    rounded = run(lambda *a, with_dh: cc.dm_backward_tf32_plain(*a, with_dh=with_dh, terms=1),
+                  fs._dm_adafactor_plain, A_t, dY_t)
+    for got, plain, tf32, ref in zip(kernel, twin, rounded, want):
+        margin = WITNESS[0] * float((plain.double() - ref).abs().max())
+        assert float((got.double() - ref).abs().max()) <= margin
+        assert float((tf32 - got).abs().max()) > WITNESS[1] * margin
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_adafactor_with_prebuilt_operands_gives_the_same_bits(dev, c, s, k):
+    """dm_adafactor with the step's prebuilt operands stores what it stores
+    when it builds its own, and a repeat the same bits, in f32 and with
+    bf16 inputs (stochastic rounding)."""
+    for make, kw in ((inputs, {}), (bf16_inputs, dict(rounding="stochastic", step=4))):
+        x = make(c, s, k, dev)
+        m, l, _ = cc._rowstats_plain(x["M"])
+        args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+        r = cc._rbar_plain(*args)
+        vr, vc = fs._gsq_plain(*args, r, 0.0, 0.0)
+        _, _, rowf, colf = fs.factored_rms_vectors(
+            0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, c, s)
+        ops = cc.dp_operands(x["A"], x["dY"])
+        outs = [fs._dm_adafactor(x["M"].clone(), *args[1:], r, rowf, colf, 0.1, 0.0, 0.0,
+                                 False, operands=operands, **kw)
+                for operands in (None, ops, ops)]
+        for other in outs[1:]:
+            for a, b in zip(outs[0], other):
+                assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                                   b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_mapper_core_kernels_on_bf16_m_match_autograd_reference(dev, c, s, k):
+    """MapperCore on a bf16 M (the .bf16 variants of rowstats, project,
+    backward_rbar and dm_backward, each once) against autograd through the
+    materialized core of the same bf16 values: dA and dw at the f32
+    tolerance, dM (stored in bf16) within one bf16 ulp beyond it of the
+    reference's f32 gradient."""
+    from tangram_tpu_torch.ops.core import mapper_core_reference
+
+    x = inputs(c, s, k, dev)
+    M = x["M"].to(torch.bfloat16)
+    rng = np.random.default_rng(3)
+    cts = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev)
+           for shape in ((s, k), (s,), (c,))]
+    cc.reset_launches()
+    got = core_gradients(M, x["A"], x["w"], cts, cc.MapperCore.apply)
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == dict.fromkeys(
+        ("rowstats.bf16", "project.bf16", "backward_rbar.bf16", "dm_backward.bf16"), 1)
+    want = core_gradients(M.float(), x["A"], x["w"], cts, mapper_core_reference)
+    # the reference's f32 gradient, not a stored one: every entry within
+    # one bf16 ulp beyond the f32 tolerance
+    assert got[0].dtype == torch.bfloat16
+    ulp = torch.exp2(torch.floor(torch.log2(want[0].abs().clamp_min(2.0 ** -126))) - 7)
+    excess = (got[0].float() - want[0]).abs() - 1e-4 * float(want[0].abs().max())
+    assert float((excess / ulp).max()) <= 1.0
+    for g, w in zip(got[1:], want[1:]):
         assert_close(g, w)
 
 

@@ -10,7 +10,10 @@ The CUDA kernels themselves are held against these twins on the card by
 Tolerance: rtol = atol = 1e-5 throughout (the unfused backward and the
 ``MapperCore`` gradients included), except for the Adafactor
 statistics (vr, vc), which are small sums of squares and are held at
-1e-5 of their largest entry. Both sides compute in f32; they differ only in
+1e-5 of their largest entry, and dM of a bf16 M, stored in bf16 by both
+sides: within one bf16 ulp beyond 1e-5 of its largest entry (each rounds
+the same f32 value up to summation order, so they part only next to a
+rounding midpoint). Both sides compute in f32; they differ only in
 summation order and in the exp implementation (about one ulp), which moves
 results by far less than 1e-5 at these sizes. The norm cases plant one
 padding sentinel (``PAD`` < ``PAD_GUARD``) in M.
@@ -254,19 +257,64 @@ def test_dm_adafactor_twin_matches_jax(c, s, k, with_dh, with_norms):
         close(g, w)
 
 
+def close_bf16(got, want):
+    """Stored bf16 values: within one bf16 ulp of ``want`` beyond RTOL of
+    its largest entry."""
+    assert got.dtype == torch.bfloat16
+    got, want = got.float().numpy(), np.asarray(jnp.asarray(want).astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))) - 7)
+    over = np.abs(got - want) - RTOL * np.abs(want).max()
+    assert float((over / ulp).max()) <= 1.0
+
+
+@pytest.mark.parametrize("m_bf16", [False, True])
 @pytest.mark.parametrize("c,s,k", SHAPES)
-def test_backward_twin_matches_jax(c, s, k):
+def test_backward_twin_matches_jax(c, s, k, m_bf16):
     """The unfused backward's two passes (rbar with dh, then dM, dA, dw)
     against ``pallas_core._backward``; JAX pads k to 128, so its dA is
-    sliced back to k columns."""
+    sliced back to k columns. With a bf16 M (A and dY f32), dM comes back
+    in bf16 on both sides."""
     x = make_inputs(c, s, k)
-    m, l, _ = jax_stats(x["M"])
-    dM_j, dA_j, dw_j = jpc._backward(*jax_args(x, m, l))
-    dM, dA, dw = cc._backward(*torch_args(x, m, l))
+    if m_bf16:
+        x["M"] = np.asarray(jnp.asarray(x["M"]).astype(jnp.bfloat16).astype(jnp.float32))
+    M_j = jnp.asarray(x["M"]).astype(jnp.bfloat16 if m_bf16 else jnp.float32)
+    m, l, _ = [np.asarray(v) for v in jpc._rowstats(M_j)]
+    dM_j, dA_j, dw_j = jpc._backward(M_j, *jax_args(x, m, l)[1:])
+    M = T(x["M"]).to(torch.bfloat16 if m_bf16 else torch.float32)
+    dM, dA, dw = cc._backward(M, *torch_args(x, m, l)[1:])
     assert (tuple(dM.shape), tuple(dA.shape), tuple(dw.shape)) == ((c, s), (c, k), (c,))
-    close(dM, dM_j)
+    assert dM.dtype == M.dtype and dA.dtype == dw.dtype == torch.float32
+    if m_bf16:
+        assert dM_j.dtype == jnp.bfloat16
+        close_bf16(dM, dM_j)
+    else:
+        close(dM, dM_j)
     close(dA, np.asarray(dA_j)[:, :k])
     close(dw, dw_j)
+
+
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_dm_backward_tf32_twin_matches_jax_and_float64(c, s, k):
+    """dM, dA and dw as the tensor-core dm_backward kernel forms them (both
+    products from three TF32 terms of split operands) against the JAX
+    kernel (interpret mode) at the twins' tolerance, and against a float64
+    backward within 1e-6 of each output's largest entry."""
+    x = make_inputs(c, s, k)
+    A = fractional(x["A"])
+    m, l, _ = jax_stats(x["M"])
+    args = (T(x["M"]), T(A)) + torch_args(x, m, l)[2:]
+    r = cc._rbar_plain(*args)
+    got = cc.dm_backward_tf32_plain(*args, r)
+    x_j = dict(x, A=A)
+    dM_j, dA_j, dw_j = jpc._backward(*jax_args(x_j, m, l))
+    for g, w in zip(got, (dM_j, np.asarray(dA_j)[:, :k], dw_j)):
+        close(g, w)
+    Md, Ad, wd, md, ld, dYd, dqd, dhd = (t.double() for t in args)
+    P = torch.exp(Md - md) / ld
+    dP = Ad @ dYd.T + wd[:, None] * dqd[None, :] + dhd[:, None] * ((Md - md - torch.log(ld)) + 1.0)
+    want = (P * (dP - r.double()), P @ dYd, P @ dqd)
+    for g, w in zip(got, want):
+        assert float((g.double() - w).abs().max()) <= 1e-6 * float(w.abs().max())
 
 
 def core_grads(core, x, cts):
@@ -342,9 +390,8 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
     m, l, _ = cc._rowstats(M)
     cc._project(M, T(x["A"]), T(x["w"]), m, l)
     kernels = {"rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-               "dm_adafactor"}
-    assert set(cc.LAUNCHES) == kernels | {"backward_rbar", "dm_backward"} | {
-        name + ".bf16" for name in kernels}
+               "dm_adafactor", "backward_rbar", "dm_backward"}
+    assert set(cc.LAUNCHES) == kernels | {name + ".bf16" for name in kernels}
     assert not any(cc.LAUNCHES.values())
     assert resolve_impl("auto", M) == "reference"
     with pytest.raises(ValueError, match="kernels"):
@@ -393,7 +440,7 @@ def test_dp_split_count():
 
 
 def test_dp_fma_split_count():
-    """The spot split of the f32 FMA tile (gsq, dm_adafactor, dm_backward):
+    """The spot split of the f32 FMA tile, which only gsq still takes:
     none in cells mode at the tutorial shape, one 128-spot tile per block
     for clusters mode."""
     assert cc.dp_fma_splits(26_000, 9_852, sm_count=132) == 1
@@ -460,6 +507,68 @@ def test_three_tf32_terms_keep_f32_accuracy_and_one_does_not():
     three = float((cc.tf32_product_plain(A, dY).double() - want).abs().max()) / scale
     one = float((cc.tf32_product_plain(A, dY, terms=1).double() - want).abs().max()) / scale
     assert three <= 1e-6 < 1e-4 < one, (three, one)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_second_product_three_tf32_terms_keep_f32_accuracy_and_one_does_not(signed):
+    """dm_backward's second product [dA | dw] = P [dY | dq] over a deep
+    spot axis (6,000 spots; P a softmax, every entry > 0): the three-term
+    product of split operands within 1e-6 of a float64 product (of its
+    largest entry), the single TF32 pass beyond 1e-4 on centred
+    cotangents and beyond 5e-5 on positive ones (``signed`` False: every
+    term >= 0, where a truncated running sum would show as a one-sided
+    bias and one rounding of each factor partly averages out)."""
+    rng = np.random.default_rng(2)
+    c, s, k = 48, 6_000, 24
+    P = torch.softmax(T(rng.normal(0, 2, (c, s))), dim=1)
+    dY = rng.normal(0, 1, (s, k)) + (0.0 if signed else 3.0)
+    dY, dq = T(dY), T(rng.normal(0, 1, s) + (0.0 if signed else 3.0))
+    want = (P.double() @ dY.double(), P.double() @ dq.double())
+
+    def err(terms):
+        got = cc.ext_product_tf32_plain(P, dY, dq, terms)
+        return max(float((g.double() - t).abs().max()) / float(t.abs().max())
+                   for g, t in zip(got, want))
+
+    three, one = err(3), err(1)
+    assert three <= 1e-6 < (1e-4 if signed else 5e-5) < one, (three, one)
+
+
+@pytest.mark.parametrize("k", [1, 7, 31, 32, 249, 256, 300])
+def test_backward_operands_layout(k):
+    """The unfused backward's operands: A and [dY | dq], f32, K-major,
+    padded with zeros to a multiple of 32 past k (A's column k is 0, so
+    the dP product ignores dq), 16-byte aligned; their product plus the
+    rank-one term is A dYᵀ + w ⊗ dq, and the second product's operand
+    holds [dY | dq]."""
+    x = make_inputs(9, 13, k)
+    A, dY, w, dq = T(x["A"]), T(x["dY"]), T(x["w"]), T(x["dq"])
+    ops = cc.backward_operands(A, dY, dq)
+    Kp = ops.A_op.shape[1]
+    assert ops.split and ops.ext and Kp % 32 == 0 and 0 < Kp - k <= 32
+    assert tuple(ops.A_op.shape) == (9, Kp) and tuple(ops.dY_op.shape) == (13, Kp)
+    assert ops.A_op.data_ptr() % 16 == 0 and ops.dY_op.data_ptr() % 16 == 0
+    assert torch.equal(ops.A_op[:, :k], A) and float(ops.A_op[:, k:].abs().sum()) == 0
+    assert torch.equal(ops.dY_op[:, :k], dY) and torch.equal(ops.dY_op[:, k], dq)
+    assert float(ops.dY_op[:, k + 1:].abs().sum()) == 0
+    want = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    got = cc.dp_from_operands_plain(ops, w, dq)
+    assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_dm_backward_takes_only_backward_operands():
+    """dm_backward's second product reads dq from its operand, so the step
+    operands of the fused kernels (no dq column) are refused, on the CPU
+    too; with its own operands it equals the call that builds them."""
+    x = make_inputs(12, 40, 5)
+    m, l, _ = jax_stats(x["M"])
+    args = torch_args(x, m, l)
+    r = cc._rbar_plain(*args)
+    with pytest.raises(ValueError, match="backward_operands"):
+        cc._dm_backward(*args, r, operands=cc.dp_operands(args[1], args[5]))
+    ops = cc.backward_operands(args[1], args[5], args[6])
+    for a, b in zip(cc._dm_backward(*args, r, operands=ops), cc._dm_backward(*args, r)):
+        assert torch.equal(a, b)
 
 
 def fractional(x, seed=5):
@@ -635,6 +744,35 @@ def test_fused_steps_take_the_loops_a_operand(optimizer):
             assert tuple(A_op.shape) == (12, 32) and torch.equal(A_op[:, :3], data.S)
         out = step(M, *state, fs.initial_stats(M, lw), data, lw, 0.1, A_op=A_op)
         outs.append((out[0], out[2], out[3]) + tuple(out[4]))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_adafactor_step_passes_its_operands_to_the_update(monkeypatch):
+    """The fused Adafactor step hands the dP operands it built for rbar to
+    the update (``_dm_adafactor(operands=...)``), and its result is the one
+    of an update that builds its own, bit for bit."""
+    x = make_inputs(12, 20, 3)
+    data = MapperData(S=T(x["A"]), G=T(np.abs(x["dY"][:, :3]) + 0.1))
+    lw = LossWeights(lambda_g2=0.5, lambda_r=0.01, lambda_l1=0.01)
+    update = fs._dm_adafactor
+    seen = []
+
+    def spy(*args, operands=None, drop=False, **kw):
+        seen.append(operands)
+        return update(*args, operands=None if drop else operands, **kw)
+
+    outs = []
+    for drop in (False, True):
+        monkeypatch.setattr(fs, "_dm_adafactor",
+                            lambda *a, drop=drop, **kw: spy(*a, drop=drop, **kw))
+        M = T(x["M"])
+        out = fs.fused_unconstrained_step_adafactor(
+            M, *fs.init_fused_adafactor_state(M), fs.initial_stats(M, lw), data, lw, 0.1)
+        outs.append((out[0], out[2], out[3]) + tuple(out[4]))
+    assert all(isinstance(ops, cc.DpOperands) and not ops.ext for ops in seen)
+    assert tuple(seen[0].A_op.shape) == (12, 32)
+    assert torch.equal(seen[0].A_op[:, :3], data.S)
     for a, b in zip(*outs):
         assert torch.equal(a, b)
 
