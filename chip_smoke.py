@@ -28,8 +28,9 @@ last line):
               time the card could take for its work; an f32 contraction
               at the faster of the FMA pipes and 3xTF32 on the tensor
               cores) and the cuBLAS f32 GEMM time at each contraction's
-              shape; at every shape the f32-accuracy witness of the
-              tensor-core kernels (rbar, dm_adam, dm_adafactor's M,
+              shape (torch.logsumexp's beside the row stats); at every
+              shape the f32-accuracy witness of the tensor-core kernels
+              (rbar, dm_adam, gsq's vr and vc, dm_adafactor's M,
               dm_backward's dM, dA and dw; project's Y and q):
               against float64 twins the kernel errs at most 4x what the f32
               twin errs, and a twin with A and dY (P) rounded once to TF32
@@ -111,9 +112,9 @@ EPOCHS = 100
 SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
 # the kernels of the tensor-core dP tile have their own source
 TENSOR_SOURCE = "tangram_tpu_torch/csrc/dp_tensor_kernels.cu"
-TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "dm_adafactor", "dm_backward",
-                  "rbar.bf16", "dm_adam.bf16", "dm_adafactor.bf16", "backward_rbar.bf16",
-                  "dm_backward.bf16")
+TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "gsq", "dm_adafactor", "dm_backward",
+                  "rbar.bf16", "dm_adam.bf16", "gsq.bf16", "dm_adafactor.bf16",
+                  "backward_rbar.bf16", "dm_backward.bf16")
 # and so has the projection on the tensor cores
 PROJECT_SOURCE = "tangram_tpu_torch/csrc/project_tc_kernels.cu"
 PROJECT_KERNELS = ("project", "project.bf16")
@@ -196,8 +197,9 @@ RTOL = {"rowstats": 1e-5, "project": 1e-4, "rbar": 1e-4, "dm_adam": 1e-4,
 RTOL.update({f"{name}.bf16": RTOL[name] for name in BF16_KERNELS})
 Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
 # The f32-accuracy witness of the tensor-core dP tile (rbar's r; dm_adam's
-# M, mu, nu and next stats; dm_adafactor's stored M; dm_backward's dM, dA
-# and dw; entropy cotangent off, the timed case), against a float64 twin of
+# M, mu, nu and next stats; gsq's vr and vc; dm_adafactor's stored M;
+# dm_backward's dM, dA and dw; entropy cotangent off, the timed case),
+# against a float64 twin of
 # the same function on the same f32 inputs: the kernel's largest error is
 # at most F32_WITNESS[0] times the f32 twin's largest error (both differ
 # from float64 by f32 rounding and summation order only), and a twin whose
@@ -206,8 +208,9 @@ Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
 # misses the kernel by more than F32_WITNESS[1] times that margin on r, mu,
 # Adafactor's M and dM, dA, dw (where the products enter linearly; a CPU
 # estimate at the tutorial depth on 1,000 cells put that miss at 15-34
-# times the threshold), so the check can see the fault it exists for. project's Y and q (a sum over
-# all c cells) are held the same way against a float64 projection, beside
+# times the threshold) and on gsq's vr and vc with dq = 0 (where g comes
+# from the product alone), so the check can see the fault it exists for.
+# project's Y and q (a sum over all c cells) are held the same way against a float64 projection, beside
 # a twin whose P was rounded once to TF32: on the kernel phase's counts plus
 # a fraction (every term >= 0, where a truncated running sum on the tensor
 # cores would show as a one-sided bias) for accuracy alone, since at 26,000
@@ -354,17 +357,20 @@ def bound_ms(name, shape):
     return t_ops * 1e3, "operations", pipe
 
 
-def dp_l2_bytes(c, s, k, sm_count):
-    """Bytes the tensor-core dP tile (rbar, dm_adam) moves through L2 per
-    launch for its operands, as its design reckons them: every block streams
-    its spot tiles' dY rows whole (Kp f32 each), and copies its 64 resident
-    A rows once (once per spot tile when K is deeper than one panel of 256)."""
+def dp_l2_bytes(c, s, k, sm_count, gsq=False):
+    """Bytes the tensor-core dP tile (rbar, gsq, dm_adam, dm_adafactor) moves
+    through L2 per launch for its operands, as its design reckons them:
+    every block streams its spot tiles' dY rows whole (Kp f32 each), and
+    copies its 64 resident A rows once (once per spot tile when K is deeper
+    than one panel of 256); with ``gsq``, also its (2 ceil(c / 64), s) f32
+    column partial, written once and read once by col_sum."""
     from tangram_tpu_torch.ops import cuda_core as cc
 
     Kp = -(-k // 32) * 32
     groups, nsplit = math.ceil(c / 64), cc.dp_splits(c, s, sm_count)
     a_loads = nsplit if Kp <= 256 else math.ceil(s / 128)
-    return groups * (s * Kp * 4 + a_loads * 64 * Kp * 4)
+    partial = 2 * (2 * groups * s * 4) if gsq else 0
+    return groups * (s * Kp * 4 + a_loads * 64 * Kp * 4) + partial
 
 
 def project_l2_bytes(c, s, k):
@@ -451,8 +457,10 @@ def check_f32_accuracy(shape, x, m, l, scalars):
     """The f32-accuracy witness of the tensor-core kernels (F32_WITNESS):
     rbar's r and dm_adam's M, mu, nu and next stats against float64 twins of
     the same functions on the same f32 inputs, beside the f32 twins and
-    beside f32 twins whose A and dY were rounded once to TF32; then
-    dm_adafactor's stored M and dm_backward's dM, dA and dw the same way
+    beside f32 twins whose A and dY were rounded once to TF32; then gsq's
+    vr and vc (the rounded twin: gsq_tf32_plain's single pass; held to the
+    margin with dq = 0), dm_adafactor's stored M and dm_backward's dM, dA
+    and dw the same way
     (dm_backward's rounded twin also rounds P and [dY | dq] once in its
     second product); then project's Y and q, beside a twin whose P was
     rounded once. A takes a
@@ -550,26 +558,56 @@ def check_f32_accuracy(shape, x, m, l, scalars):
     lr = float(f32(0.1))
     want = {"adafactor M": Md - lr * (g * rowf.double()[:, None] * colf.double()[None, :]),
             "dM": g, "dA": P @ dY.double(), "dw": P @ dq.double()}
-    del Md, P, g
+    del Md, P
+    g = g * g
+    want.update({"gsq vr": g.sum(dim=1), "gsq vc": g.sum(dim=0)})
+    del g
     back = (M, A, w, m, l, dY, dq, dh, r_p)
+    gsq_args = (M, A, w, m, l, dY, dq, dh, r_p, 0.0, 0.0)
     sides = {}
-    for side, adafactor, backward, A_in, dY_in in (
-            ("kernel", fs._dm_adafactor, cc._dm_backward, A, dY),
-            ("f32 twin", fs._dm_adafactor_plain, cc._dm_backward_plain, A, dY),
+    for side, adafactor, backward, gsq, A_in, dY_in in (
+            ("kernel", fs._dm_adafactor, cc._dm_backward, fs._gsq, A, dY),
+            ("f32 twin", fs._dm_adafactor_plain, cc._dm_backward_plain, fs._gsq_plain, A, dY),
             ("TF32 twin", fs._dm_adafactor_plain,
              lambda *a, with_dh: cc.dm_backward_tf32_plain(*a, with_dh=with_dh, terms=1),
+             lambda *a, with_dh: fs.gsq_tf32_plain(*a, with_dh=with_dh, terms=1),
              A_t, dY_t)):
         out = adafactor(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, rowf, colf, 0.1,
                         0.0, 0.0, False, with_dh=False)
         sides[side] = dict(zip(("dM", "dA", "dw"), backward(*back, with_dh=False)),
-                           **{"adafactor M": out[0]})
+                           **{"adafactor M": out[0]},
+                           **dict(zip(("gsq vr", "gsq vc"), gsq(*gsq_args, with_dh=False))))
     for name, ref in want.items():
         real = ref.abs() < 1e20
         err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
                         for side in ("kernel", "f32 twin"))
         miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
-        judge(name, err_k, err_p, miss, True,
-              "A and dY" if name == "adafactor M" else "A, dY, P and [dY | dq]")
+        judge(name, err_k, err_p, miss, not name.startswith("gsq"),
+              "A and dY" if name in ("adafactor M", "gsq vr", "gsq vc")
+              else "A, dY, P and [dY | dq]")
+    del want, sides
+
+    # gsq again with dq = 0, g from the product alone. w (x) dq is added
+    # exactly on every side; where it outweighs A dY^T (w = 1/c: 18 times
+    # at c = 22) a single TF32 pass moves g too little for the rounded twin
+    # to show on vr (measured on the H100 at the clusters shape: 0.73 of
+    # the margin), so the rounded twin is held to the margin here
+    dq0 = torch.zeros_like(dq)
+    r0 = cc._rbar_plain(M, A, w, m, l, dY, dq0, dh, False)
+    P = torch.exp(M.double() - m.double()) / l.double()
+    g = (P * (A.double() @ dY.double().T - r0.double())) ** 2
+    del P
+    want = {"gsq vr (dq = 0)": g.sum(dim=1), "gsq vc (dq = 0)": g.sum(dim=0)}
+    del g
+    gsq_args = (M, A, w, m, l, dY, dq0, dh, r0, 0.0, 0.0)
+    sides = {side: gsq(*gsq_args, with_dh=False) for side, gsq in (
+        ("kernel", fs._gsq), ("f32 twin", fs._gsq_plain),
+        ("TF32 twin", lambda *a, with_dh: fs.gsq_tf32_plain(*a, with_dh=with_dh, terms=1)))}
+    for i, (name, ref) in enumerate(want.items()):
+        err_k, err_p = (float((sides[side][i].double() - ref).abs().max())
+                        for side in ("kernel", "f32 twin"))
+        miss = float((sides["TF32 twin"][i] - sides["kernel"][i]).abs().max())
+        judge(name, err_k, err_p, miss, True, "A and dY")
     del want, sides
 
     # project: Y and q against a float64 projection (F32_WITNESS's note)
@@ -644,15 +682,17 @@ def compare_kernels(shape, dev, results, timed):
         results[name]["plain_ms"] = cuda_ms(twin, runs)
 
     # rowstats, with and without the L1/L2 norms
+    tag = f"{shape} ({cc.rowstats_load_bytes(M)}-byte loads)"
     got, ref = cc._rowstats(M), cc._rowstats_plain(M)
-    check("rowstats", zip("mlu", got, ref), f"{shape}")
+    check("rowstats", zip("mlu", got, ref), tag)
     m, l, u = ref
     got, ref = fs._rowstats_norms(M), fs._rowstats_norms_plain(M)
-    check("rowstats_norms", zip(("m", "l", "u", "s1", "s2"), got, ref), f"{shape}")
+    check("rowstats_norms", zip(("m", "l", "u", "s1", "s2"), got, ref), tag)
     if timed:
         time_pair("rowstats", lambda: cc._rowstats(M), lambda: cc._rowstats_plain(M))
         time_pair("rowstats_norms", lambda: fs._rowstats_norms(M),
                   lambda: fs._rowstats_norms_plain(M))
+        logsumexp_note(M, runs)
 
     # project
     got, ref = cc._project(M, A, w, m, l), cc._project_plain(M, A, w, m, l)
@@ -747,9 +787,10 @@ def compare_kernels(shape, dev, results, timed):
                     M.clone(), A, w, m, l, dY, dq, dh, r_p, rowf, colf, 0.1, l1, l2,
                     True, with_dh)[:1], lam, ntag)
             if timed and not with_dh and with_norms:  # the adafactor phase's case
-                time_pair("gsq", lambda: fs._gsq(*args, r_p, *lam, with_dh=False),
+                # as the fused step calls them: the step's operands built once
+                time_pair("gsq", lambda: fs._gsq(*args, r_p, *lam, with_dh=False,
+                                                 operands=ops),
                           lambda: fs._gsq_plain(*args, r_p, *lam, with_dh=False))
-                # as the fused step calls it: the step's operands built once
                 time_pair("dm_adafactor", lambda: fs._dm_adafactor(
                     Mk, A, w, m, l, dY, dq, dh, r_p, rowf, colf, 0.1, *lam,
                     with_norms=True, with_dh=False, operands=ops),
@@ -866,11 +907,12 @@ def compare_bf16_kernels(shape, dev, results, timed):
         results[name]["ms"] = cuda_ms(kernel, runs)
         results[name]["plain_ms"] = cuda_ms(twin, runs)
 
+    tag = f"{shape} ({cc.rowstats_load_bytes(M)}-byte loads)"
     got, ref = cc._rowstats(M), cc._rowstats_plain(M)
-    check("rowstats.bf16", zip("mlu", got, ref), f"{shape}")
+    check("rowstats.bf16", zip("mlu", got, ref), tag)
     m, l, _ = ref
     got, ref = fs._rowstats_norms(M), fs._rowstats_norms_plain(M)
-    check("rowstats_norms.bf16", zip(("m", "l", "u", "s1", "s2"), got, ref), f"{shape}")
+    check("rowstats_norms.bf16", zip(("m", "l", "u", "s1", "s2"), got, ref), tag)
 
     def check_rounded_y(Y, Yp):
         """Y of a bf16 A within Y_BF16_RTOL of max |twin| beyond the slack
@@ -907,6 +949,7 @@ def compare_bf16_kernels(shape, dev, results, timed):
         time_pair("rowstats.bf16", lambda: cc._rowstats(M), lambda: cc._rowstats_plain(M))
         time_pair("rowstats_norms.bf16", lambda: fs._rowstats_norms(M),
                   lambda: fs._rowstats_norms_plain(M))
+        logsumexp_note(M, runs)
         time_pair("project.bf16", lambda: cc._project(M, A, w, m, l),
                   lambda: cc._project_plain(M, A, w, m, l))
 
@@ -958,7 +1001,8 @@ def compare_bf16_kernels(shape, dev, results, timed):
                 check_update("dm_adafactor.bf16", ("M", "m'", "l'", "u'", "s1'", "s2'"),
                              out_k, out_p, 1, ntag)
                 if timed and not with_dh and with_norms and rounding == "stochastic":
-                    time_pair("gsq.bf16", lambda: fs._gsq(*args, r_p, *lam, with_dh=False),
+                    time_pair("gsq.bf16", lambda: fs._gsq(*args, r_p, *lam, with_dh=False,
+                                                          operands=ops),
                               lambda: fs._gsq_plain(*args, r_p, *lam, with_dh=False))
                     time_pair("dm_adafactor.bf16", lambda: fs._dm_adafactor(
                         Mk, *args[1:], r_p, rowf, colf, 0.1, *lam, with_norms=True,
@@ -1052,6 +1096,17 @@ def check_mapper_core(x, results):
                 fail(f"MapperCore's bf16 dM disagrees with autograd through the reference core")
         elif not r <= RTOL["dm_backward"]:
             fail(f"MapperCore's {what} disagrees with autograd through the reference core")
+
+
+def logsumexp_note(M, runs):
+    """torch.logsumexp over M's rows, timed beside the row stats as a note:
+    a library one-pass reduction over the same bytes, but not the same
+    function (it returns no u and no norms), so not their library call."""
+    import torch
+
+    ms = cuda_ms(lambda: torch.logsumexp(M, dim=1), runs)
+    say("kernels", f"torch.logsumexp(M, dim=1) on the {str(M.dtype).removeprefix('torch.')} "
+        f"M of {tuple(M.shape)}: {ms:.3f} ms (a note beside the row stats)")
 
 
 def time_gemms(x):
@@ -1665,8 +1720,8 @@ def profile_steps(mapper, steps=5):
 
 
 def profile_dp_tile(dev):
-    """Where rbar, dm_adam, dm_adafactor (f32 and bf16), dm_backward (f32)
-    and project (f32 and bf16) spend their cycles at
+    """Where rbar, gsq, dm_adam, dm_adafactor (f32 and bf16), dm_backward
+    (f32) and project (f32 and bf16) spend their cycles at
     the tutorial shape: a second build of the kernels with -DTG_DP_PROFILE
     counts, in two warps of every block (0 and 15 of the dP tile; of
     project, product warp 0 and forming warp 8), the clock cycles of each
@@ -1706,6 +1761,8 @@ def profile_dp_tile(dev):
             _, _, rowf, colf = fs.factored_rms_vectors(
                 0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, *SHAPE[:2])
             runs = [("rbar", lambda: fs._rbar(*args, with_dh=False, operands=ops)),
+                    ("gsq", lambda: fs._gsq(*args, r, 0.0, 0.0, with_dh=False,
+                                            operands=ops)),
                     ("dm_adam", lambda: fs._dm_adam(
                         state[0], *args[1:], r, *state[1:], scalars, with_dh=False,
                         operands=ops, **kw)),
@@ -1834,10 +1891,12 @@ def main(argv=None) -> int:
                     f"{r['plain_ms']:.3f} ms, bound {bound:.3f} ms ({by}: {pipe}) at "
                     f"{SHAPE} ({card})")
         sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-        say("kernels", f"rbar and dm_adam at {SHAPE}: "
+        say("kernels", f"the dP tile (rbar, gsq, dm_adam, dm_adafactor) at {SHAPE}: "
             f"{cuda_core.dp_splits(*SHAPE[:2], sm_count)} spot splits per 64-cell group; "
             f"their A and dY operands move {dp_l2_bytes(*SHAPE, sm_count) / 1e9:.2f} GB "
-            f"through L2 per launch, as reckoned from the tile shape")
+            f"through L2 per launch, gsq's with its column partial "
+            f"{dp_l2_bytes(*SHAPE, sm_count, gsq=True) / 1e9:.2f} GB, as reckoned from "
+            f"the tile shape")
         say("kernels", f"project at {SHAPE}: "
             f"{cuda_core.project_splits(*SHAPE, sm_count)} cell splits of "
             f"{math.ceil(SHAPE[1] / 64)} spot tiles; [A | w] moves "

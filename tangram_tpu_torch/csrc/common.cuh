@@ -89,12 +89,6 @@ __device__ __forceinline__ float bf16_bits_to_f32(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_f32(const bf16* p) {
-  return bf16_bits_to_f32(__ldg(reinterpret_cast<const unsigned short*>(p)));
-}
-
 // f32 -> bf16 -> f32, round to nearest even (jnp's astype)
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -129,14 +123,6 @@ __device__ __forceinline__ float stored_value(float v, bool bf16_store, bool sr,
   if (!sr) return round_bf16(v);
   const uint32_t bits = wang_hash((uint32_t)spot ^ key);
   return __uint_as_float((__float_as_uint(v) + (bits & 0xFFFFu)) & 0xFFFF0000u);
-}
-
-// 4-byte asynchronous copy global -> shared; valid == false writes zeros
-__device__ __forceinline__ void cp_async_f32(float* smem, const float* gmem, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
 }
 
 // 16-byte asynchronous copy global -> shared (both 16-byte aligned);

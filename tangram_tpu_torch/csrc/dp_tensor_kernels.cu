@@ -1,9 +1,13 @@
 // The tensor-core dP tile (sm_90a): rbar, the fused Adam and Adafactor
-// updates, and the backward of the unfused core.
+// updates, Adafactor's grad^2 statistics, and the backward of the unfused
+// core.
 //
 //   tg_rbar             replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
 //                       pallas_core._rbar_kernel / _dp_tile), also as the
 //                       first pass of pallas_core._backward
+//   tg_gsq_tc           replaces tangram_tpu/ops/fused_step.py::_gsq
+//                       (_gsq_kernel): sum_spots g^2 per cell and sum_cells
+//                       g^2 per spot, L1/L2 terms and a bf16 M included
 //   tg_dm_adam          replaces tangram_tpu/ops/fused_step.py::_dm_adam
 //                       (_dm_adam_kernel, _grad_tile, _emit_next_stats,
 //                       _sr_cast), L1/L2 terms, bf16 M/mu/nu and stochastic
@@ -18,8 +22,7 @@
 //                       [dA | dw] = P [dY | dq]
 //
 // All form dP = A dY^T + w (x) dq [+ dh (x) (log P + 1)] tile by tile and
-// never store it. (gsq stays on the f32 FMA tile of mapper_kernels.cu: its
-// column sums cross the cell blocks and need a design of their own.)
+// never store it.
 //
 // What bounds them on the H100. The product is 2 c s k flops (1.28e11 at
 // 26,000 x 9,852 x 249). On the f32 FMA pipes that is 1.9 ms at best, and a
@@ -27,8 +30,8 @@
 // tensor cores take TF32 operands (10 mantissa bits), which alone would
 // lose the f32 accuracy the mapping needs; three TF32 products of split
 // operands give it back (below) and cost 0.78 ms at the card's TF32 peak.
-// rbar then reads M once (1.02 GB, 0.31 ms): operations bound it. dm_adam
-// reads and writes M, mu and nu (6.15 GB, 1.84 ms): bytes bound it.
+// rbar and gsq then read M once (1.02 GB, 0.31 ms): operations bound them.
+// dm_adam reads and writes M, mu and nu (6.15 GB, 1.84 ms): bytes bound it.
 // dm_adafactor reads and writes M (2.05 GB, 0.61 ms): operations bound it.
 // dm_backward does two such products (1.55 ms) and reads M, writes dM.
 //
@@ -66,7 +69,7 @@
 //    per (tile, panel), the accumulators stay in registers.
 //    L2 traffic per launch: every block streams its tiles' dY rows whole
 //    and copies its A rows once: 407 cell groups x 10.1 MB = 4.1 GB at the
-//    tutorial shape, against 6.0 GB on the FMA tile (both operands per tile).
+//    tutorial shape.
 //  * M, mu, nu under the product. When a tile's k loop starts, the tile's
 //    M (and mu, nu) go by cp.async into a staging tile in shared memory (64
 //    x 128 entries each in their storage type, rows padded by 8 entries), so
@@ -96,6 +99,17 @@
 //    repeats.
 //  * Few cells (clusters mode) spread over the card by spot splits
 //    (grid.y), chosen by the wrapper to fill whole waves of one block per SM.
+//
+// gsq's per-spot sums cross the cell blocks, so they take a design of their
+// own, in a fixed order and without atomics. In the tile's epilogue each
+// thread adds g^2 of its rows (g, g + 8 of both m-tiles) per column it
+// holds, a butterfly over lane offsets 4, 8 and 16 adds the warp's 32 cells,
+// and lanes 0-3 then hold the warp's 16 column sums. They go straight from
+// registers into row (2 blockIdx.x + cell half) of a (2 ceil(c / 64), s)
+// f32 partial: no barrier, no shared memory, each entry written exactly
+// once, by the split that owns the tile (32 MB at the tutorial shape).
+// col_sum adds the rows in row order, compensated. The per-cell sums take
+// rbar's order.
 //
 // dm_backward's second product, [dA | dw] = P [dY | dq] (64 cells x k + 1
 // per block), contracts over spots, the axis the block walks. On the FMA
@@ -183,7 +197,7 @@ inline size_t tc_smem_bytes(int kres) {
                           (size_t)TC_ROWC * TC_TC);
 }
 
-enum TcEpilogue : int { TC_RBAR = 0, TC_ADAM = 1, TC_ADAFACTOR = 2, TC_DM = 3 };
+enum TcEpilogue : int { TC_RBAR = 0, TC_ADAM = 1, TC_ADAFACTOR = 2, TC_DM = 3, TC_GSQ = 4 };
 
 // Built with -DTG_DP_PROFILE (chip_smoke.py --profile), warps 0 and 15 of
 // every block add the clock cycles they spend in each phase of the tile
@@ -218,7 +232,8 @@ struct TcArgs {
   void* mu;             // (c, s) Adam moments, f32 or bf16, in place
   void* nu;
   void* dM;             // (c, s) dm's gradient, in M's type
-  float* row_part;      // (nsplit, c) row sums r (rbar)
+  float* row_part;      // (nsplit, c) row sums r (rbar) or sum g^2 (gsq)
+  float* col_part;      // (2 ceil(c / 64), s) gsq's column sums per cell warp half
   float* st_part;       // (5, nsplit, c) next stats m, l, u, s1, s2 (updates)
   float* ext_part;      // (nsplit, c, K1) dm's [dA | dw] partials
   int c, s, Kp, kres, vec, tiles_per_split;
@@ -315,6 +330,7 @@ dp_tc_kernel(const TcArgs a) {
   constexpr bool ADAM = EPI == TC_ADAM;
   constexpr bool AFAC = EPI == TC_ADAFACTOR;
   constexpr bool DM = EPI == TC_DM;
+  constexpr bool GSQ = EPI == TC_GSQ;
   constexpr bool UPDATE = ADAM || AFAC;  // M in place and the next stats
   extern __shared__ __align__(16) float smem[];
   const int c = a.c, s = a.s, Kp = a.Kp, kres = a.kres;
@@ -365,7 +381,7 @@ dp_tc_kernel(const TcArgs a) {
   const float inv_bc2 = 1.0f / a.bc2;
 
   // this thread's 4 rows: index i * 2 + h is row wm * 32 + i * 16 + h * 8 + g
-  float racc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // r (rbar)
+  float racc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // r (rbar), sum g^2 (gsq)
   float nm[4] = {NEG_BIG, NEG_BIG, NEG_BIG, NEG_BIG};
   float nl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float nu_[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -647,6 +663,7 @@ dp_tc_kernel(const TcArgs a) {
       __syncthreads();
     }
     float dqv[TC_NJ][2], cfv[TC_NJ][2];
+    float csum[TC_NJ][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // gsq: this tile's column sums
     int nv[TC_NJ];
 #pragma unroll
     for (int j = 0; j < TC_NJ; ++j) {
@@ -716,7 +733,12 @@ dp_tc_kernel(const TcArgs a) {
             const float P = expf(xq - cm) * cinvl;
             float dP = fmaf(cw, dqv[j][q], acc[i][j][h * 2 + q]);
             if (WITH_DH) dP += cdh * ((xq - cm - clogl) + 1.0f);
-            if constexpr (!UPDATE) {
+            if constexpr (GSQ) {
+              const float gr = grad_elem(P, dP, cr, xq, a.lam1, a.two_lam2, norm_grad);
+              const float g2 = gr * gr;
+              racc[ri] += g2;
+              csum[j][q] += g2;
+            } else if constexpr (!UPDATE) {
               racc[ri] = fmaf(P, dP, racc[ri]);
             } else {
               const float gr = grad_elem(P, dP, cr, xq, a.lam1, a.two_lam2, norm_grad);
@@ -744,6 +766,24 @@ dp_tc_kernel(const TcArgs a) {
             store2(a.nu, row + spot, mom_bf16, nv[j], vec, vv);
           }
         }
+      }
+    }
+    if constexpr (GSQ) {
+      // the column sums over the warp's 32 cells (lane bits 2-4 are the
+      // fragment's group g), written once from lanes 0-3 into this cell
+      // half's row of the partial (header note)
+#pragma unroll
+      for (int j = 0; j < TC_NJ; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            csum[j][q] += __shfl_xor_sync(0xffffffffu, csum[j][q], off);
+      if (g == 0) {
+        float* part = a.col_part + (size_t)(blockIdx.x * 2 + wm) * s + s0;
+#pragma unroll
+        for (int j = 0; j < TC_NJ; ++j)
+          store2(part, wn * (8 * TC_NJ) + j * 8 + 2 * t4, false, nv[j], vec, csum[j]);
       }
     }
   }
@@ -894,6 +934,25 @@ bool tc_granule_ok(int cp, int bf16_store) {
   return cp == 16 || cp == 8 || cp == 4 || (cp == 0 && bf16_store);
 }
 
+// vc[spot] = the sum of gsq's (rows, s) column partials, in row order, with
+// Kahan's compensation: a plain running sum over the 814 rows of the
+// tutorial shape errs 10 times as much as the f32 twin's reduction
+// (against float64, on the H100); compensated, the sum is exact to about an
+// ulp and the partials' own rounding is what remains
+__global__ void col_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                               int rows, int s) {
+  const int spot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (spot >= s) return;
+  float acc = 0.0f, comp = 0.0f;
+  for (int r = 0; r < rows; ++r) {
+    const float y = __fsub_rn(part[(size_t)r * s + spot], comp);
+    const float t = __fadd_rn(acc, y);
+    comp = __fsub_rn(__fsub_rn(t, acc), y);
+    acc = t;
+  }
+  out[spot] = acc;
+}
+
 // the update kernels' launch and the merge of their next stats (and norms)
 template <int EPI>
 cudaError_t launch_update(bool with_dh, bool with_norms, bool split, const TcArgs& a,
@@ -955,6 +1014,35 @@ extern "C" int tg_rbar(const void* M, const float* Aop, const float* dYop, const
   if (err != cudaSuccess) return (int)err;
   dp_merge_kernel<false, false><<<(c + 255) / 256, 256, 0, st>>>(
       r_part, r, nullptr, nullptr, nullptr, nullptr, c, nsplit);
+  return (int)cudaGetLastError();
+}
+
+// r: (c,) from tg_rbar with the same dh; lam1 and two_lam2 as for the
+// updates; vr_part: (nsplit, c) and vc_part: (2 ceil(c / 64), s) scratch
+// (vec != 0 also allows 8-byte stores of vc_part); vr: (c,) = the sum over
+// spots of g^2; vc: (s,) = the sum over cells of g^2. M is only read.
+extern "C" int tg_gsq_tc(const void* M, const float* Aop, const float* dYop, const float* w,
+                         const float* dq, const float* dh, const float* m, const float* l,
+                         const float* r, float* vr_part, float* vc_part, float* vr,
+                         float* vc, int c, int s, int Kp, int with_dh, float lam1,
+                         float two_lam2, int vec, int nsplit, int m_bf16, int split, int cp_m,
+                         void* stream) {
+  if (Kp <= 0 || Kp % TC_KC != 0 || !tc_granule_ok(cp_m, m_bf16))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  TcArgs a = tc_args(M, Aop, dYop, w, dq, dh, m, l, c, s, Kp, vec, nsplit, m_bf16, cp_m);
+  a.r = r;
+  a.row_part = vr_part;
+  a.col_part = vc_part;
+  a.lam1 = lam1;
+  a.two_lam2 = two_lam2;
+  const int groups = (c + TC_TC - 1) / TC_TC;
+  const cudaError_t err = launch_tc_kernel<TC_GSQ, false>(
+      with_dh != 0, split != 0, a, dim3(groups, nsplit), st);
+  if (err != cudaSuccess) return (int)err;
+  dp_merge_kernel<false, false><<<(c + 255) / 256, 256, 0, st>>>(
+      vr_part, vr, nullptr, nullptr, nullptr, nullptr, c, nsplit);
+  if (s > 0) col_sum_kernel<<<(s + 255) / 256, 256, 0, st>>>(vc_part, vc, 2 * groups, s);
   return (int)cudaGetLastError();
 }
 

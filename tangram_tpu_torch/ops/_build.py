@@ -40,13 +40,12 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes, as csrc/*.cu declare them
 SIGNATURES = {
-    "tg_rowstats": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "tg_rowstats_norms": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "tg_rowstats": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "tg_rowstats_norms": (_P,) * 6 + (_I,) * 4 + (_P,),
     "tg_project": (_P,) * 8 + (_I,) * 8 + (_P,),
     "tg_rbar": (_P,) * 10 + (_I,) * 9 + (_P,),
     "tg_dm_adam": (_P,) * 17 + (_I,) * 5 + (_F,) * 5 + (_I,) * 9 + (_P,),
-    "tg_gsq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-               _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
+    "tg_gsq_tc": (_P,) * 13 + (_I,) * 4 + (_F,) * 2 + (_I,) * 5 + (_P,),
     "tg_dm_adafactor_tc": (_P,) * 17 + (_I,) * 5 + (_F,) * 3 + (_I,) * 7 + (_P,),
     "tg_dm_backward_tc": (_P,) * 13 + (_I,) * 9 + (_P,),
 }

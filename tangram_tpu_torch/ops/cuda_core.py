@@ -5,9 +5,10 @@ Counterpart of ``tangram_tpu/ops/pallas_core.py`` (``_rowstats``,
 ``_project``, ``_backward`` and the ``mapper_core_pallas`` custom VJP) and
 of ``tangram_tpu/ops/fused_step.py::_rbar``. Each wrapper takes the JAX
 function's arguments and returns its outputs in the same shapes. On a CUDA tensor it launches the
-hand-written kernel from ``csrc/`` (``mapper_kernels.cu``; rbar and the
-unfused backward from ``dp_tensor_kernels.cu``, the tensor-core dP tile;
-the projection from ``project_tc_kernels.cu``, on the tensor cores too)
+hand-written kernel from ``csrc/`` (the row stats from ``mapper_kernels.cu``;
+rbar and the unfused backward from ``dp_tensor_kernels.cu``, the
+tensor-core dP tile; the projection from ``project_tc_kernels.cu``, on the
+tensor cores too)
 (and counts the launch in :data:`LAUNCHES`); on a CPU tensor it runs the
 plain PyTorch twin that sits beside it. There is no other path: a CUDA
 launch that fails raises.
@@ -30,9 +31,10 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
-           "_project", "_rbar", "_backward", "tf32_split", "DpOperands",
-           "dp_operand", "dp_operands", "backward_operands", "project_operand",
-           "project_tf32_plain", "dm_backward_tf32_plain", "ext_product_tf32_plain"]
+           "rowstats_load_bytes", "_project", "_rbar", "_backward", "tf32_split",
+           "DpOperands", "dp_operand", "dp_operands", "backward_operands",
+           "project_operand", "project_tf32_plain", "dm_backward_tf32_plain",
+           "ext_product_tf32_plain"]
 
 #: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
 #: A for project) counts as ``name + ".bf16"``
@@ -107,14 +109,6 @@ def vec2_ok(s: int, *tensors: torch.Tensor) -> int:
                and all(t.data_ptr() % (2 * t.element_size()) == 0 for t in tensors))
 
 
-def vec4_ok(s: int, *tensors: torch.Tensor) -> int:
-    """1 when the kernels may access 4 entries at once along spots of each
-    tensor, (c, s) or (s,): s % 4 == 0 and each base aligned to 4 entries
-    (16 bytes in f32, 8 in bf16)."""
-    return int(s % 4 == 0
-               and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors))
-
-
 # ---------------------------------------------------------------------------
 # row stats
 # ---------------------------------------------------------------------------
@@ -127,6 +121,14 @@ def _rowstats_plain(M):
     m = M.amax(dim=1, keepdim=True)
     e = torch.exp(M - m)
     return m, e.sum(dim=1, keepdim=True), (e * M).sum(dim=1, keepdim=True)
+
+
+def rowstats_load_bytes(M) -> int:
+    """Bytes per load of the row-stats kernels' stream along M's rows:
+    :func:`stage_granule` (16, 8 or 4: what divides a row's length in bytes
+    and M's base), or for a bf16 M with an odd row length 2, one entry at a
+    time. The tutorial shape's 9,852 spots take 16 in f32 and 8 in bf16."""
+    return stage_granule(M.shape[1], M) or M.element_size()
 
 
 def _rowstats(M):
@@ -142,7 +144,8 @@ def _rowstats(M):
     if c:
         with torch.cuda.device(M.device):
             lib.call("tg_rowstats", M.data_ptr(), m.data_ptr(), l.data_ptr(),
-                     u.data_ptr(), c, s, is_bf16(M), stream_of(M))
+                     u.data_ptr(), c, s, is_bf16(M), rowstats_load_bytes(M),
+                     stream_of(M))
         count_launch("rowstats", M)
     return m, l, u
 
@@ -285,18 +288,6 @@ def _project(M, A, w, m, l):
 # ---------------------------------------------------------------------------
 
 
-def dp_fma_splits(c: int, s: int, sm_count: int) -> int:
-    """How many blocks share the spot tiles of one 64-cell group in the
-    f32 FMA dP-tile kernel, which only gsq still takes: 1 when the cell
-    groups alone give about two blocks per SM (cells mode), up to one
-    128-spot tile per block when there are few cells (clusters mode has
-    tens)."""
-    tiles = math.ceil(s / 128)
-    want = math.ceil(2 * sm_count / math.ceil(c / 64))
-    per = math.ceil(tiles / max(1, min(want, tiles)))
-    return math.ceil(tiles / per)
-
-
 _TC_CELLS = 64     # cells per block of the tensor-core dP tile
 _TC_SPOTS = 128    # spots per tile
 _TC_K = 32         # the operands' K is padded to a multiple of this
@@ -308,7 +299,8 @@ _TC_BLOCK_OVERHEAD = 0.5
 
 def dp_splits(c: int, s: int, sm_count: int) -> int:
     """How many blocks share the 128-spot tiles of one 64-cell group in the
-    tensor-core dP-tile kernels (rbar, dm_adam, dm_adafactor, dm_backward).
+    tensor-core dP-tile kernels (rbar, gsq, dm_adam, dm_adafactor,
+    dm_backward).
     One block is resident per SM, and the blocks of a launch run in waves
     of sm_count; 407 cell
     groups alone (the tutorial shape) fill 3.08 waves and leave most of the
@@ -362,20 +354,9 @@ def _check_dp_args(M, A, w, m, l, dY, dq, dh, dtypes=F32_BF16):
     return c, s, k
 
 
-def _dp_kernel_args(M, A, w, dY, dq):
-    """(AT, dYT, nsplit, stream) of the f32 FMA dP-tile entry point, which
-    only gsq still takes: AT = [A | w]ᵀ (k + 1, c) and dYT = [dY | dq]ᵀ
-    (k + 1, s), f32, built per call. A bf16 A and dY (the compute type) keep
-    their bf16 values in f32 staging, and the w and dq rows stay f32, as
-    JAX's dP = dot(A_bf16, dY_bf16) + w ⊗ dq."""
-    c, s = M.shape
-    return (_ext(A.float(), w).T.contiguous(), _ext(dY.float(), dq).T.contiguous(),
-            dp_fma_splits(c, s, _sm_count(M)), stream_of(M))
-
-
 # ---------------------------------------------------------------------------
-# the tensor-core dP tile (rbar, the updates, dm_backward): 3×TF32 and its
-# operands
+# the tensor-core dP tile (rbar, gsq, the updates, dm_backward): 3×TF32 and
+# its operands
 # ---------------------------------------------------------------------------
 
 
@@ -445,8 +426,8 @@ class DpOperands(NamedTuple):
 
 
 def dp_operands(A, dY, A_op=None) -> DpOperands:
-    """The operands of one step's dP tiles, built once for the rbar and
-    dm_adam kernels; ``A_op`` is ``dp_operand(A)`` when the caller has it
+    """The operands of one step's dP tiles, built once for the rbar, gsq
+    and update kernels; ``A_op`` is ``dp_operand(A)`` when the caller has it
     already (A does not change between the steps of an unconstrained fit)."""
     split = not (A.dtype == torch.bfloat16 and dY.dtype == torch.bfloat16)
     return DpOperands(dp_operand(A) if A_op is None else A_op, dp_operand(dY), split)

@@ -14,7 +14,8 @@ The Adafactor step replaces 4 by two passes: the gsq kernel (Σ g² per cell
 and per spot), the factored second-moment bookkeeping on those (c,) and
 (s,) vectors, and the dm_adafactor kernel (M −= lr·g·rowf⊗colf in place,
 plus the next row stats). Its carry is (count, vr (c,), vc (s,)) instead of
-Adam's two (c, s) moment matrices.
+Adam's two (c, s) moment matrices. rbar, gsq and the update all run on the
+tensor-core dP tile, from the step's operands built once.
 
 The constrained Adam step runs the same pipeline as the Adam step with
 A = S ⊙ σ(F) and w = σ(F), differentiates the constrained epilogue, and
@@ -57,7 +58,6 @@ from .cuda_core import (
     DpOperands,
     _check_dp_args,
     _check_operands,
-    _dp_kernel_args,
     _dp_plain,
     _sm_count,
     dp_operand,
@@ -71,10 +71,11 @@ from .cuda_core import (
     count_launch,
     is_bf16,
     kernels_for,
+    rowstats_load_bytes,
     stage_granule,
     stream_of,
+    tf32_product_plain,
     vec2_ok,
-    vec4_ok,
 )
 from .losses import (
     LossWeights,
@@ -96,6 +97,7 @@ __all__ = [
     "adam_scalars",
     "adafactor_decay",
     "factored_rms_vectors",
+    "gsq_tf32_plain",
     "unconstrained_a_operand",
 ]
 
@@ -262,7 +264,8 @@ def _rowstats_norms(M):
     if c:
         with torch.cuda.device(M.device):
             lib.call("tg_rowstats_norms", M.data_ptr(),
-                     *(t.data_ptr() for t in out), c, s, is_bf16(M), stream_of(M))
+                     *(t.data_ptr() for t in out), c, s, is_bf16(M),
+                     rowstats_load_bytes(M), stream_of(M))
         count_launch("rowstats_norms", M)
     return tuple(out)
 
@@ -353,31 +356,53 @@ def _gsq_plain(M, A, w, m, l, dY, dq, dh, r, lam_l1, lam_l2, with_dh=True):
     return gsq.sum(dim=1), gsq.sum(dim=0)
 
 
+def gsq_tf32_plain(M, A, w, m, l, dY, dq, dh, r, lam_l1, lam_l2, with_dh=True,
+                   terms: int = 3):
+    """(vr, vc) as the tensor-core gsq kernel forms them from f32 A and dY:
+    A dYᵀ from their TF32 parts (:func:`tf32_product_plain`), then w ⊗ dq
+    [and the entropy term] in f32; ``terms=1`` is the single TF32 pass,
+    which loses f32 accuracy."""
+    Mf = M.float()
+    P = torch.exp(Mf - m) * (1.0 / l)
+    dP = tf32_product_plain(A.float(), dY.float(), terms) + w[:, None] * dq[None, :]
+    if with_dh:
+        dP = dP + dh[:, None] * ((Mf - m - torch.log(l)) + 1.0)
+    gsq = _grad_plain(Mf, P, dP, r, lam_l1, lam_l2) ** 2
+    return gsq.sum(dim=1), gsq.sum(dim=0)
+
+
 def _gsq(M, A, w, m, l, dY, dq, dh, r, lam_l1: float, lam_l2: float,
-         with_dh: bool = True):
+         with_dh: bool = True, operands: DpOperands | None = None):
     """Adafactor's second-moment statistics of the loss gradient g (the
     same g as the update kernels, L1/L2 terms included): returns
-    (vr_sum (c,), vc_sum (s,)) = (Σ_spots g², Σ_cells g²)."""
+    (vr_sum (c,), vc_sum (s,)) = (Σ_spots g², Σ_cells g²). M, A and dY are
+    f32 or bf16; M is only read. ``operands`` are ``dp_operands(A, dY)``
+    when the caller has built them for the step already (see
+    :func:`_rbar`)."""
     c, s, k = _check_dp_args(M, A, w, m, l, dY, dq, dh)
     check("r", r, (c, 1))
     lib = kernels_for(M, A, w, m, l, dY, dq, dh, r)
+    if operands is not None:
+        _check_operands(operands, A, dY)
     if lib is None:
         return _gsq_plain(M, A, w, m, l, dY, dq, dh, r, lam_l1, lam_l2, with_dh)
-    AT, dYT, nsplit, stream = _dp_kernel_args(M, A, w, dY, dq)
+    ops = dp_operands(A, dY) if operands is None else operands
     dev = M.device
+    nsplit = dp_splits(c, s, _sm_count(M))
     vr_part = torch.empty((nsplit, c), dtype=torch.float32, device=dev)
-    vc_part = torch.empty((math.ceil(c / 64), s), dtype=torch.float32, device=dev)
+    # a row of column sums per 32-cell half of each 64-cell block
+    vc_part = torch.empty((2 * math.ceil(c / 64), s), dtype=torch.float32, device=dev)
     vr = torch.empty((c,), dtype=torch.float32, device=dev)
     vc = torch.empty((s,), dtype=torch.float32, device=dev)
     if not c:
         return vr, vc.zero_()
     with torch.cuda.device(dev):
-        lib.call("tg_gsq", M.data_ptr(), AT.data_ptr(), dYT.data_ptr(),
-                 dh.data_ptr(), m.data_ptr(), l.data_ptr(), r.data_ptr(),
-                 vr_part.data_ptr(), vc_part.data_ptr(), vr.data_ptr(),
-                 vc.data_ptr(), c, s, k + 1, int(with_dh),
-                 *_norm_scalars(lam_l1, lam_l2), vec4_ok(s, M), nsplit, is_bf16(M),
-                 stream)
+        lib.call("tg_gsq_tc", M.data_ptr(), ops.A_op.data_ptr(), ops.dY_op.data_ptr(),
+                 w.data_ptr(), dq.data_ptr(), dh.data_ptr(), m.data_ptr(), l.data_ptr(),
+                 r.data_ptr(), vr_part.data_ptr(), vc_part.data_ptr(), vr.data_ptr(),
+                 vc.data_ptr(), c, s, ops.A_op.shape[1], int(with_dh),
+                 *_norm_scalars(lam_l1, lam_l2), vec2_ok(s, vc_part), nsplit, is_bf16(M),
+                 int(ops.split), stage_granule(s, M), stream_of(M))
     count_launch("gsq", M)
     return vr, vc
 
@@ -587,8 +612,8 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
     :func:`fused_unconstrained_step` with the (c,) / (s,) f32 factor
     vectors in place of the (c, s) Adam moments. Four streamed passes over
     M: projection, rbar, grad² statistics, and the update (which also emits
-    the next stats); M is updated in place, in its own type. rbar and the
-    update take the step's dP operands, built once.
+    the next stats); M is updated in place, in its own type. rbar, gsq and
+    the update take the step's dP operands, built once.
 
     Returns ``(M, count + 1, vr_new, vc_new, stats_new, terms)``.
     """
@@ -596,7 +621,7 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
         _unconstrained_cotangents(M, stats, data, lw, compute_dtype, A_op))
     c, s = M.shape
     vr_sum, vc_sum = _gsq(M, A, w, m, l, dY, dq, dh, r, lw.lambda_l1,
-                          lw.lambda_l2, with_dh=with_dh)
+                          lw.lambda_l2, with_dh=with_dh, operands=ops)
     vr_new, vc_new, rowf, colf = factored_rms_vectors(count, vr, vc, vr_sum,
                                                       vc_sum, c, s)
     out = _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, learning_rate,

@@ -333,6 +333,29 @@ def test_gsq_twin_matches_jax_on_bf16(lam):
         np.testing.assert_allclose(f32(g), w, rtol=0, atol=1e-5 * np.abs(w).max())
 
 
+@pytest.mark.parametrize("lam", [(0.0, 0.0), (0.01, 0.02)])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_gsq_with_prebuilt_operands_matches_jax_on_bf16(c, s, k, lam):
+    """Row 8b as the fused Adafactor step calls it: on the step's operands
+    of bf16 A and dY (one exact product), equal to the call without them
+    bit for bit and to the JAX kernel at 1e-5 of the largest entry; f32
+    operands of the same shape are taken too (the split product)."""
+    x = make_inputs(c, s, k, pad=lam != (0.0, 0.0))
+    m, l, _ = jax_stats(x)
+    r = jax_rbar(x, m, l, True)
+    args = torch_args(x, m, l)
+    ops = cc.dp_operands(args[1], args[5])
+    assert not ops.split
+    got = tfs._gsq(*args, T(r), *lam, operands=ops)
+    for g, own in zip(got, tfs._gsq(*args, T(r), *lam)):
+        assert torch.equal(g, own)
+    want = jfs._gsq(*jax_args(x, m, l), J(r), *lam)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(f32(g), w, rtol=0, atol=1e-5 * np.abs(w).max())
+    assert cc.dp_operands(args[1].float(), args[5].float()).split
+
+
 @pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
 @pytest.mark.parametrize("norms", [False, True])
 def test_dm_adafactor_twin_matches_jax_on_bf16(norms, rounding):

@@ -18,7 +18,9 @@ cores from TF32 parts of the f32 operands (3×TF32); the witness tests hold
 them to f32 accuracy against float64. The shapes cover one resident A
 panel and two (k = 300; dm_backward's output then in two column panels),
 even and odd row lengths (16-, 8- and 4-byte staging copies, the bf16
-element path, paired and single stores), and a single ragged tile.
+element path, paired and single stores), a single ragged tile, and one cell
+group spread over eight spot splits (c = 22 < 64, as clusters mode). The
+row stats are also checked on rows that take each of their load widths.
 """
 
 import numpy as np
@@ -32,7 +34,8 @@ from tangram_tpu_torch.ops.losses import LossWeights, MapperData
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(8, 16, 4), (37, 53, 7), (300, 600, 7), (257, 513, 129), (70, 301, 300)]
+SHAPES = [(8, 16, 4), (37, 53, 7), (300, 600, 7), (257, 513, 129), (70, 301, 300),
+          (22, 1_001, 9)]
 
 
 @pytest.fixture
@@ -459,6 +462,107 @@ def test_norm_and_adafactor_kernels_match_twins(dev, c, s, k, with_dh):
         assert len(got) == (6 if with_norms else 4) and got[0] is Mk
         for g, w in zip(got, want):
             assert_close(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_gsq_kernel_with_prebuilt_operands_matches_twin_and_repeats(dev, c, s, k, with_dh,
+                                                                     dtype):
+    """gsq on the tensor-core tile, with and without the L1/L2 terms, as the
+    fused Adafactor step calls it (the step's operands, built once): within
+    1e-4 of the twin, the same bits as when it builds its own operands and
+    on a repeat, one launch of ``gsq`` (``gsq.bf16`` for bf16 M, A, dY)."""
+    x = inputs(c, s, k, dev, pad=True)
+    x = {n: v.to(dtype) if n in ("M", "A", "dY") else v for n, v in x.items()}
+    m, l, _ = cc._rowstats_plain(x["M"])
+    args = (x["M"], x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
+    r = cc._rbar_plain(*args, with_dh=with_dh)
+    ops = cc.dp_operands(x["A"], x["dY"])
+    assert ops.split == (dtype == torch.float32)
+    name = "gsq" if dtype == torch.float32 else "gsq.bf16"
+    for lam in ((0.0, 0.0), NORMS):
+        before = cc.LAUNCHES[name]
+        got = fs._gsq(*args, r, *lam, with_dh=with_dh, operands=ops)
+        assert cc.LAUNCHES[name] == before + 1
+        for g, w in zip(got, fs._gsq_plain(*args, r, *lam, with_dh=with_dh)):
+            assert_close(g, w)
+        for again in (fs._gsq(*args, r, *lam, with_dh=with_dh),
+                      fs._gsq(*args, r, *lam, with_dh=with_dh, operands=ops)):
+            for a, b in zip(got, again):
+                assert torch.equal(a, b)
+
+
+# gsq's witness at the shapes where vc sums hundreds of cells. Summed over
+# 8-70 cells (the other SHAPES), the largest of a few dozen sums compares a
+# handful of roundings: the plain twins alone (three TF32 terms against the
+# f32 product) exceed the 4x clause in 3-10% of random draws of A's
+# fraction there, and in none of 100-200 draws at these two.
+# chip_smoke.py's witness holds gsq at all its shapes, seeded.
+@pytest.mark.parametrize("c,s,k", [(300, 600, 7), (257, 513, 129)])
+def test_gsq_keeps_f32_accuracy(dev, c, s, k):
+    """gsq's vr and vc against float64: the kernel errs at most 4× what the
+    f32 twin errs, and a single TF32 pass (``gsq_tf32_plain(terms=1)``)
+    misses the kernel by more than 10× that margin. Entropy cotangent off,
+    as chip_smoke.py's witness; A's fraction from a seeded generator."""
+    x = inputs(c, s, k, dev, seed=3)
+    M, A, w, dY, dq, dh = (x[n] for n in ("M", "A", "w", "dY", "dq", "dh"))
+    A = A + torch.rand(A.shape, generator=torch.Generator(device=dev).manual_seed(17),
+                       device=dev)
+    m, l, _ = cc._rowstats_plain(M)
+    args = (M, A, w, m, l, dY, dq, dh)
+    r = cc._rbar_plain(*args, False)
+    P = torch.exp(M.double() - m.double()) / l.double()
+    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    g2 = (P * (dP - r.double())) ** 2
+    want = (g2.sum(dim=1), g2.sum(dim=0))
+    kernel = fs._gsq(*args, r, 0.0, 0.0, with_dh=False)
+    twin = fs._gsq_plain(*args, r, 0.0, 0.0, with_dh=False)
+    rounded = fs.gsq_tf32_plain(*args, r, 0.0, 0.0, with_dh=False, terms=1)
+    for got, plain, tf32, ref in zip(kernel, twin, rounded, want):
+        margin = WITNESS[0] * float((plain.double() - ref).abs().max())
+        assert float((got.double() - ref).abs().max()) <= margin
+        assert float((tf32 - got).abs().max()) > WITNESS[1] * margin
+
+
+@pytest.mark.parametrize("dtype,s,offset,load_bytes", [
+    (torch.float32, 9_852, 0, 16), (torch.float32, 9_850, 0, 8),
+    (torch.float32, 301, 0, 4), (torch.float32, 600, 1, 4),
+    (torch.bfloat16, 600, 0, 16), (torch.bfloat16, 9_852, 0, 8),
+    (torch.bfloat16, 9_850, 0, 4), (torch.bfloat16, 301, 0, 2),
+    (torch.bfloat16, 600, 1, 2)])
+def test_rowstats_load_paths_match_twins(dev, dtype, s, offset, load_bytes):
+    """The row stats (with and without the norms) on rows that take each
+    load width, one row all PAD (below PAD_GUARD: m = PAD, l = s, no norm)
+    and a padding sentinel in another: within 1e-5 of the twins, the same
+    bits on a repeat, one launch each."""
+    c = 9
+    rng = np.random.default_rng(s + offset)
+    vals = rng.normal(0, 1, (c, s)).astype(np.float32)
+    vals[2] = PAD
+    vals[4, s // 2] = PAD
+    buf = torch.zeros(c * s + offset + 16, dtype=dtype, device=dev)
+    M = buf[offset:offset + c * s].view(c, s)
+    M.copy_(torch.from_numpy(vals).to(dev).to(dtype))
+    assert cc.rowstats_load_bytes(M) == load_bytes
+    real = torch.arange(c, device=dev) != 2
+    for kernel, twin, name in ((cc._rowstats, cc._rowstats_plain, "rowstats"),
+                               (fs._rowstats_norms, fs._rowstats_norms_plain,
+                                "rowstats_norms")):
+        name += ".bf16" if dtype == torch.bfloat16 else ""
+        before = cc.LAUNCHES[name]
+        got = kernel(M)
+        assert cc.LAUNCHES[name] == before + 1
+        want = twin(M)
+        for g, w in zip(got, want):
+            assert_close(g[real], w[real], rtol=1e-5)
+        m, l, u = got[:3]
+        assert float(m[2]) == float(M[2, 0]) and float(l[2]) == s
+        assert abs(float(u[2]) - float(want[2][2])) <= 1e-5 * abs(float(want[2][2]))
+        for norm in got[3:]:
+            assert float(norm[2]) == 0.0
+        for a, b in zip(got, kernel(M)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "adafactor"])

@@ -440,13 +440,25 @@ def test_dp_split_count():
 
 
 def test_dp_fma_split_count():
-    """The spot split of the f32 FMA tile, which only gsq still takes:
-    none in cells mode at the tutorial shape, one 128-spot tile per block
-    for clusters mode."""
-    assert cc.dp_fma_splits(26_000, 9_852, sm_count=132) == 1
-    assert cc.dp_fma_splits(22, 9_852, sm_count=132) == 77
-    assert cc.dp_fma_splits(5_000, 9_852, sm_count=132) == 4
-    assert cc.dp_fma_splits(64, 100, sm_count=132) == 1
+    """The f32 FMA dP tile and its own spot split are gone: gsq runs on the
+    tensor-core tile with the split of every dP-tile kernel (``dp_splits``:
+    7 at the tutorial shape, 77 for clusters mode), so no entry point, no
+    wrapper and no kernel source keeps the FMA tile or its transposed
+    [A | w]ᵀ, [dY | dq]ᵀ operands."""
+    from tangram_tpu_torch.ops import _build
+
+    assert not hasattr(cc, "dp_fma_splits") and not hasattr(cc, "_dp_kernel_args")
+    assert "tg_gsq" not in _build.SIGNATURES and "tg_gsq_tc" in _build.SIGNATURES
+    csrc = os.path.join(REPO, "tangram_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "mapper_kernels.cu")) as f:
+        rowstats_source = f.read()
+    with open(os.path.join(csrc, "dp_tensor_kernels.cu")) as f:
+        tile_source = f.read()
+    for name in ("gsq_kernel", "GsqArgs", "tg_gsq(", "DP_KC"):
+        assert name not in rowstats_source
+    assert "TC_GSQ" in tile_source and 'extern "C" int tg_gsq_tc(' in tile_source
+    assert cc.dp_splits(26_000, 9_852, sm_count=132) == 7
+    assert cc.dp_splits(22, 9_852, sm_count=132) == 77
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +785,164 @@ def test_adafactor_step_passes_its_operands_to_the_update(monkeypatch):
     assert all(isinstance(ops, cc.DpOperands) and not ops.ext for ops in seen)
     assert tuple(seen[0].A_op.shape) == (12, 32)
     assert torch.equal(seen[0].A_op[:, :3], data.S)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lam", [(0.0, 0.0), (0.01, 0.02)])
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", SHAPES)
+def test_gsq_with_prebuilt_operands_matches_jax(c, s, k, with_dh, lam):
+    """gsq as the fused Adafactor step calls it, on the step's dP operands
+    built once: equal to the JAX kernel (interpret mode) at the twins'
+    tolerance and to the call without operands bit for bit; operands built
+    from another A or dY are refused, on the CPU too."""
+    x = make_inputs(c, s, k, pad=lam != (0.0, 0.0))
+    m, l, _ = jax_stats(x["M"])
+    r = np.asarray(jax_rbar(x, m, l, with_dh))
+    args = torch_args(x, m, l)
+    ops = cc.dp_operands(args[1], args[5])
+    vr, vc = fs._gsq(*args, T(r), *lam, with_dh=with_dh, operands=ops)
+    own = fs._gsq(*args, T(r), *lam, with_dh=with_dh)
+    assert torch.equal(vr, own[0]) and torch.equal(vc, own[1])
+    vr_j, vc_j = jax_gsq(x, m, l, r, lam, with_dh)
+    close_to_scale(vr, vr_j)
+    close_to_scale(vc, vc_j)
+    for other in (cc.dp_operands(args[1][:-1], args[5]),
+                  cc.dp_operands(args[1], args[5][:-1])):
+        with pytest.raises(ValueError):
+            fs._gsq(*args, T(r), *lam, with_dh=with_dh, operands=other)
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("c,s,k", [(300, 600, 40), (64, 2_000, 249)])
+def test_gsq_tf32_twin_keeps_f32_accuracy_and_one_pass_misses(c, s, k, with_dh):
+    """gsq's vr and vc as the tensor-core kernel forms them (three TF32
+    terms) err against float64 by at most 4× what the f32 twin errs, and a
+    single TF32 pass misses them by more than 10× that margin: the witness
+    of chip_smoke.py (F32_WITNESS), on a fractional A as it takes."""
+    x = make_inputs(c, s, k, seed=5)
+    rng = np.random.default_rng(6)
+    M, w, dY, dq, dh = (T(x[n]) for n in ("M", "w", "dY", "dq", "dh"))
+    A = T(x["A"] + rng.random(x["A"].shape))
+    m, l, _ = cc._rowstats_plain(M)
+    args = (M, A, w, m, l, dY, dq, dh)
+    r = cc._rbar_plain(*args, with_dh)
+    Md = M.double()
+    P = torch.exp(Md - m.double()) / l.double()
+    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+    if with_dh:
+        dP = dP + dh.double()[:, None] * ((Md - m.double() - torch.log(l.double())) + 1.0)
+    g2 = (P * (dP - r.double())) ** 2
+    want = (g2.sum(dim=1), g2.sum(dim=0))
+    f32 = fs._gsq_plain(*args, r, 0.0, 0.0, with_dh=with_dh)
+    three = fs.gsq_tf32_plain(*args, r, 0.0, 0.0, with_dh=with_dh)
+    one = fs.gsq_tf32_plain(*args, r, 0.0, 0.0, with_dh=with_dh, terms=1)
+    for got, plain, single, ref in zip(three, f32, one, want):
+        margin = 4.0 * float((plain.double() - ref).abs().max())
+        assert float((got.double() - ref).abs().max()) <= margin
+        assert float((single - got).abs().max()) > 10.0 * margin
+
+
+@pytest.mark.parametrize("dtype,s,offset,want", [
+    (torch.float32, 9_852, 0, 16),   # the tutorial shape: 16-byte loads
+    (torch.float32, 600, 0, 16),
+    (torch.float32, 9_850, 0, 8),    # rows of 39,400 bytes
+    (torch.float32, 54, 0, 8),
+    (torch.float32, 53, 0, 4),       # odd s: one f32 entry a load
+    (torch.float32, 600, 1, 4),      # a base 4 bytes off
+    (torch.bfloat16, 9_852, 0, 8),   # 19,704-byte rows: every other one 16-aligned
+    (torch.bfloat16, 600, 0, 16),
+    (torch.bfloat16, 9_850, 0, 4),
+    (torch.bfloat16, 54, 0, 4),
+    (torch.bfloat16, 53, 0, 2),      # odd s: one bf16 entry a load
+    (torch.bfloat16, 600, 1, 2),     # a base 2 bytes off
+    (torch.bfloat16, 600, 2, 4),
+])
+def test_rowstats_load_bytes_follow_shape_and_alignment(dtype, s, offset, want):
+    """The row-stats kernels' loads along a row: the widest of 16, 8 and 4
+    bytes that divides the row's length in bytes and M's base, else (a bf16
+    row of odd length) one entry; a load never straddles a row's end. The
+    twins' stats do not depend on it."""
+    c = 3
+    buf = torch.zeros(c * s + offset + 8, dtype=dtype)
+    M = buf[offset:offset + c * s].view(c, s)
+    rng = np.random.default_rng(s + offset)
+    M.copy_(torch.from_numpy(rng.normal(0, 1, (c, s)).astype(np.float32)).to(dtype))
+    got = cc.rowstats_load_bytes(M)
+    assert got == want
+    assert (s * M.element_size()) % got == 0 and M.data_ptr() % got == 0
+    for g, w in zip(cc._rowstats(M), cc._rowstats_plain(M.contiguous().clone())):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lam", [dict(lambda_g2=0.5, lambda_r=0.01),
+                                 dict(lambda_g2=0.5, lambda_r=0.01, lambda_l1=0.01,
+                                      lambda_l2=0.02)])
+def test_fused_adafactor_step_matches_jax(lam):
+    """Two fused Adafactor steps on the CPU (rbar, gsq and the update on one
+    set of dP operands per step, each kernel's plain twin) against the JAX
+    fused step (Pallas in interpret mode), the second from the JAX step's
+    own carry: M, the factor vectors, the next stats and the loss terms at
+    the twins' tolerance."""
+    from tangram_tpu.ops.losses import LossWeights as JLossWeights
+    from tangram_tpu.ops.losses import MapperData as JMapperData
+
+    rng = np.random.default_rng(4)
+    c, s, g = 40, 72, 9
+    S = (rng.poisson(2.0, (c, g)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (s, g)) + 0.1).astype(np.float32)
+    M0 = rng.normal(0, 1, (c, s)).astype(np.float32)
+    jdata, jlw = JMapperData(S=jnp.asarray(S), G=jnp.asarray(G)), JLossWeights(**lam)
+    data, lw = MapperData(S=T(S), G=T(G)), LossWeights(**lam)
+    M_j = jnp.asarray(M0)
+    count_j, vr_j, vc_j = jfs.init_fused_adafactor_state(M_j)
+    stats_j = jfs.initial_stats(M_j, jlw)
+    for step in range(2):
+        got = fs.fused_unconstrained_step_adafactor(
+            T(np.asarray(M_j)), step, T(np.asarray(vr_j)), T(np.asarray(vc_j)),
+            tuple(T(np.asarray(v)) for v in stats_j), data, lw, 0.1)
+        M_j, count_j, vr_j, vc_j, stats_j, terms_j = jfs.fused_unconstrained_step_adafactor(
+            M_j, count_j, vr_j, vc_j, stats_j, jdata, jlw, 0.1)
+        assert got[1] == step + 1 == int(count_j)
+        for g_, w_ in [(got[0], M_j), (got[2], vr_j), (got[3], vc_j)]:
+            close(g_, w_)
+        assert len(got[4]) == len(stats_j)
+        for g_, w_ in zip(got[4], stats_j):
+            close(g_, w_)
+        for key, v in got[5].items():  # a term that is off is NaN in both
+            np.testing.assert_allclose(float(v), float(terms_j[key]), rtol=1e-5, atol=1e-6)
+
+
+def test_adafactor_step_passes_its_operands_to_gsq(monkeypatch):
+    """The fused Adafactor step hands gsq the dP operands it built for rbar
+    (``_gsq(operands=...)``), the same ones the update takes, and its
+    result is that of a gsq that builds its own, bit for bit."""
+    x = make_inputs(12, 20, 3)
+    data = MapperData(S=T(x["A"]), G=T(np.abs(x["dY"][:, :3]) + 0.1))
+    lw = LossWeights(lambda_g2=0.5, lambda_r=0.01, lambda_l1=0.01)
+    gsq, update = fs._gsq, fs._dm_adafactor
+    seen = {"gsq": [], "update": []}
+
+    def spy_gsq(*args, operands=None, drop=False, **kw):
+        seen["gsq"].append(operands)
+        return gsq(*args, operands=None if drop else operands, **kw)
+
+    def spy_update(*args, operands=None, **kw):
+        seen["update"].append(operands)
+        return update(*args, operands=operands, **kw)
+
+    monkeypatch.setattr(fs, "_dm_adafactor", spy_update)
+    outs = []
+    for drop in (False, True):
+        monkeypatch.setattr(fs, "_gsq", lambda *a, drop=drop, **kw: spy_gsq(*a, drop=drop, **kw))
+        M = T(x["M"])
+        out = fs.fused_unconstrained_step_adafactor(
+            M, *fs.init_fused_adafactor_state(M), fs.initial_stats(M, lw), data, lw, 0.1)
+        outs.append((out[0], out[2], out[3]) + tuple(out[4]))
+    assert all(isinstance(ops, cc.DpOperands) and not ops.ext for ops in seen["gsq"])
+    assert all(a is b for a, b in zip(seen["gsq"], seen["update"]))
+    assert torch.equal(seen["gsq"][0].A_op[:, :3], data.S)
     for a, b in zip(*outs):
         assert torch.equal(a, b)
 
