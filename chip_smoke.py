@@ -78,6 +78,20 @@ last line):
               reference loop started 1 ulp away and on permuted data),
               fused=False Adam (MapperCore), constrained Adam and
               constrained Adafactor, and the Adam step times
+10. cv        the 249-fold batched LOO (clusters, 1000 epochs) on the fixture
+              of data/NB_REFERENCE_TORCH.json, each of its 25 recorded torch
+              scores, their mean and the all-fold mean within 1e-3, seconds
+              and peak memory; the loop path (fused kernels, launch counts)
+              on two of its folds against the batched scores, and its
+              seconds per fold extrapolated to 249; cells-mode 10-fold CV at
+              the tutorial shape with fold_batch_size="auto" (peak per fold
+              against the formula and the budget; ms/step per fold beside
+              the fused step's); a cosine_lr vector on the fused Adam,
+              Adafactor and constrained loops against chained one-epoch
+              runs, bit for bit; early stopping against an unstopped run,
+              and train_checkpointed cut and resumed against an unbroken
+              run, bit for bit; init_method="auto" at 33,000 x 33,000
+              drawn on the card
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -102,7 +116,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference")
+          "bf16", "reference", "cv")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -1813,6 +1827,329 @@ def profile_dp_tile(dev):
         _build.load_kernels = plain
 
 
+# ---------------------------------------------------------------------------
+# phase 10: cross-validation, schedules, early stop, checkpoints, init draws
+# ---------------------------------------------------------------------------
+
+# the recorded LOO fixture of data/NB_REFERENCE_TORCH.json["loo_cv"]:
+# synthetic_mapping_pair(1320, 9852, 249, 22 types, random_state=5),
+# clusters mode, 1000 epochs, lr 0.1, seed 42
+LOO_PAIR = (1_320, 9_852, 249)
+LOO_KW = dict(cluster_label="subclass_label", mode="clusters", cv_mode="loo",
+              num_epochs=1000, learning_rate=0.1, random_state=42)
+LOO_TOL = 1e-3          # per recorded gene, their mean, and the all-fold mean
+LOOP_FOLDS = 2          # folds of the loop path held against the batched path
+CV_CELLS_EPOCHS = 10    # the cells-mode 10-fold CV at the tutorial shape
+SCHEDULE_EPOCHS = 12    # the cosine_lr vector against chained constant runs
+EARLY_STOP = dict(early_stop_tol=3e-2, early_stop_window=50)
+EARLY_STOP_BUDGET = 300
+INIT_SIDE = 33_000      # 33,000² > 2^30 entries: init_method="auto" draws on the card
+
+
+def cuda_seconds(fn):
+    """(result, host seconds) of ``fn()`` ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def device_peak():
+    """Yields a dict that gets ``"gib"``: max_memory_allocated above what was
+    resident when the block began, in GiB."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    yield out
+    torch.cuda.synchronize()
+    out["bytes"] = torch.cuda.max_memory_allocated() - base
+    out["gib"] = out["bytes"] / 2**30
+
+
+def cv_loo(dev, card, problems, profile=False):
+    """The 249-fold batched LOO against the recorded torch scores, then the
+    loop path (fused kernels) on LOOP_FOLDS of its folds against it."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.datasets import synthetic_mapping_pair
+    from tangram_tpu_torch.evaluation import _fold_bytes, _loop_fold
+    from tangram_tpu_torch.mapping import adata_to_cluster_expression
+    from tangram_tpu_torch.ops import cuda_core
+
+    ref = json.loads((REPO / "data" / "NB_REFERENCE_TORCH.json").read_text())["loo_cv"]
+    ad_sc, ad_sp = synthetic_mapping_pair(*LOO_PAIR, n_types=22, random_state=5)
+    tgt.pp_adatas(ad_sc, ad_sp)
+    genes = list(ad_sc.uns["training_genes"])
+    if profile:
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            cuda_seconds(lambda: tgt.cross_val(
+                ad_sc, ad_sp, device=dev, fold_batch_size=len(genes), verbose=False,
+                **{**LOO_KW, "num_epochs": 3}))
+        say("cv", "torch.profiler, the batched LOO for 3 epochs (init and scoring "
+            "included), by device time:\n" + prof.key_averages().table(
+                sort_by="cuda_time_total", row_limit=25))
+    n_types = ad_sc.obs["subclass_label"].nunique()
+    with device_peak() as peak:
+        (cv, _, df), secs = cuda_seconds(lambda: tgt.cross_val(
+            ad_sc, ad_sp, device=dev, fold_batch_size=len(genes), return_gene_pred=True,
+            verbose=False, **LOO_KW))
+    epochs = LOO_KW["num_epochs"]
+    say("cv", f"batched LOO: {len(genes)} folds x {epochs} epochs at {n_types} x "
+        f"{LOO_PAIR[1]} x {len(genes)} in one batch: {secs:.2f} s "
+        f"({secs / epochs * 1e3:.2f} ms/step for all folds, "
+        f"{secs / epochs / len(genes) * 1e3:.4f} per fold); peak device memory "
+        f"{peak['gib']:.3f} GiB above what was resident (the fold-bytes formula: "
+        f"{len(genes) * _fold_bytes(n_types, LOO_PAIR[1], len(genes)) / 2**30:.3f} GiB) "
+        f"({card})")
+    recorded = ref["torch_per_gene"]
+    deltas = {g: float(df.loc[g, "score"]) - v for g, v in recorded.items()}
+    worst = max(deltas, key=lambda g: abs(deltas[g]))
+    mean25 = float(np.mean([df.loc[g, "score"] for g in recorded]))
+    say("cv", f"the {len(recorded)} recorded genes: max |delta| {abs(deltas[worst]):.2e} "
+        f"({worst}: {float(df.loc[worst, 'score']):.5f} vs {recorded[worst]}); mean "
+        f"{mean25:.5f} vs {ref['reference_torch_avg_test_score']}; all-fold mean "
+        f"{cv['avg_test_score']:.5f} vs {ref['rebuild_avg_test_score_all_folds']} "
+        f"(tolerance {LOO_TOL:g}); avg train score {cv['avg_train_score']:.5f}")
+    if abs(deltas[worst]) > LOO_TOL:
+        problems.append(f"LOO: {worst} scored {float(df.loc[worst, 'score']):.5f}, "
+                        f"recorded {recorded[worst]}")
+    if abs(mean25 - ref["reference_torch_avg_test_score"]) > LOO_TOL:
+        problems.append(f"LOO: mean of the recorded genes {mean25:.5f}")
+    if abs(cv["avg_test_score"] - ref["rebuild_avg_test_score_all_folds"]) > LOO_TOL:
+        problems.append(f"LOO: all-fold mean {cv['avg_test_score']:.5f}")
+
+    sc_scored = adata_to_cluster_expression(ad_sc, LOO_KW["cluster_label"], True)
+    map_kw = dict(mode="clusters", device=dev, learning_rate=LOO_KW["learning_rate"],
+                  num_epochs=epochs, cluster_label=LOO_KW["cluster_label"], scale=True,
+                  lambda_d=0, lambda_g1=1, lambda_g2=0, lambda_r=0, lambda_count=1,
+                  lambda_f_reg=1, target_count=None,
+                  random_state=LOO_KW["random_state"], density_prior=None)
+    cuda_core.reset_launches()
+    t0 = time.perf_counter()
+    for gene in list(recorded)[:LOOP_FOLDS]:
+        fold, _ = _loop_fold(ad_sc, ad_sp, sc_scored, [g for g in genes if g != gene],
+                             [gene], **map_kw)
+        delta = fold["test_score"] - float(df.loc[gene, "score"])
+        say("cv", f"loop path, fold {gene}: test score {fold['test_score']:.5f}, "
+            f"batched {float(df.loc[gene, 'score']):.5f} (|delta| {abs(delta):.2e}); "
+            f"train score {fold['train_score']:.5f}")
+        if abs(delta) > LOO_TOL:
+            problems.append(f"loop path: fold {gene} scored {fold['test_score']:.5f}, "
+                            f"the batched path {float(df.loc[gene, 'score']):.5f}")
+    per_fold = (time.perf_counter() - t0) / LOOP_FOLDS
+    try:
+        check_launches("cv", {"rowstats": LOOP_FOLDS, "project": LOOP_FOLDS * epochs,
+                              "rbar": LOOP_FOLDS * epochs, "dm_adam": LOOP_FOLDS * epochs})
+    except RuntimeError as err:
+        problems.append(str(err))
+    say("cv", f"loop path: {per_fold:.2f} s per fold of {epochs} epochs through the "
+        f"fused kernels; {per_fold * len(genes):.1f} s extrapolated to {len(genes)} "
+        f"folds, against {secs:.2f} s batched ({card})")
+
+
+def cv_cells(dev, card, ad_sc, ad_sp, cells_mapper, problems):
+    """Cells-mode 10-fold CV at the tutorial shape with fold_batch_size="auto":
+    the chosen batch, the measured peak per fold against the formula and
+    the budget, and the batched step's ms per fold beside the fused step's."""
+    import torch
+
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.evaluation import _fit_folds, _fold_bytes, auto_fold_batch_size
+    from tangram_tpu_torch.ops.losses import LossWeights, MapperData
+    from tangram_tpu_torch.utils import device_memory_budget
+
+    batch = auto_fold_batch_size(*SHAPE, dev)
+    budget = device_memory_budget(dev)
+    formula = _fold_bytes(*SHAPE)
+    with device_peak() as peak:
+        cv, secs = cuda_seconds(lambda: tgt.cross_val(
+            ad_sc, ad_sp, mode="cells", cv_mode="10fold", num_epochs=CV_CELLS_EPOCHS,
+            random_state=SEED, device=dev, fold_batch_size="auto", verbose=False))
+    say("cv", f"cells 10-fold at {SHAPE}, {CV_CELLS_EPOCHS} epochs, fold_batch_size='auto' "
+        f"-> {batch} folds per batch: {secs:.2f} s; avg test score "
+        f"{cv['avg_test_score']:.4f}, train {cv['avg_train_score']:.4f}; peak "
+        f"{peak['gib']:.3f} GiB above what was resident, {peak['bytes'] / batch / 2**30:.3f} "
+        f"GiB per fold against the formula's {formula / 2**30:.3f}; budget "
+        f"{budget / 2**30:.3f} GiB ({card})")
+    if peak["bytes"] > budget:
+        problems.append(f"cells CV: peak {peak['gib']:.3f} GiB above the budget "
+                        f"{budget / 2**30:.3f}")
+    if peak["bytes"] / batch > formula:
+        problems.append(f"cells CV: {peak['bytes'] / batch / 2**30:.3f} GiB per fold, "
+                        f"more than the formula's {formula / 2**30:.3f}")
+    if not all(0 < cv[k] < 1 for k in cv):
+        problems.append(f"cells CV: scores {cv}")
+
+    data = MapperData(S=cells_mapper.data.S, G=cells_mapper.data.G)
+    masks = torch.ones((batch, SHAPE[2]), device=dev)
+    masks[:, :SHAPE[2] // 10] = 0
+    _fit_folds(cells_mapper.M, data, masks, LossWeights(), 1, 0.1, False)
+    steps = 5
+    _, secs = cuda_seconds(lambda: _fit_folds(cells_mapper.M, data, masks, LossWeights(),
+                                              steps, 0.1, False))
+    ms_fused = step_ms(cells_mapper, "kernels", warm=3, steps=10, lw=LossWeights())
+    say("cv", f"batched cells-mode step: {secs / steps * 1e3:.2f} ms for {batch} folds, "
+        f"{secs / steps / batch * 1e3:.2f} ms per fold, against the fused Adam step's "
+        f"{ms_fused:.2f} ms ({card})")
+
+
+def cv_schedules(dev, ad_sc, ad_sp, cells_mapper, problems):
+    """A cosine_lr vector on the fused Adam, Adafactor and constrained loops
+    against chained one-epoch constant runs with the state carried: bit for
+    bit when the vector run is sliced at the same epochs (Mapper.train's
+    print chunks; each fit starts from row stats the rowstats kernel
+    computes), and the one-call run's distance from them (within a call the
+    row stats come from the update kernel's merge, in another order)."""
+    import torch
+
+    from tangram_tpu_torch import cosine_lr
+    from tangram_tpu_torch.models.mapper import _train_chunked, fit_mapping
+
+    lrs = cosine_lr(0.1, SCHEDULE_EPOCHS, end=0.01, warmup=2)
+    con_mapper = mapper_for(ad_sc, ad_sp, dev, "constrained")
+    for label, mapper, opt in (("adam", cells_mapper, "adam"),
+                               ("adafactor", cells_mapper, "adafactor"),
+                               ("constrained adam", con_mapper, "adam")):
+        _, constrained = start_params(mapper)
+        kw = dict(impl="kernels", optimizer=opt, constrained=constrained)
+
+        def run_chunk(params, state, chunk, lr_chunk, epoch):
+            return fit_mapping(params, mapper.data, mapper.lw, chunk, lr_chunk,
+                               opt_state=state, return_opt_state=True, **kw)
+
+        sliced, _ = _train_chunked(run_chunk, start_params(mapper)[0], SCHEDULE_EPOCHS,
+                                   lrs, 1, None)
+        one_call, _ = fit_mapping(start_params(mapper)[0], mapper.data, mapper.lw,
+                                  SCHEDULE_EPOCHS, lrs, **kw)
+        params, state, two = start_params(mapper)[0], None, None
+        for t in range(SCHEDULE_EPOCHS):
+            params, state, _ = fit_mapping(params, mapper.data, mapper.lw, 1,
+                                           float(lrs[t]), opt_state=state,
+                                           return_opt_state=True, **kw)
+            if t == 1:
+                two = fit_mapping(start_params(mapper)[0], mapper.data, mapper.lw, 2,
+                                  lrs[:2], **kw)[0]
+                first = params.clone() if not constrained else params[0].clone()
+
+        def leaves(p):
+            return p if constrained else (p,)
+
+        same = all(torch.equal(a, b) for a, b in zip(leaves(sliced), leaves(params)))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(leaves(one_call), leaves(params)))
+        err2 = float((leaves(two)[0] - first).abs().max())
+        say("cv", f"cosine_lr over {SCHEDULE_EPOCHS} epochs, {label}: the vector sliced "
+            f"per epoch against {SCHEDULE_EPOCHS} chained one-epoch constant runs: "
+            f"{'the same bits' if same else 'DIFFERENT'}; the vector in one call: max "
+            f"|diff| {err:.3e} (after 2 epochs {err2:.3e})")
+        if not same:
+            problems.append(f"schedule: {label}: the sliced vector run and the chained "
+                            "constant runs differ")
+    del con_mapper
+
+
+def cv_early_stop_and_checkpoint(dev, ad_sc, ad_sp, cells_mapper, problems):
+    """Early stopping at the tutorial shape against an unstopped run of its
+    length, then train_checkpointed stopped and resumed against an unbroken
+    run (clusters mode, a cosine schedule)."""
+    import tempfile
+
+    import torch
+
+    from tangram_tpu_torch import checkpoint, cosine_lr
+    from tangram_tpu_torch.ops import cuda_core
+
+    start = cells_mapper.M.clone()
+    cuda_core.reset_launches()
+    (_, hist), secs = cuda_seconds(lambda: cells_mapper.train(
+        EARLY_STOP_BUDGET, print_each=None, **EARLY_STOP))
+    n_run = len(hist["main_loss"])
+    window = EARLY_STOP["early_stop_window"]
+    stopped = cells_mapper.M.clone()
+    try:
+        check_launches("cv", {"rowstats": n_run // window, "project": n_run,
+                              "rbar": n_run, "dm_adam": n_run})
+    except RuntimeError as err:
+        problems.append(str(err))
+    cells_mapper.M = start.clone()
+    _, full = cells_mapper.train(n_run, print_each=window)
+    same = (torch.equal(stopped, cells_mapper.M)
+            and all(np.array_equal(hist[k], full[k]) for k in ("main_loss", "total_loss")))
+    bests = [max(hist["main_loss"][i:i + window]) for i in range(0, n_run, window)]
+    say("cv", f"early stop (tol {EARLY_STOP['early_stop_tol']:g}, window {window}, budget "
+        f"{EARLY_STOP_BUDGET}): stopped after {n_run} epochs in {secs:.2f} s; best score "
+        f"per window {', '.join(f'{b:.4f}' for b in bests)}; against an unstopped "
+        f"{n_run}-epoch run: {'the same bits' if same else 'DIFFERENT'}")
+    if not (0 < n_run < EARLY_STOP_BUDGET and n_run % window == 0 and same):
+        problems.append(f"early stop: {n_run} epochs, prefix identical: {same}")
+    cells_mapper.M = start
+
+    mapper = mapper_for(ad_sc, ad_sp, dev, "clusters")
+    lrs = cosine_lr(0.1, 30, end=0.01)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        whole, h_whole = checkpoint.train_checkpointed(
+            mapper.M.clone(), mapper.data, mapper.lw, 30, lrs, Path(tmp) / "whole",
+            checkpoint_every=10, impl="kernels")
+        checkpoint.train_checkpointed(mapper.M.clone(), mapper.data, mapper.lw, 20,
+                                      lrs[:20], Path(tmp) / "cut", checkpoint_every=10,
+                                      impl="kernels")
+        resumed, h_res = checkpoint.train_checkpointed(
+            mapper.M.clone(), mapper.data, mapper.lw, 30, lrs, Path(tmp) / "cut",
+            checkpoint_every=10, impl="kernels")
+    same = torch.equal(whole, resumed) and all(
+        np.array_equal(h_whole[k], h_res[k], equal_nan=True) for k in h_whole)
+    say("cv", f"train_checkpointed, clusters, cosine_lr, 30 epochs in chunks of 10, cut "
+        f"after 20 and resumed: {'the same bits' if same else 'DIFFERENT'} as the unbroken "
+        f"run ({len(h_res['total_loss'])} epochs of history)")
+    if not same:
+        problems.append("checkpoint: the resumed run differs from the unbroken one")
+
+
+def cv_init_draw(dev, card, problems):
+    """init_method="auto" above 2^30 entries draws on the card."""
+    import torch
+
+    from tangram_tpu_torch.models.mapper import DEVICE_DRAW_ENTRIES, init_logits
+
+    n = INIT_SIDE
+    M, secs = cuda_seconds(lambda: init_logits(n, n, SEED, "auto", device=dev))
+    mean = float(torch.mean(M, dtype=torch.float64))
+    std = float(torch.std(M))
+    same = torch.equal(M, init_logits(n, n, SEED, "jax", device=dev))
+    say("cv", f"init_method='auto' at {n} x {n} ({n * n / DEVICE_DRAW_ENTRIES:.3f} x 2^30 "
+        f"entries): on {M.device}, {secs * 1e3:.1f} ms; mean {mean:.2e}, std {std:.6f}; "
+        f"{'the' if same else 'NOT the'} device draw ({card})")
+    if not (M.is_cuda and same and abs(mean) <= 1e-3 and abs(std - 1) <= 1e-3):
+        problems.append(f"init: device {M.device}, device draw {same}, mean {mean}, "
+                        f"std {std}")
+
+
+def cv_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
+    """Phase 10; any of its checks failing fails the phase after all ran.
+    ``profile`` adds a torch.profiler table of the batched LOO."""
+    problems = []
+    t0 = time.perf_counter()
+    cv_loo(dev, card, problems, profile)
+    cv_cells(dev, card, ad_sc, ad_sp, cells_mapper, problems)
+    cv_schedules(dev, ad_sc, ad_sp, cells_mapper, problems)
+    cv_early_stop_and_checkpoint(dev, ad_sc, ad_sp, cells_mapper, problems)
+    cv_init_draw(dev, card, problems)
+    say("cv", f"phase done in {time.perf_counter() - t0:.1f} s")
+    if problems:
+        fail("cv: " + "; ".join(problems))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1903,7 +2240,8 @@ def main(argv=None) -> int:
             f"{project_l2_bytes(*SHAPE) / 1e9:.2f} GB through L2 per launch, as reckoned "
             f"from the tile shape")
 
-    if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference"} & set(phases):
+    if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference",
+            "cv"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
@@ -2131,6 +2469,9 @@ def main(argv=None) -> int:
             f"{ms_r:.2f} ({card})")
         if args.profile:
             profile_steps(mapper)
+
+    if "cv" in phases:
+        cv_phase(dev, card, ad_sc, ad_sp, cells_mapper, args.profile)
 
     if args.profile:
         profile_dp_tile(dev)

@@ -5,9 +5,10 @@ mapping_utils.py:20, ``adata_to_cluster_expression`` ref
 mapping_utils.py:103, ``map_cells_to_space`` ref mapping_utils.py:141):
 AnnData in, AnnData out, feeding the PyTorch training engine in
 :mod:`tangram_tpu_torch.models.mapper`. ``cells``, ``clusters`` and
-``constrained`` modes with Adam or Adafactor, the L1/L2 terms, and f32 or
-bf16 storage with round-to-nearest or stochastic rounding are ported;
-every other option keeps the JAX package's keyword and raises
+``constrained`` modes with Adam or Adafactor, the L1/L2 terms, f32 or
+bf16 storage with round-to-nearest or stochastic rounding, learning-rate
+schedules, early stopping and every ``init_method`` are ported; every
+other option keeps the JAX package's keyword and raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -230,17 +231,12 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     return report
 
 
-def _reject_unported(mesh, init_method, graph_format, early_stop_tol):
+def _reject_unported(mesh, graph_format):
     if mesh is not None:
         raise unported("mesh", "queue A11 (multi-GPU)")
-    if init_method not in ("auto", "numpy"):
-        raise unported(f"init_method={init_method!r}",
-                       "queue A6 (schedules and early stop)")
     if graph_format == "knn":
         raise unported("graph_format='knn'",
                        "queue A2 (spatial graphs and the graph-term epilogue)")
-    if early_stop_tol is not None:
-        raise unported("early_stop_tol", "queue A6 (schedules and early stop)")
 
 
 def map_cells_to_space(
@@ -305,8 +301,15 @@ def map_cells_to_space(
     rounding keeps their updates unbiased. The autograd and reference loops
     train in f32, and stochastic rounding there raises ``ValueError``. The
     returned mapping is f32 either way.
+
+    ``learning_rate`` also takes a per-epoch vector or a callable (e.g.
+    :func:`~tangram_tpu_torch.ops.schedules.cosine_lr`);
+    ``early_stop_tol``/``early_stop_window`` stop training once a window
+    improves the gene-voxel score by less than the tolerance (not in
+    constrained mode); ``init_method`` is ``"auto"``, ``"numpy"``,
+    ``"jax"`` (drawn on the device) or ``"expression"``
+    (:class:`~tangram_tpu_torch.models.mapper.Mapper`).
     """
-    del early_stop_window
     lambda_d = _check_mapping_args(
         mode, lambda_g1, lambda_d, density_prior, cluster_label,
         target_count, lambda_f_reg, lambda_count,
@@ -317,7 +320,7 @@ def map_cells_to_space(
             "early_stop_tol is not supported in constrained mode (the "
             "count/filter penalties keep moving the score target)"
         )
-    _reject_unported(mesh, init_method, graph_format, early_stop_tol)
+    _reject_unported(mesh, graph_format)
     low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
                          param_dtype=param_dtype, rounding=rounding)
 
@@ -381,11 +384,13 @@ def map_cells_to_space(
             lambda_moran=lambda_moran,
             lambda_geary=lambda_geary,
             impl=impl,
+            init_method=init_method,
             optimizer=optimizer,
             **low_precision,
         )
         mapping_matrix, training_history = mapper.train(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
+            early_stop_tol=early_stop_tol, early_stop_window=early_stop_window,
         )
 
     adata_map = adlite.AnnData(

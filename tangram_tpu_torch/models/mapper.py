@@ -54,9 +54,11 @@ from ..ops.losses import (
     compute_loss,
     val_metrics,
 )
+from ..ops.schedules import resolve_lr
 
 __all__ = ["Mapper", "MapperConstrained", "fit_mapping", "init_logits",
-           "init_constrained_logits", "resolve_device", "adafactor_update"]
+           "init_constrained_logits", "expression_init_logits", "resolve_device",
+           "adafactor_update"]
 
 HISTORY_KEYS = ["total_loss", "main_loss", "vg_reg", "kl_reg", "entropy_reg"]
 CONSTRAINED_HISTORY_KEYS = HISTORY_KEYS + ["count_reg", "lambda_f_reg"]
@@ -96,32 +98,82 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+#: above this many entries of M, ``init_method="auto"`` draws on the device:
+#: a host float64 draw would take 8 bytes of host RAM per entry
+DEVICE_DRAW_ENTRIES = 1 << 30
+
+
+def _draw_method(method: str, n_entries: int) -> str:
+    """``"auto"`` resolved by size, as the JAX package does: the numpy
+    stream below :data:`DEVICE_DRAW_ENTRIES`, the device draw above."""
+    if method == "auto":
+        return "numpy" if n_entries < DEVICE_DRAW_ENTRIES else "jax"
+    if method not in ("numpy", "jax"):
+        raise ValueError(
+            f"unknown init method {method!r}; expected 'auto', 'numpy' or "
+            "'jax' ('expression' is resolved by Mapper itself)"
+        )
+    return method
+
+
+def _device_generator(random_state, device) -> torch.Generator:
+    """A generator on ``device`` seeded as the JAX package seeds its
+    ``PRNGKey``: 0 when ``random_state`` is None."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0 if random_state is None else int(random_state))
+    return gen
+
+
 def init_logits(n_cells: int, n_spots: int, random_state: Optional[int] = None,
+                method: str = "numpy", dtype=torch.float32,
                 device="cpu") -> torch.Tensor:
-    """M ~ N(0, 1) from the reference's numpy stream
-    (``np.random.seed(seed)`` only when the seed is truthy, then
-    ``np.random.normal(0, 1, (c, s))`` cast to f32), so both packages start
-    from the identical M."""
+    """M ~ N(0, 1).
+
+    ``method="numpy"`` is the reference's stream (``np.random.seed(seed)``
+    only when the seed is truthy, then ``np.random.normal(0, 1, (c, s))``
+    cast to f32), so both packages start from the identical M.
+    ``method="jax"`` draws on ``device`` with ``torch.randn`` from a
+    generator seeded like the JAX package's ``PRNGKey`` (0 for None): no
+    host copy, the draw for atlas-scale M. It follows a different generator
+    than JAX's, so its bits differ from the JAX package's; its moments and
+    its determinism per seed are what it shares. ``"auto"`` picks numpy
+    below 2^30 entries and the device draw above.
+    """
+    method = _draw_method(method, n_cells * n_spots)
+    if method == "jax":
+        return torch.randn((n_cells, n_spots), dtype=dtype, device=device,
+                           generator=_device_generator(random_state, device))
     if random_state:
         np.random.seed(seed=random_state)
     M = np.random.normal(0, 1, (n_cells, n_spots)).astype(np.float32)
-    return torch.from_numpy(M).to(device)
+    return torch.from_numpy(M).to(device=device, dtype=dtype)
 
 
-def _check_init_method(method: str) -> None:
-    if method not in ("auto", "numpy"):
-        raise unported(f"init_method={method!r}", "queue A6 (schedules and early stop)")
+def expression_init_logits(S, G, scale=4.0, dtype=torch.float32):
+    """Data-driven logits (the JAX package's extension): ``scale`` times the
+    cosine between each cell's and each spot's expression over the training
+    genes, one (c × g)·(g × s) ``torch.matmul`` on the tensors' device, in
+    f32 (TF32 stays off, PyTorch's default)."""
+    S = torch.as_tensor(S, dtype=dtype)
+    G = torch.as_tensor(G, dtype=dtype, device=S.device)
+    Sn = S / torch.clamp(torch.linalg.vector_norm(S, dim=1, keepdim=True), min=1e-8)
+    Gn = G / torch.clamp(torch.linalg.vector_norm(G, dim=1, keepdim=True), min=1e-8)
+    return scale * torch.matmul(Sn, Gn.T)
 
 
 def init_constrained_logits(n_cells: int, n_spots: int,
                             random_state: Optional[int] = None,
                             method: str = "auto", device="cpu"):
-    """(M, F) of the constrained mapper from the reference's stream
-    (``mapping_optimizer.py:472-493``): seed (only when truthy), one
-    *discarded* N(0, 1) draw of M's shape, then M, then F (cells,), each
-    cast to f32. ``method`` is ``"auto"`` or ``"numpy"``: the on-device
-    draws wait for queue A6."""
-    _check_init_method(method)
+    """(M, F) of the constrained mapper. ``method="numpy"`` is the
+    reference's stream (``mapping_optimizer.py:472-493``): seed (only when
+    truthy), one *discarded* N(0, 1) draw of M's shape, then M, then F
+    (cells,), each cast to f32. ``"jax"`` draws M, then F, on ``device``
+    from one generator seeded as in :func:`init_logits`; ``"auto"`` picks
+    by size as there."""
+    if _draw_method(method, n_cells * n_spots) == "jax":
+        gen = _device_generator(random_state, device)
+        M = torch.randn((n_cells, n_spots), device=device, generator=gen)
+        return M, torch.randn((n_cells,), device=device, generator=gen)
     if random_state:
         np.random.seed(seed=random_state)
     np.random.normal(0, 1, (n_cells, n_spots))  # discarded first draw
@@ -130,11 +182,24 @@ def init_constrained_logits(n_cells: int, n_spots: int,
     return torch.from_numpy(M).to(device), torch.from_numpy(F).to(device)
 
 
-def _check_lr(learning_rate) -> float:
-    if np.ndim(learning_rate) != 0 or callable(learning_rate):
-        raise unported("a learning-rate schedule",
-                       "queue A6 (schedules and early stop)")
-    return float(learning_rate)
+def _draw_device(method: str, n_entries: int, device):
+    """Where the init of ``method`` is drawn: on ``device`` for the device
+    draw, on the host for the numpy stream (cast and moved from there, so
+    that the device never holds the f32 draw beside its cast)."""
+    return device if _draw_method(method, n_entries) == "jax" else "cpu"
+
+
+def _lr_at(learning_rate, t: int) -> float:
+    """Step ``t``'s learning rate: the constant, or entry ``t`` of the
+    per-epoch vector (a host float either way: no step waits on the
+    device for it)."""
+    return learning_rate if np.ndim(learning_rate) == 0 else float(learning_rate[t])
+
+
+def _lr_slice(learning_rate, start: int, stop: int):
+    """The learning rate of epochs ``start:stop``: the constant, or that
+    slice of the per-epoch vector."""
+    return learning_rate if np.ndim(learning_rate) == 0 else learning_rate[start:stop]
 
 
 def _check_optimizer(optimizer: str) -> str:
@@ -196,7 +261,7 @@ def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer,
     rows = []
     for t in range(num_epochs):
         M, count, v1, v2, stats, terms = step(
-            M, count, v1, v2, stats, data, lw, learning_rate,
+            M, count, v1, v2, stats, data, lw, _lr_at(learning_rate, t),
             compute_dtype=compute_dtype, rounding=rounding, A_op=A_op,
         )
         rows.append(record(terms, M, t))
@@ -218,7 +283,7 @@ def _fused_constrained_loop(params, opt_state, data, lw, num_epochs, learning_ra
     rows = []
     for t in range(num_epochs):
         (M, F), count, (mu, muF), (nu, nuF), stats, terms = fused_constrained_step(
-            M, F, count, mu, nu, muF, nuF, stats, data, lw, learning_rate,
+            M, F, count, mu, nu, muF, nuF, stats, data, lw, _lr_at(learning_rate, t),
             compute_dtype=compute_dtype, rounding=rounding)
         rows.append(record(terms, M, t))
     return (M, F), (count, (mu, muF), (nu, nuF)), rows
@@ -274,18 +339,18 @@ def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
             total, terms = loss_fn(leaves if constrained else leaves[0], data, lw, impl)
             grads = torch.autograd.grad(total, leaves)
         terms = {k: v.detach() for k, v in terms.items()}
+        lr = _lr_at(learning_rate, t)
         if optimizer == "adam":
-            scalars = adam_scalars(count + 1, learning_rate)
+            scalars = adam_scalars(count + 1, lr)
             state = opt_state[1:]
             mus, nus = state if constrained else ((state[0],), (state[1],))
             for p, g, mu, nu in zip(params, grads, mus, nus):
                 _adam_vector(p, g, mu, nu, *scalars)
         else:
-            state = adafactor_update(params[0], grads[0], count, *opt_state[1:3],
-                                     learning_rate)
+            state = adafactor_update(params[0], grads[0], count, *opt_state[1:3], lr)
             if constrained:
                 state += (adafactor_vector_update(params[1], grads[1], count,
-                                                  opt_state[3], learning_rate),)
+                                                  opt_state[3], lr),)
         count += 1
         opt_state = (count,) + tuple(state)
         rows.append(record(terms, params[0], t))
@@ -337,7 +402,10 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
                 rounding: str = "nearest"):
     """Run ``num_epochs`` optimizer steps on ``params``: the logits ``M``,
     or ``(M, F)`` with ``constrained`` (F the filter logits (cells,); the
-    data then needs ``target_count``).
+    data then needs ``target_count``). ``learning_rate`` is a constant, a
+    per-epoch vector of length ``num_epochs`` or a callable ``epoch -> lr``
+    (:func:`~tangram_tpu_torch.ops.schedules.resolve_lr`); step ``t`` reads
+    entry ``t``.
 
     ``param_dtype``, ``moment_dtype`` and ``compute_dtype`` (``"float32"``
     or ``"bfloat16"``) and ``rounding`` (``"nearest"`` or
@@ -377,7 +445,8 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     device.
     """
     check_supported(lw)
-    learning_rate = _check_lr(learning_rate)
+    num_epochs = int(num_epochs)
+    learning_rate = resolve_lr(learning_rate, num_epochs)
     _check_optimizer(optimizer)
     M = params[0] if constrained else params
     resolved = resolve_impl(impl, M)
@@ -404,7 +473,6 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     keys = term_keys + (VAL_KEYS if with_val else [])
     record = _recorder(term_keys, with_val, data if val_data is None else val_data,
                        int(val_each), int(step_offset), resolved)
-    num_epochs = int(num_epochs)
     if use_fused and constrained:
         params, opt_state, rows = _fused_constrained_loop(
             params, opt_state, data, lw, num_epochs, learning_rate, record, *low)
@@ -457,25 +525,50 @@ def _print_epoch(terms_at_t, names):
     print(", ".join(msgs))
 
 
-def _train_chunked(run_chunk, params, num_epochs, print_each, print_names):
-    """Run ``print_each``-epoch chunks with the optimizer state carried
-    across (identical to one run) and print the first epoch of each chunk,
-    like the reference's per-epoch loop. Each chunk's history is fetched to
-    the host in one copy. ``run_chunk(params, opt_state, chunk, epoch)``
-    runs ``chunk`` epochs from absolute epoch ``epoch`` and returns
-    ``(params, opt_state, history)``."""
+def _train_chunked(run_chunk, params, num_epochs, learning_rate, chunk_epochs,
+                   print_names, stop=None):
+    """Run ``chunk_epochs``-epoch chunks with the optimizer state carried
+    across (identical to one run), the learning-rate vector sliced per
+    chunk, and print the first epoch of each chunk, like the reference's
+    per-epoch loop. Each chunk's history is fetched to the host in one copy.
+    ``run_chunk(params, opt_state, chunk, lr_chunk, epoch)`` runs ``chunk``
+    epochs from absolute epoch ``epoch`` and returns ``(params, opt_state,
+    history)``. ``stop(history_chunk)``, when given, ends training after a
+    chunk for which it returns True."""
     chunks, opt_state, epoch, keys = [], None, 0, []
     while epoch < num_epochs:
-        chunk = min(int(print_each), num_epochs - epoch)
-        params, opt_state, h = run_chunk(params, opt_state, chunk, epoch)
+        chunk = min(int(chunk_epochs), num_epochs - epoch)
+        params, opt_state, h = run_chunk(
+            params, opt_state, chunk, _lr_slice(learning_rate, epoch, epoch + chunk),
+            epoch)
         keys = list(h)
         table = torch.stack([h[k] for k in keys], dim=1).cpu().numpy()
         if print_names is not None:
             _print_epoch(dict(zip(keys, table[0])), print_names)
         chunks.append(table)
         epoch += chunk
+        if stop is not None and stop(dict(zip(keys, table.T))):
+            break
     table = np.concatenate(chunks) if chunks else np.zeros((0, 0), np.float32)
     return params, {k: table[:, i] for i, k in enumerate(keys)}
+
+
+def _early_stop(tol: float):
+    """The stop test of early stopping (the JAX package's
+    ``Mapper._train_early_stopped``): stop after a window whose best
+    gene-voxel score improves the best so far by less than ``tol``, or is
+    not finite (a diverged run would otherwise train to the full budget)."""
+    best = -np.inf
+
+    def stop(history_chunk) -> bool:
+        nonlocal best
+        chunk_best = float(np.max(history_chunk["main_loss"]))
+        if not np.isfinite(chunk_best) or chunk_best - best < tol:
+            return True
+        best = max(best, chunk_best)
+        return False
+
+    return stop
 
 
 def _history_lists(history, keys, with_val=False, val_each=1):
@@ -514,7 +607,11 @@ class Mapper:
     or bf16, raises here. ``train_genes_idx`` and ``val_genes_idx`` select
     the training and validation genes (columns of S and G); like the
     reference, validation scores the TRAINING genes unless
-    ``emulate_reference_val_quirk=False``.
+    ``emulate_reference_val_quirk=False``. ``init_method`` draws M:
+    ``"auto"`` (the reference's numpy stream below 2^30 entries, the
+    device draw above), ``"numpy"``, ``"jax"`` (the device draw; see
+    :func:`init_logits`) or ``"expression"`` (:func:`expression_init_logits`
+    over the training genes).
     """
 
     def __init__(
@@ -538,6 +635,7 @@ class Mapper:
         lambda_ct_islands=0,
         device=None,
         random_state=None,
+        init_method: str = "auto",
         impl: str = "auto",
         emulate_reference_val_quirk: bool = True,
         optimizer: str = "adam",
@@ -589,8 +687,13 @@ class Mapper:
         self._val_S, self._val_G = (
             (S_train, G_train) if emulate_reference_val_quirk else genes(val_genes_idx))
         self.data = MapperData(S=S_train, G=G_train, d=dev(d), d_source=dev(d_source))
-        self.M = _upload_logits(init_logits(S.shape[0], G.shape[0], random_state),
-                                self.device, impl, self.low_precision)
+        if init_method == "expression":
+            M = expression_init_logits(S_train, G_train)
+        else:
+            M = init_logits(S.shape[0], G.shape[0], random_state, init_method,
+                            device=_draw_device(init_method, S.shape[0] * G.shape[0],
+                                                self.device))
+        self.M = _upload_logits(M, self.device, impl, self.low_precision)
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100, val_each=None,
               early_stop_tol=None, early_stop_window=100):
@@ -598,35 +701,50 @@ class Mapper:
         the reference ``Mapper.train`` (``mapping_optimizer.py:358-408``).
 
         Training runs in ``print_each``-epoch chunks with one score line per
-        chunk. With ``val_each``, the validation metrics of the post-step
-        logits are recorded every ``val_each`` epochs (the ``val_*`` lists of
-        ``training_history``). The logits are updated in place and
+        chunk. ``learning_rate`` is a constant, a per-epoch vector or a
+        callable (:func:`~tangram_tpu_torch.ops.schedules.resolve_lr`). With
+        ``val_each``, the validation metrics of the post-step logits are
+        recorded every ``val_each`` epochs (the ``val_*`` lists of
+        ``training_history``). ``early_stop_tol`` (the JAX package's
+        extension) trains in ``early_stop_window``-epoch chunks instead and
+        stops after a chunk that improves the best gene-voxel score by less
+        than the tolerance, or whose score is not finite; the history then
+        covers the epochs run. The logits are updated in place and
         ``self.M`` is bound to the trained tensor (in ``param_dtype`` after
         the fused loop). ``M_probs`` is the row softmax in f32, on the host.
         """
-        del early_stop_window
-        if early_stop_tol is not None:
-            raise unported("early_stop_tol", "queue A6 (schedules and early stop)")
         num_epochs = int(num_epochs)
-        learning_rate = _check_lr(learning_rate)
+        learning_rate = resolve_lr(learning_rate, num_epochs)
+        early_stop = early_stop_tol is not None and num_epochs > 0
+        if early_stop and int(early_stop_window) <= 0:
+            raise ValueError("early_stop_window must be positive")
         if print_each:
             logging.info(f"Printing scores every {print_each} epochs.")
         with_val = val_each is not None
         val_data = MapperData(S=self._val_S, G=self._val_G)
 
-        def run_chunk(M, opt_state, chunk, epoch):
-            return fit_mapping(M, self.data, self.lw, chunk, learning_rate,
+        def run_chunk(M, opt_state, chunk, lr_chunk, epoch):
+            return fit_mapping(M, self.data, self.lw, chunk, lr_chunk,
                                impl=self.impl, opt_state=opt_state,
                                return_opt_state=True, optimizer=self.optimizer,
                                with_val=with_val, val_data=val_data,
                                val_each=int(val_each) if with_val else 1,
                                step_offset=epoch, **self.low_precision)
 
+        if early_stop:
+            chunk_epochs, stop = int(early_stop_window), _early_stop(float(early_stop_tol))
+        else:
+            chunk_epochs, stop = (print_each if print_each else max(num_epochs, 1)), None
         self.M, history = _train_chunked(
-            run_chunk, self.M, num_epochs,
-            print_each if print_each else max(num_epochs, 1),
-            PRINT_NAMES if print_each else None,
+            run_chunk, self.M, num_epochs, learning_rate, chunk_epochs,
+            PRINT_NAMES if print_each else None, stop=stop,
         )
+        epochs_run = len(history.get("main_loss", ()))
+        if early_stop and epochs_run < num_epochs:
+            logging.info(
+                f"Early stopping at epoch {epochs_run}: gene-voxel score "
+                f"improved < {early_stop_tol} over the last "
+                f"{early_stop_window}-epoch window.")
         training_history = _history_lists(history, HISTORY_KEYS, with_val,
                                            int(val_each) if with_val else 1)
         _warn_if_diverged(training_history)
@@ -645,10 +763,11 @@ class MapperConstrained:
     as for :class:`Mapper`; with Adam the kernels run the fused constrained
     step (M in ``param_dtype``, its moments in ``moment_dtype``, F and its
     moments f32), with Adafactor the autograd loop through the kernels'
-    ``MapperCore`` (f32; stochastic rounding raises). ``adata_map`` warm
-    starts M from the log of its mapping (F is still drawn N(0, 1)).
-    ``mesh`` waits for queue A11. Training-history values are floats (the
-    reference stringifies them, ``mapping_optimizer.py:630``).
+    ``MapperCore`` (f32; stochastic rounding raises). ``init_method`` is
+    as for :class:`Mapper`. ``adata_map`` warm starts M from the log of its
+    mapping (F is still drawn N(0, 1)). ``mesh`` waits for queue A11.
+    Training-history values are floats (the reference stringifies them,
+    ``mapping_optimizer.py:630``).
     """
 
     def __init__(
@@ -677,7 +796,6 @@ class MapperConstrained:
     ):
         if mesh is not None:
             raise unported("mesh", "queue A11 (multi-GPU)")
-        _check_init_method(init_method)
         self.device = resolve_device(device)
         self.random_state = random_state
         self.impl = impl
@@ -706,32 +824,45 @@ class MapperConstrained:
             S=dev(S), G=dev(G), d=None if d is None else dev(d),
             target_count=dev(np.float32(target_count)),
         )
+        n_entries = n_cells * n_spots
         if adata_map is not None:
+            # the warm start wins over an expression request; F is drawn by
+            # the method M would have been drawn by
             P0 = np.asarray(adata_map.X, dtype=np.float32)
             M = torch.from_numpy(np.log(np.clip(P0, 1e-12, None)))
-            self.F = init_logits(1, n_cells, random_state, self.device)[0]
+            method = _draw_method("auto" if init_method == "expression" else init_method,
+                                  n_entries)
+            F = init_logits(1, n_cells, random_state, method,
+                            device=_draw_device(method, n_entries, self.device))[0]
+        elif init_method == "expression":
+            # F keeps the reference's N(0, 1) draw, so the filter starts unbiased
+            M = expression_init_logits(self.data.S, self.data.G)
+            F = init_logits(1, n_cells, random_state, "auto")[0]
         else:
-            M, F = init_constrained_logits(n_cells, n_spots, random_state, init_method)
-            self.F = F.to(self.device)
+            M, F = init_constrained_logits(
+                n_cells, n_spots, random_state, init_method,
+                device=_draw_device(init_method, n_entries, self.device))
+        self.F = F.to(self.device)
         self.M = _upload_logits(M, self.device, impl, self.low_precision,
                                 fused=self.optimizer == "adam")
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100):
         """Returns ``(M_probs, F_probs, training_history)`` like the
         reference ``MapperConstrained.train``, in ``print_each``-epoch chunks
-        with one score line per chunk; M and F are updated in place."""
+        with one score line per chunk, the learning rate as for
+        :meth:`Mapper.train`; M and F are updated in place."""
         num_epochs = int(num_epochs)
-        learning_rate = _check_lr(learning_rate)
+        learning_rate = resolve_lr(learning_rate, num_epochs)
 
-        def run_chunk(params, opt_state, chunk, epoch):
+        def run_chunk(params, opt_state, chunk, lr_chunk, epoch):
             del epoch
-            return fit_mapping(params, self.data, self.lw, chunk, learning_rate,
+            return fit_mapping(params, self.data, self.lw, chunk, lr_chunk,
                                impl=self.impl, opt_state=opt_state,
                                return_opt_state=True, optimizer=self.optimizer,
                                constrained=True, **self.low_precision)
 
         (self.M, self.F), history = _train_chunked(
-            run_chunk, (self.M, self.F), num_epochs,
+            run_chunk, (self.M, self.F), num_epochs, learning_rate,
             print_each if print_each else max(num_epochs, 1),
             CONSTRAINED_PRINT_NAMES if print_each else None,
         )

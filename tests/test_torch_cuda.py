@@ -783,3 +783,127 @@ def test_kernels_fit_bf16_matches_cpu_twins(dev, optimizer):
                            lw, 25, impl="fused", **opts)
     np.testing.assert_allclose(h_k["main_loss"].cpu().numpy(), h_r["main_loss"].numpy(),
                                rtol=3e-2, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# schedules, early stop, checkpoints, init draws and cross-validation on the
+# card (chip_smoke.py's cv phase makes the same checks at full size)
+# ---------------------------------------------------------------------------
+
+def small_problem(dev, c=60, s=90, g=9, seed=1):
+    rng = np.random.default_rng(seed)
+    S = (rng.poisson(2.0, (c, g)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (s, g)) + 0.1).astype(np.float32)
+    d = rng.random(s).astype(np.float32)
+    data = MapperData(torch.from_numpy(S).to(dev), torch.from_numpy(G).to(dev),
+                      d=torch.from_numpy(d / d.sum()).to(dev))
+    return torch.from_numpy(rng.normal(0, 1, (c, s)).astype(np.float32)).to(dev), data
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_kernels_lr_vector_equals_chained_runs(dev, optimizer):
+    """A cosine_lr vector sliced per epoch (``Mapper.train``'s chunking)
+    against one-epoch constant fits chained with the state carried: the
+    same bits on the kernels. The vector in one fit keeps the update
+    kernel's row stats between steps where a new fit recomputes them with
+    the rowstats kernel, in another order: with Adam that stays within
+    1e-4 of the chained runs (Adafactor at lr 0.1 amplifies it; ROADMAP
+    queue C)."""
+    from tangram_tpu_torch.models.mapper import _train_chunked
+    from tangram_tpu_torch.ops.schedules import cosine_lr
+
+    M0, data = small_problem(dev)
+    lw = LossWeights(lambda_d=1.0)
+    lrs = cosine_lr(0.1, 8, end=0.01, warmup=2)
+    kw = dict(impl="kernels", optimizer=optimizer)
+
+    def run_chunk(M, state, chunk, lr_chunk, epoch):
+        return fit_mapping(M, data, lw, chunk, lr_chunk, opt_state=state,
+                           return_opt_state=True, **kw)
+
+    M_sliced, _ = _train_chunked(run_chunk, M0.clone(), 8, lrs, 1, None)
+    M, state = M0.clone(), None
+    for t in range(8):
+        M, state, _ = fit_mapping(M, data, lw, 1, float(lrs[t]), opt_state=state,
+                                  return_opt_state=True, **kw)
+    assert torch.equal(M_sliced, M)
+    if optimizer == "adam":
+        M_vec, _ = fit_mapping(M0.clone(), data, lw, 8, lrs, **kw)
+        assert float((M_vec - M).abs().max()) <= 1e-4
+
+
+def test_kernels_checkpoint_resume_is_bit_exact(dev, tmp_path):
+    from tangram_tpu_torch import checkpoint
+
+    M0, data = small_problem(dev)
+    lw = LossWeights(lambda_d=1.0)
+    kw = dict(checkpoint_every=5, impl="kernels")
+    whole, h_whole = checkpoint.train_checkpointed(M0.clone(), data, lw, 15, 0.1,
+                                                   tmp_path / "whole", **kw)
+    checkpoint.train_checkpointed(M0.clone(), data, lw, 10, 0.1, tmp_path / "cut", **kw)
+    resumed, h_res = checkpoint.train_checkpointed(M0.clone(), data, lw, 15, 0.1,
+                                                   tmp_path / "cut", **kw)
+    assert resumed.is_cuda and torch.equal(whole, resumed)
+    for key in h_whole:
+        np.testing.assert_array_equal(h_res[key], h_whole[key])
+
+
+def test_kernels_early_stop_prefix(dev):
+    from tangram_tpu_torch.models.mapper import Mapper
+
+    rng = np.random.default_rng(2)
+    S = (rng.poisson(2.0, (20, 8)) + 0.5).astype(np.float32)
+    G = (rng.poisson(3.0, (12, 8)) + 0.5).astype(np.float32)
+    _, hist = Mapper(S, G, device=dev, random_state=3).train(
+        2000, print_each=None, early_stop_tol=1e-4, early_stop_window=50)
+    n_run = len(hist["main_loss"])
+    assert 0 < n_run < 2000 and n_run % 50 == 0
+    _, full = Mapper(S, G, device=dev, random_state=3).train(n_run, print_each=50)
+    np.testing.assert_array_equal(hist["main_loss"], full["main_loss"])
+
+
+def test_device_init_draw_on_the_card(dev):
+    from tangram_tpu_torch.models.mapper import init_constrained_logits, init_logits
+
+    M = init_logits(1000, 1000, 7, "jax", device=dev)
+    assert M.is_cuda and abs(float(M.mean())) < 1e-2 and abs(float(M.std()) - 1) < 1e-2
+    assert torch.equal(M, init_logits(1000, 1000, 7, "jax", device=dev))
+    assert not torch.equal(M, init_logits(1000, 1000, 8, "jax", device=dev))
+    M_c, F_c = init_constrained_logits(30, 40, 7, "jax", device=dev)
+    assert M_c.is_cuda and F_c.is_cuda and F_c.shape == (30,)
+
+
+@pytest.mark.parametrize("mode", ["cells", "clusters", "constrained"])
+def test_cross_val_on_the_card_matches_cpu(dev, mode):
+    """The batched and loop CV on the card against the batched CV on the
+    CPU, at tests/test_torch_cross_val.py's fixture and JAX's own
+    batched-vs-loop bounds (train 2e-3, test 2e-2, 5e-2 constrained)."""
+    import pandas as pd
+
+    import tangram_tpu_torch as tgt
+
+    def adatas():  # test_torch_cross_val.py's fixture (which imports jax)
+        rng = np.random.default_rng(0)
+        centers = rng.normal(0, 1, (3, 12)) * 2
+        labels = rng.integers(0, 3, 30)
+        S = rng.poisson(np.exp(centers[labels] * 0.5) + 0.5).astype(np.float32)
+        G = rng.poisson(np.exp(centers[rng.integers(0, 3, 20)] * 0.5) + 0.5)
+        genes = pd.DataFrame(index=[f"g{i}" for i in range(12)])
+        ad_sc = tgt.AnnData(X=S, var=genes.copy(), obs=pd.DataFrame(
+            {"subclass_label": pd.Categorical([f"c{lab}" for lab in labels])},
+            index=[f"cell{i}" for i in range(30)]))
+        ad_sp = tgt.AnnData(X=G.astype(np.float32), var=genes.copy(),
+                            obs=pd.DataFrame(index=[f"s{i}" for i in range(20)]))
+        tgt.pp_adatas(ad_sc, ad_sp)
+        return ad_sc, ad_sp
+
+    extra = {"cells": {}, "clusters": {"cluster_label": "subclass_label"},
+             "constrained": {"target_count": 15, "density_prior": "uniform"}}[mode]
+    kw = dict(mode=mode, cv_mode="10fold", num_epochs=40, random_state=42,
+              verbose=False, **extra)
+    want = tgt.cross_val(*adatas(), device="cpu", **kw)
+    tol = 5e-2 if mode == "constrained" else 2e-2
+    for batched in (True, False):
+        got = tgt.cross_val(*adatas(), device=dev, batched=batched, **kw)
+        assert got["avg_train_score"] == pytest.approx(want["avg_train_score"], abs=2e-3)
+        assert got["avg_test_score"] == pytest.approx(want["avg_test_score"], abs=tol)

@@ -304,13 +304,19 @@ def test_mapper_rejects_unported_options(rng):
     mapper = tm.Mapper(S, G, device="cpu")
     _, hist = mapper.train(4, val_each=2, print_each=None)  # ported: queue A3
     assert all(len(hist[k]) == 2 and np.isfinite(hist[k]).all() for k in tm.VAL_KEYS)
-    with pytest.raises(NotImplementedError, match="A6"):
-        mapper.train(2, early_stop_tol=1e-3)
-    with pytest.raises(NotImplementedError, match="A6"):
-        mapper.train(2, learning_rate=np.full(2, 0.1))
-    with pytest.raises(NotImplementedError, match="A6"):
+    # ported since (schedules and early stop): what is left is their
+    # argument errors, as in the JAX package
+    _, hist = mapper.train(2, early_stop_tol=1e-3, print_each=None)
+    assert len(hist["main_loss"]) == 2
+    with pytest.raises(ValueError, match="early_stop_window must be positive"):
+        mapper.train(2, early_stop_tol=1e-3, early_stop_window=0)
+    with pytest.raises(ValueError, match="learning_rate vector has shape"):
+        mapper.train(2, learning_rate=np.full(3, 0.1))
+    with pytest.raises(ValueError, match="learning_rate vector has shape"):
         tm.Mapper(S, G, device="cpu", optimizer="adafactor").train(
-            2, learning_rate=np.full(2, 0.1))
+            2, learning_rate=np.full(3, 0.1))
+    with pytest.raises(ValueError, match="unknown init method"):
+        tm.Mapper(S, G, device="cpu", init_method="bogus")
     with pytest.raises(ValueError, match="optimizer"):
         tm.Mapper(S, G, device="cpu", optimizer="sgd")
 
@@ -347,8 +353,9 @@ def test_init_constrained_logits_match_jax_stream():
         for g, w in zip(got, want):
             assert g.dtype == torch.float32
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(NotImplementedError, match="A6"):
-        tm.init_constrained_logits(3, 4, 1, method="jax")
+    for api in (jm, tm):
+        with pytest.raises(ValueError, match="unknown init method"):
+            api.init_constrained_logits(3, 4, 1, method="bogus")
 
 
 def test_one_fused_constrained_step_matches_jax_from_converted_state(rng):
@@ -496,8 +503,12 @@ def test_mapper_constrained_rejects_unported_and_warm_starts(rng):
     S = np.ones((4, 3), np.float32)
     with pytest.raises(NotImplementedError, match="A11"):
         tm.MapperConstrained(S, S, None, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A6"):
-        tm.MapperConstrained(S, S, None, device="cpu", init_method="expression")
+    # the expression init (ported since): JAX's logits, and F's numpy draw
+    want = jm.MapperConstrained(S, S, None, init_method="expression", random_state=3)
+    got = tm.MapperConstrained(S, S, None, device="cpu", init_method="expression",
+                               random_state=3)
+    np.testing.assert_allclose(got.M.numpy(), np.asarray(want.M), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got.F.numpy(), np.asarray(want.F))
     P0 = rng.dirichlet(np.ones(5), size=4).astype(np.float32)
 
     class Map:

@@ -287,8 +287,6 @@ def test_missing_pp_adatas_raises():
     (dict(lambda_moran=0.1), "A2"),
     (dict(lambda_ct_islands=0.1), "A2"),
     (dict(graph_format="knn"), "A2"),
-    (dict(early_stop_tol=1e-3), "A6"),
-    (dict(learning_rate=np.full(2, 0.1)), "A6"),
 ])
 def test_unported_options_raise_naming_the_roadmap(golden_pair, kwargs, item):
     ad_sc, ad_sp = golden_pair
