@@ -78,7 +78,22 @@ last line):
               reference loop started 1 ulp away and on permuted data),
               fused=False Adam (MapperCore), constrained Adam and
               constrained Adafactor, and the Adam step times
-10. cv        the 249-fold batched LOO (clusters, 1000 epochs) on the fixture
+10. spatial   the five graph terms (the JAX bench's stack: neighborhood 0.5,
+              cell-type islands, Getis-Ord, Moran and Geary 0.3 each, the
+              islands by the pair's 22 subclasses): project, rbar and
+              dm_adam at the islands width (A = [S | one-hot], k = 271:
+              project on two column panels, the dP tile's A past its
+              resident panel) against their twins and by the f32-accuracy
+              witness, timed beside k = 249 with their bounds; the stack
+              through map_cells_to_space (cells, Adam, 100 epochs) on dense
+              and on k-NN spot graphs with launch counts, rows, a rising
+              score and the peak memory; steady ms/step of the dense and
+              k-NN stacks beside the plain step, each stack's graph terms
+              finite; 10 epochs of the k-NN stack against the reference
+              loop; two 10-step k-NN runs from one start stored bit for bit
+              (M and every term); clusters mode (22) with the k-NN stack,
+              launch counts and ms/step
+11. cv        the 249-fold batched LOO (clusters, 1000 epochs) on the fixture
               of data/NB_REFERENCE_TORCH.json, each of its 25 recorded torch
               scores, their mean and the all-fold mean within 1e-3, seconds
               and peak memory; the loop path (fused kernels, launch counts)
@@ -116,7 +131,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference", "cv")
+          "bf16", "reference", "spatial", "cv")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -232,6 +247,7 @@ Y_BF16_RTOL, NEXT_STATS_BF16_RTOL = 2e-5, 2.0 ** -7
 # itself; and on the same operands made signed (A centred per column, w of
 # random sign), where it does not, for accuracy and for the rounded twin.
 F32_WITNESS = (4.0, 10.0)
+WITNESS_PARTS = ("adam", "adafactor", "gsq", "project")
 # bf16 stores of the updates: every stored value within BF16_ULPS of the
 # twin's beyond what the f32 kernel's tolerance allows (RTOL of the largest
 # value; it matters where the update cancels, as mu near 0), and at most
@@ -253,6 +269,21 @@ LOSS_RTOL, M_ATOL, MAP_ATOL = 1e-4, 1e-3, 2e-3
 # crossing). Measured on the H100 at the tutorial shape: 8 of 2.56e8 logits
 # beyond 1e-3, the largest 3.0e-3 at a logit of -0.045.
 KINK_FRACTION, KINK_REACH = 1e-6, 1.0
+# The Moran and Geary similarities of the graph terms divide by each gene's
+# spread of predicted expression over the spots, which is small while P is
+# near uniform (the first epochs), so rounding in Y reaches the logits
+# amplified: after 10 epochs of the k-NN stack the reference loop run on
+# its cells in another order (only the order of its sums over cells
+# changes) lands up to 6.4e-4 from itself, the kernels' twins 4.7e-4 and
+# the reference from logits 1 ulp away 1.0e-3 (measured on the CPU at 3,000
+# x 1,500 x 249; the plain Adam loss gives 9e-6, the Moran or Geary term
+# alone 2e-4 and 1e-3). So with the graph terms the logits are held to
+# GRAPH_SPREAD times that permuted reference's distance from the reference
+# (M_ATOL where that is larger), beside MAP_ATOL on the maps and LOSS_RTOL on
+# every loss term. The cell-type-island penalty needs no rule: its
+# max(., 0) is off on every entry here (a spot's binary neighbor sum
+# outweighs its own type mass), the penalty is 0 on both sides.
+GRAPH_SPREAD = 4.0
 # Adafactor's update u = g rowf colf is linear in the gradient and, with
 # no update clipping (the JAX package's configuration), moves a few logits
 # by tens per step at the tutorial shape, where the factored second moment
@@ -467,7 +498,8 @@ def rel_err(got, ref) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
-def check_f32_accuracy(shape, x, m, l, scalars):
+def check_f32_accuracy(shape, x, m, l, scalars, parts=WITNESS_PARTS, fraction_cols=None,
+                       phase="kernels"):
     """The f32-accuracy witness of the tensor-core kernels (F32_WITNESS):
     rbar's r and dm_adam's M, mu, nu and next stats against float64 twins of
     the same functions on the same f32 inputs, beside the f32 twins and
@@ -484,7 +516,11 @@ def check_f32_accuracy(shape, x, m, l, scalars):
     0 (half its scale added): where nu and the gradient both vanish, Adam's
     normalized step divides two roundings, a few entries in 2.6e8 move by
     1e-4 on either side, and the largest error says where those fell, not
-    how accurate the product is."""
+    how accurate the product is. ``parts`` picks the witnesses (of
+    WITNESS_PARTS: rbar and dm_adam; dm_adafactor, dm_backward and gsq;
+    gsq with dq = 0; project); only A's first ``fraction_cols`` columns take
+    the fraction when it is given (the rest, a one-hot encoding, stay
+    exact)."""
     import torch
 
     from tangram_tpu_torch.ops import cuda_core as cc
@@ -492,7 +528,10 @@ def check_f32_accuracy(shape, x, m, l, scalars):
 
     M, A, w, dY, dq, dh = x["M"], x["A"], x["w"], x["dY"], x["dq"], x["dh"]
     gen = torch.Generator(device=A.device).manual_seed(17)
-    A = A + torch.rand(A.shape, generator=gen, device=A.device)
+    fraction = torch.rand(A.shape, generator=gen, device=A.device)
+    if fraction_cols is not None:
+        fraction[:, fraction_cols:] = 0.0
+    A = A + fraction
     A_t, dY_t = cc.tf32_split(A)[0], cc.tf32_split(dY)[0]
     r_p = cc._rbar_plain(M, A, w, m, l, dY, dq, dh, False)
     nu = x["nu"] + 0.5 * float(x["nu"].max())
@@ -503,42 +542,11 @@ def check_f32_accuracy(shape, x, m, l, scalars):
     inv_bc1, inv_bc2 = float(f32(1.0) / f32(bc1)), float(f32(1.0) / f32(bc2))
     eps = float(f32(fs.ADAM_EPS))
 
-    # the float64 twins: P, dP, r, then the Adam update and the next stats
-    Md = M.double()
-    P = torch.exp(Md - m.double()) / l.double()
-    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
-    want = {"r": (P * dP).sum(dim=1, keepdim=True)}
-    g = P * (dP - r_p.double())
-    del P, dP
-    mu64 = b1 * x["mu"].double() + omb1 * g
-    nu64 = b2 * nu.double() + omb2 * (g * g)
-    del g
-    M64 = Md - lr * (mu64 * inv_bc1) / (torch.sqrt(nu64 * inv_bc2) + eps)
-    del Md
-    m64 = M64.amax(dim=1, keepdim=True)
-    e = torch.exp(M64 - m64)
-    want.update({"M": M64, "mu": mu64, "nu": nu64, "m'": m64,
-                 "l'": e.sum(dim=1, keepdim=True),
-                 "u'": (e * M64).sum(dim=1, keepdim=True)})
-    del e
-
-    def adam(run, A_in, dY_in):
-        out = run(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, x["mu"].clone(),
-                  nu.clone(), scalars, False)
-        return dict(zip(("M", "mu", "nu", "m'", "l'", "u'"), out))
-
-    sides = {}
-    for side, rbar, run, A_in, dY_in in (
-            ("kernel", fs._rbar, fs._dm_adam, A, dY),
-            ("f32 twin", cc._rbar_plain, fs._dm_adam_plain, A, dY),
-            ("TF32 twin", cc._rbar_plain, fs._dm_adam_plain, A_t, dY_t)):
-        sides[side] = dict(adam(run, A_in, dY_in),
-                           r=rbar(M, A_in, w, m, l, dY_in, dq, dh, False))
     bad = []
 
     def judge(name, err_k, err_p, miss, seen, rounded):
         margin = F32_WITNESS[0] * err_p
-        say("kernels", f"f32 accuracy {shape} {name}: against float64 the kernel errs by "
+        say(phase, f"f32 accuracy {shape} {name}: against float64 the kernel errs by "
             f"{err_k:.3e}, the f32 twin by {err_p:.3e} (kernel must stay within "
             f"{F32_WITNESS[0]:.0f}x: {margin:.3e}); a twin with {rounded} rounded to TF32 "
             f"misses the kernel by {miss:.3e}"
@@ -549,98 +557,134 @@ def check_f32_accuracy(shape, x, m, l, scalars):
         if seen and not miss > F32_WITNESS[1] * margin:
             bad.append(f"{name}: the check cannot see a single TF32 pass")
 
-    for name, ref in want.items():
-        real = ref.abs() < 1e20  # a padding sentinel's own rounding aside
-        err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
-                        for side in ("kernel", "f32 twin"))
-        miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
-        seen = name in ("r", "mu")
-        judge(name, err_k, err_p, miss, seen, "A and dY")
-    del want, sides
+    if "adam" in parts:
+        # the float64 twins: P, dP, r, then the Adam update and the next stats
+        Md = M.double()
+        P = torch.exp(Md - m.double()) / l.double()
+        dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+        want = {"r": (P * dP).sum(dim=1, keepdim=True)}
+        g = P * (dP - r_p.double())
+        del P, dP
+        mu64 = b1 * x["mu"].double() + omb1 * g
+        nu64 = b2 * nu.double() + omb2 * (g * g)
+        del g
+        M64 = Md - lr * (mu64 * inv_bc1) / (torch.sqrt(nu64 * inv_bc2) + eps)
+        del Md
+        m64 = M64.amax(dim=1, keepdim=True)
+        e = torch.exp(M64 - m64)
+        want.update({"M": M64, "mu": mu64, "nu": nu64, "m'": m64,
+                     "l'": e.sum(dim=1, keepdim=True),
+                     "u'": (e * M64).sum(dim=1, keepdim=True)})
+        del e
 
-    # dm_adafactor's stored M at the factors of the twin's own statistics,
-    # and dm_backward's dM, dA, dw: the products enter each linearly
-    c, s = M.shape
-    vr, vc = fs._gsq_plain(M, A, w, m, l, dY, dq, dh, r_p, 0.0, 0.0, with_dh=False)
-    _, _, rowf, colf = fs.factored_rms_vectors(
-        0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, c, s)
-    Md = M.double()
-    P = torch.exp(Md - m.double()) / l.double()
-    dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
-    g = P * (dP - r_p.double())
-    del dP
-    lr = float(f32(0.1))
-    want = {"adafactor M": Md - lr * (g * rowf.double()[:, None] * colf.double()[None, :]),
-            "dM": g, "dA": P @ dY.double(), "dw": P @ dq.double()}
-    del Md, P
-    g = g * g
-    want.update({"gsq vr": g.sum(dim=1), "gsq vc": g.sum(dim=0)})
-    del g
-    back = (M, A, w, m, l, dY, dq, dh, r_p)
-    gsq_args = (M, A, w, m, l, dY, dq, dh, r_p, 0.0, 0.0)
-    sides = {}
-    for side, adafactor, backward, gsq, A_in, dY_in in (
-            ("kernel", fs._dm_adafactor, cc._dm_backward, fs._gsq, A, dY),
-            ("f32 twin", fs._dm_adafactor_plain, cc._dm_backward_plain, fs._gsq_plain, A, dY),
-            ("TF32 twin", fs._dm_adafactor_plain,
-             lambda *a, with_dh: cc.dm_backward_tf32_plain(*a, with_dh=with_dh, terms=1),
-             lambda *a, with_dh: fs.gsq_tf32_plain(*a, with_dh=with_dh, terms=1),
-             A_t, dY_t)):
-        out = adafactor(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, rowf, colf, 0.1,
-                        0.0, 0.0, False, with_dh=False)
-        sides[side] = dict(zip(("dM", "dA", "dw"), backward(*back, with_dh=False)),
-                           **{"adafactor M": out[0]},
-                           **dict(zip(("gsq vr", "gsq vc"), gsq(*gsq_args, with_dh=False))))
-    for name, ref in want.items():
-        real = ref.abs() < 1e20
-        err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
-                        for side in ("kernel", "f32 twin"))
-        miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
-        judge(name, err_k, err_p, miss, not name.startswith("gsq"),
-              "A and dY" if name in ("adafactor M", "gsq vr", "gsq vc")
-              else "A, dY, P and [dY | dq]")
-    del want, sides
+        def adam(run, A_in, dY_in):
+            out = run(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, x["mu"].clone(),
+                      nu.clone(), scalars, False)
+            return dict(zip(("M", "mu", "nu", "m'", "l'", "u'"), out))
 
-    # gsq again with dq = 0, g from the product alone. w (x) dq is added
-    # exactly on every side; where it outweighs A dY^T (w = 1/c: 18 times
-    # at c = 22) a single TF32 pass moves g too little for the rounded twin
-    # to show on vr (measured on the H100 at the clusters shape: 0.73 of
-    # the margin), so the rounded twin is held to the margin here
-    dq0 = torch.zeros_like(dq)
-    r0 = cc._rbar_plain(M, A, w, m, l, dY, dq0, dh, False)
-    P = torch.exp(M.double() - m.double()) / l.double()
-    g = (P * (A.double() @ dY.double().T - r0.double())) ** 2
-    del P
-    want = {"gsq vr (dq = 0)": g.sum(dim=1), "gsq vc (dq = 0)": g.sum(dim=0)}
-    del g
-    gsq_args = (M, A, w, m, l, dY, dq0, dh, r0, 0.0, 0.0)
-    sides = {side: gsq(*gsq_args, with_dh=False) for side, gsq in (
-        ("kernel", fs._gsq), ("f32 twin", fs._gsq_plain),
-        ("TF32 twin", lambda *a, with_dh: fs.gsq_tf32_plain(*a, with_dh=with_dh, terms=1)))}
-    for i, (name, ref) in enumerate(want.items()):
-        err_k, err_p = (float((sides[side][i].double() - ref).abs().max())
-                        for side in ("kernel", "f32 twin"))
-        miss = float((sides["TF32 twin"][i] - sides["kernel"][i]).abs().max())
-        judge(name, err_k, err_p, miss, True, "A and dY")
-    del want, sides
+        sides = {}
+        for side, rbar, run, A_in, dY_in in (
+                ("kernel", fs._rbar, fs._dm_adam, A, dY),
+                ("f32 twin", cc._rbar_plain, fs._dm_adam_plain, A, dY),
+                ("TF32 twin", cc._rbar_plain, fs._dm_adam_plain, A_t, dY_t)):
+            sides[side] = dict(adam(run, A_in, dY_in),
+                               r=rbar(M, A_in, w, m, l, dY_in, dq, dh, False))
 
-    # project: Y and q against a float64 projection (F32_WITNESS's note)
-    c = M.shape[0]
-    P64 = torch.exp(M.double() - m.double()) / l.double()
-    P_t = cc.tf32_split(torch.exp(M - m) * (1.0 / l))[0]
-    sign = torch.where(torch.rand(c, generator=gen, device=A.device) < 0.5, -1.0, 1.0)
-    for data, A_in, w_in, seen in (("counts", A, w, False),
-                                   ("signed", A - A.mean(dim=0), w * sign, True)):
-        want = dict(zip("Yq", (P64.T @ A_in.double(), w_in.double() @ P64)))
-        sides = {"kernel": cc._project(M, A_in, w_in, m, l),
-                 "f32 twin": cc._project_plain(M, A_in, w_in, m, l),
-                 "TF32 twin": (P_t.T @ A_in, w_in @ P_t)}
-        for i, name in enumerate("Yq"):
-            err_k, err_p = (float((sides[side][i].double() - want[name]).abs().max())
+        for name, ref in want.items():
+            real = ref.abs() < 1e20  # a padding sentinel's own rounding aside
+            err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
+                            for side in ("kernel", "f32 twin"))
+            miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
+            seen = name in ("r", "mu")
+            judge(name, err_k, err_p, miss, seen, "A and dY")
+        del want, sides
+
+    if "adafactor" in parts:
+        # dm_adafactor's stored M at the factors of the twin's own statistics,
+        # and dm_backward's dM, dA, dw: the products enter each linearly
+        c, s = M.shape
+        vr, vc = fs._gsq_plain(M, A, w, m, l, dY, dq, dh, r_p, 0.0, 0.0, with_dh=False)
+        _, _, rowf, colf = fs.factored_rms_vectors(
+            0, torch.zeros_like(vr), torch.zeros_like(vc), vr, vc, c, s)
+        Md = M.double()
+        P = torch.exp(Md - m.double()) / l.double()
+        dP = A.double() @ dY.double().T + w.double()[:, None] * dq.double()[None, :]
+        g = P * (dP - r_p.double())
+        del dP
+        lr = float(f32(0.1))
+        want = {"adafactor M": Md - lr * (g * rowf.double()[:, None] * colf.double()[None, :]),
+                "dM": g, "dA": P @ dY.double(), "dw": P @ dq.double()}
+        del Md, P
+        g = g * g
+        want.update({"gsq vr": g.sum(dim=1), "gsq vc": g.sum(dim=0)})
+        del g
+        back = (M, A, w, m, l, dY, dq, dh, r_p)
+        gsq_args = (M, A, w, m, l, dY, dq, dh, r_p, 0.0, 0.0)
+        sides = {}
+        for side, adafactor, backward, gsq, A_in, dY_in in (
+                ("kernel", fs._dm_adafactor, cc._dm_backward, fs._gsq, A, dY),
+                ("f32 twin", fs._dm_adafactor_plain, cc._dm_backward_plain, fs._gsq_plain, A, dY),
+                ("TF32 twin", fs._dm_adafactor_plain,
+                 lambda *a, with_dh: cc.dm_backward_tf32_plain(*a, with_dh=with_dh, terms=1),
+                 lambda *a, with_dh: fs.gsq_tf32_plain(*a, with_dh=with_dh, terms=1),
+                 A_t, dY_t)):
+            out = adafactor(M.clone(), A_in, w, m, l, dY_in, dq, dh, r_p, rowf, colf, 0.1,
+                            0.0, 0.0, False, with_dh=False)
+            sides[side] = dict(zip(("dM", "dA", "dw"), backward(*back, with_dh=False)),
+                               **{"adafactor M": out[0]},
+                               **dict(zip(("gsq vr", "gsq vc"), gsq(*gsq_args, with_dh=False))))
+        for name, ref in want.items():
+            real = ref.abs() < 1e20
+            err_k, err_p = (float((sides[side][name].double() - ref)[real].abs().max())
+                            for side in ("kernel", "f32 twin"))
+            miss = float((sides["TF32 twin"][name] - sides["kernel"][name])[real].abs().max())
+            judge(name, err_k, err_p, miss, not name.startswith("gsq"),
+                  "A and dY" if name in ("adafactor M", "gsq vr", "gsq vc")
+                  else "A, dY, P and [dY | dq]")
+        del want, sides
+
+    if "gsq" in parts:
+        # gsq again with dq = 0, g from the product alone. w (x) dq is added
+        # exactly on every side; where it outweighs A dY^T (w = 1/c: 18 times
+        # at c = 22) a single TF32 pass moves g too little for the rounded twin
+        # to show on vr (measured on the H100 at the clusters shape: 0.73 of
+        # the margin), so the rounded twin is held to the margin here
+        dq0 = torch.zeros_like(dq)
+        r0 = cc._rbar_plain(M, A, w, m, l, dY, dq0, dh, False)
+        P = torch.exp(M.double() - m.double()) / l.double()
+        g = (P * (A.double() @ dY.double().T - r0.double())) ** 2
+        del P
+        want = {"gsq vr (dq = 0)": g.sum(dim=1), "gsq vc (dq = 0)": g.sum(dim=0)}
+        del g
+        gsq_args = (M, A, w, m, l, dY, dq0, dh, r0, 0.0, 0.0)
+        sides = {side: gsq(*gsq_args, with_dh=False) for side, gsq in (
+            ("kernel", fs._gsq), ("f32 twin", fs._gsq_plain),
+            ("TF32 twin", lambda *a, with_dh: fs.gsq_tf32_plain(*a, with_dh=with_dh, terms=1)))}
+        for i, (name, ref) in enumerate(want.items()):
+            err_k, err_p = (float((sides[side][i].double() - ref).abs().max())
                             for side in ("kernel", "f32 twin"))
             miss = float((sides["TF32 twin"][i] - sides["kernel"][i]).abs().max())
-            judge(f"project {name} ({data})", err_k, err_p, miss, seen, "P")
+            judge(name, err_k, err_p, miss, True, "A and dY")
         del want, sides
+
+    if "project" in parts:
+        # project: Y and q against a float64 projection (F32_WITNESS's note)
+        c = M.shape[0]
+        P64 = torch.exp(M.double() - m.double()) / l.double()
+        P_t = cc.tf32_split(torch.exp(M - m) * (1.0 / l))[0]
+        sign = torch.where(torch.rand(c, generator=gen, device=A.device) < 0.5, -1.0, 1.0)
+        for data, A_in, w_in, seen in (("counts", A, w, False),
+                                       ("signed", A - A.mean(dim=0), w * sign, True)):
+            want = dict(zip("Yq", (P64.T @ A_in.double(), w_in.double() @ P64)))
+            sides = {"kernel": cc._project(M, A_in, w_in, m, l),
+                     "f32 twin": cc._project_plain(M, A_in, w_in, m, l),
+                     "TF32 twin": (P_t.T @ A_in, w_in @ P_t)}
+            for i, name in enumerate("Yq"):
+                err_k, err_p = (float((sides[side][i].double() - want[name]).abs().max())
+                                for side in ("kernel", "f32 twin"))
+                miss = float((sides["TF32 twin"][i] - sides["kernel"][i]).abs().max())
+                judge(f"project {name} ({data})", err_k, err_p, miss, seen, "P")
+            del want, sides
     if bad:
         fail(f"f32-accuracy witness at {shape}: " + "; ".join(bad))
 
@@ -1519,12 +1563,40 @@ def first_step_check(mapper, lw, optimizer, label, fused):
         fail(f"reference: {label}: one step of the kernels and of the reference loop differ")
 
 
-def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True):
+def permuted_reference_distance(mapper, lw, M_ref, epochs=10):
+    """max |ΔM| between the reference loop's logits ``M_ref`` after
+    ``epochs`` Adam steps and the same loop run on the mapper's cells in a
+    seeded other order (the logits' rows and the data's per-cell rows
+    permuted, the result put back in order): what rounding alone does
+    (GRAPH_SPREAD)."""
+    import torch
+
+    from tangram_tpu_torch.models.mapper import fit_mapping
+
+    M0, data = mapper.M, mapper.data
+    gen = torch.Generator(device=M0.device).manual_seed(0)
+    perm = torch.randperm(M0.shape[0], generator=gen, device=M0.device)
+
+    def rows(t):
+        return None if t is None else t[perm]
+
+    data = data._replace(S=data.S[perm], ct_encode=rows(data.ct_encode),
+                         d_source=rows(data.d_source))
+    M_perm, _ = fit_mapping(M0[perm].clone(), data, lw, epochs, impl="reference")
+    M_back = torch.empty_like(M_perm)
+    M_back[perm] = M_perm
+    return float((M_back - M_ref).abs().max())
+
+
+def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True,
+                           rounding_witness=False):
     """10 epochs of the kernels and of the materialized reference loop from
     the same parameters (the logits M, and the filter F of a
     MapperConstrained); fails beyond the stated tolerances, or unless the
     kernels' run launched ``expect``. ``fused=False`` runs the kernels'
-    autograd loop through MapperCore."""
+    autograd loop through MapperCore. ``rounding_witness`` (Adam with the
+    graph terms) holds the logits to GRAPH_SPREAD times the distance of the
+    reference loop on permuted cells."""
     import torch
 
     from tangram_tpu_torch.models.mapper import (
@@ -1578,6 +1650,13 @@ def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True):
         ok, rule = True, "held after step 1 only (above)"
     elif adafactor:
         ok, rule = m_med <= M_ATOL, f"median <= {M_ATOL:.0e}"
+    elif rounding_witness:
+        spread = permuted_reference_distance(mapper, lw, Mr)
+        limit = max(M_ATOL, GRAPH_SPREAD * spread)
+        ok = m_err <= limit and p_err <= MAP_ATOL
+        rule = (f"max <= {limit:.2e} ({GRAPH_SPREAD:.0f}x the {spread:.2e} by which the "
+                f"reference loop on permuted cells lands from itself, or {M_ATOL:.0e}); "
+                f"maps <= {MAP_ATOL:.0e}")
     elif lw.lambda_l1 != 0:
         ok = (n_far <= KINK_FRACTION * dM.numel() and reach <= KINK_REACH
               and p_err <= MAP_ATOL)
@@ -1828,7 +1907,214 @@ def profile_dp_tile(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: cross-validation, schedules, early stop, checkpoints, init draws
+# phase 10: the graph terms
+# ---------------------------------------------------------------------------
+
+# The JAX bench's full stack of graph terms (bench.py:240-244), the
+# cell-type islands by the pair's 22 subclasses: A = [S | one-hot], k = 249
+# + 22 = 271, so k + 1 = 272 > 256 puts project on two column panels and
+# the dP tile's A operand (K padded to 288) past its resident panel.
+GRAPH_TERMS = dict(lambda_neighborhood_g1=0.5, lambda_ct_islands=0.3,
+                   lambda_getis_ord=0.3, lambda_moran=0.3, lambda_geary=0.3)
+ISLANDS_LABEL = "subclass_label"
+GRAPH_FORMATS = ("dense", "knn")
+REPEAT_EPOCHS = 10
+ADAM_LAUNCHES = {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS, "dm_adam": EPOCHS}
+
+
+def with_graphs(mapper, ad_sc, ad_sp, graph_format):
+    """The mapper's logits with its data and loss weights extended by the
+    five graph terms as map_cells_to_space builds them for ``graph_format``:
+    its spot graphs put on the mapper's device by the Mapper's own
+    ``_to_weights``, the cell types of ``ad_sc`` (the mapper's rows: the
+    cells, or the clusters of the aggregated AnnData) and the reference
+    indicators of G. What fit_mapping, step_ms and compare_with_reference
+    take."""
+    import types
+
+    import torch
+
+    from tangram_tpu_torch.mapping import _build_spot_graphs
+    from tangram_tpu_torch.ops.losses import spatial_local_indicators
+    from tangram_tpu_torch.utils import one_hot_encoding
+
+    lw = dataclasses.replace(mapper.lw, **GRAPH_TERMS)
+    graphs = {slot: mapper._to_weights(W) for slot, W in
+              _build_spot_graphs(ad_sp, GRAPH_TERMS, graph_format).items()}
+    ct = one_hot_encoding(ad_sc.obs[ISLANDS_LABEL]).values.astype(np.float32)
+    refs = spatial_local_indicators(mapper.data.G, graphs["spatial_weights"], lw)
+    data = mapper.data._replace(
+        ct_encode=torch.from_numpy(ct).to(mapper.M.device), getis_ord_ref=refs[0],
+        moran_ref=refs[1], geary_ref=refs[2], **graphs)
+    return types.SimpleNamespace(M=mapper.M, data=data, lw=lw)
+
+
+def islands_width_kernels(dev, card, ad_sc):
+    """project, rbar and dm_adam at the islands width (A = [S | the pair's
+    one-hot cell types], k = 271) against their twins (RTOL) and by the
+    f32-accuracy witness (the one-hot columns kept exact), then timed
+    beside the same kernels at k = 249 on the kernel phase's inputs, each
+    with its bound."""
+    import torch
+
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops import fused_step as fs
+    from tangram_tpu_torch.utils import one_hot_encoding
+
+    c, s, g = SHAPE
+    ct = one_hot_encoding(ad_sc.obs[ISLANDS_LABEL]).values.astype(np.float32)
+    k = g + ct.shape[1]
+    scalars = fs.adam_scalars(3, 0.1)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    times = {}
+    for width in (g, k):
+        x = kernel_inputs(c, s, width, seed=11, dev=dev)
+        if width == k:
+            x["A"][:, g:] = torch.from_numpy(ct).to(dev)
+        M, A, w, dY, dq, dh = x["M"], x["A"], x["w"], x["dY"], x["dq"], x["dh"]
+        m, l, _ = cc._rowstats_plain(M)
+        args = (M, A, w, m, l, dY, dq, dh)
+        r_p = cc._rbar_plain(*args, with_dh=False)
+        Mk, muk, nuk = M.clone(), x["mu"].clone(), x["nu"].clone()
+        adam_k = fs._dm_adam(Mk, A, w, m, l, dY, dq, dh, r_p, muk, nuk, scalars,
+                             with_dh=False)
+        adam_p = fs._dm_adam_plain(M.clone(), A, w, m, l, dY, dq, dh, r_p,
+                                   x["mu"].clone(), x["nu"].clone(), scalars, False)
+        for name, outs, got, ref in (
+                ("project", "Yq", cc._project(*args[:5]), cc._project_plain(*args[:5])),
+                ("rbar", ["r"], [fs._rbar(*args, with_dh=False)], [r_p]),
+                ("dm_adam", ("M", "mu", "nu", "m'", "l'", "u'"), adam_k, adam_p)):
+            for what, a, b in zip(outs, got, ref):
+                err, rel = rel_err(a, b)
+                say("spatial", f"{name} at k = {width} {what}: max_abs_err={err:.3e} "
+                    f"rel={rel:.3e} (tol rel {RTOL[name]:.0e})")
+                if not rel <= RTOL[name]:
+                    fail(f"spatial: {name} at k = {width} disagrees with its twin ({what})")
+        del adam_k, adam_p
+        if width == k:
+            check_f32_accuracy((c, s, k), x, m, l, scalars, parts=("adam", "project"),
+                               fraction_cols=g, phase="spatial")
+        ops = cc.dp_operands(A, dY)  # as a fused step builds them
+        Mp, mup, nup = M.clone(), x["mu"].clone(), x["nu"].clone()
+        times[width] = {name: (cuda_ms(kernel, 10), cuda_ms(twin, 10)) for name, kernel, twin in (
+            ("project", lambda: cc._project(*args[:5]), lambda: cc._project_plain(*args[:5])),
+            ("rbar", lambda: fs._rbar(*args, with_dh=False, operands=ops),
+             lambda: cc._rbar_plain(*args, with_dh=False)),
+            ("dm_adam", lambda: fs._dm_adam(Mk, A, w, m, l, dY, dq, dh, r_p, muk, nuk,
+                                            scalars, with_dh=False, operands=ops),
+             lambda: fs._dm_adam_plain(Mp, A, w, m, l, dY, dq, dh, r_p, mup, nup,
+                                       scalars, False)))}
+        say("spatial", f"the dP tile's A and dY operands at k = {width} move "
+            f"{dp_l2_bytes(c, s, width, sm_count) / 1e9:.2f} GB through L2 per launch; "
+            f"project's [A | w] {project_l2_bytes(c, s, width) / 1e9:.2f} GB, as "
+            f"reckoned from the tile shapes")
+        del x, M, A, dY, Mk, muk, nuk, Mp, mup, nup, ops, args
+        gc.collect()
+    for name in times[g]:
+        (ms_g, twin_g), (ms_k, twin_k) = times[g][name], times[k][name]
+        bounds = [bound_ms(name, (c, s, width))[0] for width in (g, k)]
+        say("spatial", f"{name}: k = {g} {ms_g:.3f} ms (twin {twin_g:.3f}, bound "
+            f"{bounds[0]:.3f}), k = {k} {ms_k:.3f} ms (twin {twin_k:.3f}, bound "
+            f"{bounds[1]:.3f}); {ms_k / ms_g:.3f}x for {(k + 1) / (g + 1):.3f}x the "
+            f"columns ({card})")
+
+
+def check_graph_terms_finite(hist, label):
+    from tangram_tpu_torch.models.mapper import GRAPH_TERM_KEYS
+
+    for key in GRAPH_TERM_KEYS:
+        vals = hist[key].cpu().numpy()
+        if not np.isfinite(vals).all():
+            fail(f"spatial: {label}: the {key} history is not finite")
+
+
+def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
+    """Phase 10: the five graph terms at the tutorial shape (module
+    docstring); ``profile`` adds a torch.profiler table of five steps of
+    each stack."""
+    import torch
+
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.mapping import adata_to_cluster_expression
+    from tangram_tpu_torch.models.mapper import GRAPH_TERM_KEYS, fit_mapping
+    from tangram_tpu_torch.ops import cuda_core
+
+    t0 = time.perf_counter()
+    islands_width_kernels(dev, card, ad_sc)
+
+    # the stack through the public entry point, dense and k-NN
+    for fmt in GRAPH_FORMATS:
+        with device_peak() as peak:
+            cuda_core.reset_launches()
+            ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
+                ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
+                random_state=SEED, cluster_label=ISLANDS_LABEL, graph_format=fmt,
+                **GRAPH_TERMS))
+        check_launches("spatial", ADAM_LAUNCHES)
+        check_mapping("spatial", ad_map, *SHAPE)
+        say("spatial", f"{fmt} five-term stack: map_cells_to_space {secs:.2f} s for "
+            f"{EPOCHS} epochs (graphs built on the host included); peak device memory "
+            f"{peak['gib']:.3f} GiB above what was resident ({card})")
+        del ad_map
+
+    # steady step times in one call, the plain step beside the two stacks,
+    # and each stack's graph terms finite over ten steps
+    stacks = {fmt: with_graphs(cells_mapper, ad_sc, ad_sp, fmt) for fmt in GRAPH_FORMATS}
+    ms = {}
+    for label, mapper in (("no graph term", cells_mapper), ("dense stack", stacks["dense"]),
+                          ("k-NN stack", stacks["knn"]), ("no graph term again", cells_mapper)):
+        with device_peak() as peak:
+            ms[label] = step_ms(mapper, "kernels", warm=5, steps=20)
+        say("spatial", f"{label}: steady {ms[label]:.3f} ms/step at {SHAPE}; training adds "
+            f"{peak['gib']:.3f} GiB ({card})")
+    for fmt, mapper in stacks.items():
+        _, hist = fit_mapping(mapper.M.clone(), mapper.data, mapper.lw, REPEAT_EPOCHS,
+                              impl="kernels")
+        check_graph_terms_finite(hist, f"{fmt} stack")
+        say("spatial", f"{fmt} stack, {REPEAT_EPOCHS} steps: " + ", ".join(
+            f"{key} {float(hist[key][0]):.4f} -> {float(hist[key][-1]):.4f}"
+            for key in GRAPH_TERM_KEYS))
+        if profile:
+            say("spatial", f"torch.profiler, five steps of the {fmt} stack:")
+            profile_steps(mapper)
+
+    # the k-NN stack against the materialized reference loop, and repeated
+    knn = stacks["knn"]
+    compare_with_reference(knn, knn.lw, "adam", "five-term k-NN stack",
+                           {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10},
+                           rounding_witness=True)
+    runs = []
+    for _ in range(2):
+        M, hist = fit_mapping(knn.M.clone(), knn.data, knn.lw, REPEAT_EPOCHS,
+                              impl="kernels")
+        runs.append([M.view(torch.int32)] + [hist[key].view(torch.int32) for key in hist])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"spatial: two {REPEAT_EPOCHS}-step k-NN stack runs from the same start differ")
+    say("spatial", f"two {REPEAT_EPOCHS}-step k-NN stack runs from the same start stored "
+        "the same bits (M and every term of the history)")
+    del stacks, knn, runs
+
+    # clusters mode: the islands' encoding is the identity of the clusters
+    cuda_core.reset_launches()
+    ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
+        ad_sc, ad_sp, mode="clusters", cluster_label=ISLANDS_LABEL, num_epochs=EPOCHS,
+        random_state=SEED, graph_format="knn", **GRAPH_TERMS))
+    check_launches("spatial", ADAM_LAUNCHES)
+    n_clusters = ad_map.X.shape[0]
+    check_mapping("spatial", ad_map, n_clusters, SHAPE[1], SHAPE[2])
+    clusters = mapper_for(ad_sc, ad_sp, dev, "clusters")
+    aggregated = adata_to_cluster_expression(ad_sc, ISLANDS_LABEL, True, add_density=True)
+    stack = with_graphs(clusters, aggregated, ad_sp, "knn")
+    ms_c = step_ms(stack, "kernels", warm=5, steps=50)
+    ms_plain = step_ms(clusters, "kernels", warm=5, steps=50)
+    say("spatial", f"clusters ({n_clusters}), k-NN five-term stack: {EPOCHS} epochs in "
+        f"{secs:.2f} s; steady {ms_c:.3f} ms/step, {ms_plain:.3f} without the graph "
+        f"terms ({card})")
+    say("spatial", f"phase done in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: cross-validation, schedules, early stop, checkpoints, init draws
 # ---------------------------------------------------------------------------
 
 # the recorded LOO fixture of data/NB_REFERENCE_TORCH.json["loo_cv"]:
@@ -2136,7 +2422,7 @@ def cv_init_draw(dev, card, problems):
 
 
 def cv_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
-    """Phase 10; any of its checks failing fails the phase after all ran.
+    """Phase 11; any of its checks failing fails the phase after all ran.
     ``profile`` adds a torch.profiler table of the batched LOO."""
     problems = []
     t0 = time.perf_counter()
@@ -2240,7 +2526,7 @@ def main(argv=None) -> int:
             f"{project_l2_bytes(*SHAPE) / 1e9:.2f} GB through L2 per launch, as reckoned "
             f"from the tile shape")
 
-    if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference",
+    if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference", "spatial",
             "cv"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
@@ -2469,6 +2755,9 @@ def main(argv=None) -> int:
             f"{ms_r:.2f} ({card})")
         if args.profile:
             profile_steps(mapper)
+
+    if "spatial" in phases:
+        spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, args.profile)
 
     if "cv" in phases:
         cv_phase(dev, card, ad_sc, ad_sp, cells_mapper, args.profile)

@@ -3,7 +3,9 @@ kernels for NVIDIA Hopper.
 
 The port of ``tangram_tpu`` (JAX) that runs ``map_cells_to_space`` in
 cells, clusters and constrained modes, with Adam or Adafactor, the L1/L2
-terms, validation metrics, f32 or bf16 storage, learning-rate schedules
+terms, the five graph terms on dense or k-NN spot graphs
+(``spatial_neighbors``, ``spatial_weights``, ``neighbor_graph``,
+``NeighborGraph``, ``graph_matmul``), validation metrics, f32 or bf16 storage, learning-rate schedules
 (``cosine_lr``), early stopping, on-device and expression init draws
 (``init_logits``), checkpoints (the ``checkpoint`` module), gene-holdout
 cross-validation (``cv_data_gen``, ``cross_val``) and ``eval_metric``, on
@@ -24,7 +26,10 @@ from .evaluation import (compare_spatial_geneexp, cross_val, cv_data_gen, eval_m
                          project_genes)
 from .mapping import adata_to_cluster_expression, map_cells_to_space, pp_adatas
 from .models.mapper import Mapper, MapperConstrained, fit_mapping, init_logits
+from .ops.core import NeighborGraph, graph_matmul
 from .ops.schedules import cosine_lr
+from .spatial import neighbor_graph, spatial_neighbors, spatial_weights
+from .utils import one_hot_encoding
 
 __all__ = [
     "AnnData",
@@ -44,4 +49,10 @@ __all__ = [
     "init_logits",
     "cosine_lr",
     "checkpoint",
+    "NeighborGraph",
+    "graph_matmul",
+    "spatial_neighbors",
+    "spatial_weights",
+    "neighbor_graph",
+    "one_hot_encoding",
 ]

@@ -10,11 +10,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.core import unported
+from .ops.core import NeighborGraph
 from .ops.losses import MapperData
 
 __all__ = ["state_from_jax", "constrained_state_from_jax", "adafactor_state_from_jax",
-           "constrained_adafactor_state_from_jax", "mapper_data_from_jax"]
+           "constrained_adafactor_state_from_jax", "mapper_data_from_jax",
+           "neighbor_graph_from_jax"]
 
 
 def _tensor(x, device):
@@ -79,12 +80,28 @@ def constrained_adafactor_state_from_jax(count, v_row, v_col, v, c: int, s: int,
     return count, vr, vc, vF
 
 
+def _is_jax_graph(x) -> bool:
+    """A ``tangram_tpu.ops.core.NeighborGraph``, told by its fields (the
+    port imports nothing of the JAX package)."""
+    return getattr(x, "_fields", None) == NeighborGraph._fields
+
+
+def neighbor_graph_from_jax(graph, device="cpu") -> NeighborGraph:
+    """A JAX ``NeighborGraph`` (indices, weights and the transpose's) → the
+    port's on ``device``: int64 indices, f32 weights, the same values."""
+    def indices(x):
+        return None if x is None else torch.from_numpy(
+            np.array(x, dtype=np.int64)).to(device)
+
+    return NeighborGraph(indices(graph.indices), _tensor(graph.weights, device),
+                         indices(graph.t_indices), _tensor(graph.t_weights, device))
+
+
 def mapper_data_from_jax(data, device="cpu") -> MapperData:
     """A ``tangram_tpu.ops.losses.MapperData`` → the port's ``MapperData``
-    on ``device``. Raises for fields of terms the port does not compute."""
-    for name, value in data._asdict().items():
-        if value is not None and name not in MapperData._fields:
-            raise unported(f"MapperData.{name}",
-                           "queue A2 (spatial graphs and the graph-term epilogue)")
-    return MapperData(**{name: _tensor(getattr(data, name), device)
-                         for name in MapperData._fields})
+    on ``device``, its spot graphs as dense tensors or the port's
+    ``NeighborGraph``."""
+    def convert(x):
+        return neighbor_graph_from_jax(x, device) if _is_jax_graph(x) else _tensor(x, device)
+
+    return MapperData(**{name: convert(getattr(data, name)) for name in MapperData._fields})

@@ -5,10 +5,11 @@ mapping_utils.py:20, ``adata_to_cluster_expression`` ref
 mapping_utils.py:103, ``map_cells_to_space`` ref mapping_utils.py:141):
 AnnData in, AnnData out, feeding the PyTorch training engine in
 :mod:`tangram_tpu_torch.models.mapper`. ``cells``, ``clusters`` and
-``constrained`` modes with Adam or Adafactor, the L1/L2 terms, f32 or
-bf16 storage with round-to-nearest or stochastic rounding, learning-rate
-schedules, early stopping and every ``init_method`` are ported; every
-other option keeps the JAX package's keyword and raises
+``constrained`` modes with Adam or Adafactor, the L1/L2 terms, the five
+graph terms on dense or k-NN spot graphs (cells and clusters modes), f32
+or bf16 storage with round-to-nearest or stochastic rounding,
+learning-rate schedules, early stopping and every ``init_method`` are
+ported; ``mesh`` keeps the JAX package's keyword and raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -25,7 +26,7 @@ from . import adlite
 from . import spatial as sw
 from .models.mapper import Mapper, MapperConstrained
 from .ops.core import unported
-from .utils import annotate_gene_sparsity
+from .utils import annotate_gene_sparsity, one_hot_encoding
 
 __all__ = ["pp_adatas", "adata_to_cluster_expression", "map_cells_to_space"]
 
@@ -210,6 +211,33 @@ def _resolve_density(mode, density_prior, lambda_d, adata_sc, adata_sp):
     return _DensityPrior(d=d, d_source=d_source, label=label, lambda_d=lambda_d)
 
 
+# Spot-graph recipes per regularizer family: slot name → (standardized,
+# self_inclusion) of the weight-matrix variant that family uses. Listed in
+# reference order (ref mapping_utils.py:317-329) so that when both the
+# Moran/Geary and Getis-Ord families are on, the Getis-Ord variant wins
+# their shared "spatial_weights" slot: a reference quirk kept on purpose.
+_GRAPH_RECIPES = (
+    ("voxel_weights", "lambda_neighborhood_g1", True, True),
+    ("neighborhood_filter", "lambda_ct_islands", False, False),
+    ("spatial_weights", "lambda_moran|lambda_geary", True, False),
+    ("spatial_weights", "lambda_getis_ord", False, True),
+)
+
+
+def _build_spot_graphs(adata_sp, lambdas, graph_format):
+    """Each weight-matrix variant the graph terms need, built once: a
+    ``NeighborGraph`` with ``graph_format="knn"``, a dense float64 array
+    otherwise."""
+    build = sw.neighbor_graph if graph_format == "knn" else sw.spatial_weights
+    graphs = {"voxel_weights": None, "neighborhood_filter": None, "spatial_weights": None}
+    for slot, trigger, standardized, self_inclusion in _GRAPH_RECIPES:
+        if any(lambdas[name] > 0 for name in trigger.split("|")):
+            graphs[slot] = build(
+                adata_sp, standardized=standardized, self_inclusion=self_inclusion
+            )
+    return graphs
+
+
 def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     """Per-gene training cosine scores + sparsity columns
     (ref mapping_utils.py:401-424). The projection recomputes the softmax
@@ -231,12 +259,9 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     return report
 
 
-def _reject_unported(mesh, graph_format):
+def _reject_unported(mesh):
     if mesh is not None:
         raise unported("mesh", "queue A11 (multi-GPU)")
-    if graph_format == "knn":
-        raise unported("graph_format='knn'",
-                       "queue A2 (spatial graphs and the graph-term epilogue)")
 
 
 def map_cells_to_space(
@@ -302,6 +327,15 @@ def map_cells_to_space(
     train in f32, and stochastic rounding there raises ``ValueError``. The
     returned mapping is f32 either way.
 
+    The graph terms (``lambda_neighborhood_g1``, ``lambda_ct_islands``,
+    ``lambda_getis_ord``, ``lambda_moran``, ``lambda_geary``; each on where
+    > 0) need the spot graph that ``pp_adatas`` writes from
+    ``obsm["spatial"]``; the cell-type islands also need ``cluster_label``.
+    They act in cells and clusters modes; constrained mode ignores them, as
+    the JAX package does. ``graph_format="knn"`` keeps the spot graphs in
+    the structured (spots × neighbors) form, any other value as dense
+    spots × spots matrices.
+
     ``learning_rate`` also takes a per-epoch vector or a callable (e.g.
     :func:`~tangram_tpu_torch.ops.schedules.cosine_lr`);
     ``early_stop_tol``/``early_stop_window`` stop training once a window
@@ -320,7 +354,7 @@ def map_cells_to_space(
             "early_stop_tol is not supported in constrained mode (the "
             "count/filter penalties keep moving the score target)"
         )
-    _reject_unported(mesh, graph_format)
+    _reject_unported(mesh)
     low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
                          param_dtype=param_dtype, rounding=rounding)
 
@@ -365,6 +399,23 @@ def map_cells_to_space(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
         )
     else:
+        lambdas = {
+            "lambda_neighborhood_g1": lambda_neighborhood_g1,
+            "lambda_ct_islands": lambda_ct_islands,
+            "lambda_getis_ord": lambda_getis_ord,
+            "lambda_moran": lambda_moran,
+            "lambda_geary": lambda_geary,
+        }
+        graphs = _build_spot_graphs(adata_sp, lambdas, graph_format)
+
+        ct_encode = None
+        if lambda_ct_islands > 0:
+            if cluster_label not in adata_sc.obs.keys():
+                raise ValueError(
+                    "cluster_label must be specified for the cell type island extension."
+                )
+            ct_encode = one_hot_encoding(adata_sc.obs[cluster_label]).values
+
         mapper = Mapper(
             S=S,
             G=G,
@@ -379,15 +430,20 @@ def map_cells_to_space(
             lambda_l1=lambda_l1,
             lambda_l2=lambda_l2,
             lambda_neighborhood_g1=lambda_neighborhood_g1,
+            voxel_weights=graphs["voxel_weights"],
             lambda_ct_islands=lambda_ct_islands,
+            neighborhood_filter=graphs["neighborhood_filter"],
+            ct_encode=ct_encode,
             lambda_getis_ord=lambda_getis_ord,
             lambda_moran=lambda_moran,
             lambda_geary=lambda_geary,
+            spatial_weights=graphs["spatial_weights"],
             impl=impl,
             init_method=init_method,
             optimizer=optimizer,
             **low_precision,
         )
+        del graphs  # the mapper holds its own f32 copies on its device
         mapping_matrix, training_history = mapper.train(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
             early_stop_tol=early_stop_tol, early_stop_window=early_stop_window,

@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.core import resolve_impl, softmax_row_chunks, unported
+from ..ops.core import NeighborGraph, resolve_impl, softmax_row_chunks, unported
 from ..ops.cuda_core import _rowstats
 from ..ops.fused_step import (
     ADAFACTOR_EPS,
@@ -49,9 +49,9 @@ from ..ops.losses import (
     VAL_METRIC_KEYS,
     LossWeights,
     MapperData,
-    check_supported,
     compute_constrained_loss,
     compute_loss,
+    spatial_local_indicators,
     val_metrics,
 )
 from ..ops.schedules import resolve_lr
@@ -64,8 +64,11 @@ HISTORY_KEYS = ["total_loss", "main_loss", "vg_reg", "kl_reg", "entropy_reg"]
 CONSTRAINED_HISTORY_KEYS = HISTORY_KEYS + ["count_reg", "lambda_f_reg"]
 VAL_KEYS = list(VAL_METRIC_KEYS)
 # the per-epoch terms fit_mapping records: the history keys plus the L1/L2
-# terms, which the printed score line shows but training_history leaves out
-TERM_KEYS = HISTORY_KEYS + ["l1_reg", "l2_reg"]
+# and graph terms, which the printed score line shows but training_history
+# leaves out (the JAX package's scan history carries them alike)
+GRAPH_TERM_KEYS = ["gv_neighborhood_sim", "ct_island_penalty", "getis_ord_sim",
+                   "moran_sim", "geary_sim"]
+TERM_KEYS = HISTORY_KEYS + ["l1_reg", "l2_reg"] + GRAPH_TERM_KEYS
 OPTIMIZERS = ("adam", "adafactor")
 
 PRINT_NAMES = {
@@ -75,6 +78,11 @@ PRINT_NAMES = {
     "entropy_reg": "Entropy reg",
     "l1_reg": "L1 reg",
     "l2_reg": "L2 reg",
+    "gv_neighborhood_sim": "Spatial weighted score",
+    "ct_island_penalty": "Cell type islands penalty",
+    "getis_ord_sim": "Getis-Ord score",
+    "moran_sim": "Moran score",
+    "geary_sim": "Geary score",
 }
 CONSTRAINED_PRINT_NAMES = {
     "main_loss": "Score",
@@ -444,7 +452,6 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     when constrained) [and ``VAL_KEYS``] to a (num_epochs,) tensor on M's
     device.
     """
-    check_supported(lw)
     num_epochs = int(num_epochs)
     learning_rate = resolve_lr(learning_rate, num_epochs)
     _check_optimizer(optimizer)
@@ -596,8 +603,15 @@ def _warn_if_diverged(training_history):
 class Mapper:
     """Unconstrained mapping optimizer; API-compatible with the reference
     ``Mapper`` (``mapping_optimizer.py:14-157``) for the options this port
-    supports. The spatial-graph and cell-type-island terms raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    supports.
+
+    The graph terms take their spot graphs as dense (spots × spots) arrays
+    or :class:`~tangram_tpu_torch.ops.core.NeighborGraph`: ``voxel_weights``
+    (``lambda_neighborhood_g1``), ``neighborhood_filter`` with the (cells ×
+    cell types) ``ct_encode`` (``lambda_ct_islands``) and
+    ``spatial_weights`` (``lambda_getis_ord``, ``lambda_moran``,
+    ``lambda_geary``, whose reference indicators are computed here from the
+    training genes of G). Each is put on the mapper's device in f32.
 
     ``device=None`` means ``"cuda"`` (raises if CUDA is absent); pass
     ``device="cpu"`` for the plain PyTorch path. ``impl``, ``optimizer``
@@ -629,10 +643,14 @@ class Mapper:
         lambda_l1=0,
         lambda_l2=0,
         lambda_neighborhood_g1=0,
+        voxel_weights=None,
         lambda_getis_ord=0,
         lambda_geary=0,
         lambda_moran=0,
+        neighborhood_filter=None,
+        ct_encode=None,
         lambda_ct_islands=0,
+        spatial_weights=None,
         device=None,
         random_state=None,
         init_method: str = "auto",
@@ -664,7 +682,6 @@ class Mapper:
             lambda_moran=float(lambda_moran),
             lambda_geary=float(lambda_geary),
         )
-        check_supported(self.lw)
 
         def dev(x):
             if x is None:
@@ -686,7 +703,16 @@ class Mapper:
         # (mapping_optimizer.py:321-322); pass False for a true val split
         self._val_S, self._val_G = (
             (S_train, G_train) if emulate_reference_val_quirk else genes(val_genes_idx))
-        self.data = MapperData(S=S_train, G=G_train, d=dev(d), d_source=dev(d_source))
+        W_spatial = self._to_weights(spatial_weights)
+        getis_ref, moran_ref, geary_ref = spatial_local_indicators(
+            G_train, W_spatial, self.lw)
+        self.data = MapperData(
+            S=S_train, G=G_train, d=dev(d), d_source=dev(d_source),
+            voxel_weights=self._to_weights(voxel_weights),
+            neighborhood_filter=self._to_weights(neighborhood_filter),
+            ct_encode=dev(ct_encode), spatial_weights=W_spatial,
+            getis_ord_ref=getis_ref, moran_ref=moran_ref, geary_ref=geary_ref,
+        )
         if init_method == "expression":
             M = expression_init_logits(S_train, G_train)
         else:
@@ -694,6 +720,17 @@ class Mapper:
                             device=_draw_device(init_method, S.shape[0] * G.shape[0],
                                                 self.device))
         self.M = _upload_logits(M, self.device, impl, self.low_precision)
+
+    def _to_weights(self, W):
+        """A spot graph on the mapper's device in f32: a NeighborGraph moved
+        there, anything else as a dense tensor."""
+        if W is None:
+            return None
+        if isinstance(W, NeighborGraph):
+            return W.to(self.device)
+        if isinstance(W, torch.Tensor):
+            return W.to(device=self.device, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(W, dtype=np.float32), device=self.device)
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100, val_each=None,
               early_stop_tol=None, early_stop_window=100):

@@ -80,7 +80,6 @@ from .cuda_core import (
 from .losses import (
     LossWeights,
     MapperData,
-    check_supported,
     constrained_epilogue,
     constrained_inputs,
     unconstrained_epilogue,
@@ -521,7 +520,6 @@ def initial_stats(M, lw: LossWeights):
     """Softmax row stats of M (+ its L1/L2 norms when λ_l1 or λ_l2 ≠ 0) —
     the step's carried statistics; later steps get them from the update
     kernels for free."""
-    check_supported(lw)
     if _needs_norms(lw):
         return tuple(_rowstats_norms(M))
     return tuple(_rowstats(M))
@@ -530,8 +528,9 @@ def initial_stats(M, lw: LossWeights):
 def unconstrained_a_operand(M, data: MapperData, lw: LossWeights,
                             compute_dtype=torch.float32):
     """The A operand of the unconstrained steps' dP tiles, ``dp_operand`` of
-    A in ``compute_dtype``. A (the gene-masked S) does not depend on M's
-    values, so a training loop builds it once and hands it to every step."""
+    A in ``compute_dtype``. A (the gene-masked S, with the one-hot cell
+    types when the island term is on) does not depend on M's values, so a
+    training loop builds it once and hands it to every step."""
     A, _ = unconstrained_inputs(M, data, lw)
     return dp_operand(A.to(compute_dtype))
 

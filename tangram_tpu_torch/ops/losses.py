@@ -1,33 +1,40 @@
 """The Tangram loss terms, in PyTorch.
 
 Counterpart of ``tangram_tpu/ops/losses.py``: the expression (gene-voxel
-and voxel-gene) similarities, the density KL, the entropy term and the
-L1/L2 terms on the raw logits of the unconstrained mapper; the count and
-filter terms of the constrained mapper; and the validation metrics.
-Semantics mirror the reference optimizer (``mapping_optimizer.py:189-356``
-and ``:495-587``), including its reporting quirks: each term is reported as
-``term / lambda``, NaN when that lambda is 0, and the constrained mapper
-reports the entropy with the opposite sign.
+and voxel-gene) similarities, the density KL, the entropy term, the L1/L2
+terms on the raw logits and the five graph terms (spatial neighborhood
+similarity, cell-type islands, Getis-Ord, Moran and Geary preservation) of
+the unconstrained mapper; the count and filter terms of the constrained
+mapper, which takes no graph term (as in the JAX package); and the
+validation metrics. Semantics mirror the reference optimizer
+(``mapping_optimizer.py:159-356`` and ``:495-587``), including its
+reporting quirks: each term is reported as ``term / lambda``, NaN when that
+lambda is 0, the graph terms as their similarity or penalty, NaN when off,
+and the constrained mapper reports the entropy with the opposite sign.
 
-The spatial-graph and cell-type-island terms are a later slice; asking for
-them raises ``NotImplementedError`` naming the ROADMAP item.
+Geary's C uses the identity ``Σ_ij w_ij (x_i − x_j)² = r·x² + c·x² −
+2·Σ x ⊙ Wx`` (r, c the row and column sums of W) in place of the
+reference's O(spots² · genes) broadcast, as the JAX package does. The spot
+graphs are dense tensors or :class:`~tangram_tpu_torch.ops.core.NeighborGraph`
+and enter through :func:`~tangram_tpu_torch.ops.core.graph_matmul`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
-from .core import mapper_core, unported
+from .core import graph_matmul, mapper_core
 
 __all__ = [
     "LossWeights",
     "MapperData",
     "cosine_similarity",
     "kl_div_sum",
+    "spatial_local_indicators",
     "compute_loss",
     "compute_constrained_loss",
     "constrained_epilogue",
@@ -40,14 +47,6 @@ __all__ = [
 ]
 
 COSINE_EPS = 1e-8  # matches torch.nn.functional.cosine_similarity default
-
-_SPATIAL_LAMBDAS = (
-    "lambda_neighborhood_g1",
-    "lambda_ct_islands",
-    "lambda_getis_ord",
-    "lambda_moran",
-    "lambda_geary",
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,17 +78,14 @@ class MapperData(NamedTuple):
     gene_mask: Optional[torch.Tensor] = None  # (genes,) 1/0 for padded folds
     d: Optional[torch.Tensor] = None  # (spots,) target density
     d_source: Optional[torch.Tensor] = None  # (cells,) cluster density
+    voxel_weights: Any = None  # (spots, spots) tensor or NeighborGraph
+    neighborhood_filter: Any = None  # (spots, spots) tensor or NeighborGraph
+    ct_encode: Optional[torch.Tensor] = None  # (cells, n_celltypes)
+    spatial_weights: Any = None  # (spots, spots) tensor or NeighborGraph
+    getis_ord_ref: Optional[torch.Tensor] = None  # (spots, genes)
+    moran_ref: Optional[torch.Tensor] = None  # (spots, genes)
+    geary_ref: Optional[torch.Tensor] = None  # (genes,)
     target_count: Optional[torch.Tensor] = None  # 0-d, constrained mode
-
-
-def check_supported(lw: LossWeights) -> None:
-    """Raise for the loss terms this port does not compute yet."""
-    for name in _SPATIAL_LAMBDAS:
-        if getattr(lw, name) > 0:
-            raise unported(
-                f"{name} > 0",
-                "queue A2 (spatial graphs and the graph-term epilogue)",
-            )
 
 
 def cosine_similarity(x, y, axis: int = 0, eps: float = COSINE_EPS):
@@ -126,13 +122,67 @@ def _masked_mean(values, mask):
     return torch.sum(values * mask) / torch.sum(mask)
 
 
+def _safe_div(num, den):
+    ok = den != 0
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(num))
+
+
+def _row_col_sums(W):
+    if hasattr(W, "row_sums"):
+        return W.row_sums(), W.col_sums()
+    return torch.sum(W, dim=1), torch.sum(W, dim=0)
+
+
+def spatial_local_indicators(G, W, lw: LossWeights):
+    """(Getis-Ord G*, Moran's I, Geary's C) of each gene of G (spots ×
+    genes) on the spot graph W, each ``None`` where its lambda is not > 0:
+    (spots, genes), (spots, genes) and (genes,). Matches the reference
+    ``mapping_optimizer.py:159-187``; Geary's C through the streamed
+    identity of the module docstring, and Moran's W @ broadcast(mean) as
+    row_sums(W) ⊗ mean. A gene column of zeros gives 0 for each (through
+    ``_safe_div``), so masked-out genes need no mask here."""
+    getis_ord = moran = geary = None
+    n_spots = G.shape[0]
+
+    WG = None
+    if lw.lambda_getis_ord > 0 or lw.lambda_moran > 0 or lw.lambda_geary > 0:
+        WG = graph_matmul(W, G)
+
+    if lw.lambda_getis_ord > 0:
+        getis_ord = _safe_div(WG, torch.sum(G, dim=0))
+
+    if lw.lambda_moran > 0:
+        mean = torch.mean(G, dim=0)
+        z = G - mean
+        Wz = WG - _row_col_sums(W)[0][:, None] * mean[None, :]
+        moran = _safe_div(n_spots * z * Wz, torch.sum(z * z, dim=0))
+
+    if lw.lambda_geary > 0:
+        z = G - torch.mean(G, dim=0)
+        m2 = torch.sum(z * z, dim=0) / (n_spots - 1)
+        r, c = _row_col_sums(W)
+        GG = G * G
+        pair_sum = r @ GG + c @ GG - 2.0 * torch.sum(G * WG, dim=0)
+        geary = _safe_div(pair_sum, 2.0 * m2)
+
+    return getis_ord, moran, geary
+
+
+def _needs_ct(data: MapperData, lw: LossWeights) -> bool:
+    return lw.lambda_ct_islands > 0 and data.ct_encode is not None
+
+
 def unconstrained_inputs(M, data: MapperData, lw: LossWeights):
-    """(A, w) fed to the core: A is S (gene-masked), w the marginal weight —
-    uniform 1/n_cells in cells mode, the cluster density in clusters mode."""
-    check_supported(lw)
+    """(A, w) fed to the core: A is S (gene-masked), with the one-hot cell
+    types appended when the cell-type-island term is on (λ > 0), w the
+    marginal weight — uniform 1/n_cells in cells mode, the cluster density
+    in clusters mode."""
     S, mask = data.S, data.gene_mask
     if mask is not None:
         S = S * mask[None, :]
+    if _needs_ct(data, lw):
+        S = torch.cat([S, data.ct_encode], dim=1)
     if data.d_source is not None:
         w = data.d_source
     else:
@@ -145,18 +195,21 @@ def unconstrained_inputs(M, data: MapperData, lw: LossWeights):
 def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
                            lw: LossWeights):
     """Everything downstream of the core, as a function of the small
-    (spots × genes) projection ``Y``, the marginal ``q`` and the per-cell
+    (spots × k) projection ``Y`` (the genes, then the cell types when the
+    island term is on), the marginal ``q`` and the per-cell
     ``h = Σ P log P``. The fused loop differentiates this function alone and
     hands (dY, dq, dh) to the streamed backward kernels. ``l1_sum`` and
     ``l2_sum`` are Σ|M| and ΣM² of the raw logits (``None`` where their
     lambda is 0); the fused loop passes them as values only, their
-    gradients being added inside the update kernels.
+    gradients being added inside the update kernels. A graph term is on
+    where its lambda is > 0 (a negative lambda turns it off, as in JAX).
 
     Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
     ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg``, ``l1_reg``,
-    ``l2_reg`` and ``total_loss``, NaN where the term's lambda is 0.
+    ``l2_reg``, ``gv_neighborhood_sim``, ``ct_island_penalty``,
+    ``getis_ord_sim``, ``moran_sim``, ``geary_sim`` and ``total_loss``, NaN
+    where the term is off.
     """
-    check_supported(lw)
     S, G, mask = data.S, data.G, data.gene_mask
     if mask is not None:
         S = S * mask[None, :]
@@ -164,6 +217,7 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
     nan = torch.full((), float("nan"), dtype=torch.float32, device=Y.device)
 
     G_pred = Y[:, : S.shape[1]]
+    ct_map = Y[:, S.shape[1]:] if _needs_ct(data, lw) else None
     terms = {}
 
     # gene-voxel & voxel-gene expression similarity (ref :205-206)
@@ -193,7 +247,55 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
     terms["l1_reg"] = l1_term / lw.lambda_l1 if lw.lambda_l1 != 0 else nan
     terms["l2_reg"] = l2_term / lw.lambda_l2 if lw.lambda_l2 != 0 else nan
 
-    total = -expression_term + density_term + entropy_term + l1_term + l2_term
+    # spatial neighborhood expression similarity (ref :234-239)
+    if lw.lambda_neighborhood_g1 > 0:
+        WGp = graph_matmul(data.voxel_weights, G_pred)
+        WG = graph_matmul(data.voxel_weights, G)
+        nb_sim = _masked_mean(cosine_similarity(WGp, WG, axis=0), mask)
+        gv_neighborhood_term = lw.lambda_neighborhood_g1 * nb_sim
+        terms["gv_neighborhood_sim"] = nb_sim
+    else:
+        gv_neighborhood_term = 0.0
+        terms["gv_neighborhood_sim"] = nan
+
+    # cell-type islands (ref :242-248)
+    if ct_map is not None:
+        nb_ct = graph_matmul(data.neighborhood_filter, ct_map)
+        excess = ct_map - nb_ct
+        # max(x, 0) as jnp.maximum, half the gradient on each side at a tie
+        penalty = torch.mean(torch.maximum(excess, torch.zeros_like(excess)))
+        ct_island_term = lw.lambda_ct_islands * penalty
+        terms["ct_island_penalty"] = penalty
+    else:
+        ct_island_term = 0.0
+        terms["ct_island_penalty"] = nan
+
+    # spatial autocorrelation preservation (ref :251-263)
+    getis_pred, moran_pred, geary_pred = spatial_local_indicators(
+        G_pred, data.spatial_weights, lw)
+    getis_term = moran_term = geary_term = 0.0
+    terms["getis_ord_sim"] = terms["moran_sim"] = terms["geary_sim"] = nan
+    if lw.lambda_getis_ord > 0:
+        sim = _masked_mean(cosine_similarity(data.getis_ord_ref, getis_pred, axis=0), mask)
+        getis_term = lw.lambda_getis_ord * sim
+        terms["getis_ord_sim"] = sim
+    if lw.lambda_moran > 0:
+        sim = _masked_mean(cosine_similarity(data.moran_ref, moran_pred, axis=0), mask)
+        moran_term = lw.lambda_moran * sim
+        terms["moran_sim"] = sim
+    if lw.lambda_geary > 0:
+        # one Geary's C per gene: the reference's cosine over a 1-D tensor
+        # is the cosine of the two gene vectors
+        ref, pred = data.geary_ref, geary_pred
+        if mask is not None:
+            ref, pred = ref * mask, pred * mask
+        sim = cosine_similarity(ref, pred, axis=0)
+        geary_term = lw.lambda_geary * sim
+        terms["geary_sim"] = sim
+
+    total = (-expression_term + density_term + entropy_term + l1_term + l2_term
+             + ct_island_term - gv_neighborhood_term - getis_term - moran_term
+             - geary_term)
     terms["total_loss"] = total
     return total, terms
 

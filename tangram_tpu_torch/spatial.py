@@ -1,26 +1,36 @@
-"""Spatial neighbor graph of the spots: ``spatial_neighbors``.
+"""Spatial neighbor graphs of the spots and their weight matrices.
 
-The counterpart of ``tangram_tpu/spatial.py:spatial_neighbors``, which
-``pp_adatas`` calls whenever ``obsm["spatial"]`` is present. The nearest-
-neighbor queries run on :class:`scipy.spatial.cKDTree` instead of
-scikit-learn, so the port needs nothing beyond numpy and scipy here. Where
-several candidates tie at the k-th distance (lattice borders), the two
-libraries may keep different ones; off ties the graphs are identical.
+The counterpart of ``tangram_tpu/spatial.py``, host-side numpy and scipy:
 
-The weight matrices and the structured k-NN form that consume this graph
-(``spatial_weights``, ``neighbor_graph``) belong to the spatial-regularizer
-slice and are not ported yet (ROADMAP queue A).
+* ``spatial_neighbors`` (``pp_adatas`` calls it whenever ``obsm["spatial"]``
+  is present) writes ``obsp['spatial_connectivities']`` and
+  ``obsp['spatial_distances']``. Its nearest-neighbor queries run on
+  :class:`scipy.spatial.cKDTree` instead of scikit-learn, so the port needs
+  nothing beyond numpy and scipy here. Where several candidates tie at the
+  k-th distance (lattice borders), the two libraries may keep different
+  ones, as scikit-learn's own algorithms do among themselves; off ties the
+  graphs are identical. The graph is an input of the graph terms: two runs
+  compared with each other take the same ``obsp``.
+* ``sparse_weights`` and ``spatial_weights`` turn that graph into the
+  reference's weight matrices (``spatial_weights.py:5-29``), in CSR and as
+  a dense float64 array.
+* ``neighbor_graph`` gives the structured k-NN form
+  (:class:`~tangram_tpu_torch.ops.core.NeighborGraph`), so that W @ X never
+  needs the dense s × s matrix.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
 from scipy.spatial import cKDTree
 
-__all__ = ["spatial_neighbors"]
+from .ops.core import NeighborGraph, graph_from_arrays
+
+__all__ = ["spatial_neighbors", "sparse_weights", "spatial_weights", "neighbor_graph"]
 
 
 #: a lattice neighbor sits at 1× the grid pitch; the second hex ring starts
@@ -173,3 +183,103 @@ def spatial_neighbors(
     adata_sp.obsp["spatial_connectivities"] = conn
     adata_sp.obsp["spatial_distances"] = dists
     return adata_sp
+
+
+def _require_graph(adata_sp):
+    if not {"spatial_connectivities", "spatial_distances"}.issubset(
+        set(adata_sp.obsp.keys())
+    ):
+        raise ValueError(
+            "Missing spatial neighborhood parameters. Run `pp_adatas()` with "
+            "the spatial information stored in `spatial` in `adata_sp.obsm`."
+        )
+
+
+def sparse_weights(adata_sp, standardized: bool) -> sp.csr_matrix:
+    """The spot-graph weight matrix in CSR form, float64: the binary
+    connectivities, or with ``standardized`` the distances scaled to unit
+    row L1 norm and masked to the connectivity pattern."""
+    _require_graph(adata_sp)
+    conn = sp.csr_matrix(adata_sp.obsp["spatial_connectivities"], dtype=np.float64)
+    if not standardized:
+        return conn.sign().tocsr()
+    dists = sp.csr_matrix(adata_sp.obsp["spatial_distances"], dtype=np.float64)
+    row_sums = np.asarray(np.abs(dists).sum(axis=1)).ravel()
+    scale = np.divide(1.0, row_sums, out=np.zeros_like(row_sums), where=row_sums != 0)
+    return (sp.diags(scale) @ dists).multiply(conn.sign()).tocsr()
+
+
+def spatial_weights(adata_sp, standardized: bool, self_inclusion: bool) -> np.ndarray:
+    """Dense spot × spot float64 weight matrix, as the reference's
+    ``spatial_weights.py:5-29`` computes it: :func:`sparse_weights`, with
+    ``self_inclusion`` the identity added *after* the normalization (a
+    reference quirk, kept: standardized + self-inclusion rows sum to 2).
+
+    The variants the graph terms use: (True, True) neighborhood-g1,
+    (False, False) cell-type islands, (True, False) Moran and Geary,
+    (False, True) Getis-Ord.
+    """
+    W = sparse_weights(adata_sp, standardized).toarray()
+    if self_inclusion:
+        # in place: np.eye would make a second dense (s × s) array
+        W[np.diag_indices_from(W)] += 1.0
+    return W
+
+
+def neighbor_graph(adata_sp, standardized: bool, self_inclusion: bool,
+                   max_neighbors: Optional[int] = None) -> NeighborGraph:
+    """The structured (s, k) form of :func:`spatial_weights`: the same
+    W @ X products without the dense s × s matrix, as a
+    :class:`~tangram_tpu_torch.ops.core.NeighborGraph` of CPU tensors (f32
+    weights) with its transpose.
+
+    ``max_neighbors`` caps the padded row width ``k``. Where the cap
+    truncates a row, the row keeps its largest-``|weight|`` edges (the self
+    edge of ``self_inclusion`` always keeps its slot) and a warning says
+    how many edges were dropped: the products are then approximations.
+    """
+    _require_graph(adata_sp)
+    W = sparse_weights(adata_sp, standardized)
+    n = W.shape[0]
+
+    nnz = np.diff(W.indptr)
+    rows = np.repeat(np.arange(n), nnz)
+    k = (int(nnz.max()) if n else 0) + (1 if self_inclusion else 0)
+    data, cols = W.data, W.indices
+    if max_neighbors is not None and k > int(max_neighbors):
+        k = int(max_neighbors)
+        k_edges = k - 1 if self_inclusion else k
+        if k_edges <= 0:
+            raise ValueError(
+                "max_neighbors leaves no room for graph edges"
+                + (" beside the self edge" if self_inclusion else "")
+            )
+        # each row's entries by descending |weight|, so that truncation
+        # keeps the heaviest edges
+        order = np.lexsort((-np.abs(W.data), rows))
+        data, cols = W.data[order], W.indices[order]
+        dropped = int(np.maximum(nnz - k_edges, 0).sum())
+        if dropped:
+            warnings.warn(
+                f"max_neighbors={max_neighbors} drops {dropped} graph "
+                f"edge(s) (keeping each row's {k_edges} largest-|weight| "
+                "ones); W @ X products are approximate. Raise max_neighbors "
+                "for exact parity with spatial_weights().",
+                stacklevel=2,
+            )
+    k_edges = k - 1 if self_inclusion else k
+
+    # CSR → padded (s, k) in one scatter: each stored entry goes to (its
+    # row, its position within the row); entries past k_edges are dropped
+    indices = np.zeros((n, k), dtype=np.int64)
+    weights = np.zeros((n, k), dtype=np.float32)
+    slots = np.arange(W.nnz) - np.repeat(W.indptr[:-1], nnz)
+    keep = slots < k_edges
+    indices[rows[keep], slots[keep]] = cols[keep]
+    weights[rows[keep], slots[keep]] = data[keep]
+    if self_inclusion:
+        # the self edge after each row's kept entries (its slot reserved)
+        kept = np.minimum(nnz, k_edges)
+        indices[np.arange(n), kept] = np.arange(n)
+        weights[np.arange(n), kept] = 1.0
+    return graph_from_arrays(indices, weights)

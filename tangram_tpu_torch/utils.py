@@ -1,8 +1,9 @@
 """Small shared utilities (the counterpart of ``tangram_tpu/utils.py``).
 
-``annotate_gene_sparsity`` is on the main mapping path; ``_SweepJournal``
-and ``device_memory_budget`` serve the batched cross-validation. The rest
-of the reference's utility surface (annotation transfer, deconvolution)
+``annotate_gene_sparsity`` is on the main mapping path; ``one_hot_encoding``
+builds the cell-type-island term's encoding; ``_SweepJournal`` and
+``device_memory_budget`` serve the batched cross-validation. The rest of
+the reference's utility surface (annotation transfer, deconvolution)
 belongs to later slices (ROADMAP queue A).
 """
 
@@ -12,10 +13,11 @@ import json
 import os
 
 import numpy as np
+import pandas as pd
 import scipy.sparse as sp
 import torch
 
-__all__ = ["annotate_gene_sparsity", "device_memory_budget"]
+__all__ = ["annotate_gene_sparsity", "device_memory_budget", "one_hot_encoding"]
 
 
 def annotate_gene_sparsity(adata):
@@ -28,6 +30,18 @@ def annotate_gene_sparsity(adata):
         else np.count_nonzero(np.asarray(X), axis=0)
     )
     adata.var["sparsity"] = 1.0 - nonzero_per_gene / float(adata.n_obs)
+
+
+def one_hot_encoding(l, keep_aggregate=False):
+    """Indicator DataFrame of a categorical sequence (ref utils.py:105; the
+    JAX package's ``deconv.one_hot_encoding``). Columns follow the values'
+    first appearance; with ``keep_aggregate`` the raw labels lead as a
+    ``"cl"`` column."""
+    labels = l if isinstance(l, pd.Series) else pd.Series(l)
+    columns = {"cl": labels} if keep_aggregate else {}
+    for cat in labels.unique():
+        columns[cat] = (labels == cat).astype(int)
+    return pd.DataFrame(columns)
 
 
 def _jsonable(v):

@@ -21,6 +21,10 @@ even and odd row lengths (16-, 8- and 4-byte staging copies, the bf16
 element path, paired and single stores), a single ragged tile, and one cell
 group spread over eight spot splits (c = 22 < 64, as clusters mode). The
 row stats are also checked on rows that take each of their load widths.
+The graph terms' products (dense and k-NN, forward and backward, bit for
+bit on a second run), project, rbar and dm_adam at a cell-type-island
+width (k + 1 > 256) and one short ``map_cells_to_space`` with the five
+graph terms on k-NN graphs are held against the CPU and the twins.
 """
 
 import numpy as np
@@ -907,3 +911,103 @@ def test_cross_val_on_the_card_matches_cpu(dev, mode):
         got = tgt.cross_val(*adatas(), device=dev, batched=batched, **kw)
         assert got["avg_train_score"] == pytest.approx(want["avg_train_score"], abs=2e-3)
         assert got["avg_test_score"] == pytest.approx(want["avg_test_score"], abs=tol)
+
+
+# ---------------------------------------------------------------------------
+# the graph terms (spot graphs on the card)
+# ---------------------------------------------------------------------------
+
+
+def spot_graph(s, seed=2):
+    """A k-NN spot graph of random coordinates, dense and structured."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch import spatial as sw
+
+    ad = tgt.AnnData(X=np.ones((s, 1), np.float32))
+    ad.obsm["spatial"] = np.random.default_rng(seed).random((s, 2))
+    sw.spatial_neighbors(ad)
+    return (torch.from_numpy(sw.spatial_weights(ad, True, True).astype(np.float32)),
+            sw.neighbor_graph(ad, True, True))
+
+
+@pytest.mark.parametrize("kind", ["dense", "knn"])
+def test_graph_matmul_on_the_card_matches_cpu_and_repeats(dev, kind):
+    """W @ X and its gradient on the card against the CPU (rtol 1e-5: f32
+    sums in another order; TF32 off), and the same bits on a second run:
+    the k-NN backward gathers through the transpose, no atomics."""
+    from tangram_tpu_torch.ops.core import graph_matmul
+
+    dense, graph = spot_graph(3_000)
+    W = dense if kind == "dense" else graph
+    W_dev = W.to(dev) if kind == "dense" else graph.to(dev)
+    rng = np.random.default_rng(4)
+    X = torch.from_numpy(rng.normal(0, 1, (3_000, 64)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(0, 1, (3_000, 64)).astype(np.float32))
+
+    def run(W, device):
+        Xv = X.to(device).requires_grad_()
+        out = graph_matmul(W, Xv)
+        (dX,) = torch.autograd.grad(out, (Xv,), ct.to(device))
+        return out.detach(), dX
+
+    want = run(W, "cpu")
+    got = run(W_dev, dev)
+    again = run(W_dev, dev)
+    for g, a, w in zip(got, again, want):
+        assert g.device.type == dev.type
+        assert_close(g.cpu(), w, rtol=1e-5)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("c,s,g,n_types", [(300, 600, 249, 22), (70, 301, 250, 10)])
+def test_kernels_at_an_islands_width_match_twins(dev, c, s, g, n_types):
+    """project, rbar and dm_adam with A = [S | one-hot cell types], k + 1 >
+    256 (two project column panels, the A panel reloaded per tile in the
+    dP tile), against their twins."""
+    rng = np.random.default_rng(5)
+    x = inputs(c, s, g, dev)
+    onehot = np.eye(n_types, dtype=np.float32)[rng.integers(0, n_types, c)]
+    A = torch.cat([x["A"], torch.from_numpy(onehot).to(dev)], dim=1)
+    k = g + n_types
+    dY = torch.from_numpy(rng.normal(0, 0.1, (s, k)).astype(np.float32)).to(dev)
+    M, w, dq, dh = x["M"], x["w"], x["dq"], x["dh"]
+    m, l, _ = cc._rowstats_plain(M)
+    for got, want in zip(cc._project(M, A, w, m, l), cc._project_plain(M, A, w, m, l)):
+        assert_close(got, want)
+    args = (M, A, w, m, l, dY, dq, dh)
+    r = fs._rbar(*args, with_dh=False)
+    r_p = cc._rbar_plain(*args, with_dh=False)
+    assert_close(r, r_p)
+    scalars = fs.adam_scalars(3, 0.1)
+    out = fs._dm_adam(M.clone(), A, w, m, l, dY, dq, dh, r_p, x["mu"].clone(),
+                      x["nu"].clone(), scalars, with_dh=False)
+    want = fs._dm_adam_plain(M.clone(), A, w, m, l, dY, dq, dh, r_p, x["mu"].clone(),
+                             x["nu"].clone(), scalars, False)
+    for got, ref in zip(out, want):
+        assert_close(got, ref)
+
+
+def test_map_cells_to_space_knn_graph_terms_on_the_card(dev):
+    """The five graph terms on k-NN graphs through the kernels against the
+    CPU reference loop on the same spot graph: each step through rowstats
+    once, then project, rbar and dm_adam, at the losses' and the mapping's
+    tolerances of tests/test_torch_mapping.py."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.datasets import synthetic_mapping_pair
+
+    ad_sc, ad_sp = synthetic_mapping_pair(200, 150, 30, n_types=5, random_state=4)
+    tgt.pp_adatas(ad_sc, ad_sp)
+    kw = dict(num_epochs=20, random_state=7, verbose=False, graph_format="knn",
+              cluster_label="subclass_label", lambda_neighborhood_g1=0.5,
+              lambda_ct_islands=0.3, lambda_getis_ord=0.3, lambda_moran=0.3,
+              lambda_geary=0.3)
+    cc.reset_launches()
+    got = tgt.map_cells_to_space(ad_sc, ad_sp, device=dev, **kw)
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == dict(
+        rowstats=1, project=20, rbar=20, dm_adam=20)
+    want = tgt.map_cells_to_space(ad_sc, ad_sp, device="cpu", **kw)
+    np.testing.assert_allclose(got.X, want.X, rtol=3e-3, atol=1e-7)
+    for key in ("total_loss", "main_loss", "kl_reg"):
+        np.testing.assert_allclose(got.uns["training_history"][key],
+                                   want.uns["training_history"][key], rtol=3e-4,
+                                   atol=3e-5)

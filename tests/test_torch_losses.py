@@ -145,15 +145,6 @@ def test_kl_div_sum_zero_targets_contribute_nothing():
     close(got, want)
 
 
-@pytest.mark.parametrize("name", [
-    "lambda_neighborhood_g1", "lambda_ct_islands", "lambda_getis_ord",
-    "lambda_moran", "lambda_geary",
-])
-def test_unported_terms_raise_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        tl.check_supported(tl.LossWeights(**{name: 0.1}))
-
-
 def test_l1_gradient_of_a_zero_logit_is_zero():
     """sign(0) = 0 in the L1 gradient, as ``jnp.sign`` gives in the JAX
     fused kernels: the port's autograd of |M| (torch's, like the torch

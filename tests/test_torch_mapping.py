@@ -284,9 +284,6 @@ def test_missing_pp_adatas_raises():
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mode="constrained", target_count=10, mesh=object()), "A11"),
     (dict(mesh=object()), "A11"),
-    (dict(lambda_moran=0.1), "A2"),
-    (dict(lambda_ct_islands=0.1), "A2"),
-    (dict(graph_format="knn"), "A2"),
 ])
 def test_unported_options_raise_naming_the_roadmap(golden_pair, kwargs, item):
     ad_sc, ad_sp = golden_pair
