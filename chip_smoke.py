@@ -107,6 +107,19 @@ last line):
               and train_checkpointed cut and resumed against an unbroken
               run, bit for bit; init_method="auto" at 33,000 x 33,000
               drawn on the card
+12. downstream the modules that consume the mapping, at the tutorial shape:
+              (a) map_cells_to_space (cells, Adam, 100 epochs) inside
+              profiling.record_phases, its phases and launch counts; (b)
+              projected_expression on the card (one spot chunk and chunks
+              of 4,096) and on the host against a float64 product, within
+              4·sqrt(cells)·2^-24 of its largest entry, with a TF32 product
+              of centered expression shown to err more than 10x what the
+              f32 device product errs, and the side backend="auto" takes; (c) the deconvolution chain on a
+              synthetic segmentation (Poisson(5) objects per spot), each step
+              against numpy; (d) cell_sampling and svg; (e) plot_cell_annotation
+              and plot_training_scores to an Agg canvas when matplotlib
+              (seaborn) is installed; (f) profiling.benchmark_mapping on the
+              card beside the steady step; host seconds of each
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -131,7 +144,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference", "spatial", "cv")
+          "bf16", "reference", "spatial", "cv", "downstream")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -1446,7 +1459,7 @@ def norm_gradient_ratio(mapper):
 
     with torch.enable_grad():
         Mv = mapper.M.detach().clone().requires_grad_()
-        total, _ = compute_loss(Mv, mapper.data, mapper.lw)
+        total, _ = compute_loss(Mv, mapper.data, mapper.lw, impl="reference")
         (g,) = torch.autograd.grad(total, (Mv,))
     g_soft = float(g.abs().mean())
     g_norm = LAMBDA_L1 + 2.0 * LAMBDA_L2 * float(mapper.M.abs().mean())
@@ -1596,7 +1609,7 @@ def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True,
     kernels' run launched ``expect``. ``fused=False`` runs the kernels'
     autograd loop through MapperCore. ``rounding_witness`` (Adam with the
     graph terms) holds the logits to GRAPH_SPREAD times the distance of the
-    reference loop on permuted cells."""
+    reference loop on permuted cells. Returns the kernels' history (numpy)."""
     import torch
 
     from tangram_tpu_torch.models.mapper import (
@@ -1668,6 +1681,7 @@ def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True,
     say("reference", f"{label} logits tolerance: {rule}")
     if not ok:
         fail(f"reference: {label}: the kernels' and the reference loop's mappings differ")
+    return hk
 
 
 def baseline(f32_runs, opts):
@@ -2019,6 +2033,24 @@ def islands_width_kernels(dev, card, ad_sc):
             f"columns ({card})")
 
 
+def islands_where_they_bite(mapper, ad_sc, ad_sp):
+    """The mapper with the cell-type-island term alone on k-NN graphs, its
+    neighbourhood filter standardized (each spot's neighbours' mean, as the
+    CPU tests use) in place of the reference's binary one: with the binary
+    filter a spot's type mass never exceeds its neighbours' sum at this
+    shape, so max(·, 0) is off on every entry and the term has no gradient
+    (ROADMAP queue C)."""
+    import types
+
+    from tangram_tpu_torch.spatial import neighbor_graph
+
+    stack = with_graphs(mapper, ad_sc, ad_sp, "knn")
+    lw = dataclasses.replace(mapper.lw, lambda_ct_islands=GRAPH_TERMS["lambda_ct_islands"])
+    data = stack.data._replace(
+        neighborhood_filter=mapper._to_weights(neighbor_graph(ad_sp, True, False)))
+    return types.SimpleNamespace(M=mapper.M, data=data, lw=lw)
+
+
 def check_graph_terms_finite(hist, label):
     from tangram_tpu_torch.models.mapper import GRAPH_TERM_KEYS
 
@@ -2093,6 +2125,20 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     say("spatial", f"two {REPEAT_EPOCHS}-step k-NN stack runs from the same start stored "
         "the same bits (M and every term of the history)")
     del stacks, knn, runs
+
+    # the island term where its max(·, 0) bites, against the reference loop
+    islands = islands_where_they_bite(cells_mapper, ad_sc, ad_sp)
+    hist = compare_with_reference(islands, islands.lw, "adam",
+                                  "islands, standardized filter",
+                                  {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10},
+                                  rounding_witness=True)
+    penalty = hist["ct_island_penalty"]
+    if not (np.isfinite(penalty).all() and (penalty > 0).all()):
+        fail(f"spatial: the island penalty with a standardized filter is not positive: "
+             f"{penalty}")
+    say("spatial", f"islands, standardized filter: ct_island_penalty {penalty[0]:.4e} -> "
+        f"{penalty[-1]:.4e} over 10 steps (non-zero: max(·, 0) is on)")
+    del islands
 
     # clusters mode: the islands' encoding is the identity of the clusters
     cuda_core.reset_launches()
@@ -2436,6 +2482,255 @@ def cv_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
         fail("cv: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the downstream modules on the mapping
+# ---------------------------------------------------------------------------
+
+PROJECT_GENES = 2_048   # the width of the device product's expression matrix
+PROJECT_CHUNK = 4_096   # a spot chunk below the spot count: three chunks
+TF32_MISS = 10.0        # a TF32 product must err more than this times the f32 one
+OBJECTS_PER_SPOT = 5    # Poisson mean of the synthetic segmentation
+BENCH_EPOCHS = 20
+
+
+def projection_error(got, ref) -> float:
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def projection_tol(n_cells: int) -> float:
+    """The tolerance of an f32 product summed over ``n_cells`` terms, as a
+    fraction of its largest entry: 4·sqrt(n)·2^-24, four times the typical
+    error of an f32 sum of n terms taken one after another, as a GEMM on
+    the card sums its K axis (3.8e-5 at 26,000 cells)."""
+    return 4.0 * math.sqrt(n_cells) * 2.0**-24
+
+
+def downstream_mapping(dev, card, ad_sc, ad_sp):
+    """(a) The main path inside profiling.record_phases: its phases and the
+    launch counts of rows 1-4."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.ops import cuda_core
+
+    cuda_core.reset_launches()
+    with tgt.profiling.record_phases() as phases:
+        ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
+            ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
+            random_state=SEED, **CELLS))
+    check_launches("downstream", ADAM_LAUNCHES)
+    check_mapping("downstream", ad_map, *SHAPE)
+    want = {"preprocess", "mapper_init", "train_dispatch", "train_execute_history",
+            "mapping_fetch", "gene_report"}
+    if set(phases) != want:
+        fail(f"downstream: record_phases recorded {sorted(phases)}, not {sorted(want)}")
+    say("downstream", f"(a) map_cells_to_space {secs:.3f} s for {EPOCHS} epochs; "
+        "record_phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+        + f" ({card})")
+    return ad_map
+
+
+def downstream_projection(dev, card, M, S):
+    """(b) projected_expression on the card (one chunk, and PROJECT_CHUNK
+    chunks) and on the host against a float64 product on the card, TF32
+    off, within projection_tol; on centered (signed) expression a TF32
+    product errs more than TF32_MISS times the f32 device product."""
+    import torch
+
+    from tangram_tpu_torch.evaluation import _projects_on_device, projected_expression
+
+    rng = np.random.default_rng(SEED)
+    cols = rng.integers(0, S.shape[1], PROJECT_GENES)
+    X = (S[:, cols] * rng.uniform(0.5, 1.5, PROJECT_GENES)).astype(np.float32)
+    M_dev = torch.from_numpy(M).to(dev)
+
+    def float64_product(X):
+        return (M_dev.double().T @ torch.from_numpy(X).to(dev).double()).cpu().numpy()
+
+    ref = float64_product(X)
+    tol = projection_tol(M.shape[0])
+    errs, secs = {}, {}
+    for label, kw in (("device", dict(backend="device")),
+                      (f"device, spot_chunk={PROJECT_CHUNK}",
+                       dict(backend="device", spot_chunk=PROJECT_CHUNK)),
+                      ("host", dict(backend="host"))):
+        out, secs[label] = cuda_seconds(lambda: projected_expression(M, X, **kw))
+        errs[label] = projection_error(out, ref)
+    say("downstream", f"(b) projected_expression M {M.shape} x X {X.shape}: " + ", ".join(
+        f"{k} {secs[k]:.3f} s, rel err {errs[k]:.2e}" for k in errs)
+        + f" against float64, as a fraction of its largest entry (tol {tol:.2e}) ({card})")
+    if not all(e <= tol for e in errs.values()):
+        fail("downstream: projected_expression misses the float64 product")
+
+    # the witness: the same product with TF32 on misses the tolerance (on
+    # counts, one TF32 rounding per entry averages out over 26,000 cells;
+    # on centered expression the sum cancels and it does not)
+    Xc = (X - X.mean(axis=0, dtype=np.float64)).astype(np.float32)
+    ref_c = float64_product(Xc)
+    err_f32 = projection_error(projected_expression(M, Xc, backend="device"), ref_c)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err_tf32 = projection_error(
+            (M_dev.T @ torch.from_numpy(Xc).to(dev)).cpu().numpy(), ref_c)
+        err_tf32_counts = projection_error(
+            (M_dev.T @ torch.from_numpy(X).to(dev)).cpu().numpy(), ref)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    say("downstream", f"(b) centered X: device f32 rel err {err_f32:.2e}, a TF32 product "
+        f"{err_tf32:.2e} ({err_tf32 / err_f32:.1f}x the f32 error, {err_tf32 / tol:.1f}x "
+        f"the tolerance; on the counts {err_tf32_counts:.2e})")
+    if not (err_f32 <= tol and err_tf32 > TF32_MISS * err_f32):
+        fail("downstream: the f32 device product is not held apart from a TF32 one")
+    on_device = _projects_on_device("auto", M.size, None)
+    say("downstream", f"(b) backend='auto' at {M.size:.3e} entries of M (threshold "
+        f"2^28 = {2**28:.3e}) takes the {'device' if on_device else 'host'}")
+    if on_device:
+        fail("downstream: backend='auto' took the device below 2^28 entries")
+
+
+def segmentation(ad_sp, rng):
+    """squidpy-style image features: Poisson(OBJECTS_PER_SPOT) objects per
+    spot, centroids within a quarter pitch of the spot's coordinates."""
+    import pandas as pd
+
+    xy = np.asarray(ad_sp.obsm["spatial"], dtype=float)
+    counts = rng.poisson(OBJECTS_PER_SPOT, len(xy))
+    offsets = rng.uniform(-0.25, 0.25, (int(counts.sum()), 2))
+    owner = np.repeat(np.arange(len(xy)), counts)
+    cent = xy[owner][:, ::-1] + offsets  # (y, x) pairs, as squidpy stores them
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    per_spot = [list(map(tuple, cent[bounds[i]:bounds[i + 1]])) for i in range(len(xy))]
+    return pd.DataFrame({"segmentation_label": counts,
+                         "segmentation_centroid": pd.Series(per_spot, index=ad_sp.obs.index)},
+                        index=ad_sp.obs.index)
+
+
+def downstream_deconvolution(card, ad_map, ad_sc, ad_sp):
+    """(c) The deconvolution chain on a synthetic segmentation, each step
+    held to a numpy computation of what it must give."""
+    import tangram_tpu_torch as tgt
+
+    rng = np.random.default_rng(SEED)
+    ad_sp.obsm["image_features"] = segmentation(ad_sp, rng)
+    n_objects = ad_sp.obsm["image_features"]["segmentation_label"].to_numpy()
+    M = np.asarray(ad_map.X)
+    label = ISLANDS_LABEL
+    secs = {}
+    _, secs["create_segment_cell_df"] = cuda_seconds(lambda: tgt.create_segment_cell_df(ad_sp))
+    _, secs["project_cell_annotations"] = cuda_seconds(
+        lambda: tgt.project_cell_annotations(ad_map, ad_sp, annotation=label))
+    onehot = tgt.one_hot_encoding(ad_map.obs[label])
+    pred = ad_sp.obsm["tangram_ct_pred"]
+    want_pred = M.T @ onehot.to_numpy(dtype=float)
+    if list(pred.columns) != list(onehot.columns) or not np.allclose(
+            pred.to_numpy(), want_pred, rtol=1e-12, atol=0):
+        fail("downstream: project_cell_annotations is not M^T onehot")
+    _, secs["count_cell_annotations"] = cuda_seconds(
+        lambda: tgt.count_cell_annotations(ad_map, ad_sc, ad_sp, annotation=label))
+    counts = ad_sp.obsm["tangram_ct_count"][list(onehot.columns)].to_numpy()
+    top = np.bincount(M.argmax(axis=1), minlength=M.shape[1])
+    if not np.array_equal(counts.sum(axis=1), top):
+        fail("downstream: count_cell_annotations' per-spot sums are not the argmax counts")
+    segment, secs["deconvolve_cell_annotations"] = cuda_seconds(
+        lambda: tgt.deconvolve_cell_annotations(ad_sp))
+    want_rows = int(np.minimum(top, n_objects).sum())
+    if segment.n_obs != want_rows or segment.obsm["spatial"].shape != (want_rows, 2):
+        fail(f"downstream: deconvolve_cell_annotations has {segment.n_obs} objects, not "
+             f"{want_rows}")
+    ad_map.obs["cell_types"] = ad_map.obs[label]
+    _, secs["cell_type_mapping"] = cuda_seconds(lambda: tgt.cell_type_mapping(ad_map))
+    ct_map = ad_map.varm["ct_map"].to_numpy()
+    if not (np.isfinite(ct_map).all() and ct_map.min() >= 0 and ct_map.max() <= 1):
+        fail("downstream: cell_type_mapping leaves [0, 1]")
+    say("downstream", f"(c) {int(n_objects.sum())} segmented objects over {len(n_objects)} "
+        f"spots; {segment.n_obs} assigned a type (= sum of min(argmax count, objects)); "
+        "seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f" ({card})")
+
+
+def downstream_selection(card, ad_sc, ad_sp):
+    """(d) cell_sampling and svg at the tutorial shape."""
+    import tangram_tpu_torch as tgt
+
+    sampled, secs_cs = cuda_seconds(lambda: tgt.cell_selection.cell_sampling(
+        ad_sc, ad_sp, cell_type_key=ISLANDS_LABEL))
+    info = sampled.uns["cell_sampling"]
+    totals = np.asarray(sampled.X).sum(axis=1)
+    fractions = np.array(list(info["cell_type_fractions"].values()))
+    if not (sampled.n_obs > 0 and totals.max() <= 1500 and abs(fractions.sum() - 1) < 1e-9
+            and set(sampled.obs[ISLANDS_LABEL]) <= set(ad_sc.obs[ISLANDS_LABEL])):
+        fail("downstream: cell_sampling's output is wrong")
+    found, secs_svg = cuda_seconds(lambda: tgt.gene_selection.svg(ad_sp))
+    res = ad_sp.uns["svg_results"]
+    if not (len(res) == ad_sp.n_vars and np.isfinite(res["moran_i"]).all()
+            and res["padj"].between(0, 1).all()):
+        fail("downstream: svg's results are wrong")
+    say("downstream", f"(d) cell_sampling: {sampled.n_obs} cells for "
+        f"{info['number_of_cells']} estimated, {secs_cs:.3f} s; svg: {len(found)} of "
+        f"{ad_sp.n_vars} genes at padj < 0.05, Moran's I in "
+        f"[{res['moran_i'].min():.3f}, {res['moran_i'].max():.3f}], {secs_svg:.3f} s ({card})")
+
+
+def downstream_plots(card, ad_map, ad_sp):
+    """(e) Two plots to an Agg canvas, when matplotlib (and for the score
+    dashboard seaborn) is installed."""
+    import importlib.util
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "seaborn")}
+    say("downstream", f"(e) installed: {have}")
+    if not have["matplotlib"]:
+        say("downstream", "(e) no matplotlib: plotting not run")
+        return
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    import tangram_tpu_torch as tgt
+
+    xy = np.asarray(ad_sp.obsm["spatial"])
+    ad_map.var["x"], ad_map.var["y"] = xy[:, 0], xy[:, 1]
+    fig, secs = cuda_seconds(lambda: tgt.plot_cell_annotation(
+        ad_map, ad_sp, annotation=ISLANDS_LABEL, nrows=5, ncols=5))
+    fig.canvas.draw()
+    drawn = [len(ax.collections[0].get_offsets()) for ax in fig.axes if ax.collections]
+    n_types = ad_sp.obsm["tangram_ct_pred"].shape[1]
+    if drawn != [ad_sp.n_obs] * n_types:
+        fail(f"downstream: plot_cell_annotation drew {drawn}")
+    msg = f"(e) plot_cell_annotation: {n_types} panels of {ad_sp.n_obs} spots, {secs:.3f} s"
+    if have["seaborn"]:
+        fig, secs = cuda_seconds(lambda: tgt.plot_training_scores(ad_map))
+        fig.canvas.draw()
+        msg += f"; plot_training_scores {secs:.3f} s"
+    plt.close("all")
+    say("downstream", msg + f" ({card})")
+
+
+def downstream_phase(dev, card, ad_sc, ad_sp, cells_mapper):
+    """Phase 12: the modules downstream of the mapping, on the mapping of
+    the main path at the tutorial shape (module docstring)."""
+    import tangram_tpu_torch as tgt
+
+    t0 = time.perf_counter()
+    from tangram_tpu_torch.mapping import _densify
+
+    ad_map = downstream_mapping(dev, card, ad_sc, ad_sp)
+    S = _densify(ad_sc[:, ad_map.uns["train_genes_df"].index].X)
+    downstream_projection(dev, card, np.asarray(ad_map.X), S)
+    downstream_deconvolution(card, ad_map, ad_sc, ad_sp)
+    downstream_selection(card, ad_sc, ad_sp)
+    downstream_plots(card, ad_map, ad_sp)
+    bench = tgt.profiling.benchmark_mapping(*SHAPE, num_epochs=BENCH_EPOCHS, device=dev)
+    ms = step_ms(cells_mapper, "kernels", warm=5, steps=20)
+    say("downstream", f"(f) benchmark_mapping at {SHAPE}, {BENCH_EPOCHS} epochs on "
+        f"{bench['backend']}: {bench['ms_per_step']:.3f} ms/step ({bench['seconds']:.3f} s); "
+        f"phase cells' steady step {ms:.3f} ms ({card})")
+    for key in ("tangram_ct_pred", "tangram_ct_count", "tangram_spot_centroids",
+                "image_features"):
+        ad_sp.obsm.pop(key, None)
+    for key in ("tangram_cell_segmentation", "svg_results"):
+        ad_sp.uns.pop(key, None)
+    say("downstream", f"phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2527,7 +2822,7 @@ def main(argv=None) -> int:
             f"from the tile shape")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference", "spatial",
-            "cv"} & set(phases):
+            "cv", "downstream"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
@@ -2761,6 +3056,9 @@ def main(argv=None) -> int:
 
     if "cv" in phases:
         cv_phase(dev, card, ad_sc, ad_sp, cells_mapper, args.profile)
+
+    if "downstream" in phases:
+        downstream_phase(dev, card, ad_sc, ad_sp, cells_mapper)
 
     if args.profile:
         profile_dp_tile(dev)

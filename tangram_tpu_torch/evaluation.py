@@ -22,7 +22,6 @@ import torch
 
 from . import adlite
 from .ops.core import softmax_row_chunks, unported
-from .utils import annotate_gene_sparsity
 
 __all__ = [
     "projected_expression",
@@ -39,9 +38,58 @@ def _as_dense(X):
     return X.toarray() if hasattr(X, "toarray") else np.asarray(X)
 
 
-def projected_expression(M, X):
-    """``Mᵀ @ X`` (spots × genes) on the host, in f32."""
-    return np.asarray(M, dtype=np.float32).T @ np.asarray(X, dtype=np.float32)
+# Above this many M entries host BLAS becomes the projection's bottleneck
+# (the JAX package's threshold): stream the product through the card instead.
+_DEVICE_MM_THRESHOLD = 1 << 28
+
+
+def _projects_on_device(backend: str, n_entries: int, device) -> bool:
+    """Which side :func:`projected_expression` takes: ``"auto"`` takes the
+    device for at least 2^28 entries of M when CUDA is available and
+    ``device`` is None or a CUDA device."""
+    if backend not in ("auto", "host", "device"):
+        raise ValueError(f"backend must be 'auto', 'host' or 'device', got {backend!r}")
+    if backend != "auto":
+        return backend == "device"
+    on_card = device is None or torch.device(device).type == "cuda"
+    return on_card and torch.cuda.is_available() and n_entries >= _DEVICE_MM_THRESHOLD
+
+
+def projected_expression(M, X, backend="auto", spot_chunk=16384, device=None):
+    """``Mᵀ @ X`` (spots × genes) in f32: the projection behind
+    :func:`project_genes`.
+
+    ``backend="auto"`` keeps small products on the host (no transfer) and
+    streams those of at least 2^28 entries of M through the card when CUDA
+    is available (and ``device``, if given, is a CUDA device); ``"host"``
+    and ``"device"`` force a side. The device side moves ``spot_chunk``
+    columns of M at a time, so neither M nor the output is ever whole on
+    the card, and multiplies with ``torch.matmul`` in full f32 (TF32 off
+    for the call, whatever the process set): the result feeds the
+    reported gene scores. ``device=None`` means ``"cuda"``, and
+    ``backend="device"`` without CUDA raises; ``device="cpu"`` runs the
+    chunked path on the CPU.
+    """
+    from .models.mapper import resolve_device
+
+    M = np.asarray(M, dtype=np.float32)
+    X = np.asarray(X, dtype=np.float32)
+    if not _projects_on_device(backend, M.size, device):
+        return M.T @ X
+
+    dev = resolve_device(device)
+    X_dev = torch.from_numpy(X).to(dev)
+    out = np.empty((M.shape[1], X.shape[1]), np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        step = int(spot_chunk)
+        for start in range(0, M.shape[1], step):
+            chunk = torch.from_numpy(np.ascontiguousarray(M[:, start:start + step]))
+            out[start:start + chunk.shape[1]] = (chunk.to(dev).T @ X_dev).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
 
 
 def projected_expression_from_logits(M_logits: torch.Tensor, X) -> np.ndarray:
@@ -107,6 +155,8 @@ def compare_spatial_geneexp(adata_ge, adata_sp, adata_sc=None, genes=None):
     (ref utils.py:377-463): cosine similarity over ``overlap_genes`` (or an
     explicit gene list), annotated with sparsity columns and sorted by score.
     """
+    from .utils import annotate_gene_sparsity
+
     _require_pp(adata_sp)
     _require_pp(adata_ge, hint="Use `project_genes()` to get adata_ge.")
     assert list(adata_sp.uns["overlap_genes"]) == list(adata_ge.uns["overlap_genes"])
@@ -513,6 +563,7 @@ def _cross_val_batched(
     from .models.mapper import _draw_device, init_constrained_logits, init_logits
     from .ops.losses import LossWeights, MapperData
     from .ops.schedules import resolve_lr
+    from .utils import annotate_gene_sparsity
 
     # the SAME validator the per-fold loop path runs, so that batched and
     # loop cross_val accept and reject identical arguments

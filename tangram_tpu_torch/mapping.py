@@ -22,7 +22,7 @@ import numpy as np
 import pandas as pd
 import scipy.sparse as sp
 
-from . import adlite
+from . import adlite, profiling
 from . import spatial as sw
 from .models.mapper import Mapper, MapperConstrained
 from .ops.core import unported
@@ -365,8 +365,9 @@ def map_cells_to_space(
 
     training_genes = _resolve_training_genes(adata_sc, adata_sp, cv_train_genes)
 
-    S = _densify(adata_sc[:, training_genes].X)
-    G = _densify(adata_sp[:, training_genes].X)
+    with profiling.phase("preprocess"):
+        S = _densify(adata_sc[:, training_genes].X)
+        G = _densify(adata_sp[:, training_genes].X)
     if not S.any(axis=0).all() or not G.any(axis=0).all():
         raise ValueError("Genes with all zero values detected. Run `pp_adatas()`.")
 
@@ -377,24 +378,25 @@ def map_cells_to_space(
     )
 
     if mode == "constrained":
-        mapper = MapperConstrained(
-            S=S,
-            G=G,
-            d=prior.d,
-            device=device,
-            random_state=random_state,
-            lambda_d=prior.lambda_d,
-            lambda_g1=lambda_g1,
-            lambda_g2=lambda_g2,
-            lambda_r=lambda_r,
-            lambda_count=lambda_count,
-            lambda_f_reg=lambda_f_reg,
-            target_count=target_count,
-            impl=impl,
-            init_method=init_method,
-            optimizer=optimizer,
-            **low_precision,
-        )
+        with profiling.phase("mapper_init"):
+            mapper = MapperConstrained(
+                S=S,
+                G=G,
+                d=prior.d,
+                device=device,
+                random_state=random_state,
+                lambda_d=prior.lambda_d,
+                lambda_g1=lambda_g1,
+                lambda_g2=lambda_g2,
+                lambda_r=lambda_r,
+                lambda_count=lambda_count,
+                lambda_f_reg=lambda_f_reg,
+                target_count=target_count,
+                impl=impl,
+                init_method=init_method,
+                optimizer=optimizer,
+                **low_precision,
+            )
         mapping_matrix, F_out, training_history = mapper.train(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
         )
@@ -416,33 +418,34 @@ def map_cells_to_space(
                 )
             ct_encode = one_hot_encoding(adata_sc.obs[cluster_label]).values
 
-        mapper = Mapper(
-            S=S,
-            G=G,
-            d=prior.d,
-            d_source=prior.d_source,
-            device=device,
-            random_state=random_state,
-            lambda_d=prior.lambda_d,
-            lambda_g1=lambda_g1,
-            lambda_g2=lambda_g2,
-            lambda_r=lambda_r,
-            lambda_l1=lambda_l1,
-            lambda_l2=lambda_l2,
-            lambda_neighborhood_g1=lambda_neighborhood_g1,
-            voxel_weights=graphs["voxel_weights"],
-            lambda_ct_islands=lambda_ct_islands,
-            neighborhood_filter=graphs["neighborhood_filter"],
-            ct_encode=ct_encode,
-            lambda_getis_ord=lambda_getis_ord,
-            lambda_moran=lambda_moran,
-            lambda_geary=lambda_geary,
-            spatial_weights=graphs["spatial_weights"],
-            impl=impl,
-            init_method=init_method,
-            optimizer=optimizer,
-            **low_precision,
-        )
+        with profiling.phase("mapper_init"):
+            mapper = Mapper(
+                S=S,
+                G=G,
+                d=prior.d,
+                d_source=prior.d_source,
+                device=device,
+                random_state=random_state,
+                lambda_d=prior.lambda_d,
+                lambda_g1=lambda_g1,
+                lambda_g2=lambda_g2,
+                lambda_r=lambda_r,
+                lambda_l1=lambda_l1,
+                lambda_l2=lambda_l2,
+                lambda_neighborhood_g1=lambda_neighborhood_g1,
+                voxel_weights=graphs["voxel_weights"],
+                lambda_ct_islands=lambda_ct_islands,
+                neighborhood_filter=graphs["neighborhood_filter"],
+                ct_encode=ct_encode,
+                lambda_getis_ord=lambda_getis_ord,
+                lambda_moran=lambda_moran,
+                lambda_geary=lambda_geary,
+                spatial_weights=graphs["spatial_weights"],
+                impl=impl,
+                init_method=init_method,
+                optimizer=optimizer,
+                **low_precision,
+            )
         del graphs  # the mapper holds its own f32 copies on its device
         mapping_matrix, training_history = mapper.train(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
@@ -456,8 +459,9 @@ def map_cells_to_space(
     )
     if mode == "constrained":
         adata_map.obs["F_out"] = F_out
-    adata_map.uns["train_genes_df"] = _train_gene_report(
-        mapper.M, S, G, training_genes, adata_sc, adata_sp,
-    )
+    with profiling.phase("gene_report"):
+        adata_map.uns["train_genes_df"] = _train_gene_report(
+            mapper.M, S, G, training_genes, adata_sc, adata_sp,
+        )
     adata_map.uns["training_history"] = training_history
     return adata_map

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..ops.core import NeighborGraph, resolve_impl, softmax_row_chunks, unported
 from ..ops.cuda_core import _rowstats
 from ..ops.fused_step import (
@@ -188,6 +189,13 @@ def init_constrained_logits(n_cells: int, n_spots: int,
     M = np.random.normal(0, 1, (n_cells, n_spots)).astype(np.float32)
     F = np.random.normal(0, 1, n_cells).astype(np.float32)
     return torch.from_numpy(M).to(device), torch.from_numpy(F).to(device)
+
+
+def _warm_start_logits(adata_map) -> torch.Tensor:
+    """Logits of a warm start from a mapping's probabilities:
+    log(clip(adata_map.X, 1e-12)) in f32, on the host."""
+    P0 = np.asarray(adata_map.X, dtype=np.float32)
+    return torch.from_numpy(np.log(np.clip(P0, 1e-12, None)))
 
 
 def _draw_device(method: str, n_entries: int, device):
@@ -541,15 +549,21 @@ def _train_chunked(run_chunk, params, num_epochs, learning_rate, chunk_epochs,
     ``run_chunk(params, opt_state, chunk, lr_chunk, epoch)`` runs ``chunk``
     epochs from absolute epoch ``epoch`` and returns ``(params, opt_state,
     history)``. ``stop(history_chunk)``, when given, ends training after a
-    chunk for which it returns True."""
+    chunk for which it returns True. Under
+    :func:`~tangram_tpu_torch.profiling.record_phases`, phase
+    ``train_dispatch`` holds the host's issuing of the chunks' steps and
+    ``train_execute_history`` the history fetches, which wait for the
+    device to finish each chunk."""
     chunks, opt_state, epoch, keys = [], None, 0, []
     while epoch < num_epochs:
         chunk = min(int(chunk_epochs), num_epochs - epoch)
-        params, opt_state, h = run_chunk(
-            params, opt_state, chunk, _lr_slice(learning_rate, epoch, epoch + chunk),
-            epoch)
+        with profiling.phase("train_dispatch"):
+            params, opt_state, h = run_chunk(
+                params, opt_state, chunk, _lr_slice(learning_rate, epoch, epoch + chunk),
+                epoch)
         keys = list(h)
-        table = torch.stack([h[k] for k in keys], dim=1).cpu().numpy()
+        with profiling.phase("train_execute_history"):
+            table = torch.stack([h[k] for k in keys], dim=1).cpu().numpy()
         if print_names is not None:
             _print_epoch(dict(zip(keys, table[0])), print_names)
         chunks.append(table)
@@ -621,11 +635,13 @@ class Mapper:
     or bf16, raises here. ``train_genes_idx`` and ``val_genes_idx`` select
     the training and validation genes (columns of S and G); like the
     reference, validation scores the TRAINING genes unless
-    ``emulate_reference_val_quirk=False``. ``init_method`` draws M:
+    ``emulate_reference_val_quirk=False``. ``adata_map`` warm starts M from
+    the log of its mapping ``adata_map.X`` and wins over ``init_method``,
+    which otherwise draws M:
     ``"auto"`` (the reference's numpy stream below 2^30 entries, the
     device draw above), ``"numpy"``, ``"jax"`` (the device draw; see
     :func:`init_logits`) or ``"expression"`` (:func:`expression_init_logits`
-    over the training genes).
+    over the training genes). ``mesh`` waits for queue A11.
     """
 
     def __init__(
@@ -652,16 +668,20 @@ class Mapper:
         lambda_ct_islands=0,
         spatial_weights=None,
         device=None,
+        adata_map=None,
         random_state=None,
         init_method: str = "auto",
         impl: str = "auto",
         emulate_reference_val_quirk: bool = True,
-        optimizer: str = "adam",
+        mesh=None,
         moment_dtype: str = "float32",
         compute_dtype: str = "float32",
         param_dtype: str = "float32",
         rounding: str = "nearest",
+        optimizer: str = "adam",
     ):
+        if mesh is not None:
+            raise unported("mesh", "queue A11 (multi-GPU)")
         self.device = resolve_device(device)
         self.random_state = random_state
         self.impl = impl
@@ -713,7 +733,11 @@ class Mapper:
             ct_encode=dev(ct_encode), spatial_weights=W_spatial,
             getis_ord_ref=getis_ref, moran_ref=moran_ref, geary_ref=geary_ref,
         )
-        if init_method == "expression":
+        if adata_map is not None:
+            # the warm start wins over init_method: logits are the log of
+            # the given mapping (softmax removes the per-row constant)
+            M = _warm_start_logits(adata_map)
+        elif init_method == "expression":
             M = expression_init_logits(S_train, G_train)
         else:
             M = init_logits(S.shape[0], G.shape[0], random_state, init_method,
@@ -785,7 +809,8 @@ class Mapper:
         training_history = _history_lists(history, HISTORY_KEYS, with_val,
                                            int(val_each) if with_val else 1)
         _warn_if_diverged(training_history)
-        output = _final_softmax(self.M)
+        with profiling.phase("mapping_fetch"):
+            output = _final_softmax(self.M)
         return output, training_history
 
 
@@ -865,8 +890,7 @@ class MapperConstrained:
         if adata_map is not None:
             # the warm start wins over an expression request; F is drawn by
             # the method M would have been drawn by
-            P0 = np.asarray(adata_map.X, dtype=np.float32)
-            M = torch.from_numpy(np.log(np.clip(P0, 1e-12, None)))
+            M = _warm_start_logits(adata_map)
             method = _draw_method("auto" if init_method == "expression" else init_method,
                                   n_entries)
             F = init_logits(1, n_cells, random_state, method,
@@ -906,6 +930,7 @@ class MapperConstrained:
         training_history = {k: [float(v) for v in history.get(k, ())]
                             for k in CONSTRAINED_HISTORY_KEYS}
         _warn_if_diverged(training_history)
-        output = _final_softmax(self.M)
+        with profiling.phase("mapping_fetch"):
+            output = _final_softmax(self.M)
         F_out = torch.sigmoid(self.F).cpu().numpy()
         return output, F_out, training_history

@@ -83,17 +83,17 @@ def resolve_impl(impl: str, M: torch.Tensor) -> str:
     return impl
 
 
-def mapper_core(M, A, w, impl: str):
+def mapper_core(M, A, w, impl: str = "auto"):
     """(Y, q, h) of the core, differentiable in M, A and w
-    (``tangram_tpu.ops.core.mapper_core``). ``impl`` is a resolved impl:
-    ``"reference"`` runs :func:`mapper_core_reference`; ``"kernels"`` and
-    ``"fused"`` run :class:`~tangram_tpu_torch.ops.cuda_core.MapperCore`,
-    whose wrappers launch the kernels on CUDA tensors and run their twins
-    on CPU tensors."""
-    if impl == "reference":
+    (``tangram_tpu.ops.core.mapper_core``). ``impl`` is resolved for ``M``
+    by :func:`resolve_impl`: ``"reference"`` runs
+    :func:`mapper_core_reference`; ``"kernels"`` and ``"fused"`` run
+    :class:`~tangram_tpu_torch.ops.cuda_core.MapperCore`, whose wrappers
+    launch the kernels on CUDA tensors and run their twins on CPU tensors;
+    ``"auto"`` takes the kernels on a CUDA tensor and the reference core on
+    a CPU tensor."""
+    if resolve_impl(impl, M) == "reference":
         return mapper_core_reference(M, A, w)
-    if impl not in ("kernels", "fused"):
-        raise ValueError(f"mapper_core takes a resolved impl, got {impl!r}")
     from .cuda_core import MapperCore
 
     return MapperCore.apply(M.contiguous(), A.contiguous(), w.contiguous())

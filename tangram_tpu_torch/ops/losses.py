@@ -300,10 +300,11 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
     return total, terms
 
 
-def compute_loss(M, data: MapperData, lw: LossWeights, impl: str = "reference"):
+def compute_loss(M, data: MapperData, lw: LossWeights, impl: str = "auto"):
     """Loss of the unconstrained mapper (reference ``_loss_fn``,
-    ``mapping_optimizer.py:189-309``) through :func:`mapper_core` with the
-    resolved ``impl``: the materialized core by default.
+    ``mapping_optimizer.py:189-309``) through :func:`mapper_core` with
+    ``impl`` resolved for ``M`` (``"auto"``: the kernels' core on a CUDA
+    tensor, the materialized core on a CPU tensor).
 
     Returns ``(total_loss, terms)``."""
     A, w = unconstrained_inputs(M, data, lw)
@@ -314,7 +315,7 @@ def compute_loss(M, data: MapperData, lw: LossWeights, impl: str = "reference"):
 
 
 def compute_constrained_loss(params, data: MapperData, lw: LossWeights,
-                             impl: str = "reference"):
+                             impl: str = "auto"):
     """Loss of the constrained mapper (reference
     ``MapperConstrained._loss_fn``, ``mapping_optimizer.py:495-587``) of
     ``params = (M, F)``: the core runs with A = S ⊙ σ(F) and w = σ(F)."""
@@ -415,11 +416,11 @@ def val_metrics_from_projection(Y, G, h_mean, n_spots: int, gene_mask=None):
     }
 
 
-def val_metrics(M, S, G, gene_mask=None, impl: str = "reference"):
+def val_metrics(M, S, G, gene_mask=None, impl: str = "auto"):
     """Validation metrics (reference ``_val_loss_fn``,
     ``mapping_optimizer.py:311-356``): expression similarity, gene-voxel
     similarity, sparsity-weighted similarity and the normalized mapping
-    entropy, through :func:`mapper_core` with the resolved ``impl``."""
+    entropy, through :func:`mapper_core` with ``impl`` resolved for ``M``."""
     if gene_mask is not None:
         S = S * gene_mask[None, :]
         G = G * gene_mask[None, :]

@@ -1,23 +1,75 @@
-"""Small shared utilities (the counterpart of ``tangram_tpu/utils.py``).
+"""Small shared utilities, plus the compatibility surface of the
+reference's ``tangram/utils.py`` (the counterpart of
+``tangram_tpu/utils.py``).
 
-``annotate_gene_sparsity`` is on the main mapping path; ``one_hot_encoding``
-builds the cell-type-island term's encoding; ``_SweepJournal`` and
-``device_memory_budget`` serve the batched cross-validation. The rest of
-the reference's utility surface (annotation transfer, deconvolution)
-belongs to later slices (ROADMAP queue A).
+The reference keeps preprocessing helpers, annotation transfer, the
+deconvolution chain, cross-validation and the AUC metric in one module;
+here they live in :mod:`tangram_tpu_torch.deconv` and
+:mod:`tangram_tpu_torch.evaluation`, and this module re-exports them so
+that ``tangram_tpu_torch.utils.<name>`` works for every name of the JAX
+package's ``utils`` but its XLA compilation cache. ``_SweepJournal`` and
+``device_memory_budget`` serve the batched cross-validation.
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
+import pickle
 
 import numpy as np
-import pandas as pd
 import scipy.sparse as sp
 import torch
 
-__all__ = ["annotate_gene_sparsity", "device_memory_budget", "one_hot_encoding"]
+from .deconv import (  # noqa: F401
+    cell_type_mapping,
+    count_cell_annotations,
+    create_segment_cell_df,
+    deconvolve_cell_annotations,
+    df_to_cell_types,
+    one_hot_encoding,
+    project_cell_annotations,
+)
+from .evaluation import (  # noqa: F401
+    compare_spatial_geneexp,
+    cross_val,
+    cv_data_gen,
+    eval_metric,
+    project_genes,
+)
+
+__all__ = [
+    "device_memory_budget",
+    "read_pickle",
+    "annotate_gene_sparsity",
+    "get_matched_genes",
+    "one_hot_encoding",
+    "project_cell_annotations",
+    "create_segment_cell_df",
+    "count_cell_annotations",
+    "deconvolve_cell_annotations",
+    "project_genes",
+    "compare_spatial_geneexp",
+    "cv_data_gen",
+    "cross_val",
+    "eval_metric",
+    "transfer_annotations_prob",
+    "transfer_annotations_prob_filter",
+    "df_to_cell_types",
+    "cell_type_mapping",
+]
+
+
+def read_pickle(filename):
+    """Unpickle a file, transparently handling gzip compression
+    (ref utils.py:26-43). Unpickling runs code: read only trusted files."""
+    try:
+        with gzip.open(filename, "rb") as f:
+            return pickle.load(f)
+    except OSError:
+        with open(filename, "rb") as f:
+            return pickle.load(f)
 
 
 def annotate_gene_sparsity(adata):
@@ -32,16 +84,36 @@ def annotate_gene_sparsity(adata):
     adata.var["sparsity"] = 1.0 - nonzero_per_gene / float(adata.n_obs)
 
 
-def one_hot_encoding(l, keep_aggregate=False):
-    """Indicator DataFrame of a categorical sequence (ref utils.py:105; the
-    JAX package's ``deconv.one_hot_encoding``). Columns follow the values'
-    first appearance; with ``keep_aggregate`` the raw labels lead as a
-    ``"cl"`` column."""
-    labels = l if isinstance(l, pd.Series) else pd.Series(l)
-    columns = {"cl": labels} if keep_aggregate else {}
-    for cat in labels.unique():
-        columns[cat] = (labels == cat).astype(int)
-    return pd.DataFrame(columns)
+def get_matched_genes(prior_genes_names, sn_genes_names, excluded_genes=None):
+    """Match two gene-name lists (ref utils.py:64-102).
+
+    Returns (indices into ``prior_genes_names``, indices into
+    ``sn_genes_names``, matched names), walking ``sn_genes_names`` in order
+    and resolving duplicates in the prior list to their first occurrence.
+    """
+    excluded = set() if excluded_genes is None else set(excluded_genes)
+
+    first_prior_pos = {}
+    for pos, name in enumerate(np.asarray(prior_genes_names)):
+        first_prior_pos.setdefault(name, pos)
+
+    prior_idx, sn_idx, names = [], [], []
+    for pos, name in enumerate(np.asarray(sn_genes_names)):
+        if name in excluded or name not in first_prior_pos:
+            continue
+        prior_idx.append(first_prior_pos[name])
+        sn_idx.append(pos)
+        names.append(name)
+    return prior_idx, sn_idx, names
+
+
+# Deprecated in the reference (utils.py:762-787); kept for API parity.
+def transfer_annotations_prob(mapping_matrix, to_transfer):
+    return mapping_matrix.transpose() @ to_transfer
+
+
+def transfer_annotations_prob_filter(mapping_matrix, filter, to_transfer):
+    return mapping_matrix.transpose() @ (to_transfer * filter[:, np.newaxis])
 
 
 def _jsonable(v):

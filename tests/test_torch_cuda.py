@@ -23,8 +23,10 @@ group spread over eight spot splits (c = 22 < 64, as clusters mode). The
 row stats are also checked on rows that take each of their load widths.
 The graph terms' products (dense and k-NN, forward and backward, bit for
 bit on a second run), project, rbar and dm_adam at a cell-type-island
-width (k + 1 > 256) and one short ``map_cells_to_space`` with the five
-graph terms on k-NN graphs are held against the CPU and the twins.
+width (k + 1 > 256), one short ``map_cells_to_space`` with the five
+graph terms on k-NN graphs and the island term with a standardized filter
+(where its penalty is non-zero) are held against the CPU and the twins;
+``projected_expression``'s device path against a float64 product.
 """
 
 import numpy as np
@@ -1011,3 +1013,78 @@ def test_map_cells_to_space_knn_graph_terms_on_the_card(dev):
         np.testing.assert_allclose(got.uns["training_history"][key],
                                    want.uns["training_history"][key], rtol=3e-4,
                                    atol=3e-5)
+
+
+def test_island_term_where_it_bites_on_the_card(dev):
+    """The cell-type-island term with a standardized neighbourhood filter
+    (each spot's neighbours' mean, as the CPU tests use: with the
+    reference's binary filter max(·, 0) is off on every entry) on a k-NN
+    graph: 10 epochs of the kernels against the reference loop on the CPU,
+    at the losses' and the mapping's tolerances of the plain comparison
+    (tests/test_torch_mapping.py), the penalty non-zero throughout."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch import spatial as sw
+
+    rng = np.random.default_rng(12)
+    c, s, g, n_types = 300, 600, 40, 6
+    S = (rng.poisson(2.0, (c, g)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (s, g)) + 0.1).astype(np.float32)
+    ct = np.eye(n_types, dtype=np.float32)[rng.integers(0, n_types, c)]
+    ad = tgt.AnnData(X=np.ones((s, 1), np.float32))
+    ad.obsm["spatial"] = rng.random((s, 2))
+    sw.spatial_neighbors(ad)
+    graph = sw.neighbor_graph(ad, True, False)
+    M0 = rng.normal(0, 1, (c, s)).astype(np.float32)
+    lw = LossWeights(lambda_ct_islands=0.3)
+
+    def run(device, impl):
+        data = MapperData(S=torch.from_numpy(S).to(device), G=torch.from_numpy(G).to(device),
+                          ct_encode=torch.from_numpy(ct).to(device),
+                          neighborhood_filter=graph.to(device))
+        return fit_mapping(torch.from_numpy(M0.copy()).to(device), data, lw, 10, impl=impl)
+
+    cc.reset_launches()
+    M_k, h_k = run(dev, "kernels")
+    assert {n: v for n, v in cc.LAUNCHES.items() if v} == dict(
+        rowstats=1, project=10, rbar=10, dm_adam=10)
+    M_r, h_r = run("cpu", "reference")
+    penalty = h_k["ct_island_penalty"].cpu().numpy()
+    assert (penalty > 0).all()
+    for key in ("total_loss", "main_loss", "ct_island_penalty"):
+        np.testing.assert_allclose(h_k[key].cpu().numpy(), h_r[key].numpy(), rtol=3e-4,
+                                   atol=3e-5, err_msg=key)
+    np.testing.assert_allclose(M_k.cpu().numpy(), M_r.numpy(), atol=3e-3)
+
+
+def test_projected_expression_on_the_card_matches_float64(dev):
+    """backend="device" on the card, in one spot chunk and in chunks that
+    end mid-array, against a float64 product at 1e-5 of its largest entry,
+    with TF32 off for the call although the process turned it on (restored
+    after); on centered expression a TF32 product misses by more than 10x.
+    backend="auto" keeps this 1.5e7-entry product on the host."""
+    from tangram_tpu_torch.evaluation import _projects_on_device, projected_expression
+
+    rng = np.random.default_rng(13)
+    M = rng.dirichlet(np.full(5_000, 0.1), size=3_000).astype(np.float32)
+    X = rng.poisson(2.0, (3_000, 300)).astype(np.float32)
+    Xc = (X - X.mean(axis=0)).astype(np.float32)
+
+    def rel(got, ref):
+        return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+    M_dev = torch.from_numpy(M).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for Xv in (X, Xc):
+            ref = (M_dev.double().T @ torch.from_numpy(Xv).to(dev).double()).cpu().numpy()
+            for chunk in (16_384, 1_024, 999):
+                got = projected_expression(M, Xv, backend="device", spot_chunk=chunk)
+                assert got.shape == (5_000, 300) and got.dtype == np.float32
+                assert rel(got, ref) <= 1e-5
+                assert torch.backends.cuda.matmul.allow_tf32
+        tf32 = (M_dev.T @ torch.from_numpy(Xc).to(dev)).cpu().numpy()
+        assert rel(tf32, ref) > 10 * 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert not _projects_on_device("auto", M.size, None)
+    assert _projects_on_device("auto", 2**28, None)

@@ -958,22 +958,23 @@ def test_wrappers_reject_mixed_devices():
 
 
 def test_import_leaves_jax_out():
+    """Importing every module of the port (walked from the package, so a new
+    module is covered when it lands) pulls in neither jax nor tangram_tpu,
+    nor the plotting libraries that plot_utils imports only to draw."""
     code = (
-        "import sys, importlib\n"
-        "for m in ['tangram_tpu_torch', 'tangram_tpu_torch.adlite',\n"
-        "          'tangram_tpu_torch.datasets', 'tangram_tpu_torch.spatial',\n"
-        "          'tangram_tpu_torch.utils', 'tangram_tpu_torch.evaluation',\n"
-        "          'tangram_tpu_torch.mapping', 'tangram_tpu_torch.convert',\n"
-        "          'tangram_tpu_torch.models.mapper',\n"
-        "          'tangram_tpu_torch.ops.core', 'tangram_tpu_torch.ops.losses',\n"
-        "          'tangram_tpu_torch.ops.cuda_core',\n"
-        "          'tangram_tpu_torch.ops.fused_step',\n"
-        "          'tangram_tpu_torch.ops._build']:\n"
+        "import sys, importlib, pkgutil\n"
+        "import tangram_tpu_torch as pkg\n"
+        "names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, 'tangram_tpu_torch.'))\n"
+        "need = {'deconv', 'cell_selection', 'gene_selection', 'plot_utils', 'profiling',\n"
+        "        'utils', 'evaluation', 'mapping', 'models.mapper', 'ops.cuda_core'}\n"
+        "missing = sorted(n for n in need if 'tangram_tpu_torch.' + n not in names)\n"
+        "for m in names:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'tangram_tpu' or m.startswith('tangram_tpu.'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "             or m == 'tangram_tpu' or m.startswith('tangram_tpu.')\n"
+        "             or m in ('matplotlib', 'seaborn'))\n"
+        "print(len(names), missing, bad)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -261,3 +261,56 @@ def test_val_metrics_match_jax_xla(masked, impl):
     assert list(got) == list(tl.VAL_METRIC_KEYS) == list(want)
     for key in got:
         close(got[key], want[key])
+
+
+@pytest.mark.parametrize("fn", ["compute_loss", "compute_constrained_loss",
+                                "val_metrics", "mapper_core"])
+def test_loss_functions_default_to_auto_like_jax(fn):
+    """The loss-level functions default to ``impl="auto"``, as the JAX
+    package's do: on CPU tensors that is the materialized core, bit for
+    bit, and it equals the JAX package's default call (XLA on the CPU) to
+    rtol 1e-5. A bad impl raises."""
+    import inspect
+
+    from tangram_tpu.ops import core as jcore
+    from tangram_tpu_torch.ops import core as tcore
+
+    lam = dict(lambda_g1=1.0, lambda_d=1.0, lambda_g2=0.5)
+    M, F, jdata = constrained_problem(7, lam)
+    data = mapper_data_from_jax(jdata)
+    Mt, Ft = torch.from_numpy(M), torch.from_numpy(F)
+    w = torch.full((M.shape[0],), 0.5)
+    calls = {
+        "compute_loss": (lambda impl: tl.compute_loss(Mt, data, tl.LossWeights(**lam),
+                                                      **impl),
+                         lambda: jl.compute_loss(jnp.asarray(M), jdata,
+                                                 jl.LossWeights(**lam))),
+        "compute_constrained_loss": (
+            lambda impl: tl.compute_constrained_loss((Mt, Ft), data,
+                                                     tl.LossWeights(**lam), **impl),
+            lambda: jl.compute_constrained_loss((jnp.asarray(M), jnp.asarray(F)), jdata,
+                                                jl.LossWeights(**lam))),
+        "val_metrics": (lambda impl: tl.val_metrics(Mt, data.S, data.G, **impl),
+                        lambda: jl.val_metrics(jnp.asarray(M), jdata.S, jdata.G)),
+        "mapper_core": (lambda impl: tcore.mapper_core(Mt, data.S, w, **impl),
+                        lambda: jcore.mapper_core(jnp.asarray(M), jdata.S,
+                                                  jnp.asarray(w.numpy()))),
+    }
+    port, jax_default = calls[fn]
+    fn_obj = tcore.mapper_core if fn == "mapper_core" else getattr(tl, fn)
+    assert inspect.signature(fn_obj).parameters["impl"].default == "auto"
+
+    def flat(out):
+        if isinstance(out, tuple) and isinstance(out[-1], dict):  # (total, terms)
+            out = (out[0], *out[1].values())
+        elif isinstance(out, dict):
+            out = tuple(out.values())
+        return [np.asarray(o, dtype=np.float64) for o in out]
+
+    got = flat(port({}))
+    for a, b in zip(got, flat(port(dict(impl="reference")))):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, flat(jax_default())):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="impl must be one of"):
+        port(dict(impl="pallas"))

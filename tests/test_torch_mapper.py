@@ -298,6 +298,45 @@ def test_mapper_train_matches_jax_mapper(rng):
                                rtol=3e-4, atol=3e-5)
 
 
+@pytest.mark.parametrize("init_method", ["auto", "expression"])
+def test_mapper_warm_start_logits_equal_jax(rng, init_method):
+    """``adata_map`` starts M at log(clip(adata_map.X, 1e-12)), over any
+    init_method, bit for bit as ``tangram_tpu.Mapper`` does (zeros in the
+    map exercise the clip)."""
+    S = (rng.poisson(2.0, (12, 5)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (9, 5)) + 0.1).astype(np.float32)
+    P0 = rng.dirichlet(np.ones(9), size=12).astype(np.float32)
+    P0[rng.random(P0.shape) < 0.2] = 0.0
+
+    class Map:
+        X = P0
+
+    want = jm.Mapper(S, G, adata_map=Map(), init_method=init_method, random_state=3)
+    got = tm.Mapper(S, G, device="cpu", adata_map=Map(), init_method=init_method,
+                    random_state=3)
+    np.testing.assert_array_equal(got.M.numpy(), np.asarray(want.M))
+    assert got.M.dtype == torch.float32
+
+
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+def test_mapper_resumed_from_a_converged_map_starts_at_its_loss(rng, impl):
+    """A run warm-started from a converged mapping starts at the converged
+    loss and, at learning rate 0, returns that mapping
+    (``tests/test_mapper_parity.py::test_warm_start_from_adata_map``)."""
+    S = (rng.poisson(2.0, (30, 6)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (20, 6)) + 0.1).astype(np.float32)
+    out1, hist1 = tm.Mapper(S, G, device="cpu", random_state=3, impl=impl).train(
+        30, learning_rate=0.1, print_each=None)
+
+    class Map:
+        X = out1
+
+    out2, hist2 = tm.Mapper(S, G, device="cpu", adata_map=Map(), impl=impl).train(
+        1, learning_rate=0.0, print_each=None)
+    assert hist2["total_loss"][0] == pytest.approx(hist1["total_loss"][-1], rel=1e-3)
+    np.testing.assert_allclose(out2, out1, atol=1e-5)
+
+
 def test_mapper_rejects_unported_options(rng):
     S = np.ones((4, 3), np.float32)
     G = np.ones((5, 3), np.float32)
@@ -319,6 +358,8 @@ def test_mapper_rejects_unported_options(rng):
         tm.Mapper(S, G, device="cpu", init_method="bogus")
     with pytest.raises(ValueError, match="optimizer"):
         tm.Mapper(S, G, device="cpu", optimizer="sgd")
+    with pytest.raises(NotImplementedError, match="A11"):
+        tm.Mapper(S, G, device="cpu", mesh=object())
 
 
 def test_default_device_is_cuda():
