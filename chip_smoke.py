@@ -70,7 +70,11 @@ last line):
               final score, ms/step and peak device memory; then two 10-step
               runs from one start that must store the same bits, for f32
               Adam, f32 Adafactor + L1/L2, constrained Adam (M and F),
-              constrained Adafactor (the autograd loop) and (a)
+              constrained Adafactor (the autograd loop) and (a); and the
+              f32 Adam and Adafactor + L1/L2 fits in a child process that
+              makes the pair and the mapper anew from the same seeds
+              (--fit-bits): the start, the data and both fits must hash
+              the same
 9. reference  10 epochs of the kernels against the materialized reference
               loop at the tutorial shape for Adam, Adam + L1/L2, Adafactor
               + L1/L2 (also stepped one epoch at a time, with one kernel
@@ -120,6 +124,23 @@ last line):
               and plot_training_scores to an Agg canvas when matplotlib
               (seaborn) is installed; (f) profiling.benchmark_mapping on the
               card beside the steady step; host seconds of each
+13. tuner     mapping_hyperparameter_tuning on the tutorial pair aggregated
+              to its 22 subclass means (22 x 9,852 x 249, the port's
+              6-neighbour spot graph): (a) the JAX bench's sobol sweep, 32
+              trials x 3 repeats x 1000 epochs in one batch, a warm call
+              and a timed one (seconds, trials/s, peak memory), and the
+              population trainer's ms/step; (b) one config's repeat cube:
+              the device metrics against the float64 host functions; (c)
+              the population trainer against fit_mapping(impl="reference")
+              from each repeat's init, 100 epochs, plain and with the
+              neighborhood, islands and Getis-Ord terms; (d) a config alone
+              against its row in the batch; (e) the three graph lambdas in
+              the space, ms/step and the dense s x s products' share of the
+              device time (torch.profiler); (f) adaptive, halving (carried
+              state, then rungs restarted under a forced-down budget) and
+              adaptive+halving; (g) a sobol and an adaptive sweep resumed
+              from a journal cut to its first batch, frames equal; (h) the
+              sweep of (a) twice, the same bits; (i) no kernel launched
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -144,7 +165,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference", "spatial", "cv", "downstream")
+          "bf16", "reference", "spatial", "cv", "downstream", "tuner")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -1807,6 +1828,85 @@ def check_fit_repeats(cells_mapper, norm_lw, con_mapper, epochs=10):
             fail(f"repeat: two {epochs}-step {label} runs from the same start differ")
         say("repeat", f"two {epochs}-step {label} runs from the same start stored the "
             f"same bits ({'M and F' if len(runs[0]) == 2 else 'M'})")
+    check_fits_across_processes(cells_mapper, norm_lw, epochs)
+
+
+def fit_bits(cells_mapper, norm_lw, epochs):
+    """Hashes of the cells mapper's start (M and its data) and, for f32 Adam
+    and f32 Adafactor + L1/L2, of M after an ``epochs``-step fit from it,
+    with each step's total loss as a hex float (the first step that
+    differs)."""
+    import hashlib
+
+    import torch
+
+    from tangram_tpu_torch.models.mapper import fit_mapping
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    data = cells_mapper.data
+    out = {"M0": digest(cells_mapper.M),
+           "data": digest(*(t for t in data if isinstance(t, torch.Tensor)))}
+    for label, lw, opt in (("f32 Adam", cells_mapper.lw, "adam"),
+                           ("f32 Adafactor + L1/L2", norm_lw, "adafactor")):
+        M, _ = start_params(cells_mapper)
+        M, hist = fit_mapping(M, data, lw, epochs, impl="kernels", optimizer=opt)
+        out[label] = {"M": digest(M),
+                      "loss": [float(x).hex() for x in hist["total_loss"].tolist()]}
+    return out
+
+
+def fit_bits_child(epochs) -> int:
+    """The child process of :func:`check_fits_across_processes`: the tutorial
+    pair and the cells mapper made anew from their seeds, the fits of
+    :func:`fit_bits`, their hashes printed as the last line."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(REPO))
+    ad_sc, ad_sp, _ = tutorial_pair()
+    mapper = mapper_for(ad_sc, ad_sp, torch.device("cuda"), "cells")
+    norm_lw = dataclasses.replace(mapper.lw, lambda_l1=LAMBDA_L1, lambda_l2=LAMBDA_L2)
+    print(json.dumps(fit_bits(mapper, norm_lw, epochs)))
+    return 0
+
+
+def check_fits_across_processes(cells_mapper, norm_lw, epochs):
+    """The fits of :func:`fit_bits` in this process and in a child python3
+    process that makes the tutorial pair, the mapper and its start anew from
+    the same seeds, with another history of device allocations (every
+    pointer-alignment choice of the kernels' wrappers made afresh): the
+    hashes must agree."""
+    t0 = time.perf_counter()
+    here = fit_bits(cells_mapper, norm_lw, epochs)
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--fit-bits", str(epochs)],
+                           capture_output=True, text=True, timeout=600, cwd=str(REPO))
+    if child.returncode != 0:
+        fail(f"repeat: the child process failed ({child.returncode}): "
+             f"{child.stderr[-2000:]}")
+    there = json.loads(child.stdout.strip().splitlines()[-1])
+    for key in here:
+        same = here[key] == there[key]
+        detail = (here[key]["M"] if isinstance(here[key], dict) else here[key])
+        if not same and isinstance(here[key], dict):
+            steps = [t for t, (a, b) in enumerate(zip(here[key]["loss"],
+                                                      there[key]["loss"])) if a != b]
+            detail = (f"M {here[key]['M']} against {there[key]['M']}; the total "
+                      f"loss first differs before step {steps[0] if steps else None}")
+        elif not same:
+            detail = f"{here[key]} against {there[key]}"
+        say("repeat", f"across processes, {key}: {'same bits' if same else 'DIFFER'} "
+            f"(sha256 {detail})")
+        if not same:
+            fail(f"repeat: {key} differs between this process and a fresh one")
+    say("repeat", f"{epochs}-step f32 Adam and Adafactor + L1/L2 fits stored the same "
+        f"bits in a fresh process ({time.perf_counter() - t0:.1f} s with the child)")
 
 
 def profile_steps(mapper, steps=5):
@@ -2731,6 +2831,399 @@ def downstream_phase(dev, card, ad_sc, ad_sp, cells_mapper):
     say("downstream", f"phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the hyperparameter tuner
+# ---------------------------------------------------------------------------
+
+TUNER_LABEL = "subclass_label"
+# (a) the JAX bench's sweep (bench.py:475-560): 32 configs x 3 repeats in one
+# batch of 96 members, 1000 epochs; its search space leaves lambda_g1 out,
+# which the JAX tuner reads as 0, so the members train the density term
+TUNER_TRIALS, TUNER_EPOCHS, TUNER_SEED = 32, 1000, 1
+TUNER_LR = (10 ** -1.7, 10 ** -0.3)
+TUNER_METRIC = ["gene_expr_correctness", "cell_map_consistency"]
+TUNER_STEPS = 20        # steps timed by CUDA events for ms/step
+# (b) device metrics against the float64 host functions on one cube: the
+# same formulas in f32 over 6.5e5 (cells x spots) or 1.6e5 (genes x spots)
+# entries per run
+TUNER_HOST_TOL = 1e-5
+# (d) a config trained alone against the same config inside the batch of
+# 96: the same arithmetic per member, but the batched products and sums may
+# take other cuBLAS and reduction paths, so rounding may differ and grow
+# over 1000 Adam steps; stated before the first card run
+TUNER_BATCH_TOL = 1e-4
+# (c) the population trainer against fit_mapping(impl="reference") from the
+# same start: plain Adam's M_ATOL and MAP_ATOL, the graph config by the
+# permuted-reference witness (GRAPH_SPREAD) where it needs it
+TUNER_CHECK_EPOCHS = 100
+TUNER_GRAPH = dict(lambda_neighborhood_g1=0.5, lambda_ct_islands=0.3, lambda_getis_ord=0.3)
+# (e) the three graph lambdas in the search space
+TUNER_GRAPH_TRIALS, TUNER_GRAPH_EPOCHS, TUNER_PROFILE_STEPS = 4, 100, 3
+# (f) the other search modes: (trials, batch, epochs)
+TUNER_ADAPTIVE = (16, 4, 200)
+TUNER_HALVING = (27, 9, 300)
+TUNER_BOHB = (12, 4, 300)
+# (g) resume: (trials, batch, epochs); SKILL step 10's rtol
+TUNER_RESUME = (8, 4, 100)
+TUNER_RESUME_RTOL = 1e-5
+
+
+def tuner_setup(ad_cl, ad_sp, dev):
+    """The tuner's _PopulationSetup for the pair, built as
+    mapping_hyperparameter_tuning builds it (every gene trains and
+    validates; the rna_count_based prior; the three dense spot graphs; the
+    one-hot cluster labels). Run 0's init continues numpy's stream."""
+    from tangram_tpu_torch import spatial as sw
+    from tangram_tpu_torch import tuning
+    from tangram_tpu_torch.deconv import one_hot_encoding
+    from tangram_tpu_torch.mapping import _densify
+
+    genes = ad_cl.uns["overlap_genes"]
+    idx = list(range(len(genes)))
+    return tuning._PopulationSetup(
+        _densify(ad_cl[:, genes].X), _densify(ad_sp[:, genes].X),
+        np.asarray(ad_sp.obs["rna_count_based_density"], dtype=np.float32),
+        sw.spatial_weights(ad_sp, standardized=True, self_inclusion=True),
+        sw.spatial_weights(ad_sp, standardized=False, self_inclusion=False),
+        one_hot_encoding(ad_cl.obs[TUNER_LABEL]).values,
+        sw.spatial_weights(ad_sp, standardized=False, self_inclusion=True),
+        idx, idx, device=dev)
+
+
+def train_alone(setup, configs, epochs, active):
+    """(logits (configs, repeats, c, s), device metrics) of ``configs``
+    trained from the repeat inits by the tuner's population trainer."""
+    import torch
+
+    from tangram_tpu_torch import tuning
+
+    n = len(configs)
+    lam = setup.lam_matrix(configs, range(n))
+    peaks, ends = setup.lr_vectors(configs, range(n))
+    M = setup.M0s.expand(n, *setup.M0s.shape).clone()
+    count = torch.zeros(M.shape[:2], dtype=torch.int32, device=M.device)
+    with tuning._full_f32():
+        mets = setup._train(lam, peaks, ends, M, count, torch.zeros_like(M),
+                            torch.zeros_like(M), 0, epochs, epochs, active)
+    return M, {k: v.cpu().numpy().astype(np.float64) for k, v in mets.items()}
+
+
+def tuner_step_ms(setup, configs, active, steps):
+    """ms per step of the population trainer on ``configs`` (CUDA events
+    around ``steps`` steps, after a warm call of 2)."""
+    import torch
+
+    train_alone(setup, configs, 2, active)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    train_alone(setup, configs, steps, active)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / steps
+
+
+def device_time_profile(fn, is_part=lambda shapes: False, top=5):
+    """The device time of ``fn()`` under torch.profiler: a dict with the
+    total ms, the ms of the aten::mm/bmm calls with ``is_part(input_shapes)``
+    and the ``top`` aten ops by the device time of the kernels each
+    launches itself; None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt, self_only):
+        for name in (("self_device_time_total", "self_cuda_time_total") if self_only
+                     else ("device_time_total", "cuda_time_total")):
+            if hasattr(evt, name):
+                return float(getattr(evt, name))
+        return 0.0
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # every kernel counts once, under the op that launched it
+    ops = {e.key: device_us(e, True) for e in prof.key_averages()
+           if e.key.startswith("aten::")}
+    total = sum(ops.values())
+    if total <= 0:
+        return None
+    part = sum(device_us(e, False) for e in prof.key_averages(group_by_input_shape=True)
+               if e.key in ("aten::mm", "aten::bmm")
+               and is_part(getattr(e, "input_shapes", None) or []))
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
+    return {"total": total / 1e3, "part": part / 1e3,
+            "top": [(k, v / 1e3) for k, v in ranked]}
+
+
+def profile_line(prof, steps):
+    """The top ops of :func:`device_time_profile` as one line."""
+    if prof is None:
+        return "not measured (the profiler saw no device time)"
+    return (f"{prof['total']:.1f} ms of device time over {steps} steps: " + ", ".join(
+        f"{k} {100 * v / prof['total']:.1f}%" for k, v in prof["top"]))
+
+
+def tuner_frames(pair, **kw):
+    import tangram_tpu_torch as tgt
+
+    return tgt.mapping_hyperparameter_tuning(*pair, **kw).get_results().get_dataframe()
+
+
+def tuner_sweep(dev, card, pair, setup):
+    """(a) the JAX bench's sweep twice from one ambient seed: seconds,
+    trials/s, peak memory; (h) the two frames bit for bit. Returns the
+    second frame and its search space."""
+    from tangram_tpu_torch import tuning
+
+    config = {"learning_rate": tuning.loguniform(*TUNER_LR),
+              "lambda_d": tuning.uniform(0.0, 1.0), "num_epochs": TUNER_EPOCHS}
+    kw = dict(metric=TUNER_METRIC, config=config, tuner_num_samples=TUNER_TRIALS,
+              population_batch_size=TUNER_TRIALS, random_state=TUNER_SEED,
+              cluster_label=TUNER_LABEL, device=dev)
+    frames = []
+    for call in ("warm", "timed"):
+        np.random.seed(SEED)
+        with device_peak() as peak:
+            df, secs = cuda_seconds(lambda: tuner_frames(pair, **kw))
+        frames.append(df)
+        say("tuner", f"(a) {call} sobol sweep: {TUNER_TRIALS} trials x {tuning.N_REPEATS} "
+            f"repeats x {TUNER_EPOCHS} epochs in one batch at {pair[0].n_obs} x "
+            f"{pair[1].n_obs} x {len(pair[0].uns['overlap_genes'])}: {secs:.2f} s, "
+            f"{TUNER_TRIALS / secs:.3f} trials/s; peak {peak['gib']:.3f} GiB above the "
+            f"resident ({card})")
+    metrics = frames[0][tuning.METRIC_KEYS].to_numpy()
+    if not np.isfinite(metrics).all():
+        fail("tuner: (a) the sweep's metrics are not finite")
+    active = tuning._space_active_lambdas(
+        {k: tuning._coerce_domain(v) for k, v in config.items()}, setup.lam_keys)
+    configs = [{"learning_rate": float(lr), "lambda_d": float(ld), "num_epochs": TUNER_EPOCHS}
+               for lr, ld in zip(frames[1]["config/learning_rate"], frames[1]["config/lambda_d"])]
+    ms = tuner_step_ms(setup, configs, active, TUNER_STEPS)
+    prof = device_time_profile(lambda: train_alone(setup, configs, TUNER_PROFILE_STEPS,
+                                                   active))
+    say("tuner", f"(a) population trainer: {ms:.2f} ms/step for {3 * TUNER_TRIALS} members "
+        f"(active terms {sorted(active)}; CUDA events, {TUNER_STEPS} steps); torch.profiler: "
+        f"{profile_line(prof, TUNER_PROFILE_STEPS)} ({card})")
+    same = all(np.array_equal(frames[0][c].to_numpy(), frames[1][c].to_numpy())
+               for c in frames[0].columns)
+    say("tuner", f"(h) the two sweeps' frames: {'same bits' if same else 'DIFFER'}")
+    if not same:
+        fail("tuner: (h) the same sobol sweep twice gave different frames")
+    return frames[1], configs, active
+
+
+def tuner_cube_and_batch(setup, frame, configs, active):
+    """(b) one config's repeat cube: the device metrics against the host
+    float64 functions; (d) that config alone against the batch's row."""
+    import torch
+
+    from tangram_tpu_torch import tuning
+
+    M, mets = train_alone(setup, configs[:1], TUNER_EPOCHS, active)
+    cube = torch.softmax(M[0], dim=-1).double().cpu().numpy()
+    # each run's val score in float64 (every gene trains and validates)
+    S = setup.S_dev.double().cpu().numpy()
+    G = setup.G_dev.double().cpu().numpy()
+    preds = np.einsum("rcs,cg->rsg", cube, S)
+    cos = (preds * G).sum(axis=1) / (np.linalg.norm(preds, axis=1) * np.linalg.norm(G, axis=0))
+    host = setup.metrics_row(cube, cos.mean(axis=1))
+    errs = {k: abs(float(mets[k][0]) - host[k]) for k in tuning.METRIC_KEYS}
+    say("tuner", f"(b) cube {tuple(cube.shape)} of config 0: device metrics against float64 "
+        "host ones, |diff| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {TUNER_HOST_TOL:.0e})")
+    if max(errs.values()) > TUNER_HOST_TOL:
+        fail("tuner: (b) the device metrics stray from the host functions")
+    diffs = {k: abs(float(mets[k][0]) - float(frame[k][0])) for k in tuning.METRIC_KEYS}
+    say("tuner", "(d) config 0 alone against config 0 in the batch of "
+        f"{TUNER_TRIALS}: |diff| " + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+        + f" (tol {TUNER_BATCH_TOL:.0e})")
+    if max(diffs.values()) > TUNER_BATCH_TOL:
+        fail("tuner: (d) a config's metrics depend on its batch")
+
+
+def tuner_against_fit_mapping(setup):
+    """(c) the population trainer against fit_mapping(impl="reference") from
+    each repeat's init, plain and with the three graph terms."""
+    import types
+
+    import torch
+
+    from tangram_tpu_torch import tuning
+    from tangram_tpu_torch.models.mapper import fit_mapping
+    from tangram_tpu_torch.ops.losses import LossWeights, MapperData
+
+    (S, G, d, mask, voxel_w, nb_filter, ct, spatial_w, getis_ref) = setup.arrays
+    data = MapperData(S=S, G=G, gene_mask=mask, d=d, voxel_weights=voxel_w,
+                      neighborhood_filter=nb_filter, ct_encode=ct,
+                      spatial_weights=spatial_w, getis_ord_ref=getis_ref)
+    base = {"learning_rate": 0.1, "lambda_g1": 1.0, "lambda_d": 0.5,
+            "num_epochs": TUNER_CHECK_EPOCHS}
+    for label, cfg in (("plain", base), ("graph", dict(base, **TUNER_GRAPH))):
+        active = tuning._active_lambdas([cfg], setup.lam_keys)
+        M, _ = train_alone(setup, [cfg], TUNER_CHECK_EPOCHS, active)
+        lw = LossWeights(**{k: v for k, v in cfg.items() if k.startswith("lambda")})
+        for r in range(setup.M0s.shape[0]):
+            M_ref, _ = fit_mapping(setup.M0s[r].clone(), data, lw, TUNER_CHECK_EPOCHS,
+                                   learning_rate=0.1, impl="reference")
+            m_err = float((M[0, r] - M_ref).abs().max())
+            p_err = float((torch.softmax(M[0, r], -1) - torch.softmax(M_ref, -1)).abs().max())
+            limit, rule = M_ATOL, f"{M_ATOL:.0e}"
+            if label == "graph":
+                spread = permuted_reference_distance(
+                    types.SimpleNamespace(M=setup.M0s[r], data=data), lw, M_ref,
+                    epochs=TUNER_CHECK_EPOCHS)
+                if m_err > M_ATOL:
+                    limit = GRAPH_SPREAD * spread
+                    rule = f"{GRAPH_SPREAD:.0f}x the permuted reference's {spread:.2e}"
+                else:
+                    rule += f"; the permuted reference lands {spread:.2e} from itself"
+            say("tuner", f"(c) {label} config, repeat {r}, {TUNER_CHECK_EPOCHS} epochs: "
+                f"logits max |diff| {m_err:.2e} against fit_mapping(impl='reference') "
+                f"(tol {rule}), maps {p_err:.2e} (tol {MAP_ATOL:.0e})")
+            if m_err > limit or p_err > MAP_ATOL:
+                fail(f"tuner: (c) the population trainer strays from fit_mapping ({label})")
+
+
+def tuner_graph_terms(dev, card, pair, setup):
+    """(e) the three graph lambdas in the search space: the sweep, ms/step,
+    and the share of the s x s products in the step's device time."""
+    from tangram_tpu_torch import tuning
+
+    config = {"learning_rate": tuning.loguniform(*TUNER_LR), "lambda_g1": 1.0,
+              "lambda_d": tuning.uniform(0.0, 1.0), "num_epochs": TUNER_GRAPH_EPOCHS,
+              **{k: tuning.uniform(0.0, 1.0) for k in TUNER_GRAPH}}
+    np.random.seed(SEED)
+    df, secs = cuda_seconds(lambda: tuner_frames(
+        pair, metric=TUNER_METRIC, config=config, tuner_num_samples=TUNER_GRAPH_TRIALS,
+        population_batch_size=TUNER_GRAPH_TRIALS, random_state=TUNER_SEED,
+        cluster_label=TUNER_LABEL, device=dev))
+    if not np.isfinite(df[tuning.METRIC_KEYS].to_numpy()).all():
+        fail("tuner: (e) the graph sweep's metrics are not finite")
+    active = tuning._space_active_lambdas(
+        {k: tuning._coerce_domain(v) for k, v in config.items()}, setup.lam_keys)
+    configs = [{k.split("/", 1)[1]: float(v) for k, v in row.items()}
+               for row in df[[c for c in df.columns if c.startswith("config/")]]
+               .to_dict("records")]
+    ms = tuner_step_ms(setup, configs, active, TUNER_STEPS // 2)
+    s = pair[1].n_obs
+    prof = device_time_profile(
+        lambda: train_alone(setup, configs, TUNER_PROFILE_STEPS, active),
+        lambda shapes: any(len(sh) >= 2 and list(sh[-2:]) == [s, s] for sh in shapes))
+    share_msg = ("not measured (the profiler saw no device time)" if prof is None else
+                 f"{100 * prof['part'] / prof['total']:.1f}% ({prof['part']:.1f} of "
+                 f"{profile_line(prof, TUNER_PROFILE_STEPS)}, torch.profiler)")
+    say("tuner", f"(e) graph lambdas in the space: {TUNER_GRAPH_TRIALS} trials x "
+        f"{TUNER_GRAPH_EPOCHS} epochs in {secs:.2f} s; {ms:.2f} ms/step for "
+        f"{3 * TUNER_GRAPH_TRIALS} members; the dense {s} x {s} products {share_msg} ({card})")
+
+
+def tuner_modes(dev, card, pair):
+    """(f) adaptive, halving (carried state, then rungs restarted under a
+    forced-down budget) and adaptive+halving: seconds, trained epochs, the
+    best trial's metrics finite."""
+    import collections
+
+    import tangram_tpu_torch.utils as tutils
+    from tangram_tpu_torch import tuning
+
+    def run(label, search, trials, batch, epochs):
+        config = {"learning_rate": tuning.loguniform(*TUNER_LR),
+                  "lambda_d": tuning.uniform(0.0, 1.0), "lambda_g1": 1.0,
+                  "num_epochs": epochs}
+        np.random.seed(SEED)
+        df, secs = cuda_seconds(lambda: tuner_frames(
+            pair, metric=TUNER_METRIC, config=config, tuner_num_samples=trials,
+            population_batch_size=batch, random_state=TUNER_SEED, search=search,
+            cluster_label=TUNER_LABEL, device=dev))
+        best = tuning.TunerResult(df).get_results().get_best_result(metric=TUNER_METRIC)
+        if not np.isfinite([best.metrics[k] for k in tuning.METRIC_KEYS]).all():
+            fail(f"tuner: (f) {label}: the best trial's metrics are not finite")
+        trained = (dict(sorted(collections.Counter(df["trained_epochs"]).items()))
+                   if "trained_epochs" in df else {epochs: trials})
+        say("tuner", f"(f) {label}: {trials} trials (batches of {batch}), {epochs} epochs in "
+            f"{secs:.2f} s; trials per trained epochs {trained}; best "
+            f"{', '.join(f'{k} {best.metrics[k]:.4f}' for k in TUNER_METRIC)} ({card})")
+        return df
+
+    run("adaptive", "adaptive", *TUNER_ADAPTIVE)
+    carried = run("halving, carried state", "halving", *TUNER_HALVING)
+    budget = tutils.device_memory_budget
+    tutils.device_memory_budget = lambda *a, **k: 1.0
+    try:
+        restarted = run("halving, rungs restarted (budget forced to 1 byte)", "halving",
+                        *TUNER_HALVING)
+    finally:
+        tutils.device_memory_budget = budget
+    same = np.array_equal(carried["trained_epochs"], restarted["trained_epochs"])
+    both = carried["trained_epochs"] == TUNER_HALVING[2]
+    diff = float(np.abs(carried.loc[both, tuning.METRIC_KEYS].to_numpy()
+                        - restarted.loc[both, tuning.METRIC_KEYS].to_numpy()).max())
+    say("tuner", f"(f) halving restarted against carried: survivors "
+        f"{'the same' if same else 'DIFFER'}; finalists' metrics max |diff| {diff:.2e}")
+    run("adaptive+halving", "adaptive+halving", *TUNER_BOHB)
+
+
+def tuner_resume(dev, pair):
+    """(g) a Sobol and an adaptive sweep journaled, cut to the meta line and
+    the first batch, resumed: the frames equal the unbroken ones."""
+    import os
+    import tempfile
+
+    import pandas as pd
+
+    from tangram_tpu_torch import tuning
+
+    trials, batch, epochs = TUNER_RESUME
+    config = {"learning_rate": tuning.loguniform(*TUNER_LR), "lambda_g1": 1.0,
+              "lambda_d": tuning.uniform(0.0, 1.0), "num_epochs": epochs}
+    with tempfile.TemporaryDirectory() as tmp:
+        for search in ("sobol", "adaptive"):
+            path = os.path.join(tmp, f"{search}.jsonl")
+            kw = dict(metric=TUNER_METRIC, config=config, tuner_num_samples=trials,
+                      population_batch_size=batch, random_state=TUNER_SEED, search=search,
+                      cluster_label=TUNER_LABEL, device=dev, resume_path=path)
+            np.random.seed(SEED)
+            full = tuner_frames(pair, **kw)
+            with open(path) as f:
+                lines = f.read().splitlines()
+            with open(path, "w") as f:
+                f.write("\n".join(lines[:1 + batch]) + "\n")
+            np.random.seed(SEED)
+            resumed, secs = cuda_seconds(lambda: tuner_frames(pair, **kw))
+            try:
+                pd.testing.assert_frame_equal(full, resumed, rtol=TUNER_RESUME_RTOL)
+            except AssertionError as err:
+                fail(f"tuner: (g) the resumed {search} sweep differs: {err}")
+            say("tuner", f"(g) {search}: {len(lines) - 1} journaled trials cut to {batch}, "
+                f"resumed in {secs:.2f} s; frames equal (rtol {TUNER_RESUME_RTOL:.0e})")
+
+
+def tuner_phase(dev, card, ad_sc, ad_sp):
+    """Phase 13: the hyperparameter tuner on the tutorial pair aggregated to
+    its subclass means (module docstring)."""
+    from tangram_tpu_torch.mapping import adata_to_cluster_expression
+    from tangram_tpu_torch.ops import cuda_core
+
+    t0 = time.perf_counter()
+    before = dict(cuda_core.LAUNCHES)
+    ad_cl = adata_to_cluster_expression(ad_sc, TUNER_LABEL, scale=False, add_density=False)
+    pair = (ad_cl, ad_sp)
+    np.random.seed(SEED)
+    setup = tuner_setup(ad_cl, ad_sp, dev)
+    frame, configs, active = tuner_sweep(dev, card, pair, setup)
+    tuner_cube_and_batch(setup, frame, configs, active)
+    tuner_against_fit_mapping(setup)
+    tuner_graph_terms(dev, card, pair, setup)
+    tuner_modes(dev, card, pair)
+    tuner_resume(dev, pair)
+    after = dict(cuda_core.LAUNCHES)
+    say("tuner", f"(i) kernel launch counts before the phase {before}, after {after}")
+    if after != before:
+        fail("tuner: (i) the tuner launched a kernel")
+    say("tuner", f"phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2741,6 +3234,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print a torch.profiler table of 5 fused steps and the "
                     "phase shares of the tensor-core kernels (a second build)")
+    ap.add_argument("--fit-bits", type=int, metavar="EPOCHS",
+                    help="print the hashes of the cells mapper's fits and exit: "
+                    "the child process of the bf16 phase's cross-process check")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2761,6 +3257,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.fit_bits:
+        return fit_bits_child(args.fit_bits)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
 
@@ -2822,7 +3320,7 @@ def main(argv=None) -> int:
             f"from the tile shape")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference", "spatial",
-            "cv", "downstream"} & set(phases):
+            "cv", "downstream", "tuner"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
@@ -3059,6 +3557,9 @@ def main(argv=None) -> int:
 
     if "downstream" in phases:
         downstream_phase(dev, card, ad_sc, ad_sp, cells_mapper)
+
+    if "tuner" in phases:
+        tuner_phase(dev, card, ad_sc, ad_sp)
 
     if args.profile:
         profile_dp_tile(dev)

@@ -14,9 +14,11 @@ one for each Pallas kernel call of the JAX package, in three sources:
 ``csrc/mapper_kernels.cu`` (the row stats), ``csrc/dp_tensor_kernels.cu``
 (rbar, dm_adam, gsq, dm_adafactor and the backward's two kernels on the
 tensor-core dP tile) and ``csrc/project_tc_kernels.cu`` (project).
+The hyperparameter tuner (``tuning``, ``search``) trains its populations
+of mappings as one batched problem on the materialized core, as the JAX
+tuner does on XLA, so it launches none of the kernels.
 ``tangram_tpu`` stays the reference it is tested against. This package
-imports torch and never jax; the tuner and multi-GPU training are not
-ported yet.
+imports torch and never jax; multi-GPU training is not ported yet.
 
 ``import tangram_tpu_torch as tgt; tgt.pp_adatas(...);
 tgt.map_cells_to_space(...)``
@@ -65,12 +67,15 @@ _plot_names = {
     "quick_plot_gene", "plot_annotation_entropy", "plot_test_scores",
     "plot_auc", "q_value", "mapping_colors",
 }
+_tune_names = {"mapping_hyperparameter_tuning", "train_multiple_Mapper",
+               "pearson_corr", "vote_entropy", "consensus_entropy"}
+_search_names = {"TPESampler", "nondominated_rank"}
 _lazy_modules = {"plot_utils", "datasets", "evaluation", "deconv", "spatial",
-                 "utils", "adlite"}
+                 "utils", "adlite", "tuning", "search"}
 
 __all__ = sorted(
     {name for name in dir() if not name.startswith("_")}
-    | _plot_names | _lazy_modules
+    | _plot_names | _tune_names | _search_names | _lazy_modules
 )
 
 
@@ -83,6 +88,14 @@ def __getattr__(name):
         from . import plot_utils
 
         return getattr(plot_utils, name)
+    if name in _tune_names:
+        from . import tuning
+
+        return getattr(tuning, name)
+    if name in _search_names:
+        from . import search
+
+        return getattr(search, name)
     if name in _lazy_modules:
         import importlib
 

@@ -47,7 +47,8 @@ def pp_adatas(adata_sc, adata_sp, genes=None, gene_to_lowercase=True):
 
     Drops never-expressed genes, optionally lowercases gene names, records
     the shared gene vocabulary (``uns['training_genes']`` = requested ∩ sc ∩
-    sp, ``uns['overlap_genes']`` = sorted sc ∩ sp), writes both density
+    sp in the requested order, the same in every process;
+    ``uns['overlap_genes']`` = sorted sc ∩ sp), writes both density
     priors on the spatial side, and — when coordinates exist — the spot
     neighbor graph into ``obsp``.
     """
@@ -65,7 +66,11 @@ def pp_adatas(adata_sc, adata_sp, genes=None, gene_to_lowercase=True):
     adata_sp.var_names_make_unique()
 
     shared = set(adata_sc.var.index) & set(adata_sp.var.index)
-    training_genes = list(set(requested) & shared)
+    # in the requested order: the reference's list(set(...)) takes a set's
+    # iteration order, which moves with PYTHONHASHSEED from one process to
+    # the next, and with it the order of S's and G's columns and so every
+    # sum over genes
+    training_genes = [g for g in dict.fromkeys(requested) if g in shared]
     overlap_genes = sorted(shared)
 
     for adata in (adata_sc, adata_sp):

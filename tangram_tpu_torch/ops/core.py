@@ -45,17 +45,20 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 
 def mapper_core_reference(M, A, w):
-    """Materialized softmax, ``log_softmax`` entropy and full-f32 products.
+    """Materialized softmax, ``log_softmax`` entropy and full-f32 products,
+    for M (c, s) or a batch (..., c, s) of independent problems (the tuner's
+    population), each with the same A and w; the softmax runs over spots,
+    the last axis.
 
     The products run through ``torch.matmul``; on CUDA that is IEEE f32 as
     long as ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's
     default), which the port never changes.
     """
-    P = torch.softmax(M, dim=1)
-    Y = P.T @ A
+    P = torch.softmax(M, dim=-1)
+    Y = P.transpose(-1, -2) @ A
     q = w @ P
     # log-softmax form avoids log(P) underflow for very negative logits
-    h = torch.sum(P * torch.log_softmax(M, dim=1), dim=1)
+    h = torch.sum(P * torch.log_softmax(M, dim=-1), dim=-1)
     return Y, q, h
 
 

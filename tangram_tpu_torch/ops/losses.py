@@ -106,14 +106,15 @@ def cosine_similarity(x, y, axis: int = 0, eps: float = COSINE_EPS):
 def kl_div_sum(log_pred, target):
     """torch ``KLDivLoss(reduction='sum')``: Σ target·(log target − log_pred)
     with 0·log 0 := 0, so zero-target entries contribute exactly 0 even
-    where ``log_pred`` is −inf."""
+    where ``log_pred`` is −inf. The sum runs over the last axis: a batch of
+    ``log_pred`` rows (the tuner's population) gives one value per row."""
     pos = target > 0
     xlogx = torch.where(
         pos, target * torch.log(torch.where(pos, target, torch.ones_like(target))),
         torch.zeros_like(target),
     )
     cross = torch.where(pos, target * log_pred, torch.zeros_like(log_pred))
-    return torch.sum(xlogx - cross)
+    return torch.sum(xlogx - cross, dim=-1)
 
 
 def _masked_mean(values, mask):

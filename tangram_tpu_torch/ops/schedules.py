@@ -15,10 +15,12 @@ import numpy as np
 __all__ = ["cosine_lr", "cosine_value", "resolve_lr"]
 
 
-def cosine_value(t, peak, end, decay_len):
-    """Cosine-decay value at epoch ``t`` (no warmup), vectorized over ``t``."""
-    phase = np.clip(t / decay_len, 0.0, 1.0)
-    return end + (peak - end) * 0.5 * (1.0 + np.cos(np.pi * phase))
+def cosine_value(t, peak, end, decay_len, xp=np):
+    """Cosine-decay value at epoch ``t`` (no warmup), vectorized over ``t``:
+    the one decay formula of :func:`cosine_lr` (numpy) and of the tuner's
+    per-member schedule on the device (``xp=torch``, tensors)."""
+    phase = xp.clip(t / decay_len, 0.0, 1.0)
+    return end + (peak - end) * 0.5 * (1.0 + xp.cos(xp.pi * phase))
 
 
 def cosine_lr(peak, num_epochs, end=0.0, warmup=0):

@@ -75,6 +75,11 @@ def adatas(api, seed=0):
     ad_sp = api.AnnData(X=G, obs=pd.DataFrame(index=[f"s{i}" for i in range(G.shape[0])]),
                         var=genes.copy())
     api.pp_adatas(ad_sc, ad_sp)
+    # one fold composition for both packages: cv_data_gen folds the training
+    # genes in their order, which the port's pp_adatas takes as requested and
+    # the JAX package's as a set iterates (it moves with PYTHONHASHSEED)
+    for ad in (ad_sc, ad_sp):
+        ad.uns["training_genes"] = sorted(ad.uns["training_genes"])
     return ad_sc, ad_sp
 
 

@@ -1088,3 +1088,59 @@ def test_projected_expression_on_the_card_matches_float64(dev):
         torch.backends.cuda.matmul.allow_tf32 = False
     assert not _projects_on_device("auto", M.size, None)
     assert _projects_on_device("auto", 2**28, None)
+
+
+# ---------------------------------------------------------------------------
+# the hyperparameter tuner (no kernel: the materialized core on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("search,seed", [("sobol", 3), ("halving", 5)])
+def test_tuner_on_the_card_matches_cpu(dev, search, seed):
+    """A Sobol and a halving sweep on the card against the same sweeps with
+    device="cpu", at tests/test_torch_tuning.py's fixture and search space
+    (30 × 24 × 12, the three graph terms): the same configs and survivors,
+    each metric within 1e-4 (f32 in two devices' summation orders over 30
+    Adam epochs; seed 5's halving rung has a 7.0e-3 margin), and no kernel
+    launched."""
+    import pandas as pd
+
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch import tuning
+
+    def adatas():  # test_torch_tuning.py's fixture (which imports jax)
+        rng = np.random.default_rng(0)
+        S = (rng.poisson(2.0, (30, 12)) + 1).astype(np.float32)
+        G = (rng.poisson(2.0, (24, 12)) + 1).astype(np.float32)
+        genes = pd.DataFrame(index=[f"g{i}" for i in range(12)])
+        ad_sc = tgt.AnnData(X=S, var=genes.copy(), obs=pd.DataFrame(
+            {"subclass_label": pd.Categorical(rng.choice(["a", "b", "c"], 30))},
+            index=[f"c{i}" for i in range(30)]))
+        ad_sp = tgt.AnnData(X=G, var=genes.copy(),
+                            obs=pd.DataFrame(index=[f"s{i}" for i in range(24)]))
+        ad_sp.obsm["spatial"] = rng.random((24, 2))
+        tgt.pp_adatas(ad_sc, ad_sp)
+        return ad_sc, ad_sp
+
+    space = {"learning_rate": tuning.loguniform(0.02, 0.5),
+             "lambda_d": tuning.uniform(0.0, 1.0), "lambda_r": tuning.loguniform(1e-6, 1e-2),
+             "lambda_neighborhood_g1": tuning.uniform(0.0, 1.0),
+             "lambda_ct_islands": tuning.uniform(0.0, 1.0),
+             "lambda_getis_ord": tuning.uniform(0.0, 1.0), "num_epochs": 30}
+    kw = dict(metric=["gene_expr_correctness"], config=space, tuner_num_samples=8,
+              cluster_label="subclass_label", random_state=seed, population_batch_size=4,
+              search=search)
+    frames = []
+    for device in ("cpu", dev):
+        np.random.seed(8)
+        cc.reset_launches()
+        frames.append(tgt.mapping_hyperparameter_tuning(*adatas(), device=device, **kw)
+                      .get_results().get_dataframe())
+        assert not any(cc.LAUNCHES.values())
+    want, got = frames
+    config_cols = [c for c in want.columns if c.startswith("config/")]
+    pd.testing.assert_frame_equal(got[config_cols], want[config_cols], check_exact=True)
+    np.testing.assert_allclose(got[tuning.METRIC_KEYS].to_numpy(),
+                               want[tuning.METRIC_KEYS].to_numpy(), rtol=0, atol=1e-4)
+    if search == "halving":
+        np.testing.assert_array_equal(got["trained_epochs"], want["trained_epochs"])

@@ -174,7 +174,7 @@ def test_plot_genes_and_quick(mapped):
         ad_ge = pkg.project_genes(ad_map, ad_sc)
         ad_ge.obs["x"] = ad_sp.obs["x"].to_numpy()
         ad_ge.obs["y"] = ad_sp.obs["y"].to_numpy()
-        genes = list(ad_sc.uns["training_genes"])[:2]
+        genes = sorted(ad_sc.uns["training_genes"])[:2]
         pu.plot_genes(genes, ad_sp, ad_ge)
         pu.quick_plot_gene(genes[0], ad_sp)
         return np.asarray(ad_ge.X)
@@ -189,7 +189,7 @@ def test_plot_genes_log_measured_panel_autoscales(mapped):
         ad_ge = pkg.project_genes(ad_map, ad_sc)
         ad_ge.obs["x"] = ad_sp.obs["x"].to_numpy()
         ad_ge.obs["y"] = ad_sp.obs["y"].to_numpy()
-        gene = list(ad_sc.uns["training_genes"])[0]
+        gene = sorted(ad_sc.uns["training_genes"])[0]
         fig = pu.plot_genes([gene], ad_sp, ad_ge, log=True)
         fig.canvas.draw()
         vals = np.log1p(np.asarray(ad_sp[:, gene].X).ravel())
@@ -205,7 +205,7 @@ def test_plot_genes_sc(mapped):
     def call(pkg, pu, ads):
         ad_sc, ad_sp, ad_map = ads
         ad_ge = pkg.project_genes(ad_map, ad_sc)
-        genes = list(ad_sc.uns["training_genes"])[:2]
+        genes = sorted(ad_sc.uns["training_genes"])[:2]
         return pu.plot_genes_sc(genes, ad_sp, ad_ge, spot_size=30, scale_factor=1.0,
                                 return_figure=True) is not None
 
