@@ -141,6 +141,19 @@ last line):
               adaptive+halving; (g) a sobol and an adaptive sweep resumed
               from a journal cut to its first batch, frames equal; (h) the
               sweep of (a) twice, the same bits; (i) no kernel launched
+14. mesh      one mapping over a mesh of processes (tangram_tpu_torch.
+              parallel) at the tutorial shape: (a) a world of one NCCL
+              rank: Mapper(mesh=make_mesh(1, 1)).train and
+              fit_mapping_fused_sharded on a ("cell",) mesh with L1/L2,
+              100 epochs each, the same bits as the single-device fused
+              loop, with launch counts (rowstats or rowstats_norms 1,
+              project, rbar, dm_adam 100), ms/step beside one device's
+              and peak memory; (c) 10 steps of fit_mapping(fused=False)
+              Adam on a bf16 M (optax's update in bf16) beside f32, scores
+              within 3e-2, ms/step, the bf16 kernels' launches; (b) two
+              gloo ranks time-sharing the card (GLOO_TAKES_CUDA), 10 steps
+              on a ("cell",) mesh of 2 and a ("cell", "spot") mesh of
+              1 x 2, within M_ATOL of one device, ms/step
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -156,6 +169,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -165,7 +179,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference", "spatial", "cv", "downstream", "tuner")
+          "bf16", "reference", "spatial", "cv", "downstream", "tuner", "mesh")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -1410,10 +1424,11 @@ def check_launches(phase, expect):
     return counts
 
 
-def mapper_for(ad_sc, ad_sp, dev, mode):
+def mapper_for(ad_sc, ad_sp, dev, mode, mesh=None):
     """The Mapper (MapperConstrained in constrained mode, with one cell per
     spot as its target count) that map_cells_to_space builds in ``mode``
-    with the rna_count_based prior (clusters by subclass_label)."""
+    with the rna_count_based prior (clusters by subclass_label), over
+    ``mesh`` when one is given."""
     from tangram_tpu_torch.mapping import (
         _check_mapping_args, _densify, _resolve_density, _resolve_training_genes,
         adata_to_cluster_expression)
@@ -1431,7 +1446,7 @@ def mapper_for(ad_sc, ad_sp, dev, mode):
         return MapperConstrained(S, G, prior.d, lambda_d=prior.lambda_d,
                                  target_count=SHAPE[1], device=dev, random_state=SEED)
     return Mapper(S, G, d=prior.d, d_source=prior.d_source,
-                  lambda_d=prior.lambda_d, device=dev, random_state=SEED)
+                  lambda_d=prior.lambda_d, device=dev, random_state=SEED, mesh=mesh)
 
 
 def start_params(mapper, param_dtype=None):
@@ -3224,6 +3239,267 @@ def tuner_phase(dev, card, ad_sc, ad_sp):
     say("tuner", f"phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: one mapping over a mesh of processes (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 10          # the gloo ranks' fits and the bf16 autograd fit
+MESH_TIMED = (10, 40)    # ms/step from the difference of two fits' seconds
+#: gloo takes CUDA tensors for all_reduce (SUM, MAX), all_gather_into_tensor
+#: and broadcast on the H100 machine (torch 2.11, checked there by part (b)
+#: of this phase; PERF.md); where it does not, part (b) is skipped
+GLOO_TAKES_CUDA = True
+
+
+def release_cached_memory():
+    """Hand the blocks that earlier phases left in PyTorch's cache back to
+    the card: NCCL allocates its own buffers (after the whole script it
+    found the card full: "Failed to CUDA calloc async 608 bytes"), and the
+    gloo ranks are other processes."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("mesh", f"device memory: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+
+
+def mesh_fit_seconds(fit, steps):
+    """Host seconds of ``fit(steps)``, the card synchronized around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(steps)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mesh_ms_per_step(fit):
+    """ms per step from two fits of MESH_TIMED steps: what the longer one
+    adds, so each fit's set-up (the block's upload, the gather to the host,
+    the first row stats) drops out."""
+    short, long = MESH_TIMED
+    first = mesh_fit_seconds(fit, short)
+    return 1e3 * (mesh_fit_seconds(fit, long) - first) / (long - short)
+
+
+def mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw, directory):
+    """(a) World size 1 on NCCL: Mapper(mesh=make_mesh(1, 1)).train (Adam)
+    and fit_mapping_fused_sharded on a ("cell",) mesh with L1/L2, each
+    against the single-device fused loop from the same logits, bit for
+    bit; launch counts, ms/step and peak memory. Returns the single-device
+    loop's MESH_STEPS-step logits, which (b) is held to."""
+    import torch.distributed as dist
+
+    from tangram_tpu_torch import parallel as par
+
+    par.init_distributed("file://" + os.path.join(directory, "nccl"), 1, 0)
+    try:
+        return mesh_world_of_one_runs(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
+    finally:
+        # an errored communicator left alive holds the process at exit
+        # until NCCL's watchdog gives up (ten minutes)
+        dist.destroy_process_group()
+
+
+def mesh_world_of_one_runs(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from tangram_tpu_torch import parallel as par
+    from tangram_tpu_torch.models.mapper import fit_mapping
+    from tangram_tpu_torch.ops import cuda_core
+
+    say("mesh", f"(a) process group: backend {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}, torch {torch.__version__}")
+    meshes = {"make_mesh(1, 1)": par.make_mesh(1, 1),
+              '("cell",)': DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("cell",))}
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_mapper = mapper_for(ad_sc, ad_sp, dev, "cells", mesh=meshes["make_mesh(1, 1)"])
+    M0 = mesh_mapper.M.clone()
+    if not torch.equal(M0, cells_mapper.M.cpu()):
+        fail("mesh: (a) the mesh mapper's start differs from the single-device mapper's")
+    cuda_core.reset_launches()
+    _, hist = mesh_mapper.train(EPOCHS, print_each=None)
+    check_launches("mesh", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
+                            "dm_adam": EPOCHS})
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    main = np.asarray(hist["main_loss"])
+    if not (np.isfinite(main).all() and main[-1] > main[0]):
+        fail(f"mesh: (a) the mesh mapper's score did not rise ({main[0]} -> {main[-1]})")
+    runs = {"make_mesh(1, 1)": (cells_mapper.lw, mesh_mapper.M)}
+    cuda_core.reset_launches()
+    runs['("cell",)'] = (norm_lw, par.fit_mapping_fused_sharded(
+        M0, cells_mapper.data, norm_lw, EPOCHS, 0.1, mesh=meshes['("cell",)'])[0])
+    check_launches("mesh", {"rowstats_norms": 1, "project": EPOCHS, "rbar": EPOCHS,
+                            "dm_adam": EPOCHS})
+    for label, (lw, M_mesh) in runs.items():
+        M_one = fit_mapping(start_params(cells_mapper)[0], cells_mapper.data, lw, EPOCHS,
+                            impl="kernels")[0].cpu()
+        same = torch.equal(M_mesh, M_one)
+        say("mesh", f"(a) {label}{' + L1/L2' if lw.lambda_l1 else ''}, {EPOCHS} epochs: "
+            f"{'the same bits as' if same else 'NOT the same bits as'} the single-device "
+            f"fused loop (max |dM| {float((M_mesh - M_one).abs().max()):.2e})")
+        if not same:
+            fail(f"mesh: (a) {label}: the world-of-one mesh fit differs from one device")
+    ms = {label: mesh_ms_per_step(lambda n, m=mesh: par.fit_mapping_fused_sharded(
+              M0, cells_mapper.data, cells_mapper.lw, n, 0.1, mesh=m))
+          for label, mesh in meshes.items()}
+    ms["one device"] = mesh_ms_per_step(lambda n: fit_mapping(
+        start_params(cells_mapper)[0], cells_mapper.data, cells_mapper.lw, n,
+        impl="kernels"))
+    say("mesh", "(a) ms/step (Adam, the difference of a " + " and a ".join(
+        map(str, MESH_TIMED)) + "-step fit): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()) + f"; peak device memory of the "
+        f"mesh mapper's training {peak:.3f} GiB above the {base / 2**30:.3f} GiB "
+        f"resident ({card})")
+    M_steps = fit_mapping(start_params(cells_mapper)[0], cells_mapper.data, cells_mapper.lw,
+                          MESH_STEPS, impl="kernels")[0].cpu()
+    return M0, M_steps
+
+
+def mesh_gloo_worker(rank, directory, device="cuda"):
+    """One of two gloo ranks on the one card: the fused sharded fit on a
+    ("cell",) mesh of 2 and a ("cell", "spot") mesh of 1 x 2, MESH_STEPS
+    steps each from the logits and data that the parent saved; rank 0
+    saves the mappings, seconds and launch counts."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(REPO))
+    from tangram_tpu_torch import parallel as par
+    from tangram_tpu_torch.ops import cuda_core
+    from tangram_tpu_torch.ops.losses import LossWeights, MapperData
+
+    torch.cuda.set_device(0)
+    par.init_distributed("file://" + os.path.join(directory, "gloo"), 2, rank,
+                         backend="gloo")
+    arrays = np.load(os.path.join(directory, "data.npz"))
+    data = MapperData(**{k: torch.from_numpy(arrays[k]).to(device) for k in ("S", "G", "d")})
+    lw = LossWeights(**json.loads(str(arrays["lw"])))
+    M0 = torch.from_numpy(np.load(os.path.join(directory, "M0.npy"), mmap_mode="r")[:])
+    meshes = {'("cell",) = 2': DeviceMesh("cuda", torch.arange(2), mesh_dim_names=("cell",)),
+              '("cell", "spot") = 1 x 2': DeviceMesh("cuda", torch.arange(2).reshape(1, 2),
+                                                     mesh_dim_names=("cell", "spot"))}
+    for i, (label, mesh) in enumerate(meshes.items()):
+        def fit(n, mesh=mesh):
+            return par.fit_mapping_fused_sharded(M0, data, lw, n, 0.1, mesh=mesh)[0]
+
+        cuda_core.reset_launches()
+        t0 = time.perf_counter()
+        M = fit(MESH_STEPS)
+        secs = time.perf_counter() - t0
+        launches = dict(cuda_core.LAUNCHES)
+        ms = mesh_ms_per_step(fit)
+        if rank == 0:
+            np.save(os.path.join(directory, f"M_{i}.npy"), M.numpy())
+            with open(os.path.join(directory, f"run_{i}.json"), "w") as f:
+                json.dump({"label": label, "secs": secs, "ms": ms, "launches": launches}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    # a normal interpreter exit can abort in the teardown of the process
+    # group's threads (about one run in four on the CPU)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def mesh_two_gloo_ranks(card, cells_mapper, M0, M_steps, directory):
+    """(b) Two gloo ranks on the one card, MESH_STEPS steps on each mesh,
+    held to the single-device loop's logits within M_ATOL (maps
+    MAP_ATOL), the reference phase's tolerance over 10 steps."""
+    import torch
+    import torch.multiprocessing as mp
+
+    release_cached_memory()
+    data = cells_mapper.data
+    np.save(os.path.join(directory, "M0.npy"), M0.numpy())
+    np.savez(os.path.join(directory, "data.npz"), S=data.S.cpu().numpy(),
+             G=data.G.cpu().numpy(), d=data.d.cpu().numpy(),
+             lw=json.dumps(dataclasses.asdict(cells_mapper.lw)))
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_gloo_worker, args=(directory,), nprocs=2, start_method="spawn")
+    say("mesh", f"(b) two gloo ranks on the card in {time.perf_counter() - t0:.1f} s "
+        "(process start, the data, the fits)")
+    for i in range(2):
+        with open(os.path.join(directory, f"run_{i}.json")) as f:
+            run = json.load(f)
+        M = torch.from_numpy(np.load(os.path.join(directory, f"M_{i}.npy")))
+        dM = float((M - M_steps).abs().max())
+        dP = float((torch.softmax(M, 1) - torch.softmax(M_steps, 1)).abs().max())
+        expect = {"rowstats": 1, "project": MESH_STEPS, "rbar": MESH_STEPS,
+                  "dm_adam": MESH_STEPS}
+        say("mesh", f"(b) {run['label']}: {MESH_STEPS} steps in {run['secs']:.2f} s with "
+            f"the block's upload and the gather, {run['ms']:.3f} ms/step; rank 0's "
+            f"launches {run['launches']}; against one device max |dM| {dM:.2e} "
+            f"(tol {M_ATOL:.0e}), maps {dP:.2e} (tol {MAP_ATOL:.0e}) ({card})")
+        if {k: v for k, v in run["launches"].items() if v} != expect:
+            fail(f"mesh: (b) {run['label']}: rank 0 did not launch {expect}")
+        if not (dM <= M_ATOL and dP <= MAP_ATOL):
+            fail(f"mesh: (b) {run['label']}: two ranks and one device differ")
+
+
+def mesh_bf16_autograd(card, cells_mapper):
+    """(c) queue A4's leftover at the tutorial shape: MESH_STEPS steps of
+    fit_mapping(fused=False) Adam on a bf16 M (optax's update in bf16)
+    beside the same on f32, launch counts, ms/step and scores."""
+    import torch
+
+    from tangram_tpu_torch.models.mapper import fit_mapping
+    from tangram_tpu_torch.ops import cuda_core
+
+    out = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        M = cells_mapper.M.to(dtype)
+        cuda_core.reset_launches()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        M, hist = fit_mapping(M, cells_mapper.data, cells_mapper.lw, MESH_STEPS,
+                              impl="kernels", fused=False)
+        stop.record()
+        stop.synchronize()
+        if M.dtype != dtype:
+            fail(f"mesh: (c) the {label} M came back in {M.dtype}")
+        suffix = ".bf16" if dtype == torch.bfloat16 else ""
+        check_launches("mesh", {name + suffix: MESH_STEPS for name in (
+            "rowstats", "project", "backward_rbar", "dm_backward")})
+        out[label] = (start.elapsed_time(stop) / MESH_STEPS,
+                      float(hist["main_loss"][-1].cpu()))
+    (ms_b, score_b), (ms_f, score_f) = out["bf16"], out["f32"]
+    say("mesh", f"(c) fused=False Adam, {MESH_STEPS} steps: bf16 M {ms_b:.2f} ms/step, "
+        f"score {score_b:.4f}; f32 {ms_f:.2f} ms/step, score {score_f:.4f} (|diff| "
+        f"{abs(score_b - score_f):.2e}, tol {BF16_SCORE_TOL:.0e}) ({card})")
+    if not abs(score_b - score_f) <= BF16_SCORE_TOL:
+        fail("mesh: (c) the bf16 autograd loop's score is not within tolerance of f32's")
+
+
+def mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
+    """Phase 14: training over a mesh (module docstring)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    release_cached_memory()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        M0, M_steps = mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw,
+                                        directory)
+        mesh_bf16_autograd(card, cells_mapper)
+        if GLOO_TAKES_CUDA:
+            mesh_two_gloo_ranks(card, cells_mapper, M0, M_steps, directory)
+        else:
+            say("mesh", "(b) skipped: gloo does not take CUDA tensors for all_reduce "
+                "and all_gather_into_tensor on this card (PERF.md)")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    say("mesh", f"phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3320,7 +3596,7 @@ def main(argv=None) -> int:
             f"from the tile shape")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference", "spatial",
-            "cv", "downstream", "tuner"} & set(phases):
+            "cv", "downstream", "tuner", "mesh"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
@@ -3560,6 +3836,9 @@ def main(argv=None) -> int:
 
     if "tuner" in phases:
         tuner_phase(dev, card, ad_sc, ad_sp)
+
+    if "mesh" in phases:
+        mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
 
     if args.profile:
         profile_dp_tile(dev)

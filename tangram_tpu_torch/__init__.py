@@ -16,15 +16,16 @@ one for each Pallas kernel call of the JAX package, in three sources:
 tensor-core dP tile) and ``csrc/project_tc_kernels.cu`` (project).
 The hyperparameter tuner (``tuning``, ``search``) trains its populations
 of mappings as one batched problem on the materialized core, as the JAX
-tuner does on XLA, so it launches none of the kernels.
-``tangram_tpu`` stays the reference it is tested against. This package
-imports torch and never jax; multi-GPU training is not ported yet.
+tuner does on XLA, so it launches none of the kernels. ``parallel``
+trains one mapping over a mesh of processes on ``torch.distributed``, the
+kernels run shard by shard. ``tangram_tpu`` stays the reference it is
+tested against. This package imports torch and never jax.
 
 ``import tangram_tpu_torch as tgt; tgt.pp_adatas(...);
 tgt.map_cells_to_space(...)``
 """
 
-from . import cell_selection, checkpoint, gene_selection, profiling
+from . import cell_selection, checkpoint, gene_selection, parallel, profiling
 from ._version import __version__
 from .adlite import AnnData, read_h5ad, write_h5ad
 from .mapping import adata_to_cluster_expression, map_cells_to_space, pp_adatas

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from .models.mapper import _lr_slice, fit_mapping
-from .ops.core import unported
 from .ops.schedules import resolve_lr
 
 __all__ = ["save", "restore", "latest_epoch", "train_checkpointed"]
@@ -114,9 +113,16 @@ def train_checkpointed(
     restored epoch. Like ``fit_mapping``, training updates ``params`` in
     place. Returns ``(params, history)``: history (numpy arrays per key)
     covers the epochs run in this call plus any restored prefix.
+
+    With ``mesh`` every rank of the mesh calls it alike; training runs
+    through ``parallel.fit_mapping_fused_sharded`` (``params`` the full
+    host arrays, as that takes and returns them), and each checkpoint holds
+    the parameters and the Adam moments gathered from every rank's blocks,
+    written by rank 0, so a sharded run resumes with intact moments.
     """
     if mesh is not None:
-        raise unported("mesh", "queue A11 (multi-GPU)")
+        return _train_sharded(params, data, lw, int(num_epochs), learning_rate,
+                              checkpoint_dir, int(checkpoint_every), resume, mesh)
     num_epochs = int(num_epochs)
     learning_rate = resolve_lr(learning_rate, num_epochs)
     device = (params[0] if constrained else params).device
@@ -149,4 +155,59 @@ def train_checkpointed(
         # from epoch 0, not only its own chunks
         save(checkpoint_dir, epoch, params, opt_state, merged_history())
 
+    return params, merged_history()
+
+
+def _sharded_state(opt_state, mesh, shape, gather: bool):
+    """The fused sharded fit's Adam state between this rank's blocks (as
+    the fit takes and returns them) and the full host arrays of a
+    checkpoint: gathered from every rank, or this rank's block taken."""
+    from .parallel.mesh import _Layout
+
+    lay = _Layout(mesh, *shape)
+    out = {"count": int(opt_state["count"])}
+    for key, value in opt_state.items():
+        if key == "count":
+            continue
+        spots = key in ("mu", "nu")
+        if gather:
+            out[key] = lay.gather(value, spots)
+        else:
+            out[key] = value[lay.rows, lay.cols] if spots else value[lay.rows]
+    return out
+
+
+def _train_sharded(params, data, lw, num_epochs, learning_rate, checkpoint_dir,
+                   checkpoint_every, resume, mesh):
+    import torch.distributed as dist
+
+    from .parallel import fit_mapping_fused_sharded
+
+    learning_rate = resolve_lr(learning_rate, num_epochs)
+    shape = tuple((params[0] if isinstance(params, tuple) else params).shape)
+    start_epoch, opt_state, histories = 0, None, []
+    if resume and latest_epoch(checkpoint_dir) is not None:
+        start_epoch, params, opt_state, prefix = restore(checkpoint_dir)
+        if isinstance(params, list):
+            params = tuple(params)
+        opt_state = _sharded_state(opt_state, mesh, shape, gather=False)
+        if prefix is not None:
+            histories.append(prefix)
+
+    def merged_history():
+        return {k: np.concatenate([np.atleast_1d(h[k]) for h in histories if k in h])
+                for k in (histories[-1] if histories else {})}
+
+    epoch = start_epoch
+    while epoch < num_epochs:
+        chunk = min(checkpoint_every, num_epochs - epoch)
+        params, opt_state, history = fit_mapping_fused_sharded(
+            params, data, lw, chunk, _lr_slice(learning_rate, epoch, epoch + chunk),
+            mesh=mesh, opt_state=opt_state, return_opt_state=True)
+        histories.append({k: v.cpu().numpy() for k, v in history.items()})
+        epoch += chunk
+        full_state = _sharded_state(opt_state, mesh, shape, gather=True)
+        if dist.get_rank() == 0:
+            save(checkpoint_dir, epoch, params, full_state, merged_history())
+        dist.barrier()
     return params, merged_history()

@@ -275,11 +275,11 @@ def cross_val(
     ``return_gene_pred``): a killed sweep resumes where it stopped,
     recomputing at most one batch, assuming the same arguments (mode, folds,
     epochs and seed are checked; loss weights and the schedule are the
-    caller's responsibility). Batched path only. ``mesh`` waits for queue
-    A11.
+    caller's responsibility). Batched path only. ``mesh`` (folds over a
+    mesh axis) waits for queue A11b.
     """
     if mesh is not None:
-        raise unported("mesh", "queue A11 (multi-GPU)")
+        raise unported("mesh", "queue A11b (the fold axis over a mesh)")
     from .models.mapper import resolve_device
 
     device = resolve_device(device)

@@ -8,9 +8,8 @@ AnnData in, AnnData out, feeding the PyTorch training engine in
 ``constrained`` modes with Adam or Adafactor, the L1/L2 terms, the five
 graph terms on dense or k-NN spot graphs (cells and clusters modes), f32
 or bf16 storage with round-to-nearest or stochastic rounding,
-learning-rate schedules, early stopping and every ``init_method`` are
-ported; ``mesh`` keeps the JAX package's keyword and raises
-``NotImplementedError`` naming its ROADMAP item.
+learning-rate schedules, early stopping, every ``init_method`` and
+training over a ``mesh`` (``tangram_tpu_torch.parallel``) are ported.
 """
 
 from __future__ import annotations
@@ -25,7 +24,6 @@ import scipy.sparse as sp
 from . import adlite, profiling
 from . import spatial as sw
 from .models.mapper import Mapper, MapperConstrained
-from .ops.core import unported
 from .utils import annotate_gene_sparsity, one_hot_encoding
 
 __all__ = ["pp_adatas", "adata_to_cluster_expression", "map_cells_to_space"]
@@ -264,11 +262,6 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
     return report
 
 
-def _reject_unported(mesh):
-    if mesh is not None:
-        raise unported("mesh", "queue A11 (multi-GPU)")
-
-
 def map_cells_to_space(
     adata_sc,
     adata_sp,
@@ -332,6 +325,13 @@ def map_cells_to_space(
     train in f32, and stochastic rounding there raises ``ValueError``. The
     returned mapping is f32 either way.
 
+    ``mesh`` (a ``DeviceMesh`` from
+    :func:`tangram_tpu_torch.parallel.make_mesh`, of ``device``'s type)
+    trains sharded over the mesh's processes, each calling this function
+    with the same arguments (``torchrun``; see
+    :class:`~tangram_tpu_torch.models.mapper.Mapper`); every rank returns
+    the whole mapping.
+
     The graph terms (``lambda_neighborhood_g1``, ``lambda_ct_islands``,
     ``lambda_getis_ord``, ``lambda_moran``, ``lambda_geary``; each on where
     > 0) need the spot graph that ``pp_adatas`` writes from
@@ -359,7 +359,6 @@ def map_cells_to_space(
             "early_stop_tol is not supported in constrained mode (the "
             "count/filter penalties keep moving the score target)"
         )
-    _reject_unported(mesh)
     low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
                          param_dtype=param_dtype, rounding=rounding)
 
@@ -399,6 +398,7 @@ def map_cells_to_space(
                 target_count=target_count,
                 impl=impl,
                 init_method=init_method,
+                mesh=mesh,
                 optimizer=optimizer,
                 **low_precision,
             )
@@ -448,6 +448,7 @@ def map_cells_to_space(
                 spatial_weights=graphs["spatial_weights"],
                 impl=impl,
                 init_method=init_method,
+                mesh=mesh,
                 optimizer=optimizer,
                 **low_precision,
             )

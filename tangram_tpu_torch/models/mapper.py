@@ -30,10 +30,13 @@ import numpy as np
 import torch
 
 from .. import profiling
-from ..ops.core import NeighborGraph, resolve_impl, softmax_row_chunks, unported
+from ..ops.core import NeighborGraph, resolve_impl, softmax_row_chunks
 from ..ops.cuda_core import _rowstats
 from ..ops.fused_step import (
     ADAFACTOR_EPS,
+    ADAM_EPS,
+    BETA1,
+    BETA2,
     _adam_vector,
     _check_rounding,
     adafactor_decay,
@@ -59,7 +62,7 @@ from ..ops.schedules import resolve_lr
 
 __all__ = ["Mapper", "MapperConstrained", "fit_mapping", "init_logits",
            "init_constrained_logits", "expression_init_logits", "resolve_device",
-           "adafactor_update"]
+           "adafactor_update", "adam_update_low_precision"]
 
 HISTORY_KEYS = ["total_loss", "main_loss", "vg_reg", "kl_reg", "entropy_reg"]
 CONSTRAINED_HISTORY_KEYS = HISTORY_KEYS + ["count_reg", "lambda_f_reg"]
@@ -105,6 +108,38 @@ def resolve_device(device) -> torch.device:
             "PyTorch path on the CPU"
         )
     return device
+
+
+def _check_mesh(mesh, device: torch.device):
+    """``mesh`` as the mapper takes it: None, or a ``DeviceMesh``
+    (``tangram_tpu_torch.parallel.make_mesh``) of the mapper's device
+    type."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                        f"(tangram_tpu_torch.parallel.make_mesh), not {type(mesh).__name__}")
+    if mesh.device_type != device.type:
+        raise ValueError(f"the mesh holds its blocks on {mesh.device_type!r}, the "
+                         f"mapper's device is {device}")
+    return mesh
+
+
+def sharded_expression_init(S, G, mesh=None):
+    """:func:`expression_init_logits`, each rank of ``mesh`` computing its
+    block of M on the mesh's device and the blocks gathered to the host of
+    every rank (the fits take the full M and keep their block), so the
+    full logits never sit on one device."""
+    if mesh is None:
+        return expression_init_logits(S, G)
+    from ..parallel.mesh import _Layout
+
+    S = torch.as_tensor(S)
+    lay = _Layout(mesh, S.shape[0], torch.as_tensor(G).shape[0])
+    block = expression_init_logits(lay.cell_rows(S), torch.as_tensor(G)[lay.cols].to(lay.device))
+    return lay.gather(block)
 
 
 #: above this many entries of M, ``init_method="auto"`` draws on the device:
@@ -305,6 +340,21 @@ def _fused_constrained_loop(params, opt_state, data, lw, num_epochs, learning_ra
     return (M, F), (count, (mu, muF), (nu, nuF)), rows
 
 
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as optax meets it beside an array: rounded to the
+    array's type (JAX's weak typing), here a 0-d tensor of ``like``'s type
+    so that the product rounds once, as a product of two values of that
+    type does."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _mean_in(x, dim=None):
+    """``jnp.mean`` of a low-precision array: summed and divided in f32,
+    stored in the array's type (the identity of ``x.mean`` for f32)."""
+    m = x.float().mean() if dim is None else x.float().mean(dim=dim)
+    return m.to(x.dtype)
+
+
 def adafactor_update(M, g, count: int, vr, vc, learning_rate: float):
     """optax ``adafactor`` as ``tangram_tpu.models.mapper.make_adafactor``
     configures it (factored second moments, no momentum, no clipping, no
@@ -313,18 +363,39 @@ def adafactor_update(M, g, count: int, vr, vc, learning_rate: float):
     pre-increment step; ``vr`` (c,) and ``vc`` (s,) are the carried
     statistics, returned updated. Follows optax's orientation: the statistic
     on the smaller axis is divided by its mean, and the update multiplies
-    the factor of that axis first."""
+    the factor of that axis first.
+
+    For a bf16 M it runs as optax 0.2.6 runs on a bf16 parameter: g², the
+    factors and the update in bf16, the constants rounded to bf16, the
+    means summed in f32 and stored in bf16, and the decayed statistics
+    formed in f32 (optax's decay is an f32 array) and stored in bf16, so
+    ``vr`` and ``vc`` are bf16 like optax's ``v_row``/``v_col``."""
     c, s = M.shape
     decay, one_minus = adafactor_decay(count)
-    grad_sqr = g * g + ADAFACTOR_EPS
-    vr = decay * vr + one_minus * grad_sqr.mean(dim=1)
-    vc = decay * vc + one_minus * grad_sqr.mean(dim=0)
+    grad_sqr = g * g + _const(ADAFACTOR_EPS, g)
+    vr = (decay * vr.float() + one_minus * _mean_in(grad_sqr, 1).float()).to(M.dtype)
+    vc = (decay * vc.float() + one_minus * _mean_in(grad_sqr, 0).float()).to(M.dtype)
     if s >= c:
-        u = g * ((vr / vr.mean()) ** -0.5)[:, None] * (vc ** -0.5)[None, :]
+        u = g * ((vr / _mean_in(vr)) ** -0.5)[:, None] * (vc ** -0.5)[None, :]
     else:
-        u = g * ((vc / vc.mean()) ** -0.5)[None, :] * (vr ** -0.5)[:, None]
-    M.sub_(float(np.float32(learning_rate)) * u)
+        u = g * ((vc / _mean_in(vc)) ** -0.5)[None, :] * (vr ** -0.5)[:, None]
+    M.sub_(_const(float(np.float32(learning_rate)), u) * u)
     return vr, vc
+
+
+def adam_update_low_precision(p, g, mu, nu, count: int, learning_rate: float):
+    """optax ``adam`` (``make_adam``) on a parameter stored below f32, in
+    place on ``p``, ``mu`` and ``nu`` (moments in ``p``'s type, as
+    ``opt_tx.init`` makes them): every update op in that type, rounded to
+    nearest, with the Python constants b1, 1 − b1, b2, 1 − b2, eps and lr
+    rounded to it (0.9 is 0.8984375 in bf16 and 0.999 is 1.0), and the bias
+    corrections 1 − b^t formed in f32 and then rounded. ``count`` is the
+    incremented step."""
+    mu.copy_(_const(1.0 - BETA1, g) * g + _const(BETA1, mu) * mu)
+    nu.copy_(_const(1.0 - BETA2, g) * (g * g) + _const(BETA2, nu) * nu)
+    _, bc1, bc2 = adam_scalars(count, learning_rate)
+    u = (mu / _const(bc1, mu)) / (torch.sqrt(nu / _const(bc2, nu)) + _const(ADAM_EPS, nu))
+    p.add_(_const(-float(np.float32(learning_rate)), u) * u)
 
 
 def adafactor_vector_update(x, g, count: int, v, learning_rate: float):
@@ -344,7 +415,9 @@ def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
     kernels' MapperCore or the materialized reference core), then the
     optimizer update written out, in place: Adam over M (and F), or
     Adafactor with M factored (:func:`adafactor_update`) and F unfactored
-    (:func:`adafactor_vector_update`)."""
+    (:func:`adafactor_vector_update`). Each parameter trains in its own
+    type, as optax trains a pytree: a bf16 M takes its bf16 gradient from
+    the core and a bf16 update (:func:`adam_update_low_precision`)."""
     count = opt_state[0]
     params = tuple(params) if constrained else (params,)
     loss_fn = compute_constrained_loss if constrained else compute_loss
@@ -361,7 +434,10 @@ def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
             state = opt_state[1:]
             mus, nus = state if constrained else ((state[0],), (state[1],))
             for p, g, mu, nu in zip(params, grads, mus, nus):
-                _adam_vector(p, g, mu, nu, *scalars)
+                if p.dtype == torch.float32:
+                    _adam_vector(p, g, mu, nu, *scalars)
+                else:
+                    adam_update_low_precision(p, g, mu, nu, count + 1, lr)
         else:
             state = adafactor_update(params[0], grads[0], count, *opt_state[1:3], lr)
             if constrained:
@@ -376,13 +452,15 @@ def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
 def _init_opt_state(params, optimizer: str, constrained: bool):
     """A fresh optimizer carry: Adam ``(count, mu, nu)``, Adafactor
     ``(count, vr (c,), vc (s,))``; in constrained mode mu and nu are (M, F)
-    pairs and Adafactor carries F's unfactored ``v`` last."""
+    pairs and Adafactor carries F's unfactored ``v`` last. Each moment takes
+    its parameter's type, as optax's ``init`` makes them."""
     M = params[0] if constrained else params
     if optimizer == "adafactor":
-        state = init_fused_adafactor_state(M)
+        _, vr, vc = init_fused_adafactor_state(M)
+        state = (0, vr.to(M.dtype), vc.to(M.dtype))
         return state + (torch.zeros_like(params[1]),) if constrained else state
     if not constrained:
-        return init_fused_opt_state(M)
+        return init_fused_opt_state(M, M.dtype)
     F = params[1]
     return (0, (torch.zeros_like(M), torch.zeros_like(F)),
             (torch.zeros_like(M), torch.zeros_like(F)))
@@ -430,8 +508,10 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     (the returned M keeps it), Adam's mu and nu in ``moment_dtype`` (a
     constrained F's moments and Adafactor's factors stay f32), A and dY
     enter the kernels in ``compute_dtype``, and the updates store by
-    ``rounding``. The autograd loop trains f32 whatever they say, and
-    stochastic rounding off the fused loops is a ``ValueError``.
+    ``rounding``. The autograd loop trains M in the type it is given,
+    whatever they say, as the JAX package runs optax: a bf16 M takes a
+    bf16 gradient and moments and a bf16 update rounded to nearest.
+    Stochastic rounding off the fused loops is a ``ValueError``.
 
     ``optimizer`` is ``"adam"`` (the reference's, the default) or
     ``"adafactor"`` (factored second moments: c + s floats of state instead
@@ -479,11 +559,6 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
     low = [_torch_dtype(name, dt) for name, dt in (
         ("param_dtype", param_dtype), ("moment_dtype", moment_dtype),
         ("compute_dtype", compute_dtype))] + [rounding]
-    if not use_fused and M.dtype != torch.float32:
-        # MapperCore takes a bf16 M; the optimizer written out on its
-        # gradient stores f32, where the JAX loop runs optax in M's type
-        raise unported(f"a {M.dtype} M on the autograd loop (its optimizer in bf16)",
-                       "queue A4 (the bf16 autograd optimizer)")
     term_keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
     keys = term_keys + (VAL_KEYS if with_val else [])
     record = _recorder(term_keys, with_val, data if val_data is None else val_data,
@@ -614,6 +689,56 @@ def _warn_if_diverged(training_history):
         )
 
 
+def _mesh_chunks(mapper, F, early_stop: bool, val_kw):
+    """``(run_chunk, params)`` of a mapper's training over its mesh, with
+    the JAX package's dispatch (``Mapper.train``): the fused sharded Adam
+    step on a mesh with a ``"cell"`` axis, M cast to ``param_dtype``; the
+    generic sharded path otherwise and for Adafactor (with a warning: it
+    materializes the gradient of the block); stochastic rounding only on
+    the fused path. Early stopping needs the fused path. ``F`` is the
+    constrained mapper's filter logits, or None."""
+    from ..parallel import fit_mapping_fused_sharded, fit_mapping_sharded
+
+    low = mapper.low_precision
+    use_fused = "cell" in mapper.mesh.mesh_dim_names
+    if early_stop and not use_fused:
+        raise NotImplementedError("early stopping over a mesh requires a 'cell' axis "
+                                  "(the fused sharded path)")
+    if early_stop and mapper.optimizer != "adam":
+        raise NotImplementedError(
+            f"early stopping over a mesh supports optimizer='adam' (the fused sharded "
+            f"path); got {mapper.optimizer!r}. Drop early_stop_tol or the mesh.")
+    if use_fused and mapper.optimizer != "adam":
+        logging.warning(
+            f"optimizer={mapper.optimizer!r} on a mesh runs through the generic "
+            "sharded path (the fused sharded kernels implement Adam); expect its "
+            "materialized gradient's higher memory traffic.")
+        use_fused = False
+    if low["rounding"] == "stochastic" and not use_fused:
+        raise ValueError("rounding='stochastic' is implemented in the fused sharded step "
+                         "(a mesh with a 'cell' axis); the generic sharded path stores "
+                         "round-to-nearest.")
+    constrained = F is not None
+    if use_fused:
+        M = mapper.M.to(_torch_dtype("param_dtype", low["param_dtype"]))
+        kw = dict(mesh=mapper.mesh, moment_dtype=low["moment_dtype"],
+                  compute_dtype=low["compute_dtype"], rounding=low["rounding"], **val_kw)
+        fit = fit_mapping_fused_sharded
+    else:
+        M = mapper.M
+        with_val = val_kw.get("val_data") is not None
+        kw = dict(mesh=mapper.mesh, optimizer=mapper.optimizer, constrained=constrained,
+                  with_val=with_val, val_data=val_kw.get("val_data"),
+                  val_each=val_kw.get("val_each") or 1)
+        fit = fit_mapping_sharded
+
+    def run_chunk(params, opt_state, chunk, lr_chunk, epoch):
+        return fit(params, mapper.data, mapper.lw, chunk, lr_chunk, opt_state=opt_state,
+                   return_opt_state=True, step_offset=epoch, **kw)
+
+    return run_chunk, ((M, F) if constrained else M)
+
+
 class Mapper:
     """Unconstrained mapping optimizer; API-compatible with the reference
     ``Mapper`` (``mapping_optimizer.py:14-157``) for the options this port
@@ -641,7 +766,13 @@ class Mapper:
     ``"auto"`` (the reference's numpy stream below 2^30 entries, the
     device draw above), ``"numpy"``, ``"jax"`` (the device draw; see
     :func:`init_logits`) or ``"expression"`` (:func:`expression_init_logits`
-    over the training genes). ``mesh`` waits for queue A11.
+    over the training genes). ``mesh`` (a ``DeviceMesh`` of the mapper's
+    device type, from :func:`tangram_tpu_torch.parallel.make_mesh`) trains
+    sharded, every rank of the mesh constructing the mapper alike: the
+    fused Adam step shard by shard on a mesh with a ``"cell"`` axis, the
+    generic sharded autograd loop otherwise (and for Adafactor, with a
+    warning); the full M then stays on the host and ``train`` gathers it
+    there on every rank (see :mod:`tangram_tpu_torch.parallel`).
     """
 
     def __init__(
@@ -680,9 +811,8 @@ class Mapper:
         rounding: str = "nearest",
         optimizer: str = "adam",
     ):
-        if mesh is not None:
-            raise unported("mesh", "queue A11 (multi-GPU)")
         self.device = resolve_device(device)
+        self.mesh = _check_mesh(mesh, self.device)
         self.random_state = random_state
         self.impl = impl
         self.optimizer = _check_optimizer(optimizer)
@@ -738,12 +868,14 @@ class Mapper:
             # the given mapping (softmax removes the per-row constant)
             M = _warm_start_logits(adata_map)
         elif init_method == "expression":
-            M = expression_init_logits(S_train, G_train)
+            M = sharded_expression_init(S_train, G_train, self.mesh)
         else:
             M = init_logits(S.shape[0], G.shape[0], random_state, init_method,
                             device=_draw_device(init_method, S.shape[0] * G.shape[0],
                                                 self.device))
-        self.M = _upload_logits(M, self.device, impl, self.low_precision)
+        # on a mesh the full M stays on the host: each rank's fit keeps its block
+        self.M = (M.cpu() if self.mesh is not None
+                  else _upload_logits(M, self.device, impl, self.low_precision))
 
     def _to_weights(self, W):
         """A spot graph on the mapper's device in f32: a NeighborGraph moved
@@ -792,12 +924,17 @@ class Mapper:
                                val_each=int(val_each) if with_val else 1,
                                step_offset=epoch, **self.low_precision)
 
+        params = self.M
+        if self.mesh is not None:
+            run_chunk, params = _mesh_chunks(self, None, early_stop, dict(
+                val_data=val_data if with_val else None,
+                val_each=int(val_each) if with_val else None))
         if early_stop:
             chunk_epochs, stop = int(early_stop_window), _early_stop(float(early_stop_tol))
         else:
             chunk_epochs, stop = (print_each if print_each else max(num_epochs, 1)), None
         self.M, history = _train_chunked(
-            run_chunk, self.M, num_epochs, learning_rate, chunk_epochs,
+            run_chunk, params, num_epochs, learning_rate, chunk_epochs,
             PRINT_NAMES if print_each else None, stop=stop,
         )
         epochs_run = len(history.get("main_loss", ()))
@@ -827,7 +964,8 @@ class MapperConstrained:
     moments f32), with Adafactor the autograd loop through the kernels'
     ``MapperCore`` (f32; stochastic rounding raises). ``init_method`` is
     as for :class:`Mapper`. ``adata_map`` warm starts M from the log of its
-    mapping (F is still drawn N(0, 1)). ``mesh`` waits for queue A11.
+    mapping (F is still drawn N(0, 1)). ``mesh`` trains sharded as for
+    :class:`Mapper`, F split by cells.
     Training-history values are floats (the reference stringifies them,
     ``mapping_optimizer.py:630``).
     """
@@ -856,9 +994,8 @@ class MapperConstrained:
         rounding: str = "nearest",
         optimizer: str = "adam",
     ):
-        if mesh is not None:
-            raise unported("mesh", "queue A11 (multi-GPU)")
         self.device = resolve_device(device)
+        self.mesh = _check_mesh(mesh, self.device)
         self.random_state = random_state
         self.impl = impl
         self.optimizer = _check_optimizer(optimizer)
@@ -897,15 +1034,18 @@ class MapperConstrained:
                             device=_draw_device(method, n_entries, self.device))[0]
         elif init_method == "expression":
             # F keeps the reference's N(0, 1) draw, so the filter starts unbiased
-            M = expression_init_logits(self.data.S, self.data.G)
+            M = sharded_expression_init(self.data.S, self.data.G, self.mesh)
             F = init_logits(1, n_cells, random_state, "auto")[0]
         else:
             M, F = init_constrained_logits(
                 n_cells, n_spots, random_state, init_method,
                 device=_draw_device(init_method, n_entries, self.device))
-        self.F = F.to(self.device)
-        self.M = _upload_logits(M, self.device, impl, self.low_precision,
-                                fused=self.optimizer == "adam")
+        if self.mesh is not None:
+            self.M, self.F = M.cpu(), F.cpu()
+        else:
+            self.F = F.to(self.device)
+            self.M = _upload_logits(M, self.device, impl, self.low_precision,
+                                    fused=self.optimizer == "adam")
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100):
         """Returns ``(M_probs, F_probs, training_history)`` like the
@@ -922,8 +1062,11 @@ class MapperConstrained:
                                return_opt_state=True, optimizer=self.optimizer,
                                constrained=True, **self.low_precision)
 
+        params = (self.M, self.F)
+        if self.mesh is not None:
+            run_chunk, params = _mesh_chunks(self, self.F, False, {})
         (self.M, self.F), history = _train_chunked(
-            run_chunk, (self.M, self.F), num_epochs, learning_rate,
+            run_chunk, params, num_epochs, learning_rate,
             print_each if print_each else max(num_epochs, 1),
             CONSTRAINED_PRINT_NAMES if print_each else None,
         )

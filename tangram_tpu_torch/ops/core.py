@@ -52,8 +52,10 @@ def mapper_core_reference(M, A, w):
 
     The products run through ``torch.matmul``; on CUDA that is IEEE f32 as
     long as ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's
-    default), which the port never changes.
+    default), which the port never changes. A bf16 M is read in f32, as
+    the kernels' core reads it, and its gradient comes back in bf16.
     """
+    M = M.float()
     P = torch.softmax(M, dim=-1)
     Y = P.transpose(-1, -2) @ A
     q = w @ P

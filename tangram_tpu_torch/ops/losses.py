@@ -336,12 +336,18 @@ def constrained_inputs(F, data: MapperData):
     return (S * w[:, None]).contiguous(), w
 
 
-def constrained_epilogue(Y, q, h_sum, F, data: MapperData, lw: LossWeights):
+def constrained_epilogue(Y, q, h_sum, F, data: MapperData, lw: LossWeights,
+                         f_sums=None):
     """The constrained loss downstream of the core, as a function of the
     projection ``Y = Pᵀ(S ⊙ σ(F))``, the filtered marginal ``q = σ(F) P``,
     the total ``h_sum = Σ P log P`` and the raw filter logits ``F``, taken as
     independent inputs: the fused step differentiates this function alone
     and recovers F's gradient through A and q from the rbar pass.
+
+    A sharded step passes ``f_sums = (Σ σ(F), Σ σ(F) − σ(F)²)``, the two F
+    reductions summed over the mesh outside this function, and ``F=None``;
+    it then rebuilds F's direct gradient from the sums' cotangents by the
+    chain rule (``parallel/fused_sharded.py``).
 
     Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
     ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg``, ``count_reg``,
@@ -351,9 +357,12 @@ def constrained_epilogue(Y, q, h_sum, F, data: MapperData, lw: LossWeights):
     if mask is not None:
         G = G * mask[None, :]
     nan = torch.full((), float("nan"), dtype=torch.float32, device=Y.device)
-    F_probs = torch.sigmoid(F)
-    sum_F_probs = torch.sum(F_probs)
-    sum_f_reg = torch.sum(F_probs - F_probs * F_probs)
+    if f_sums is not None:
+        sum_F_probs, sum_f_reg = f_sums
+    else:
+        F_probs = torch.sigmoid(F)
+        sum_F_probs = torch.sum(F_probs)
+        sum_f_reg = torch.sum(F_probs - F_probs * F_probs)
     terms = {}
 
     gv_sim = _masked_mean(cosine_similarity(Y, G, axis=0), mask)

@@ -961,14 +961,15 @@ def mapping_hyperparameter_tuning(
     resumed metrics additionally need the same ambient seeding the original
     call had.
 
-    ``mesh`` is not ported yet (ROADMAP A11) and raises.
+    ``mesh`` (trials over a mesh axis) is not ported yet (ROADMAP A11b) and
+    raises.
     """
     from .mapping import _densify
     from .models.mapper import resolve_device
     from .ops.core import unported
 
     if mesh is not None:
-        raise unported("mesh", "A11")
+        raise unported("mesh", "A11b (the trial axis over a mesh)")
     if search not in ("sobol", "adaptive", "halving", "adaptive+halving"):
         raise ValueError(
             'search must be "sobol", "adaptive", "halving" or '

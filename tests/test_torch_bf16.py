@@ -689,9 +689,10 @@ def test_rounding_validation_matches_jax(rng):
         tm.fit_mapping((M, torch.from_numpy(F0)), mapper_data_from_jax(jdc), lw, 2, 0.1,
                        constrained=True, optimizer="adafactor", impl="fused",
                        rounding="stochastic")
-    # the port's own: a bf16 M cannot train on the autograd loop yet
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A4"):
-        tm.fit_mapping(M.to(torch.bfloat16), data, lw, 1, impl="fused", fused=False)
+    # a bf16 M trains on the autograd loop since queue A4's leftover landed,
+    # in its own type (test_autograd_loop_on_bf16_m_matches_jax_optax)
+    M_b = tm.fit_mapping(M.to(torch.bfloat16), data, lw, 1, impl="fused", fused=False)[0]
+    assert M_b.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="compute_dtype must be float32 or bfloat16"):
         tm.fit_mapping(M, data, lw, 1, impl="fused", compute_dtype="float16")
 
@@ -748,3 +749,133 @@ def test_low_precision_options_off_the_fused_path_match_jax(kwargs, raises):
     map_t = tgt.map_cells_to_space(sc_t, sp_t, device="cpu", **kw)
     assert np.asarray(map_t.X).dtype == np.float32
     np.testing.assert_allclose(map_t.X, map_j.X, rtol=3e-3, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the autograd loop on a bf16 M: optax's update in M's type
+# ---------------------------------------------------------------------------
+#
+# JAX's ``fit_mapping(M_bf16, impl="pallas", fused=False)`` differentiates
+# through the Pallas core (the bf16 M's gradient comes back in bf16) and
+# runs optax on the bf16 pytree: moments in bf16, every update op in bf16.
+# The port's loop does the same through MapperCore's twins (``"fused"``) or
+# the materialized core (``"reference"``). XLA and PyTorch round the same
+# ops, but XLA sums its means in another order and divides by n as a
+# product with 1/n, so a bf16 statistic can land one ulp away, and
+# Adafactor's trajectory amplifies that (ROADMAP queue C). Tolerances, in
+# bf16 ulps of max(|M|, 1) (a logit below 1 counts the ulp of 1): step 1
+# and one forced step from JAX's state after five epochs within 1 ulp, the
+# moments within 1 ulp of their own values; the free-running five epochs
+# in 2-norm within ``AUTOGRAD_SPREAD`` times the witness, the same loop's
+# distance from itself started from M moved one bf16 ulp, up or down at
+# random (measured on the CPU, the same at 1 and 8 threads: step 1 and
+# the forced step 0 ulps for Adam and 1 for Adafactor; after five epochs
+# Adam 0-0.016 against a witness of 0.68-1.49, Adafactor 0.17-0.47 against
+# 0.90-1.19).
+
+AUTOGRAD_SPREAD = 4.0
+AUTOGRAD_EPOCHS = 5
+CELLS_LAM = dict(lambda_g1=1.0, lambda_g2=0.7, lambda_d=0.5, lambda_r=0.05)
+CONSTRAINED_LAM = dict(lambda_g1=1.0, lambda_g2=1.0, lambda_d=1.0)
+
+
+def unit_ulps(got, want):
+    """|got − want| in bf16 ulps of max(|want|, 1)."""
+    got, want = f32(got).astype(np.float64), f32(want).astype(np.float64)
+    e = np.floor(np.log2(np.maximum(np.abs(want), 1.0)))
+    return np.abs(got - want) / 2.0 ** (e - 7)
+
+
+def autograd_problem(rng, constrained):
+    """(params as numpy, JAX data, lambdas): M rounded to bf16 once."""
+    M0, jdata = make_problem(rng)
+    M0 = f32(jnp.asarray(M0, jnp.bfloat16))
+    if not constrained:
+        return M0, jdata, CELLS_LAM
+    F0 = np.asarray(jm.init_constrained_logits(*M0.shape, 9, "numpy")[1])
+    return (M0, F0), jdata._replace(target_count=jnp.float32(25.0)), CONSTRAINED_LAM
+
+
+def jax_params(p):
+    if isinstance(p, tuple):
+        return jnp.asarray(p[0], jnp.bfloat16), jnp.asarray(p[1])
+    return jnp.asarray(p, jnp.bfloat16)
+
+
+def torch_params(p):
+    if isinstance(p, tuple):
+        return torch.from_numpy(p[0].copy()).bfloat16(), torch.from_numpy(p[1].copy())
+    return torch.from_numpy(p.copy()).bfloat16()
+
+
+def port_state(st, optimizer, constrained, c, s):
+    """optax's state of the (M[, F]) pytree → the port's autograd carry."""
+    from tangram_tpu_torch.convert import (
+        _tensor,
+        adafactor_state_from_jax,
+        constrained_adafactor_state_from_jax,
+    )
+
+    st = st[0]
+    if optimizer == "adafactor":
+        if constrained:
+            return constrained_adafactor_state_from_jax(st.count, st.v_row, st.v_col,
+                                                        st.v, c, s)
+        return adafactor_state_from_jax(st.count, st.v_row, st.v_col, c, s)
+    pair = lambda x: tuple(_tensor(v, "cpu") for v in x) if constrained else _tensor(x, "cpu")  # noqa: E731
+    return int(np.asarray(st.count)), pair(st.mu), pair(st.nu)
+
+
+def logits(p):
+    return p[0] if isinstance(p, tuple) else p
+
+
+@pytest.mark.parametrize("impl", ["fused", "reference"])
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_autograd_loop_on_bf16_m_matches_jax_optax(rng, optimizer, constrained, impl):
+    p0, jdata, lam = autograd_problem(rng, constrained)
+    c, s = logits(p0).shape
+    data, lw, jlw = mapper_data_from_jax(jdata), LossWeights(**lam), JLossWeights(**lam)
+    jkw = dict(impl="pallas", fused=False, optimizer=optimizer, constrained=constrained)
+    tkw = dict(impl=impl, fused=False, optimizer=optimizer, constrained=constrained)
+
+    def port(p, epochs, state=None):
+        return tm.fit_mapping(p, data, lw, epochs, 0.1, opt_state=state,
+                              return_opt_state=True, **tkw)
+
+    # step 1
+    p1_j, h1_j = jm.fit_mapping(jax_params(p0), jdata, jlw, 1, 0.1, **jkw)
+    p1_t, st1_t, h1_t = port(torch_params(p0), 1)
+    assert logits(p1_t).dtype == torch.bfloat16
+    moments = st1_t[1:3] if optimizer == "adafactor" else (
+        (st1_t[1][0], st1_t[2][0]) if constrained else st1_t[1:3])
+    assert all(m.dtype == torch.bfloat16 for m in moments)  # optax's init: M's type
+    assert unit_ulps(logits(p1_t), logits(p1_j)).max() <= 1.0
+    assert float(h1_t["total_loss"][0]) == pytest.approx(float(h1_j["total_loss"][0]),
+                                                         rel=1e-6)
+    # five free-running epochs, then one forced step from JAX's state
+    p5_j, st5_j, h5_j = jm.fit_mapping(jax_params(p0), jdata, jlw, AUTOGRAD_EPOCHS, 0.1,
+                                       return_opt_state=True, **jkw)
+    p6_j, _ = jm.fit_mapping(p5_j, jdata, jlw, 1, 0.1, opt_state=st5_j, **jkw)
+    state = port_state(st5_j, optimizer, constrained, c, s)
+    p5_from_j = (tuple(f32(x) for x in p5_j) if constrained else f32(p5_j))
+    p6_t, st6_t, _ = port(torch_params(p5_from_j), 1, state)
+    assert unit_ulps(logits(p6_t), logits(p6_j)).max() <= 1.0
+    if optimizer == "adam" and not constrained:
+        _, st6_j, _ = jm.fit_mapping(p5_j, jdata, jlw, 1, 0.1, opt_state=st5_j,
+                                     return_opt_state=True, **jkw)
+        for got, want in ((st6_t[1], st6_j[0].mu), (st6_t[2], st6_j[0].nu)):
+            assert ulps(got, want).max() <= 1.0
+    # the free-running logits against the witness
+    p5_t, _, h5_t = port(torch_params(p0), AUTOGRAD_EPOCHS)
+    moved = torch_params(p0)
+    M_moved = logits(moved)
+    gen = torch.Generator().manual_seed(0)
+    up = torch.rand(M_moved.shape, generator=gen) < 0.5
+    away = torch.where(up, torch.tensor(np.inf), torch.tensor(-np.inf)).bfloat16()
+    M_moved.copy_(torch.nextafter(M_moved, away))
+    p5_w, _, _ = port(moved, AUTOGRAD_EPOCHS)
+    witness = float(np.linalg.norm(f32(logits(p5_w)) - f32(logits(p5_t))))
+    dist = float(np.linalg.norm(f32(logits(p5_t)) - f32(logits(p5_j))))
+    assert 0 < witness and dist <= AUTOGRAD_SPREAD * witness, (dist, witness)

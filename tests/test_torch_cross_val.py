@@ -254,7 +254,7 @@ def test_cross_val_argument_errors_match_jax(kwargs, match):
 
 def test_cross_val_device_and_mesh():
     ad_sc, ad_sp = adatas(tgt)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A11b"):
         tgt.cross_val(ad_sc, ad_sp, mode="cells", device="cpu", mesh=object())
     if not torch.cuda.is_available():
         for batched in (True, False):

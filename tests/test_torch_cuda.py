@@ -1144,3 +1144,100 @@ def test_tuner_on_the_card_matches_cpu(dev, search, seed):
                                want[tuning.METRIC_KEYS].to_numpy(), rtol=0, atol=1e-4)
     if search == "halving":
         np.testing.assert_array_equal(got["trained_epochs"], want["trained_epochs"])
+
+
+# ---------------------------------------------------------------------------
+# one mapping over a mesh (tangram_tpu_torch.parallel) and the bf16 autograd
+# loop on the card (chip_smoke.py's mesh phase makes the same checks at
+# full size)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def world_of_one(dev, tmp_path):
+    """A process group of this process alone, on NCCL."""
+    import torch.distributed as dist
+
+    from tangram_tpu_torch import parallel as par
+
+    par.init_distributed(f"file://{tmp_path}/rendezvous", 1, 0)
+    yield par
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("lam", [dict(lambda_d=1.0),
+                                 dict(lambda_d=1.0, lambda_l1=0.01, lambda_l2=0.005)])
+def test_mesh_of_one_stores_the_bits_of_one_device(dev, world_of_one, lam):
+    """World size 1 on NCCL: the fused sharded fit on make_mesh(1, 1) and
+    on a ("cell",) mesh, against the single-device fused loop from the same
+    logits: the same bits, through the same kernels."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    par = world_of_one
+    M0, data = small_problem(dev)
+    lw = LossWeights(**lam)
+    want = fit_mapping(M0.clone(), data, lw, 6, impl="kernels")[0].cpu()
+    norms = lam.get("lambda_l1", 0) != 0
+    first = "rowstats_norms" if norms else "rowstats"
+    for mesh in (par.make_mesh(1, 1), DeviceMesh("cuda", torch.arange(1),
+                                                  mesh_dim_names=("cell",))):
+        cc.reset_launches()
+        got, hist = par.fit_mapping_fused_sharded(M0.cpu(), data, lw, 6, 0.1, mesh=mesh)
+        assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
+            first: 1, "project": 6, "rbar": 6, "dm_adam": 6}
+        assert torch.equal(got, want)
+        assert hist["total_loss"].is_cuda and bool(torch.isfinite(hist["total_loss"]).all())
+
+
+def test_mapper_on_a_mesh_of_one_matches_one_device(dev, world_of_one):
+    """``Mapper(mesh=make_mesh(1, 1)).train`` against the mapper on one
+    device: the same bits of the trained logits (the mesh mapper's on the
+    host), the mappings within 1e-6 (two softmaxes, the card's and the
+    host's)."""
+    from tangram_tpu_torch.models.mapper import Mapper
+
+    rng = np.random.default_rng(3)
+    S = (rng.poisson(2.0, (50, 9)) + 0.5).astype(np.float32)
+    G = (rng.poisson(3.0, (70, 9)) + 0.5).astype(np.float32)
+    mappers = [Mapper(S, G, random_state=5, device=dev, mesh=mesh)
+               for mesh in (None, world_of_one.make_mesh(1, 1))]
+    probs = [m.train(8, print_each=None)[0] for m in mappers]
+    assert torch.equal(mappers[1].M, mappers[0].M.cpu())
+    np.testing.assert_allclose(probs[1], probs[0], atol=1e-6)
+
+
+def unit_ulps(got, want):
+    """|got − want| in bf16 ulps of max(|want|, 1)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return (got - want).abs() / 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=1.0))) - 7)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adafactor"])
+def test_bf16_autograd_loop_on_the_card_matches_cpu(dev, optimizer):
+    """fit_mapping(fused=False) on a bf16 M: MapperCore's bf16 kernels and
+    optax's update in bf16. Step 1 within 1 bf16 ulp (of max(|M|, 1)) of
+    the same loop on the CPU twins; five free-running steps in 2-norm
+    within 4 times the CPU loop's own distance from itself started 1 bf16
+    ulp away (tests/test_torch_bf16.py's rule)."""
+    M0, data = small_problem(dev)
+    M0 = M0.bfloat16()
+    lw = LossWeights(lambda_d=1.0)
+    cpu = MapperData(*(None if x is None else x.cpu() for x in data))
+
+    def fit(M, d, impl, n):
+        return fit_mapping(M.clone(), d, lw, n, impl=impl, fused=False, optimizer=optimizer)[0]
+
+    cc.reset_launches()
+    one = fit(M0, data, "kernels", 1)
+    assert one.dtype == torch.bfloat16
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
+        "rowstats.bf16": 1, "project.bf16": 1, "backward_rbar.bf16": 1, "dm_backward.bf16": 1}
+    assert float(unit_ulps(one, fit(M0.cpu(), cpu, "fused", 1)).max()) <= 1.0
+    M_cpu = fit(M0.cpu(), cpu, "fused", 5)
+    gen = torch.Generator().manual_seed(0)
+    away = torch.where(torch.rand(M0.shape, generator=gen) < 0.5, torch.tensor(np.inf),
+                       torch.tensor(-np.inf)).bfloat16()
+    witness = float((fit(torch.nextafter(M0.cpu(), away), cpu, "fused", 5) - M_cpu)
+                    .double().norm())
+    dist = float((fit(M0, data, "kernels", 5).cpu() - M_cpu).double().norm())
+    assert 0 < witness and dist <= 4.0 * witness, (dist, witness)

@@ -286,7 +286,12 @@ def test_missing_pp_adatas_raises():
     (dict(mesh=object()), "A11"),
 ])
 def test_unported_options_raise_naming_the_roadmap(golden_pair, kwargs, item):
+    """The last option that raised here, ``mesh``, was ported by ROADMAP
+    ``item`` (tests/test_torch_parallel.py trains over gloo meshes); what
+    is left to check here, in both modes, is that a mesh must be a
+    DeviceMesh."""
+    assert item == "A11"
     ad_sc, ad_sp = golden_pair
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tgt.map_cells_to_space(ad_sc, ad_sp, device="cpu", num_epochs=2,
                                verbose=False, **kwargs)

@@ -404,7 +404,7 @@ def test_restore_errors_and_signatures(tmp_path):
         want = inspect.signature(getattr(jckpt, name)).parameters
         assert list(got) == list(want), name
         assert [p.default for p in got.values()] == [p.default for p in want.values()]
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tckpt.train_checkpointed(torch.zeros(2, 3), None, LossWeights(), 1, 0.1,
                                  tmp_path, mesh=object())
 

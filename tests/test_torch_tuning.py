@@ -661,7 +661,7 @@ def test_resume_halving_completed(pairs, tmp_path):
 
 def test_mesh_raises_naming_a11(pairs):
     (_, tpair) = pairs
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A11b"):
         tgt.mapping_hyperparameter_tuning(
             *tpair, ["gene_expr_correctness"], {"lambda_g1": 1.0},
             cluster_label="subclass_label", tuner_num_samples=1, device="cpu",
