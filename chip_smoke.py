@@ -141,19 +141,33 @@ last line):
               adaptive+halving; (g) a sobol and an adaptive sweep resumed
               from a journal cut to its first batch, frames equal; (h) the
               sweep of (a) twice, the same bits; (i) no kernel launched
-14. mesh      one mapping over a mesh of processes (tangram_tpu_torch.
-              parallel) at the tutorial shape: (a) a world of one NCCL
-              rank: Mapper(mesh=make_mesh(1, 1)).train and
+14. mesh      training over a mesh of processes (tangram_tpu_torch.
+              parallel): (a) a world of one NCCL rank at the tutorial
+              shape: Mapper(mesh=make_mesh(1, 1)).train and
               fit_mapping_fused_sharded on a ("cell",) mesh with L1/L2,
               100 epochs each, the same bits as the single-device fused
               loop, with launch counts (rowstats or rowstats_norms 1,
               project, rbar, dm_adam 100), ms/step beside one device's
-              and peak memory; (c) 10 steps of fit_mapping(fused=False)
-              Adam on a bf16 M (optax's update in bf16) beside f32, scores
-              within 3e-2, ms/step, the bf16 kernels' launches; (b) two
-              gloo ranks time-sharing the card (GLOO_TAKES_CUDA), 10 steps
-              on a ("cell",) mesh of 2 and a ("cell", "spot") mesh of
-              1 x 2, within M_ATOL of one device, ms/step
+              (CUDA events around each step) and peak memory; (d) in the
+              same world: the batched LOO of phase cv (100 epochs, every
+              fold in one batch) on a ("fold", "cell") mesh of 1 x 1 and
+              an 8-trial sobol tuner sweep (100 epochs) on the tuner
+              phase's pair on a ("trial",) mesh of 1, each the same bits
+              as without a mesh, ms/step of both from CUDA events around
+              the trainer; (c) 10 steps of fit_mapping(fused=False) Adam on
+              a bf16 M (optax's update in bf16) beside f32, scores within
+              3e-2, ms/step, the bf16 kernels' launches; (b) two gloo ranks
+              time-sharing the card (GLOO_TAKES_CUDA), 10 steps on a
+              ("cell",) mesh of 2 and a ("cell", "spot") mesh of 1 x 2,
+              within M_ATOL of one device, ms/step; (e) two gloo ranks:
+              the LOO of (d) on ("fold",) = 2 (248 folds split, one
+              whole) and the tuner of (d) on ("trial",) = 2 against (d)'s
+              single-device runs (1e-5 per fold, 2e-3 per metric), the
+              cells-mode 10-fold CV at the tutorial shape on ("fold",
+              "cell") = 1 x 2 (batches of 2, 5 epochs) against one device
+              (1e-5) with each rank's peak memory beside one device's;
+              both ranks the same results, each trainer handed the folds,
+              trials and cells the layout gives it
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -2321,18 +2335,26 @@ def device_peak():
     out["gib"] = out["bytes"] / 2**30
 
 
+def loo_pair():
+    """The fixture of data/NB_REFERENCE_TORCH.json's LOO, preprocessed."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.datasets import synthetic_mapping_pair
+
+    ad_sc, ad_sp = synthetic_mapping_pair(*LOO_PAIR, n_types=22, random_state=5)
+    tgt.pp_adatas(ad_sc, ad_sp)
+    return ad_sc, ad_sp
+
+
 def cv_loo(dev, card, problems, profile=False):
     """The 249-fold batched LOO against the recorded torch scores, then the
     loop path (fused kernels) on LOOP_FOLDS of its folds against it."""
     import tangram_tpu_torch as tgt
-    from tangram_tpu_torch.datasets import synthetic_mapping_pair
     from tangram_tpu_torch.evaluation import _fold_bytes, _loop_fold
     from tangram_tpu_torch.mapping import adata_to_cluster_expression
     from tangram_tpu_torch.ops import cuda_core
 
     ref = json.loads((REPO / "data" / "NB_REFERENCE_TORCH.json").read_text())["loo_cv"]
-    ad_sc, ad_sp = synthetic_mapping_pair(*LOO_PAIR, n_types=22, random_state=5)
-    tgt.pp_adatas(ad_sc, ad_sp)
+    ad_sc, ad_sp = loo_pair()
     genes = list(ad_sc.uns["training_genes"])
     if profile:
         import torch
@@ -3244,11 +3266,70 @@ def tuner_phase(dev, card, ad_sc, ad_sp):
 # ---------------------------------------------------------------------------
 
 MESH_STEPS = 10          # the gloo ranks' fits and the bf16 autograd fit
-MESH_TIMED = (10, 40)    # ms/step from the difference of two fits' seconds
+MESH_WARM = 5            # steps left out of a fit's ms/step
 #: gloo takes CUDA tensors for all_reduce (SUM, MAX), all_gather_into_tensor
 #: and broadcast on the H100 machine (torch 2.11, checked there by part (b)
-#: of this phase; PERF.md); where it does not, part (b) is skipped
+#: of this phase; PERF.md); where it does not, parts (b) and (e) are skipped
 GLOO_TAKES_CUDA = True
+# (d), (e): data parallelism over whole problems (cross_val and the tuner
+# on a fold or trial axis); the LOO's 1000-epoch run is phase cv's
+MESH_LOO_EPOCHS = 100
+MESH_LOO_SPLIT = 248     # (e): 248 folds over a fold axis of 2, the last one whole
+MESH_CV_TOL = 1e-5       # (e): JAX's test_cross_val_fold_mesh bound
+#: (e): the cells-mode 10-fold CV at the tutorial shape on ("fold", "cell") = 1 x 2
+MESH_CELLS_CV = dict(mode="cells", cv_mode="10fold", num_epochs=5, random_state=SEED,
+                     fold_batch_size=2, verbose=False)
+MESH_TUNER = (8, 100)    # (d), (e): sobol trials x epochs, in one batch
+MESH_TUNER_TOL = 2e-3    # (e): JAX's test_tuner_trial_mesh bound
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, describe=None):
+    """While the block runs, every call of ``owner.name`` (a function that
+    the main path looks up there: a training loop's step, a batch's
+    trainer) runs between two CUDA events. Yields the list of calls, each
+    ``(start, stop, describe(*args))``; :func:`calls_ms` reads them."""
+    import torch
+
+    fn = getattr(owner, name)
+    calls = []
+
+    def timed(*args, **kwargs):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(*args, **kwargs)
+        stop.record()
+        calls.append((start, stop, describe(*args) if describe else None))
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def calls_ms(calls):
+    import torch
+
+    torch.cuda.synchronize()
+    return [start.elapsed_time(stop) for start, stop, _ in calls]
+
+
+def steady_ms(calls):
+    """The median ms of a loop's steps after its first MESH_WARM."""
+    return float(np.median(calls_ms(calls)[MESH_WARM:]))
+
+
+def steady_period_ms(calls):
+    """The median ms between the starts of consecutive calls of a function
+    that a loop calls once a step (one step each), after MESH_WARM steps:
+    the step time of a loop whose step is no one function."""
+    import torch
+
+    torch.cuda.synchronize()
+    starts = [start for start, _, _ in calls]
+    return float(np.median([a.elapsed_time(b) for a, b in zip(starts, starts[1:])][MESH_WARM:]))
 
 
 def release_cached_memory():
@@ -3264,39 +3345,18 @@ def release_cached_memory():
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
 
 
-def mesh_fit_seconds(fit, steps):
-    """Host seconds of ``fit(steps)``, the card synchronized around it."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit(steps)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
-def mesh_ms_per_step(fit):
-    """ms per step from two fits of MESH_TIMED steps: what the longer one
-    adds, so each fit's set-up (the block's upload, the gather to the host,
-    the first row stats) drops out."""
-    short, long = MESH_TIMED
-    first = mesh_fit_seconds(fit, short)
-    return 1e3 * (mesh_fit_seconds(fit, long) - first) / (long - short)
-
-
-def mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw, directory):
-    """(a) World size 1 on NCCL: Mapper(mesh=make_mesh(1, 1)).train (Adam)
-    and fit_mapping_fused_sharded on a ("cell",) mesh with L1/L2, each
-    against the single-device fused loop from the same logits, bit for
-    bit; launch counts, ms/step and peak memory. Returns the single-device
-    loop's MESH_STEPS-step logits, which (b) is held to."""
+def mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw, pairs, directory):
+    """(a) and (d) in a world of one NCCL rank. Returns (a)'s start logits
+    and the single-device loop's MESH_STEPS-step logits, which (b) is held
+    to, and (d)'s single-device results, which (e) is held to."""
     import torch.distributed as dist
 
     from tangram_tpu_torch import parallel as par
 
     par.init_distributed("file://" + os.path.join(directory, "nccl"), 1, 0)
     try:
-        return mesh_world_of_one_runs(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
+        M0, M_steps = mesh_world_of_one_runs(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
+        return M0, M_steps, mesh_population_world_of_one(dev, card, pairs)
     finally:
         # an errored communicator left alive holds the process at exit
         # until NCCL's watchdog gives up (ten minutes)
@@ -3304,18 +3364,24 @@ def mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw, directory)
 
 
 def mesh_world_of_one_runs(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
+    """(a) Mapper(mesh=make_mesh(1, 1)).train (Adam) and
+    fit_mapping_fused_sharded on a ("cell",) mesh with L1/L2, each against
+    the single-device fused loop from the same logits, bit for bit; launch
+    counts, ms/step (CUDA events around each step) and peak memory."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     from tangram_tpu_torch import parallel as par
+    from tangram_tpu_torch.models import mapper as mapper_mod
     from tangram_tpu_torch.models.mapper import fit_mapping
     from tangram_tpu_torch.ops import cuda_core
+    from tangram_tpu_torch.parallel import fused_sharded
 
     say("mesh", f"(a) process group: backend {dist.get_backend()}, world size "
         f"{dist.get_world_size()}, torch {torch.__version__}")
     meshes = {"make_mesh(1, 1)": par.make_mesh(1, 1),
-              '("cell",)': DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("cell",))}
+              '("cell",)': DeviceMesh(dev.type, torch.arange(1), mesh_dim_names=("cell",))}
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -3325,49 +3391,148 @@ def mesh_world_of_one_runs(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
     if not torch.equal(M0, cells_mapper.M.cpu()):
         fail("mesh: (a) the mesh mapper's start differs from the single-device mapper's")
     cuda_core.reset_launches()
-    _, hist = mesh_mapper.train(EPOCHS, print_each=None)
+    with timed_calls(fused_sharded, "_step") as steps:
+        _, hist = mesh_mapper.train(EPOCHS, print_each=None)
     check_launches("mesh", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
                             "dm_adam": EPOCHS})
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     main = np.asarray(hist["main_loss"])
     if not (np.isfinite(main).all() and main[-1] > main[0]):
         fail(f"mesh: (a) the mesh mapper's score did not rise ({main[0]} -> {main[-1]})")
-    runs = {"make_mesh(1, 1)": (cells_mapper.lw, mesh_mapper.M)}
+    runs = {"make_mesh(1, 1)": (cells_mapper.lw, mesh_mapper.M, steady_ms(steps))}
     cuda_core.reset_launches()
-    runs['("cell",)'] = (norm_lw, par.fit_mapping_fused_sharded(
-        M0, cells_mapper.data, norm_lw, EPOCHS, 0.1, mesh=meshes['("cell",)'])[0])
+    with timed_calls(fused_sharded, "_step") as steps:
+        M_cell = par.fit_mapping_fused_sharded(M0, cells_mapper.data, norm_lw, EPOCHS, 0.1,
+                                               mesh=meshes['("cell",)'])[0]
     check_launches("mesh", {"rowstats_norms": 1, "project": EPOCHS, "rbar": EPOCHS,
                             "dm_adam": EPOCHS})
-    for label, (lw, M_mesh) in runs.items():
-        M_one = fit_mapping(start_params(cells_mapper)[0], cells_mapper.data, lw, EPOCHS,
-                            impl="kernels")[0].cpu()
+    runs['("cell",)'] = (norm_lw, M_cell, steady_ms(steps))
+    for label, (lw, M_mesh, ms_mesh) in runs.items():
+        with timed_calls(mapper_mod, "fused_unconstrained_step") as steps:
+            M_one = fit_mapping(start_params(cells_mapper)[0], cells_mapper.data, lw, EPOCHS,
+                                impl="kernels")[0].cpu()
         same = torch.equal(M_mesh, M_one)
         say("mesh", f"(a) {label}{' + L1/L2' if lw.lambda_l1 else ''}, {EPOCHS} epochs: "
             f"{'the same bits as' if same else 'NOT the same bits as'} the single-device "
-            f"fused loop (max |dM| {float((M_mesh - M_one).abs().max()):.2e})")
+            f"fused loop (max |dM| {float((M_mesh - M_one).abs().max()):.2e}); ms/step "
+            f"{ms_mesh:.3f} on the mesh, {steady_ms(steps):.3f} on one device (median of "
+            f"steps {MESH_WARM + 1}-{EPOCHS}, CUDA events around each step) ({card})")
         if not same:
             fail(f"mesh: (a) {label}: the world-of-one mesh fit differs from one device")
-    ms = {label: mesh_ms_per_step(lambda n, m=mesh: par.fit_mapping_fused_sharded(
-              M0, cells_mapper.data, cells_mapper.lw, n, 0.1, mesh=m))
-          for label, mesh in meshes.items()}
-    ms["one device"] = mesh_ms_per_step(lambda n: fit_mapping(
-        start_params(cells_mapper)[0], cells_mapper.data, cells_mapper.lw, n,
-        impl="kernels"))
-    say("mesh", "(a) ms/step (Adam, the difference of a " + " and a ".join(
-        map(str, MESH_TIMED)) + "-step fit): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in ms.items()) + f"; peak device memory of the "
-        f"mesh mapper's training {peak:.3f} GiB above the {base / 2**30:.3f} GiB "
-        f"resident ({card})")
+    say("mesh", f"(a) peak device memory of the mesh mapper's training {peak:.3f} GiB above "
+        f"the {base / 2**30:.3f} GiB resident ({card})")
     M_steps = fit_mapping(start_params(cells_mapper)[0], cells_mapper.data, cells_mapper.lw,
                           MESH_STEPS, impl="kernels")[0].cpu()
     return M0, M_steps
+
+
+def population_pairs(ad_sc, ad_sp):
+    """The inputs of (d) and (e): the LOO fixture, the tutorial pair and
+    phase tuner's 22-subclass pair."""
+    from tangram_tpu_torch.mapping import adata_to_cluster_expression
+
+    ad_cl = adata_to_cluster_expression(ad_sc, TUNER_LABEL, scale=False, add_density=False)
+    return {"loo": loo_pair(), "tutorial": (ad_sc, ad_sp), "tuner": (ad_cl, ad_sp)}
+
+
+def loo_kw(fold_batch_size):
+    return dict(LOO_KW, num_epochs=MESH_LOO_EPOCHS, fold_batch_size=fold_batch_size,
+                return_gene_pred=True, verbose=False)
+
+
+def mesh_tuner_kw():
+    from tangram_tpu_torch import tuning
+
+    trials, epochs = MESH_TUNER
+    config = {"learning_rate": tuning.loguniform(*TUNER_LR),
+              "lambda_d": tuning.uniform(0.0, 1.0), "num_epochs": epochs}
+    return dict(metric=TUNER_METRIC, config=config, tuner_num_samples=trials,
+                population_batch_size=trials, random_state=TUNER_SEED,
+                cluster_label=TUNER_LABEL)
+
+
+def fold_shapes(params0, data, masks, *args, **kwargs):
+    """(folds, cells) that a call of the fold trainer was handed."""
+    M0 = params0[0] if isinstance(params0, tuple) else params0
+    return int(masks.shape[0]), int(M0.shape[0])
+
+
+def population_shapes(setup, lam_mat, lr_peaks, lr_ends, M, *args, **kwargs):
+    """(configs, cells) that a call of the population trainer was handed."""
+    return int(M.shape[0]), int(M.shape[2])
+
+
+def mesh_population_world_of_one(dev, card, pairs):
+    """(d) the batched LOO (clusters, MESH_LOO_EPOCHS epochs, every fold in
+    one batch) on a ("fold", "cell") mesh of 1 x 1 and the sobol tuner
+    (MESH_TUNER) on a ("trial",) mesh of 1, each against the same call
+    without a mesh: the same bits, and ms/step of both from CUDA events at
+    each step (the fold trainer's one call of adam_scalars a step, the
+    population trainer's one call of _tuner_loss). Returns the
+    single-device results."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch import evaluation, tuning
+    from tangram_tpu_torch.ops import fused_step
+
+    meshes = {"loo": DeviceMesh(dev.type, [[0]], mesh_dim_names=("fold", "cell")),
+              "tuner": DeviceMesh(dev.type, [0], mesh_dim_names=("trial",))}
+    runs = {}
+    for label, mesh in (("one device", None), ("mesh", meshes["loo"])):
+        with timed_calls(evaluation, "_fit_folds", fold_shapes) as calls, \
+                timed_calls(fused_step, "adam_scalars") as steps:
+            (cv, ge, df), secs = cuda_seconds(lambda: tgt.cross_val(
+                *pairs["loo"], device=dev, mesh=mesh, **loo_kw(LOO_PAIR[2])))
+        runs[label] = dict(cv=cv, X=np.asarray(ge.X), scores=df["score"].to_numpy(),
+                           secs=secs, ms=steady_period_ms(steps),
+                           calls=[c[2] for c in calls])
+    one, mesh = runs["one device"], runs["mesh"]
+    same = (np.array_equal(one["scores"], mesh["scores"]) and np.array_equal(one["X"], mesh["X"])
+            and one["cv"] == mesh["cv"])
+    say("mesh", f"(d) batched LOO, {LOO_PAIR[2]} folds x {MESH_LOO_EPOCHS} epochs in one batch "
+        f"at 22 x {LOO_PAIR[1]} x {LOO_PAIR[2]}: on (\"fold\", \"cell\") = 1 x 1 "
+        f"{'the same bits as' if same else 'NOT the same bits as'} without a mesh (every "
+        f"fold's score and prediction; max |diff| "
+        f"{float(np.abs(one['scores'] - mesh['scores']).max()):.2e}); the fold trainer "
+        f"handed {mesh['calls']} (folds, cells); {mesh['ms']:.3f} ms/step on the mesh, "
+        f"{one['ms']:.3f} without (median of steps {MESH_WARM + 2}-{MESH_LOO_EPOCHS}, CUDA "
+        f"events at each step); "
+        f"{mesh['secs']:.2f} s and {one['secs']:.2f} s in all; avg test score "
+        f"{one['cv']['avg_test_score']:.5f} ({card})")
+    if not same:
+        fail("mesh: (d) the LOO on a world-of-one mesh differs from one device")
+
+    frames = {}
+    for label, mesh in (("one device", None), ("mesh", meshes["tuner"])):
+        np.random.seed(SEED)
+        with timed_calls(tuning._PopulationSetup, "_train", population_shapes) as calls, \
+                timed_calls(tuning, "_tuner_loss") as steps:
+            df, secs = cuda_seconds(lambda: tuner_frames(pairs["tuner"], device=dev, mesh=mesh,
+                                                         **mesh_tuner_kw()))
+        frames[label] = dict(df=df, secs=secs, ms=steady_period_ms(steps),
+                             calls=[c[2] for c in calls])
+    one, mesh = frames["one device"], frames["mesh"]
+    same = all(np.array_equal(one["df"][c].to_numpy(), mesh["df"][c].to_numpy())
+               for c in one["df"].columns) and list(one["df"].columns) == list(mesh["df"].columns)
+    say("mesh", f"(d) sobol tuner, {MESH_TUNER[0]} trials x {tuning.N_REPEATS} repeats x "
+        f"{MESH_TUNER[1]} epochs in one batch at 22 x {LOO_PAIR[1]} x {LOO_PAIR[2]}: on "
+        f"(\"trial\",) = 1 {'the same bits as' if same else 'NOT the same bits as'} without a "
+        f"mesh (every metric of every trial); the population trainer handed {mesh['calls']} "
+        f"(configs, cells); {mesh['ms']:.3f} ms/step on the mesh, {one['ms']:.3f} without "
+        f"(median of steps {MESH_WARM + 2}-{MESH_TUNER[1]}, CUDA events at each step); "
+        f"{mesh['secs']:.2f} s and "
+        f"{one['secs']:.2f} s in all ({card})")
+    if not same:
+        fail("mesh: (d) the tuner on a world-of-one mesh differs from one device")
+    return {"loo": runs["one device"], "tuner": frames["one device"]["df"]}
 
 
 def mesh_gloo_worker(rank, directory, device="cuda"):
     """One of two gloo ranks on the one card: the fused sharded fit on a
     ("cell",) mesh of 2 and a ("cell", "spot") mesh of 1 x 2, MESH_STEPS
     steps each from the logits and data that the parent saved; rank 0
-    saves the mappings, seconds and launch counts."""
+    saves the mappings, seconds, ms/step and launch counts."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -3375,6 +3540,7 @@ def mesh_gloo_worker(rank, directory, device="cuda"):
     from tangram_tpu_torch import parallel as par
     from tangram_tpu_torch.ops import cuda_core
     from tangram_tpu_torch.ops.losses import LossWeights, MapperData
+    from tangram_tpu_torch.parallel import fused_sharded
 
     torch.cuda.set_device(0)
     par.init_distributed("file://" + os.path.join(directory, "gloo"), 2, rank,
@@ -3383,27 +3549,35 @@ def mesh_gloo_worker(rank, directory, device="cuda"):
     data = MapperData(**{k: torch.from_numpy(arrays[k]).to(device) for k in ("S", "G", "d")})
     lw = LossWeights(**json.loads(str(arrays["lw"])))
     M0 = torch.from_numpy(np.load(os.path.join(directory, "M0.npy"), mmap_mode="r")[:])
-    meshes = {'("cell",) = 2': DeviceMesh("cuda", torch.arange(2), mesh_dim_names=("cell",)),
-              '("cell", "spot") = 1 x 2': DeviceMesh("cuda", torch.arange(2).reshape(1, 2),
+    kind = torch.device(device).type
+    meshes = {'("cell",) = 2': DeviceMesh(kind, torch.arange(2), mesh_dim_names=("cell",)),
+              '("cell", "spot") = 1 x 2': DeviceMesh(kind, torch.arange(2).reshape(1, 2),
                                                      mesh_dim_names=("cell", "spot"))}
     for i, (label, mesh) in enumerate(meshes.items()):
-        def fit(n, mesh=mesh):
-            return par.fit_mapping_fused_sharded(M0, data, lw, n, 0.1, mesh=mesh)[0]
-
         cuda_core.reset_launches()
         t0 = time.perf_counter()
-        M = fit(MESH_STEPS)
+        with timed_calls(fused_sharded, "_step") as steps:
+            M = par.fit_mapping_fused_sharded(M0, data, lw, MESH_STEPS, 0.1, mesh=mesh)[0]
         secs = time.perf_counter() - t0
         launches = dict(cuda_core.LAUNCHES)
-        ms = mesh_ms_per_step(fit)
+        # the median of the steps after the first two
+        ms = float(np.median(calls_ms(steps)[2:]))
         if rank == 0:
             np.save(os.path.join(directory, f"M_{i}.npy"), M.numpy())
             with open(os.path.join(directory, f"run_{i}.json"), "w") as f:
                 json.dump({"label": label, "secs": secs, "ms": ms, "launches": launches}, f)
+    end_worker()
+
+
+def end_worker():
+    """A spawned rank's end: every rank done, the process group destroyed,
+    and an exit without the interpreter's teardown (a normal exit can abort
+    in the teardown of the process group's threads, about one run in four
+    on the CPU)."""
+    import torch
+
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
-    # a normal interpreter exit can abort in the teardown of the process
-    # group's threads (about one run in four on the CPU)
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
@@ -3435,9 +3609,10 @@ def mesh_two_gloo_ranks(card, cells_mapper, M0, M_steps, directory):
         expect = {"rowstats": 1, "project": MESH_STEPS, "rbar": MESH_STEPS,
                   "dm_adam": MESH_STEPS}
         say("mesh", f"(b) {run['label']}: {MESH_STEPS} steps in {run['secs']:.2f} s with "
-            f"the block's upload and the gather, {run['ms']:.3f} ms/step; rank 0's "
-            f"launches {run['launches']}; against one device max |dM| {dM:.2e} "
-            f"(tol {M_ATOL:.0e}), maps {dP:.2e} (tol {MAP_ATOL:.0e}) ({card})")
+            f"the block's upload and the gather, {run['ms']:.3f} ms/step (median of steps "
+            f"3-{MESH_STEPS}, CUDA events around each step); rank 0's launches "
+            f"{run['launches']}; against one device max |dM| {dM:.2e} (tol {M_ATOL:.0e}), "
+            f"maps {dP:.2e} (tol {MAP_ATOL:.0e}) ({card})")
         if {k: v for k, v in run["launches"].items() if v} != expect:
             fail(f"mesh: (b) {run['label']}: rank 0 did not launch {expect}")
         if not (dM <= M_ATOL and dP <= MAP_ATOL):
@@ -3478,6 +3653,137 @@ def mesh_bf16_autograd(card, cells_mapper):
         fail("mesh: (c) the bf16 autograd loop's score is not within tolerance of f32's")
 
 
+def mesh_population_worker(rank, directory, device="cuda"):
+    """(e) one of two gloo ranks on the one card: the LOO of (d) on
+    ("fold",) = 2, the cells-mode 10-fold CV at the tutorial shape on
+    ("fold", "cell") = 1 x 2 with its peak memory, and the tuner of (d) on
+    ("trial",) = 2; each rank saves what it returned and what its trainers
+    were handed."""
+    import pickle
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(REPO))
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch import evaluation, tuning
+    from tangram_tpu_torch import parallel as par
+
+    torch.cuda.set_device(0)
+    dev = torch.device(device)
+    par.init_distributed("file://" + os.path.join(directory, "gloo_population"), 2, rank,
+                         backend="gloo")
+    with open(os.path.join(directory, "pairs.pkl"), "rb") as f:
+        pairs = pickle.load(f)
+    out = {}
+    mesh = DeviceMesh(dev.type, torch.arange(2), mesh_dim_names=("fold",))
+    with timed_calls(evaluation, "_fit_folds", fold_shapes) as calls:
+        _, ge, df = tgt.cross_val(*pairs["loo"], device=dev, mesh=mesh,
+                                  **loo_kw(MESH_LOO_SPLIT))
+    out["loo"] = dict(scores=df["score"].to_numpy(), X=np.asarray(ge.X),
+                      calls=[c[2] for c in calls])
+    mesh = DeviceMesh(dev.type, torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("fold", "cell"))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(evaluation, "_fit_folds", fold_shapes) as calls:
+        cv = tgt.cross_val(*pairs["tutorial"], device=dev, mesh=mesh, **MESH_CELLS_CV)
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    out["cells"] = dict(cv=cv, calls=[c[2] for c in calls])
+    mesh = DeviceMesh(dev.type, torch.arange(2), mesh_dim_names=("trial",))
+    np.random.seed(SEED)
+    with timed_calls(tuning._PopulationSetup, "_train", population_shapes) as calls:
+        df = tuner_frames(pairs["tuner"], device=dev, mesh=mesh, **mesh_tuner_kw())
+    out["tuner"] = dict(df=df, calls=[c[2] for c in calls])
+    with open(os.path.join(directory, f"population_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    end_worker()
+
+
+def same_results(a, b) -> bool:
+    """Two ranks' results of (e), bit for bit."""
+    import pandas as pd
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_results(a[k], b[k]) for k in a)
+    if isinstance(a, pd.DataFrame):
+        return list(a.columns) == list(b.columns) and all(
+            np.array_equal(a[c].to_numpy(), b[c].to_numpy()) for c in a.columns)
+    return bool(np.array_equal(a, b))
+
+
+def mesh_population_two_gloo_ranks(dev, card, pairs, single, directory):
+    """(e) Two gloo ranks on the one card (mesh_population_worker), held to
+    one device: the LOO's scores within MESH_CV_TOL of (d)'s, the cells CV's
+    within MESH_CV_TOL of the same CV run here on one device, each rank's
+    peak beside that run's, the tuner's metrics within MESH_TUNER_TOL of
+    (d)'s; both ranks the same results, and the batches split as laid out."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch import evaluation, tuning
+
+    with device_peak() as peak, timed_calls(evaluation, "_fit_folds", fold_shapes) as calls:
+        one_cells = tgt.cross_val(*pairs["tutorial"], device=dev, **MESH_CELLS_CV)
+    one_calls = [c[2] for c in calls]
+    release_cached_memory()
+    with open(os.path.join(directory, "pairs.pkl"), "wb") as f:
+        pickle.dump(pairs, f)
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_population_worker, args=(directory,), nprocs=2,
+                       start_method="spawn")
+    secs = time.perf_counter() - t0
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(directory, f"population_{rank}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    got = ranks[0]
+    alike = same_results(*({k: v for k, v in r.items() if k != "peak"} for r in ranks))
+    n_folds, split = LOO_PAIR[2], MESH_LOO_SPLIT
+    n_types = pairs["loo"][0].obs[LOO_KW["cluster_label"]].nunique()
+    batch = MESH_CELLS_CV["fold_batch_size"]
+    want_calls = {"loo": [(split // 2, n_types), (n_folds - split, n_types)],
+                  "cells": [(batch, SHAPE[0] // 2)] * (10 // batch),
+                  "tuner": [(MESH_TUNER[0] // 2, pairs["tuner"][0].n_obs)]}
+    d_loo = float(np.abs(got["loo"]["scores"] - single["loo"]["scores"]).max())
+    d_cells = max(abs(got["cells"]["cv"][k] - one_cells[k]) for k in one_cells)
+    keys = tuning.METRIC_KEYS
+    d_tuner = float(np.abs(got["tuner"]["df"][keys].to_numpy()
+                           - single["tuner"][keys].to_numpy()).max())
+    say("mesh", f"(e) two gloo ranks on the card in {secs:.1f} s (process start, the data, "
+        f"the three runs); every result {'the same' if alike else 'NOT the same'} on both "
+        "ranks; the trainers handed (members, cells) " + ", ".join(
+            f"{k} {got[k]['calls']}" for k in want_calls) + f" ({card})")
+    say("mesh", f"(e) LOO on (\"fold\",) = 2, batches of {split} (split) and "
+        f"{n_folds - split} (whole): per-fold scores max |diff| {d_loo:.2e} from (d)'s one "
+        f"device (tol {MESH_CV_TOL:.0e})")
+    say("mesh", f"(e) cells 10-fold CV at {SHAPE}, {MESH_CELLS_CV['num_epochs']} epochs, "
+        f"batches of {MESH_CELLS_CV['fold_batch_size']}, on (\"fold\", \"cell\") = 1 x 2: "
+        f"scores {got['cells']['cv']} against one device's {one_cells} (max |diff| "
+        f"{d_cells:.2e}, tol {MESH_CV_TOL:.0e}); peak device memory above the resident: rank "
+        f"0 {ranks[0]['peak'] / 2**30:.3f} GiB, rank 1 {ranks[1]['peak'] / 2**30:.3f} GiB, "
+        f"one device {peak['gib']:.3f} GiB "
+        f"(handed {one_calls}) ({card})")
+    say("mesh", f"(e) tuner on (\"trial\",) = 2: metrics max |diff| {d_tuner:.2e} from (d)'s "
+        f"one device (tol {MESH_TUNER_TOL:.0e})")
+    problems = []
+    if not alike:
+        problems.append("the two ranks returned different results")
+    if {k: got[k]["calls"] for k in want_calls} != want_calls:
+        problems.append(f"the trainers were not handed {want_calls}")
+    if not (d_loo <= MESH_CV_TOL and d_cells <= MESH_CV_TOL):
+        problems.append("a cross-validation on two ranks differs from one device")
+    if not d_tuner <= MESH_TUNER_TOL:
+        problems.append("the tuner on two ranks differs from one device")
+    if problems:
+        fail("mesh: (e) " + "; ".join(problems))
+
+
 def mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
     """Phase 14: training over a mesh (module docstring)."""
     import shutil
@@ -3485,15 +3791,17 @@ def mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
 
     t0 = time.perf_counter()
     release_cached_memory()
+    pairs = population_pairs(ad_sc, ad_sp)
     directory = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
-        M0, M_steps = mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw,
-                                        directory)
+        M0, M_steps, single = mesh_world_of_one(dev, card, ad_sc, ad_sp, cells_mapper,
+                                                norm_lw, pairs, directory)
         mesh_bf16_autograd(card, cells_mapper)
         if GLOO_TAKES_CUDA:
             mesh_two_gloo_ranks(card, cells_mapper, M0, M_steps, directory)
+            mesh_population_two_gloo_ranks(dev, card, pairs, single, directory)
         else:
-            say("mesh", "(b) skipped: gloo does not take CUDA tensors for all_reduce "
+            say("mesh", "(b), (e) skipped: gloo does not take CUDA tensors for all_reduce "
                 "and all_gather_into_tensor on this card (PERF.md)")
     finally:
         shutil.rmtree(directory, ignore_errors=True)

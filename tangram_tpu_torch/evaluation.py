@@ -8,7 +8,9 @@ cosine. :func:`cross_val` trains all folds as one batch by default: a
 (folds, cells, spots) M with per-fold Adam moments over one shared S and G
 and a (folds, genes) gene mask, in plain PyTorch on the card
 (``batched=False`` retrains fold by fold through ``map_cells_to_space`` and
-its CUDA kernels, as the reference does).
+its CUDA kernels, as the reference does). On a mesh of processes the
+batches' folds spread over a fold axis and each fold's cells over the
+other axes (``cross_val(mesh=)``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import pandas as pd
 import torch
 
 from . import adlite
-from .ops.core import softmax_row_chunks, unported
+from .ops.core import softmax_row_chunks
 
 __all__ = [
     "projected_expression",
@@ -275,11 +277,23 @@ def cross_val(
     ``return_gene_pred``): a killed sweep resumes where it stopped,
     recomputing at most one batch, assuming the same arguments (mode, folds,
     epochs and seed are checked; loss weights and the schedule are the
-    caller's responsibility). Batched path only. ``mesh`` (folds over a
-    mesh axis) waits for queue A11b.
+    caller's responsibility). Batched path only.
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` of the ``device``'s
+    type; every rank of it calls ``cross_val`` alike) is data parallelism
+    over folds with tensor parallelism inside each fold, as the JAX package
+    lays it out: a fold batch whose size divides the mesh axis named
+    ``"fold"`` (else the first axis) spreads over it, each rank training
+    its block of the batch, and any other batch trains whole on every rank;
+    the remaining axes shard each fold's cells in contiguous blocks when
+    the cell count divides their product, and hold every cell, with a
+    warning, otherwise (the Y = PᵀS and q = wP sums are summed over the
+    cell group every step). ``fold_batch_size="auto"`` then divides the
+    per-fold bytes of the (cells × spots) arrays by the cell shards and
+    rounds the batch down to a multiple of the fold axis. Every rank
+    returns the whole result; the lead rank alone writes ``resume_path``.
+    The loop path (``batched=False``) ignores ``mesh``, as in JAX.
     """
-    if mesh is not None:
-        raise unported("mesh", "queue A11b (the fold axis over a mesh)")
     from .models.mapper import resolve_device
 
     device = resolve_device(device)
@@ -307,7 +321,7 @@ def cross_val(
         batched = mode in ("clusters", "cells", "constrained")
     if batched:
         return _cross_val_batched(
-            adata_sc, adata_sp, fold_batch_size=fold_batch_size,
+            adata_sc, adata_sp, fold_batch_size=fold_batch_size, mesh=mesh,
             resume_path=resume_path, **kwargs
         )
     if resume_path is not None:
@@ -451,58 +465,95 @@ _FOLD_BYTES_PER_ENTRY = {"cs": 40, "sg": 24, "cg": 16}
 _MAX_FOLD_BATCH = 256
 
 
-def _fold_bytes(n_cells: int, n_spots: int, n_genes: int) -> int:
-    """Device bytes one fold of the batched training step takes."""
+def _fold_bytes(n_cells: int, n_spots: int, n_genes: int, cell_shards: int = 1) -> int:
+    """Device bytes one fold of the batched training step takes, its
+    (cells × spots) arrays split over ``cell_shards`` ranks."""
     b = _FOLD_BYTES_PER_ENTRY
-    return (b["cs"] * n_cells * n_spots + b["sg"] * n_spots * n_genes
+    return (b["cs"] * n_cells * n_spots // cell_shards + b["sg"] * n_spots * n_genes
             + b["cg"] * n_cells * n_genes)
 
 
-def auto_fold_batch_size(n_cells: int, n_spots: int, n_genes: int, device) -> int:
+def auto_fold_batch_size(n_cells: int, n_spots: int, n_genes: int, device,
+                         cell_shards: int = 1, fold_shards: int = 1) -> int:
     """Folds per batch that fit :func:`~tangram_tpu_torch.utils.device_memory_budget`
-    (half the card), between 1 and 256."""
+    (half the card), between 1 and 256, with each fold's cells over
+    ``cell_shards`` ranks; on a fold axis of ``fold_shards`` ranks rounded
+    down to a multiple of it, and at least one fold per rank (the JAX
+    package's rule)."""
     from .utils import device_memory_budget
 
     budget = device_memory_budget(device)
-    per_fold = _fold_bytes(n_cells, n_spots, n_genes)
-    return int(np.clip(budget // max(per_fold, 1), 1, _MAX_FOLD_BATCH))
+    per_fold = _fold_bytes(n_cells, n_spots, n_genes, cell_shards)
+    batch = int(np.clip(budget // max(per_fold, 1), 1, _MAX_FOLD_BATCH))
+    return max(fold_shards, batch // fold_shards * fold_shards)
 
 
 def _fit_folds(params0, data, masks, lw, num_epochs: int, learning_rate,
-               constrained: bool):
+               constrained: bool, cell=None, n_cells: int = None):
     """Adam on a batch of folds: every fold starts from ``params0`` (M, or
     (M, F)) and trains with its row of ``masks`` (folds, genes) as the gene
-    mask of the reference loss (``compute_loss`` / ``compute_constrained_loss``
-    with the materialized core, mapped over the folds by ``torch.func.vmap``;
-    products in f32, TF32 off as PyTorch's default leaves it), each fold with
-    its own moments and one shared step count. Returns the trained
-    parameters, each with a leading fold axis, and each fold's gene-voxel
-    score before the last step (the training score the loop path reports).
+    mask of the reference loss (the materialized core and the loss
+    epilogue of ``compute_loss`` / ``compute_constrained_loss``, each
+    mapped over the folds by ``torch.func.vmap``; products in f32, TF32 off
+    as PyTorch's default leaves it), each fold with its own moments and one
+    shared step count. Returns the trained parameters, each with a leading
+    fold axis, and each fold's gene-voxel score before the last step (the
+    training score the loop path reports).
+
+    On a cell block (``cell``, a mesh axis of
+    :mod:`~tangram_tpu_torch.parallel.mesh`, with ``params0``, ``data.S``
+    and ``data.d_source`` this rank's rows of ``n_cells``) the core's sums
+    over cells (Y, q, Σh and the filter's two sums) are summed over the
+    axis between the two mapped halves: a collective does not map.
     """
     from .models.mapper import _lr_at
+    from .ops.core import mapper_core_reference
     from .ops.fused_step import _adam_vector, adam_scalars
-    from .ops.losses import compute_constrained_loss, compute_loss
+    from .ops.losses import (constrained_epilogue, constrained_inputs,
+                             unconstrained_epilogue, unconstrained_inputs)
+    from .parallel.mesh import NO_AXIS, sum_replicated
 
+    cell = NO_AXIS if cell is None else cell
     n = masks.shape[0]
     leaves0 = tuple(params0) if constrained else (params0,)
     params = tuple(p.expand(n, *p.shape).clone() for p in leaves0)
     mus = tuple(torch.zeros_like(p) for p in params)
     nus = tuple(torch.zeros_like(p) for p in params)
+    if data.d_source is None and not constrained:
+        c_local = leaves0[0].shape[0]
+        # the uniform marginal over every cell of the fold, not the block's
+        data = data._replace(d_source=torch.full(
+            (c_local,), 1.0 / (n_cells or c_local), dtype=torch.float32,
+            device=leaves0[0].device))
 
-    def fold_loss(mask, *leaves):
+    def partials(mask, *leaves):
+        """This rank's share of one fold's core: Y, q, Σh and, constrained,
+        Σσ(F) and Σσ(F)(1 − σ(F))."""
         fold = data._replace(gene_mask=mask)
         if constrained:
-            total, terms = compute_constrained_loss(leaves, fold, lw, "reference")
+            A, w = constrained_inputs(leaves[1], fold)
+            f_sums = (torch.sum(w), torch.sum(w - w * w))
         else:
-            total, terms = compute_loss(leaves[0], fold, lw, "reference")
+            A, w = unconstrained_inputs(leaves[0], fold, lw)
+            f_sums = ()
+        Y, q, h = mapper_core_reference(leaves[0], A, w)
+        return (Y, q, torch.sum(h)) + f_sums
+
+    def epilogue(mask, Y, q, h_sum, *f_sums):
+        fold = data._replace(gene_mask=mask)
+        if constrained:
+            total, terms = constrained_epilogue(Y, q, h_sum, None, fold, lw, f_sums=f_sums)
+        else:
+            total, terms = unconstrained_epilogue(Y, q, h_sum, None, None, fold, lw)
         return total, terms["main_loss"]
 
-    losses = torch.func.vmap(fold_loss)
+    cores, losses = torch.func.vmap(partials), torch.func.vmap(epilogue)
     main = None
     for t in range(num_epochs):
         with torch.enable_grad():
             leaves = tuple(p.detach().requires_grad_() for p in params)
-            totals, main = losses(masks, *leaves)
+            sums = (sum_replicated(x, cell) for x in cores(masks, *leaves))
+            totals, main = losses(masks, *sums)
             grads = torch.autograd.grad(totals.sum(), leaves)
         scalars = adam_scalars(t + 1, _lr_at(learning_rate, t))
         for p, g, mu, nu in zip(params, grads, mus, nus):
@@ -512,14 +563,18 @@ def _fit_folds(params0, data, masks, lw, num_epochs: int, learning_rate,
     return params, main.detach()
 
 
-def _fold_scores(M, S, G, test_cols):
+def _fold_scores(M, S, G, test_cols, cell=None):
     """Per-fold, per-gene cosine of the projection softmax(M)ᵀS against G,
     (folds, genes), and each fold's test-gene columns of the projection,
     gathered on the device: (n, spots) for the ``n`` (fold, gene) pairs of
     ``test_cols``. The softmax runs over spots, the LAST axis of the
     (folds, cells, spots) M: over cells it would renormalize the wrong way
-    and depress every held-out score (−0.078 on the recorded LOO)."""
-    G_pred = torch.matmul(torch.softmax(M, dim=-1).transpose(1, 2), S)
+    and depress every held-out score (−0.078 on the recorded LOO). On a
+    cell block (M's and S's rows) the projection is summed over ``cell``."""
+    from .parallel.mesh import NO_AXIS, all_sum_
+
+    G_pred = all_sum_(torch.matmul(torch.softmax(M, dim=-1).transpose(1, 2), S),
+                      NO_AXIS if cell is None else cell)
     dots = torch.sum(G_pred * G[None], dim=1)
     n1 = torch.linalg.vector_norm(G_pred, dim=1)
     n2 = torch.linalg.vector_norm(G, dim=0)[None]
@@ -551,18 +606,21 @@ def _cross_val_batched(
     random_state,
     verbose,
     fold_batch_size,
+    mesh=None,
     resume_path=None,
     lambda_count=1,
     lambda_f_reg=1,
     target_count=None,
 ):
     """All CV folds as batches of folds trained together (see
-    :func:`_fit_folds`)."""
+    :func:`_fit_folds`), on ``mesh`` as :func:`cross_val` says."""
     from .mapping import (_check_mapping_args, _densify, _resolve_density,
                           adata_to_cluster_expression)
-    from .models.mapper import _draw_device, init_constrained_logits, init_logits
+    from .models.mapper import (_check_mesh, _draw_device, init_constrained_logits,
+                                init_logits)
     from .ops.losses import LossWeights, MapperData
     from .ops.schedules import resolve_lr
+    from .parallel.mesh import BatchLayout
     from .utils import annotate_gene_sparsity
 
     # the SAME validator the per-fold loop path runs, so that batched and
@@ -572,6 +630,7 @@ def _cross_val_batched(
         target_count, lambda_f_reg, lambda_count,
     )
     constrained = mode == "constrained"
+    mesh = _check_mesh(mesh, device)
 
     adata_sc_orig = adata_sc
     if mode == "clusters":
@@ -604,9 +663,11 @@ def _cross_val_batched(
         test_idx_lists.append([gene_index[g] for g in test_genes])
 
     n_cells, n_spots = S.shape[0], G.shape[0]
+    layout = BatchLayout(mesh, "fold", n_cells, what="per-fold")
     if fold_batch_size == "auto":
-        fold_batch_size = auto_fold_batch_size(n_cells, n_spots, len(training_genes),
-                                               device)
+        fold_batch_size = auto_fold_batch_size(
+            n_cells, n_spots, len(training_genes), device,
+            cell_shards=layout.cell.block.count, fold_shards=layout.batch.block.count)
     fold_batch_size = int(fold_batch_size)
     init_device = _draw_device("auto", n_cells * n_spots, device)
     if constrained:
@@ -619,9 +680,13 @@ def _cross_val_batched(
         return None if x is None else torch.tensor(np.asarray(x, dtype=np.float32),
                                                    device=device)
 
-    params0 = tuple(p.to(device) for p in params0) if constrained else params0.to(device)
+    # this rank's cells of every fold
+    rows = layout.rows
+    params0 = (tuple(p[rows].to(device) for p in params0) if constrained
+               else params0[rows].to(device))
     data = MapperData(
-        S=dev(S), G=dev(G), d=dev(prior.d), d_source=dev(prior.d_source),
+        S=dev(S[rows]), G=dev(G), d=dev(prior.d),
+        d_source=None if prior.d_source is None else dev(np.asarray(prior.d_source)[rows]),
         target_count=dev(np.float32(target_count)) if constrained else None,
     )
     lr = resolve_lr(learning_rate, int(num_epochs))
@@ -645,6 +710,7 @@ def _cross_val_batched(
                 n_folds=n_folds, n_genes=len(training_genes),
                 return_gene_pred=bool(return_gene_pred),
             ),
+            sync=layout,
         )
         done_folds = {int(rec["fold"]): rec for rec in journal.load()}
         if return_gene_pred:
@@ -665,21 +731,33 @@ def _cross_val_batched(
             if verbose:
                 print(f"cv folds {start}-{stop - 1} resumed from journal")
             continue
-        params, main = _fit_folds(params0, data, dev(masks[start:stop]), lw,
-                                  int(num_epochs), lr, constrained)
-        pairs = [(f - start, tg) for f in range(start, stop) for tg in test_idx_lists[f]]
+        # this rank's folds of the batch: a block of the fold axis, or all
+        n = stop - start
+        mine = layout.part(n)
+        first, last = start + mine.start, start + mine.stop
+        params, main = _fit_folds(params0, data, dev(masks[first:last]), lw,
+                                  int(num_epochs), lr, constrained, cell=layout.cell,
+                                  n_cells=n_cells)
+        # every fold's test genes padded to the batch's most (the last
+        # repeated), so that each rank gathers alike-shaped predictions
+        width = max(len(test_idx_lists[f]) for f in range(start, stop))
+        pairs = []
+        for f in range(first, last):
+            tgs = test_idx_lists[f]
+            pairs += [(f - first, tgs[min(j, len(tgs) - 1)]) for j in range(width)]
         test_cols = (tuple(torch.tensor(v, device=device) for v in zip(*pairs))
                      if return_gene_pred else None)
-        scores, preds = _fold_scores(params[0], data.S, data.G, test_cols)
+        scores, preds = _fold_scores(params[0], data.S, data.G, test_cols, cell=layout.cell)
         del params
-        all_scores[start:stop] = scores.cpu().numpy()
-        train_scores[start:stop] = main.cpu().numpy()
+        all_scores[start:stop] = layout.gather(scores, n).cpu().numpy()
+        train_scores[start:stop] = layout.gather(main, n).cpu().numpy()
         if return_gene_pred:
-            preds = preds.cpu().numpy()
-            for (f_local, tg), col in zip(pairs, preds):
-                pred_cols[tg] = col
+            preds = layout.gather(preds.reshape(last - first, width, -1), n).cpu().numpy()
+            for f in range(start, stop):
+                for j, tg in enumerate(test_idx_lists[f]):
+                    pred_cols[tg] = preds[f - start, j]
         if journal is not None:
-            if return_gene_pred:
+            if return_gene_pred and layout.lead:
                 # predictions first: the journal line is the commit point
                 for f in range(start, stop):
                     np.save(os.path.join(pred_store, f"fold{f}.npy"),

@@ -29,19 +29,9 @@ import numpy as np
 import torch
 
 __all__ = ["mapper_core", "mapper_core_reference", "resolve_impl", "softmax_row_chunks",
-           "unported", "NeighborGraph", "graph_matmul", "transpose_arrays",
-           "neighbor_graph_from_dense"]
+           "NeighborGraph", "graph_matmul", "transpose_arrays", "neighbor_graph_from_dense"]
 
 IMPLS = ("auto", "kernels", "fused", "reference")
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error raised for an option the port does not cover yet; ``item``
-    names the ROADMAP entry that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to tangram_tpu_torch yet (ROADMAP {item}); "
-        "the JAX package tangram_tpu supports it"
-    )
 
 
 def mapper_core_reference(M, A, w):

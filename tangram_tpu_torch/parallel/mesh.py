@@ -183,8 +183,68 @@ def _axis(mesh, names) -> _Axis:
     return _Axis(sub.get_group(), Block(sub.get_local_rank(), sub.size()))
 
 
+#: the axis a mesh lacks: collectives over it do nothing
+NO_AXIS = _Axis(None, Block())
+
+
 def _cell_names(mesh):
     return tuple(a for a in ("slice", "cell") if a in mesh.mesh_dim_names)
+
+
+class BatchLayout:
+    """A batch of whole problems (cross-validation folds, tuner trials) on
+    a mesh, laid out as the JAX package lays them out: the batch's leading
+    axis over the mesh axis named ``name`` (``"fold"``, ``"trial"``), else
+    over the mesh's first axis; each problem's cells over the remaining
+    axes, flattened into one group (:attr:`cell`), in contiguous blocks
+    without padding when ``n_cells`` divides the group, replicated with
+    :func:`~tangram_tpu_torch.utils.warn_tp_replication` (``what`` names the
+    logits there) otherwise. ``mesh=None`` splits nothing. Every rank of
+    the mesh builds it alike and calls it in the same order.
+
+    ``rows`` are this rank's cells. A batch of n members lies on the batch
+    axis only when n divides it (:meth:`part`); :meth:`gather` brings every
+    rank's results back in batch order, so that every rank returns the
+    same. ``lead`` (the mesh's first rank) alone writes files, and
+    :meth:`barrier` holds the others until it has."""
+
+    def __init__(self, mesh, name: str, n_cells: int, what: str):
+        self.batch = self.cell = NO_AXIS
+        self.every = None
+        if mesh is not None:
+            names = mesh.mesh_dim_names
+            batch = name if name in names else names[0]
+            cell_axes = tuple(a for a in names if a != batch)
+            self.batch = _axis(mesh, (batch,))
+            if cell_axes:
+                cell = _axis(mesh, cell_axes)
+                if n_cells % cell.block.count == 0:
+                    self.cell = cell
+                else:
+                    from ..utils import warn_tp_replication
+
+                    warn_tp_replication(cell.block.count, cell_axes, n_cells, what=what)
+            self.every = _axis(mesh, names)
+        self.rows = self.cell.block.slice(n_cells)
+        self.lead = self.every is None or self.every.block.index == 0
+
+    def splits(self, n: int) -> bool:
+        """Whether a batch of ``n`` lies on the batch axis."""
+        return self.batch.group is not None and n % self.batch.block.count == 0
+
+    def part(self, n: int) -> slice:
+        """This rank's members of a batch of ``n``: its block of the batch
+        axis when the batch lies on it, all of them otherwise."""
+        return self.batch.block.slice(n) if self.splits(n) else slice(0, n)
+
+    def gather(self, x, n: int):
+        """The batch's rows of ``x`` (this rank's :meth:`part` of a batch
+        of ``n`` along dim 0) from every rank, in batch order."""
+        return all_gather_rows(x, self.batch) if self.splits(n) else x
+
+    def barrier(self):
+        if self.every is not None:
+            dist.barrier(group=self.every.group)
 
 
 def mapping_shardings(mesh):

@@ -20,7 +20,9 @@ learning rates. The core is the materialized one
 tuner pins ``impl="xla"``: the tuner launches none of the port's kernels.
 Its products run in f32 with TF32 off for the call, whatever the process
 set. Sampling uses a scrambled Sobol sequence, TPE (:mod:`.search`) or
-successive halving.
+successive halving. On a mesh of processes the trials of a batch spread
+over a trial axis and each member's cells over the other axes
+(``mapping_hyperparameter_tuning(mesh=)``).
 """
 
 from __future__ import annotations
@@ -219,7 +221,7 @@ def _full_f32():
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _device_metrics(Ps, val_sims, S_val):
+def _device_metrics(Ps, val_sims, S_val, cell=None, n_cells=None):
     """The 5 reported metrics of repeat cubes, on the device (f32 analogues
     of :func:`pearson_corr`, :func:`vote_entropy`, :func:`consensus_entropy`
     + the masked-gene val score; the host functions remain the reference
@@ -230,20 +232,32 @@ def _device_metrics(Ps, val_sims, S_val):
 
     ``Ps``: (..., runs, cells, spots) softmaxed maps. ``val_sims``:
     (..., runs). ``S_val``: (cells, n_val_genes). Each metric has the
-    leading shape ``...`` (one value per config of a batch).
+    leading shape ``...`` (one value per config of a batch). On a cell
+    block (``Ps``' and ``S_val``'s rows of ``n_cells``) every sum over
+    cells is this rank's part, summed over the mesh axis ``cell``: the
+    Pearson means and Gram, the vote and consensus entropies, and the gene
+    cube S_valᵀP.
     """
+    from .parallel.mesh import NO_AXIS, all_sum_
+
+    cell = NO_AXIS if cell is None else cell
+    n_cells = Ps.shape[-2] if n_cells is None else n_cells
     p = Ps.shape[-3]
     log_spots = math.log(Ps.shape[-1])
     tri_i, tri_j = np.tril_indices(p, -1)
 
-    def pearson_mean(flat):  # (..., p, n)
-        centered = flat - flat.mean(dim=-1, keepdim=True)
-        gram = centered @ centered.transpose(-1, -2)
+    def pearson_mean(flat, axis, n):  # (..., p, this rank's entries of n)
+        mean = all_sum_(flat.sum(dim=-1, keepdim=True), axis) / n
+        centered = flat - mean
+        gram = all_sum_(centered @ centered.transpose(-1, -2), axis)
         var = torch.clamp(torch.diagonal(gram, dim1=-2, dim2=-1), min=0.0)
         denom = torch.sqrt(var[..., :, None] * var[..., None, :])
         num, den = gram[..., tri_i, tri_j], denom[..., tri_i, tri_j]
         safe = torch.where(den > 0, den, torch.ones_like(den))
         return torch.where(den > 0, num / safe, torch.zeros_like(num)).mean(dim=-1)
+
+    def cell_mean(x):  # over the last axis, the cells
+        return all_sum_(x.sum(dim=-1), cell) / n_cells
 
     def norm_entropy_mean(probs):  # rows renormalized, 0·log0 := 0
         rs = probs.sum(dim=-1, keepdim=True)
@@ -251,7 +265,7 @@ def _device_metrics(Ps, val_sims, S_val):
                          torch.zeros_like(probs))
         plogp = torch.where(pr > 0, pr * torch.log(torch.where(pr > 0, pr, torch.ones_like(pr))),
                             torch.zeros_like(pr))
-        return (-plogp.sum(dim=-1) / log_spots).mean(dim=-1)
+        return cell_mean(-plogp.sum(dim=-1) / log_spots)
 
     # vote entropy: Σ over vote groups of −(m/p)·log(m/p) equals a sum over
     # MEMBERS of −(1/p)·log(cnt/p), where cnt is each member's group size —
@@ -262,13 +276,15 @@ def _device_metrics(Ps, val_sims, S_val):
     cnt = eq.sum(dim=-2).to(torch.float32)  # (..., p, cells)
     vote_H = (-(1.0 / p) * torch.log(cnt / p)).sum(dim=-2) / log_spots
 
-    gene_cube = S_val.T @ Ps  # (..., runs, val genes, spots)
+    gene_cube = all_sum_(S_val.T @ Ps, cell)  # (..., runs, val genes, spots)
     lead = Ps.shape[:-2]
     return {
-        "cell_map_consistency": pearson_mean(Ps.reshape(*lead, -1)),
-        "cell_map_agreement": 1.0 - vote_H.mean(dim=-1),
+        "cell_map_consistency": pearson_mean(Ps.reshape(*lead, -1), cell,
+                                             n_cells * Ps.shape[-1]),
+        "cell_map_agreement": 1.0 - cell_mean(vote_H),
         "cell_map_certainty": 1.0 - norm_entropy_mean(Ps.mean(dim=-3)),
-        "gene_expr_consistency": pearson_mean(gene_cube.reshape(*lead, -1)),
+        "gene_expr_consistency": pearson_mean(gene_cube.reshape(*lead, -1), NO_AXIS,
+                                              gene_cube.shape[-2] * gene_cube.shape[-1]),
         "gene_expr_correctness": val_sims.mean(dim=-1),
     }
 
@@ -278,7 +294,7 @@ def _device_metrics(Ps, val_sims, S_val):
 # ---------------------------------------------------------------------------
 
 
-def _tuner_loss(M, lam, data_arrays, active=None):
+def _tuner_loss(M, lam, data_arrays, active=None, cell=None, n_cells=None):
     """The tunable terms with per-member weights.
 
     ``M`` is (c, s) or a population (members, c, s); each value of ``lam``
@@ -300,19 +316,27 @@ def _tuner_loss(M, lam, data_arrays, active=None):
     the dense (spots × spots) W-products even when no spatial λ is in the
     search space. A zero λ makes the skipped term's value and gradient
     exactly zero, so the result is bit-comparable.
+
+    On a cell block (M's, S's and ct_enc's rows of ``n_cells``) the sums
+    over cells (Y, q, the entropy and the L1/L2 sums) are this rank's
+    parts, summed over the mesh axis ``cell``; the graph terms act on
+    spots, after Y is summed.
     """
     from .ops.core import graph_matmul, mapper_core_reference
     from .ops.losses import cosine_similarity, kl_div_sum
+    from .parallel.mesh import NO_AXIS, sum_replicated
 
+    cell = NO_AXIS if cell is None else cell
     (S, G, d, mask, voxel_w, nb_filter, ct_enc, spatial_w, getis_ref) = data_arrays
     if mask is not None:
         S = S * mask[None, :]
         G = G * mask[None, :]
-    n_cells = M.shape[-2]
+    n_cells = M.shape[-2] if n_cells is None else n_cells
 
     A = torch.cat([S, ct_enc], dim=1)
-    w = torch.full((n_cells,), 1.0 / n_cells, dtype=M.dtype, device=M.device)
+    w = torch.full((M.shape[-2],), 1.0 / n_cells, dtype=M.dtype, device=M.device)
     Y, q, h = mapper_core_reference(M, A, w)
+    Y, q = sum_replicated(Y, cell), sum_replicated(q, cell)
     G_pred = Y[..., : S.shape[1]]
     ct_map = Y[..., S.shape[1]:]
 
@@ -331,11 +355,13 @@ def _tuner_loss(M, lam, data_arrays, active=None):
     if on("lambda_d"):
         total = total + lam["lambda_d"] * kl_div_sum(torch.log(q), d)
     if on("lambda_r"):
-        total = total + lam["lambda_r"] * -torch.sum(h, dim=-1)
+        total = total + lam["lambda_r"] * -sum_replicated(torch.sum(h, dim=-1), cell)
     if on("lambda_l1"):
-        total = total + lam["lambda_l1"] * torch.sum(torch.abs(M), dim=(-2, -1))
+        total = total + lam["lambda_l1"] * sum_replicated(
+            torch.sum(torch.abs(M), dim=(-2, -1)), cell)
     if on("lambda_l2"):
-        total = total + lam["lambda_l2"] * torch.sum(M * M, dim=(-2, -1))
+        total = total + lam["lambda_l2"] * sum_replicated(
+            torch.sum(M * M, dim=(-2, -1)), cell)
     if on("lambda_ct_islands"):
         nb_ct = graph_matmul(nb_filter, ct_map)
         excess = ct_map - nb_ct
@@ -420,15 +446,25 @@ def train_multiple_Mapper(config, data):
 
 
 class _PopulationSetup:
-    """Device tensors + repeat inits shared by every tuner search mode."""
+    """Device tensors + repeat inits shared by every tuner search mode.
+
+    With ``mesh`` (a ``DeviceMesh``), ``layout`` lays the trials out as
+    :class:`~tangram_tpu_torch.parallel.mesh.BatchLayout` says (the trial
+    axis named ``"trial"``, else the first), and the cell-indexed tensors
+    (the repeat inits, S, its val columns, the one-hot cell types) hold
+    this rank's rows."""
 
     def __init__(self, S, G, d, voxel_weights, neighborhood_filter,
                  ct_encode, spatial_weights, train_genes_idx, val_genes_idx,
-                 device=None):
+                 device=None, mesh=None):
         from .models.mapper import init_logits, resolve_device
+        from .parallel.mesh import BatchLayout
 
         self.device = dev = resolve_device(device)
         n_cells, n_spots = S.shape[0], G.shape[0]
+        self.n_cells, self.n_spots = n_cells, n_spots
+        self.layout = BatchLayout(mesh, "trial", n_cells, what="per-trial")
+        rows = self.layout.rows
         g_all = S.shape[1]
         train_mask = np.zeros(g_all, np.float32)
         train_mask[np.asarray(train_genes_idx)] = 1.0
@@ -441,12 +477,13 @@ class _PopulationSetup:
 
         # raw (unmasked) S restricted to the val genes — the gene-space
         # stability metrics project each run's map through it on the device
-        self.S_val_dev = put(np.asarray(S)[:, np.asarray(val_genes_idx)])
-        self.S_dev = put(S)
+        self.S_val_dev = put(np.asarray(S)[rows][:, np.asarray(val_genes_idx)])
+        self.S_dev = put(np.asarray(S)[rows])
         self.G_dev = put(G)
         self.mask_dev = put(train_mask)
         arrays = (self.S_dev, self.G_dev, put(d), self.mask_dev, put(voxel_weights),
-                  put(neighborhood_filter), put(ct_encode), put(spatial_weights))
+                  put(neighborhood_filter), put(np.asarray(ct_encode)[rows]),
+                  put(spatial_weights))
 
         # Getis-Ord reference on the (masked) training genes, on the device:
         # the (spots × spots) @ (spots × genes) product is ~50 GFLOP at real
@@ -465,7 +502,7 @@ class _PopulationSetup:
         # package's draws bit for bit), making the 5 stability metrics
         # comparable run-for-run with the reference tuner.
         self.M0s = torch.stack(
-            [init_logits(n_cells, n_spots, r, "auto") for r in range(N_REPEATS)]
+            [init_logits(n_cells, n_spots, r, "auto")[rows] for r in range(N_REPEATS)]
         ).to(dev)
 
         self.lam_keys = [
@@ -489,6 +526,7 @@ class _PopulationSetup:
         from .ops.fused_step import ADAM_EPS, BETA1, BETA2
         from .ops.losses import cosine_similarity
         from .ops.schedules import cosine_value
+        from .parallel.mesh import all_sum_
 
         n_cfg, R = M.shape[:2]
         members = M.reshape(n_cfg * R, *M.shape[2:])  # views: updates land in M
@@ -503,7 +541,8 @@ class _PopulationSetup:
         for i in range(steps):
             with torch.enable_grad():
                 Mv = members.detach().requires_grad_()
-                total, _ = _tuner_loss(Mv, lam, self.arrays, active)
+                total, _ = _tuner_loss(Mv, lam, self.arrays, active, self.layout.cell,
+                                       self.n_cells)
                 (g,) = torch.autograd.grad(total.sum(), (Mv,))
             mu_m.copy_((1.0 - BETA1) * g + BETA1 * mu_m)
             nu_m.copy_((1.0 - BETA2) * (g * g) + BETA2 * nu_m)
@@ -517,10 +556,11 @@ class _PopulationSetup:
         P = torch.softmax(members, dim=-1)
         Sm = self.S_dev * self.mask_dev[None, :]
         Gm = self.G_dev * self.mask_dev[None, :]
-        G_pred = P.transpose(-1, -2) @ Sm
+        G_pred = all_sum_(P.transpose(-1, -2) @ Sm, self.layout.cell)
         val = (torch.sum(cosine_similarity(G_pred, Gm, axis=-2) * self.mask_dev, dim=-1)
                / torch.sum(self.mask_dev))
-        return _device_metrics(P.view_as(M), val.view(n_cfg, R), self.S_val_dev)
+        return _device_metrics(P.view_as(M), val.view(n_cfg, R), self.S_val_dev,
+                               self.layout.cell, self.n_cells)
 
     def fit_batched(self, num_epochs: int, active: Optional[frozenset] = None):
         """The (configs × repeats) population trainer for a training length
@@ -606,13 +646,15 @@ class _PopulationSetup:
         }
 
 
-def _host_rows(mets):
-    """The metrics of a batch as one host array (one transfer), a dict of
-    (configs,) float64 arrays with the keys sorted: the column order of the
-    JAX package's frames (its jitted metric dict comes back sorted)."""
+def _host_rows(mets, layout, n: int):
+    """The metrics of a batch of ``n`` trials as one host array (one
+    transfer), a dict of (configs,) float64 arrays with the keys sorted: the
+    column order of the JAX package's frames (its jitted metric dict comes
+    back sorted). ``mets`` are this rank's trials of the batch, gathered
+    over the ``layout``'s trial axis first."""
     keys = sorted(mets)
-    table = torch.stack([mets[k] for k in keys]).cpu().numpy()
-    return dict(zip(keys, table.astype(np.float64)))
+    table = layout.gather(torch.stack([mets[k] for k in keys], dim=1), n).cpu().numpy()
+    return dict(zip(keys, table.T.astype(np.float64)))
 
 
 def _run_population(
@@ -631,11 +673,16 @@ def _run_population(
     setup: Optional[_PopulationSetup] = None,
     active: Optional[frozenset] = None,
     device=None,
+    mesh=None,
 ):
+    """The (configs × repeats) population in batches of
+    ``population_batch_size`` configs; on the setup's mesh (``mesh``, when
+    this builds the setup) each batch whose size divides the trial axis
+    spreads over it. Every rank returns the whole frame."""
     if setup is None:
         setup = _PopulationSetup(
             S, G, d, voxel_weights, neighborhood_filter, ct_encode,
-            spatial_weights, train_genes_idx, val_genes_idx, device=device,
+            spatial_weights, train_genes_idx, val_genes_idx, device=device, mesh=mesh,
         )
     M0s = setup.M0s
 
@@ -657,9 +704,11 @@ def _run_population(
 
         for start in range(0, len(idxs), population_batch_size):
             chunk = idxs[start : start + population_batch_size]
-            lam_mat = setup.lam_matrix(configs, chunk)
-            lr_peaks, lr_ends = setup.lr_vectors(configs, chunk)
-            mets = _host_rows(fit_batched(lam_mat, lr_peaks, lr_ends, M0s))
+            mine = chunk[setup.layout.part(len(chunk))]
+            lam_mat = setup.lam_matrix(configs, mine)
+            lr_peaks, lr_ends = setup.lr_vectors(configs, mine)
+            mets = _host_rows(fit_batched(lam_mat, lr_peaks, lr_ends, M0s), setup.layout,
+                              len(chunk))
 
             for row, i in enumerate(chunk):
                 results.append(
@@ -724,10 +773,16 @@ def _run_halving(
     paths follow the same cosine-schedule trajectory because partial
     training always spans absolute epochs [0, target).
 
+    On the setup's mesh each rung lies on the trial axis when its alive
+    count divides it (each chunk of a restarted rung likewise), as in the
+    JAX package: the carried state of a rung that does holds this rank's
+    trials, and after an elimination the survivors' rows are gathered over
+    the trial axis and taken up again by the ranks that now own them.
+
     Returns a row per trial with the 5 metrics at its last rung plus a
     ``trained_epochs`` column.
     """
-    M0s, lam_keys = setup.M0s, setup.lam_keys
+    M0s, lam_keys, layout = setup.M0s, setup.lam_keys, setup.layout
     n = len(configs)
     if active is None:
         active = _active_lambdas(configs, lam_keys)
@@ -743,7 +798,8 @@ def _run_halving(
     # doesn't fit.
     from .utils import device_memory_budget
 
-    state_bytes = 2 * 3 * 4 * n * int(np.prod(M0s.shape))  # in+out × (M,mu,nu)
+    # in+out × (M, mu, nu) of the whole population, as JAX counts it
+    state_bytes = 2 * 3 * 4 * n * N_REPEATS * setup.n_cells * setup.n_spots
     carry = state_bytes <= device_memory_budget(setup.device)
     chunk_size = max(1, int(population_batch_size))
 
@@ -754,7 +810,8 @@ def _run_halving(
         return M, count, torch.zeros_like(M), torch.zeros_like(M)
 
     if carry:
-        M, count, mu, nu = fresh(n)
+        part = layout.part(n)
+        M, count, mu, nu = fresh(part.stop - part.start)
     elif verbose:
         logging.info(
             "halving: carried state (%.1f GB) exceeds the device budget; "
@@ -775,26 +832,34 @@ def _run_halving(
                 np.asarray([[rows[i][m] for m in metric] for i in alive])
             )
             sel = np.sort(order[:keep])  # batch positions of the survivors
-            alive = alive[sel]
             sel_dev = torch.as_tensor(sel, device=lam_mat.device)
             lam_mat, lr_peaks, lr_ends = lam_mat[sel_dev], lr_peaks[sel_dev], lr_ends[sel_dev]
             if carry:
-                M, count, mu, nu = M[sel_dev], count[sel_dev], mu[sel_dev], nu[sel_dev]
+                # the whole alive population's state (it fits the budget by
+                # construction), then this rank's survivors
+                mine = layout.part(keep)
+                M, count, mu, nu = (layout.gather(x, len(alive))[sel_dev][mine]
+                                    for x in (M, count, mu, nu))
+            alive = alive[sel]
         if carry:
+            mine = layout.part(len(alive))
             M, count, mu, nu, mets = fit_batched(
-                lam_mat, lr_peaks, lr_ends, M, count, mu, nu, done, target - done,
+                lam_mat[mine], lr_peaks[mine], lr_ends[mine], M, count, mu, nu, done,
+                target - done,
             )
-            mets = _host_rows(mets)
+            mets = _host_rows(mets, layout, len(alive))
             for row, i in enumerate(alive):
                 rows[i] = {k: float(v[row]) for k, v in mets.items()}
         else:
             for start in range(0, len(alive), chunk_size):
                 stop = min(start + chunk_size, len(alive))
+                part = layout.part(stop - start)
+                mine = slice(start + part.start, start + part.stop)
                 *_, mets = fit_batched(
-                    lam_mat[start:stop], lr_peaks[start:stop], lr_ends[start:stop],
-                    *fresh(stop - start), 0, target,
+                    lam_mat[mine], lr_peaks[mine], lr_ends[mine],
+                    *fresh(part.stop - part.start), 0, target,
                 )
-                mets = _host_rows(mets)
+                mets = _host_rows(mets, layout, stop - start)
                 for row in range(stop - start):
                     i = alive[start + row]
                     rows[i] = {k: float(v[row]) for k, v in mets.items()}
@@ -961,15 +1026,22 @@ def mapping_hyperparameter_tuning(
     resumed metrics additionally need the same ambient seeding the original
     call had.
 
-    ``mesh`` (trials over a mesh axis) is not ported yet (ROADMAP A11b) and
-    raises.
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` of the ``device``'s
+    type; every rank of it calls the tuner alike) is data parallelism over
+    trials with tensor parallelism inside each trial, as the JAX package
+    lays it out, in every search mode: a population batch (a halving rung,
+    a restarted rung's chunk) whose config count divides the mesh axis
+    named ``"trial"`` (else the first axis) spreads over it, and any other
+    trains whole on every rank; the remaining axes shard each member's
+    cells in contiguous blocks when the cell count divides their product,
+    and hold every cell, with a warning, otherwise. Every rank draws the
+    same inits and asks the same configs from the same seeds (so each
+    needs the same ambient numpy state) and returns the whole frame; the
+    lead rank alone writes ``resume_path``.
     """
     from .mapping import _densify
-    from .models.mapper import resolve_device
-    from .ops.core import unported
+    from .models.mapper import _check_mesh, resolve_device
 
-    if mesh is not None:
-        raise unported("mesh", "A11b (the trial axis over a mesh)")
     if search not in ("sobol", "adaptive", "halving", "adaptive+halving"):
         raise ValueError(
             'search must be "sobol", "adaptive", "halving" or '
@@ -1020,6 +1092,7 @@ def mapping_hyperparameter_tuning(
             'Keys of the argument "config" must be a subset of {}'.format(TUNABLE_KEYS)
         )
     device = resolve_device(device)
+    mesh = _check_mesh(mesh, device)
 
     logging.info("Allocate tensors for mapping.")
     S = _densify(adata_sc[:, overlap_genes].X)
@@ -1054,7 +1127,7 @@ def mapping_hyperparameter_tuning(
 
     setup = _PopulationSetup(
         S, G, d, voxel_weights, neighborhood_filter, ct_encode,
-        spatial_weights, train_genes_idx, val_genes_idx, device=device,
+        spatial_weights, train_genes_idx, val_genes_idx, device=device, mesh=mesh,
     )
     population_kwargs = dict(
         S=S,
@@ -1083,6 +1156,7 @@ def mapping_hyperparameter_tuning(
                 tuner_num_samples=int(tuner_num_samples),
                 random_state=random_state, halving_eta=int(halving_eta),
             ),
+            sync=setup.layout,
         )
         stored_trials = journal.load()
         if verbose and stored_trials:

@@ -8,13 +8,15 @@ here they live in :mod:`tangram_tpu_torch.deconv` and
 :mod:`tangram_tpu_torch.evaluation`, and this module re-exports them so
 that ``tangram_tpu_torch.utils.<name>`` works for every name of the JAX
 package's ``utils`` but its XLA compilation cache. ``_SweepJournal`` and
-``device_memory_budget`` serve the batched cross-validation.
+``device_memory_budget`` serve the batched cross-validation,
+``warn_tp_replication`` it and the tuner on a mesh.
 """
 
 from __future__ import annotations
 
 import gzip
 import json
+import logging
 import os
 import pickle
 
@@ -127,20 +129,33 @@ class _SweepJournal:
     """Crash-tolerant JSONL record of a multi-unit sweep (the JAX package's
     ``utils._SweepJournal``): one meta line, then one line per completed
     unit (a CV fold), appended batch by batch, so that a killed run loses
-    at most one batch in flight. Used by ``cross_val(resume_path=...)``."""
+    at most one batch in flight. Used by ``cross_val(resume_path=...)``.
 
-    def __init__(self, path, meta: dict):
+    On a mesh every rank builds it with ``sync``, the sweep's
+    :class:`~tangram_tpu_torch.parallel.mesh.BatchLayout`: its lead rank
+    alone writes, and each write ends in a barrier, so that every rank
+    reads one file (several ranks appending would interleave lines)."""
+
+    def __init__(self, path, meta: dict, sync=None):
         self.path = path
         self.meta = {k: _jsonable(v) for k, v in meta.items()}
+        self.sync = sync
+
+    def _writes(self) -> bool:
+        return self.sync is None or self.sync.lead
+
+    def _written(self) -> None:
+        if self.sync is not None:
+            self.sync.barrier()
 
     def load(self) -> list:
         """Stored records, in completion order. Raises if the file belongs
         to a different sweep (meta mismatch): resuming across sweeps would
         mix incomparable results."""
-        if not os.path.exists(self.path):
+        if self._writes() and not os.path.exists(self.path):
             with open(self.path, "w") as f:
                 f.write(json.dumps({"kind": "meta", **self.meta}) + "\n")
-            return []
+        self._written()
         records = []
         with open(self.path) as f:
             for line in f:
@@ -160,10 +175,12 @@ class _SweepJournal:
         return records
 
     def append(self, rows: list) -> None:
-        with open(self.path, "a") as f:
-            for row in rows:
-                f.write(json.dumps(row, default=_jsonable) + "\n")
-            f.flush()
+        if self._writes():
+            with open(self.path, "a") as f:
+                for row in rows:
+                    f.write(json.dumps(row, default=_jsonable) + "\n")
+                f.flush()
+        self._written()
 
 
 def device_memory_budget(device=None, fraction=0.5):
@@ -176,3 +193,18 @@ def device_memory_budget(device=None, fraction=0.5):
         return 2e9
     _, total = torch.cuda.mem_get_info(device)
     return fraction * float(total)
+
+
+def warn_tp_replication(shards, cell_axes, n_cells, what="per-trial"):
+    """Loud fallback when requested cell sharding can't apply: a user who
+    budgeted per-card memory for 1/shards of the logits would otherwise
+    learn about the replication only via OOM. Shared by the tuner and
+    batched cross-validation (the JAX package's message, word for word)."""
+    pad = -n_cells % shards
+    logging.warning(
+        "mesh requests %d-way cell sharding over axes %s but n_cells=%d "
+        "does not divide evenly; tensor parallelism degrades to "
+        "REPLICATION (each chip holds full %s logits + optimizer moments, "
+        "%dx the sharded budget). Pad to %d cells to restore sharding.",
+        shards, cell_axes, n_cells, what, shards, n_cells + pad,
+    )

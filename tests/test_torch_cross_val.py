@@ -253,8 +253,11 @@ def test_cross_val_argument_errors_match_jax(kwargs, match):
 
 
 def test_cross_val_device_and_mesh():
+    """A mesh that is no DeviceMesh is refused as the mapper refuses it
+    (``tests/test_torch_population_mesh.py`` runs the meshes); the card is
+    the default device, and without one neither path runs."""
     ad_sc, ad_sp = adatas(tgt)
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tgt.cross_val(ad_sc, ad_sp, mode="cells", device="cpu", mesh=object())
     if not torch.cuda.is_available():
         for batched in (True, False):

@@ -64,9 +64,8 @@ def assert_same_call(qualname, got, want):
             assert default == want_default, f"{qualname}: {name}"
 
 
-def test_the_port_resolves_68_of_the_79_names():
-    """Since ``parallel`` landed the port resolves 78 of the 79 names, all
-    but the TPU-only one (the test keeps its first name)."""
+def test_the_port_resolves_78_of_the_79_names():
+    """The port resolves 78 of the 79 names, all but the TPU-only one."""
     assert len(tg.__all__) == 79
     assert len(PORTED) == 78
     assert sorted(set(tg.__all__) - set(tgt.__all__)) == sorted(set(WAITING) | set(DROPPED))

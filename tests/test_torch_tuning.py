@@ -660,8 +660,10 @@ def test_resume_halving_completed(pairs, tmp_path):
 
 
 def test_mesh_raises_naming_a11(pairs):
+    """A mesh that is no DeviceMesh is refused as the mapper refuses it
+    (``tests/test_torch_population_mesh.py`` runs the meshes)."""
     (_, tpair) = pairs
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tgt.mapping_hyperparameter_tuning(
             *tpair, ["gene_expr_correctness"], {"lambda_g1": 1.0},
             cluster_label="subclass_label", tuner_num_samples=1, device="cpu",
