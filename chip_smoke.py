@@ -81,7 +81,11 @@ last line):
               step from the reference loop's own state at each, beside the
               reference loop started 1 ulp away and on permuted data),
               fused=False Adam (MapperCore), constrained Adam and
-              constrained Adafactor, and the Adam step times
+              constrained Adafactor, and the Adam step times; then one
+              line of sha256 hashes of the logits after 10 steps of
+              fit_mapping(fused=False) for f32 Adam, Adam on a bf16 M and
+              constrained Adafactor (the optimizer of ops/optim.py), and
+              each one's ms/step
 10. spatial   the five graph terms (the JAX bench's stack: neighborhood 0.5,
               cell-type islands, Getis-Ord, Moran and Geary 0.3 each, the
               islands by the pair's 22 subclasses): project, rbar and
@@ -1732,6 +1736,44 @@ def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True,
     if not ok:
         fail(f"reference: {label}: the kernels' and the reference loop's mappings differ")
     return hk
+
+
+def unfused_fit_hashes(cells_mapper, con_mapper, steps=10):
+    """sha256 of the logits (M, and F for the constrained mapper) after
+    ``steps`` steps of fit_mapping(fused=False) from each mapper's start,
+    for f32 Adam, Adam on a bf16 M (optax's update in bf16) and constrained
+    Adafactor (the autograd loop through MapperCore), with each one's
+    steady ms/step (CUDA events over 20 steps after 3): the loops whose
+    update ops/optim.py applies, so that two versions of the port can be
+    held to the same bits and times in one call."""
+    import hashlib
+
+    import torch
+
+    from tangram_tpu_torch.models.mapper import fit_mapping
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    hashes, times = [], []
+    for label, mapper, opt, param_dtype in (
+            ("f32 Adam", cells_mapper, "adam", None),
+            ("bf16 Adam", cells_mapper, "adam", "bfloat16"),
+            ("constrained Adafactor", con_mapper, "adafactor", None)):
+        params, constrained = start_params(mapper, param_dtype)
+        params, _ = fit_mapping(params, mapper.data, mapper.lw, steps, impl="kernels",
+                                optimizer=opt, constrained=constrained, fused=False)
+        torch.cuda.synchronize()
+        hashes.append(f"{label} {digest(params if constrained else (params,))}")
+        low = {"param_dtype": param_dtype} if param_dtype else {}
+        ms = step_ms(mapper, "kernels", warm=3, steps=20, optimizer=opt, fused=False, **low)
+        times.append(f"{label} {ms:.3f}")
+    say("reference", f"fit_mapping(fused=False) after {steps} steps, sha256: "
+        + ", ".join(hashes))
+    say("reference", "fit_mapping(fused=False) steady ms/step: " + ", ".join(times))
 
 
 def baseline(f32_runs, opts):
@@ -4130,6 +4172,7 @@ def main(argv=None) -> int:
         say("reference", f"steady-state ms/step at {SHAPE}: kernels {ms_k:.2f}, "
             f"kernels with fused=False (MapperCore) {ms_u:.2f}, reference loop "
             f"{ms_r:.2f} ({card})")
+        unfused_fit_hashes(mapper, con_mapper)
         if args.profile:
             profile_steps(mapper)
 

@@ -508,7 +508,7 @@ def _fit_folds(params0, data, masks, lw, num_epochs: int, learning_rate,
     """
     from .models.mapper import _lr_at
     from .ops.core import mapper_core_reference
-    from .ops.fused_step import _adam_vector, adam_scalars
+    from .ops.optim import make_adam
     from .ops.losses import (constrained_epilogue, constrained_inputs,
                              unconstrained_epilogue, unconstrained_inputs)
     from .parallel.mesh import NO_AXIS, sum_replicated
@@ -555,9 +555,7 @@ def _fit_folds(params0, data, masks, lw, num_epochs: int, learning_rate,
             sums = (sum_replicated(x, cell) for x in cores(masks, *leaves))
             totals, main = losses(masks, *sums)
             grads = torch.autograd.grad(totals.sum(), leaves)
-        scalars = adam_scalars(t + 1, _lr_at(learning_rate, t))
-        for p, g, mu, nu in zip(params, grads, mus, nus):
-            _adam_vector(p, g, mu, nu, *scalars)
+        make_adam(_lr_at(learning_rate, t)).update(grads, (t, mus, nus), params)
         # the gradients are (folds, c, s): free them before the next forward
         del leaves, totals, grads
     return params, main.detach()

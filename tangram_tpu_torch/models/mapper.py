@@ -11,7 +11,7 @@ they apply to the fused loops, as in JAX):
   the autograd loop, which differentiates the loss through
   :func:`~tangram_tpu_torch.ops.core.mapper_core` (the kernels'
   ``MapperCore`` with its streamed backward, or the materialized reference
-  core) and applies the optimizer update written out. Each loop can
+  core) and applies the update of ``ops/optim.py``. Each loop can
   evaluate the validation metrics after a step.
 * :class:`Mapper` and :class:`MapperConstrained` — the reference-compatible
   classes (same constructor keywords for the supported options, same
@@ -33,14 +33,7 @@ from .. import profiling
 from ..ops.core import NeighborGraph, resolve_impl, softmax_row_chunks
 from ..ops.cuda_core import _rowstats
 from ..ops.fused_step import (
-    ADAFACTOR_EPS,
-    ADAM_EPS,
-    BETA1,
-    BETA2,
-    _adam_vector,
     _check_rounding,
-    adafactor_decay,
-    adam_scalars,
     fused_constrained_step,
     fused_unconstrained_step,
     fused_unconstrained_step_adafactor,
@@ -58,11 +51,11 @@ from ..ops.losses import (
     spatial_local_indicators,
     val_metrics,
 )
+from ..ops.optim import make_adafactor, make_adam, make_optimizer
 from ..ops.schedules import resolve_lr
 
 __all__ = ["Mapper", "MapperConstrained", "fit_mapping", "init_logits",
-           "init_constrained_logits", "expression_init_logits", "resolve_device",
-           "adafactor_update", "adam_update_low_precision"]
+           "make_adam", "make_adafactor"]
 
 HISTORY_KEYS = ["total_loss", "main_loss", "vg_reg", "kl_reg", "entropy_reg"]
 CONSTRAINED_HISTORY_KEYS = HISTORY_KEYS + ["count_reg", "lambda_f_reg"]
@@ -73,7 +66,6 @@ VAL_KEYS = list(VAL_METRIC_KEYS)
 GRAPH_TERM_KEYS = ["gv_neighborhood_sim", "ct_island_penalty", "getis_ord_sim",
                    "moran_sim", "geary_sim"]
 TERM_KEYS = HISTORY_KEYS + ["l1_reg", "l2_reg"] + GRAPH_TERM_KEYS
-OPTIMIZERS = ("adam", "adafactor")
 
 PRINT_NAMES = {
     "main_loss": "Gene-voxel score",
@@ -254,8 +246,7 @@ def _lr_slice(learning_rate, start: int, stop: int):
 
 
 def _check_optimizer(optimizer: str) -> str:
-    if optimizer not in OPTIMIZERS:
-        raise ValueError(f'optimizer must be "adam" or "adafactor", got {optimizer!r}')
+    make_optimizer(optimizer, 0.0)  # JAX's ValueError for any other name
     return optimizer
 
 
@@ -340,130 +331,28 @@ def _fused_constrained_loop(params, opt_state, data, lw, num_epochs, learning_ra
     return (M, F), (count, (mu, muF), (nu, nuF)), rows
 
 
-def _const(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A Python constant as optax meets it beside an array: rounded to the
-    array's type (JAX's weak typing), here a 0-d tensor of ``like``'s type
-    so that the product rounds once, as a product of two values of that
-    type does."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
-
-
-def _mean_in(x, dim=None):
-    """``jnp.mean`` of a low-precision array: summed and divided in f32,
-    stored in the array's type (the identity of ``x.mean`` for f32)."""
-    m = x.float().mean() if dim is None else x.float().mean(dim=dim)
-    return m.to(x.dtype)
-
-
-def adafactor_update(M, g, count: int, vr, vc, learning_rate: float):
-    """optax ``adafactor`` as ``tangram_tpu.models.mapper.make_adafactor``
-    configures it (factored second moments, no momentum, no clipping, no
-    parameter scale, ``min_dim_size_to_factor=2``), written out on a
-    materialized gradient ``g`` and applied to M in place. ``count`` is the
-    pre-increment step; ``vr`` (c,) and ``vc`` (s,) are the carried
-    statistics, returned updated. Follows optax's orientation: the statistic
-    on the smaller axis is divided by its mean, and the update multiplies
-    the factor of that axis first.
-
-    For a bf16 M it runs as optax 0.2.6 runs on a bf16 parameter: g², the
-    factors and the update in bf16, the constants rounded to bf16, the
-    means summed in f32 and stored in bf16, and the decayed statistics
-    formed in f32 (optax's decay is an f32 array) and stored in bf16, so
-    ``vr`` and ``vc`` are bf16 like optax's ``v_row``/``v_col``."""
-    c, s = M.shape
-    decay, one_minus = adafactor_decay(count)
-    grad_sqr = g * g + _const(ADAFACTOR_EPS, g)
-    vr = (decay * vr.float() + one_minus * _mean_in(grad_sqr, 1).float()).to(M.dtype)
-    vc = (decay * vc.float() + one_minus * _mean_in(grad_sqr, 0).float()).to(M.dtype)
-    if s >= c:
-        u = g * ((vr / _mean_in(vr)) ** -0.5)[:, None] * (vc ** -0.5)[None, :]
-    else:
-        u = g * ((vc / _mean_in(vc)) ** -0.5)[None, :] * (vr ** -0.5)[:, None]
-    M.sub_(_const(float(np.float32(learning_rate)), u) * u)
-    return vr, vc
-
-
-def adam_update_low_precision(p, g, mu, nu, count: int, learning_rate: float):
-    """optax ``adam`` (``make_adam``) on a parameter stored below f32, in
-    place on ``p``, ``mu`` and ``nu`` (moments in ``p``'s type, as
-    ``opt_tx.init`` makes them): every update op in that type, rounded to
-    nearest, with the Python constants b1, 1 − b1, b2, 1 − b2, eps and lr
-    rounded to it (0.9 is 0.8984375 in bf16 and 0.999 is 1.0), and the bias
-    corrections 1 − b^t formed in f32 and then rounded. ``count`` is the
-    incremented step."""
-    mu.copy_(_const(1.0 - BETA1, g) * g + _const(BETA1, mu) * mu)
-    nu.copy_(_const(1.0 - BETA2, g) * (g * g) + _const(BETA2, nu) * nu)
-    _, bc1, bc2 = adam_scalars(count, learning_rate)
-    u = (mu / _const(bc1, mu)) / (torch.sqrt(nu / _const(bc2, nu)) + _const(ADAM_EPS, nu))
-    p.add_(_const(-float(np.float32(learning_rate)), u) * u)
-
-
-def adafactor_vector_update(x, g, count: int, v, learning_rate: float):
-    """optax ``adafactor``'s unfactored branch, for a parameter with fewer
-    than two dimensions (the constrained mapper's filter logits F):
-    v = d·v + (1 − d)(g² + ε), x −= lr·g·v^−0.5, in place on ``x``;
-    returns the new ``v``."""
-    decay, one_minus = adafactor_decay(count)
-    v = decay * v + one_minus * (g * g + ADAFACTOR_EPS)
-    x.sub_(float(np.float32(learning_rate)) * (g * v ** -0.5))
-    return v
-
-
 def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
                    optimizer, constrained, impl, record):
     """Autograd through :func:`mapper_core` with the resolved ``impl`` (the
     kernels' MapperCore or the materialized reference core), then the
-    optimizer update written out, in place: Adam over M (and F), or
-    Adafactor with M factored (:func:`adafactor_update`) and F unfactored
-    (:func:`adafactor_vector_update`). Each parameter trains in its own
-    type, as optax trains a pytree: a bf16 M takes its bf16 gradient from
-    the core and a bf16 update (:func:`adam_update_low_precision`)."""
-    count = opt_state[0]
-    params = tuple(params) if constrained else (params,)
+    update of :func:`~tangram_tpu_torch.ops.optim.make_optimizer` at the
+    step's learning rate, in place. Each parameter trains in its own type,
+    as optax trains a pytree: a bf16 M takes its bf16 gradient from the
+    core and a bf16 update."""
+    params = tuple(params) if constrained else params
     loss_fn = compute_constrained_loss if constrained else compute_loss
     rows = []
     for t in range(num_epochs):
         with torch.enable_grad():
-            leaves = tuple(p.detach().requires_grad_() for p in params)
+            leaves = tuple(p.detach().requires_grad_() for p in
+                           (params if constrained else (params,)))
             total, terms = loss_fn(leaves if constrained else leaves[0], data, lw, impl)
             grads = torch.autograd.grad(total, leaves)
         terms = {k: v.detach() for k, v in terms.items()}
-        lr = _lr_at(learning_rate, t)
-        if optimizer == "adam":
-            scalars = adam_scalars(count + 1, lr)
-            state = opt_state[1:]
-            mus, nus = state if constrained else ((state[0],), (state[1],))
-            for p, g, mu, nu in zip(params, grads, mus, nus):
-                if p.dtype == torch.float32:
-                    _adam_vector(p, g, mu, nu, *scalars)
-                else:
-                    adam_update_low_precision(p, g, mu, nu, count + 1, lr)
-        else:
-            state = adafactor_update(params[0], grads[0], count, *opt_state[1:3], lr)
-            if constrained:
-                state += (adafactor_vector_update(params[1], grads[1], count,
-                                                  opt_state[3], lr),)
-        count += 1
-        opt_state = (count,) + tuple(state)
-        rows.append(record(terms, params[0], t))
-    return (params if constrained else params[0]), opt_state, rows
-
-
-def _init_opt_state(params, optimizer: str, constrained: bool):
-    """A fresh optimizer carry: Adam ``(count, mu, nu)``, Adafactor
-    ``(count, vr (c,), vc (s,))``; in constrained mode mu and nu are (M, F)
-    pairs and Adafactor carries F's unfactored ``v`` last. Each moment takes
-    its parameter's type, as optax's ``init`` makes them."""
-    M = params[0] if constrained else params
-    if optimizer == "adafactor":
-        _, vr, vc = init_fused_adafactor_state(M)
-        state = (0, vr.to(M.dtype), vc.to(M.dtype))
-        return state + (torch.zeros_like(params[1]),) if constrained else state
-    if not constrained:
-        return init_fused_opt_state(M, M.dtype)
-    F = params[1]
-    return (0, (torch.zeros_like(M), torch.zeros_like(F)),
-            (torch.zeros_like(M), torch.zeros_like(F)))
+        opt_state = make_optimizer(optimizer, _lr_at(learning_rate, t)).update(
+            grads if constrained else grads[0], opt_state, params)
+        rows.append(record(terms, params[0] if constrained else params, t))
+    return params, opt_state, rows
 
 
 def _recorder(term_keys, with_val, val_data, val_each, step_offset, impl):
@@ -572,7 +461,8 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
             *low)
     else:
         if opt_state is None:
-            opt_state = _init_opt_state(params, optimizer, constrained)
+            # the carry does not depend on the learning rate
+            opt_state = make_optimizer(optimizer, 1.0).init(params)
         params, opt_state, rows = _autograd_loop(
             params, opt_state, data, lw, num_epochs, learning_rate, optimizer,
             constrained, resolved, record)

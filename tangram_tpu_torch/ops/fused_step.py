@@ -85,6 +85,15 @@ from .losses import (
     unconstrained_epilogue,
     unconstrained_inputs,
 )
+from .optim import (
+    ADAFACTOR_EPS,
+    ADAM_EPS,
+    BETA1,
+    BETA2,
+    adafactor_decay,
+    adam_scalars,
+    make_adam,
+)
 
 __all__ = [
     "fused_constrained_step",
@@ -99,10 +108,6 @@ __all__ = [
     "gsq_tf32_plain",
     "unconstrained_a_operand",
 ]
-
-BETA1, BETA2, ADAM_EPS = 0.9, 0.999, 1e-8
-ADAFACTOR_EPS = 1e-30  # optax's epsilon on grad² before the row/col means
-ADAFACTOR_DECAY = 0.8  # optax's power-schedule exponent: 1 − (t+1)^−0.8
 
 # Entries at or below this are padding sentinels (the JAX package's sharded
 # path plants NEG_BIG logits in spot-pad columns). The port plants none,
@@ -190,16 +195,6 @@ def _check_rounding(rounding: str) -> bool:
     if rounding not in ROUNDINGS:
         raise ValueError(f'rounding must be "nearest" or "stochastic", got {rounding!r}')
     return rounding == "stochastic"
-
-
-def adam_scalars(step: int, learning_rate: float):
-    """(lr, bc1, bc2) for Adam step ``step`` (1-based), each rounded to f32
-    the way the JAX step computes them: t in f32, bc = 1 − β**t in f32."""
-    t = np.float32(step)
-    one = np.float32(1.0)
-    bc1 = one - np.float32(BETA1) ** t
-    bc2 = one - np.float32(BETA2) ** t
-    return float(np.float32(learning_rate)), float(bc1), float(bc2)
 
 
 def _norm_scalars(lam_l1: float, lam_l2: float):
@@ -404,15 +399,6 @@ def _gsq(M, A, w, m, l, dY, dq, dh, r, lam_l1: float, lam_l2: float,
                  int(ops.split), stage_granule(s, M), stream_of(M))
     count_launch("gsq", M)
     return vr, vc
-
-
-def adafactor_decay(count: int):
-    """(decay, 1 − decay) of the second-moment statistics at the step whose
-    *pre-increment* count is ``count``: decay = 1 − (count + 1)^−0.8, in
-    f32 on the host, as optax's ``_decay_rate_pow`` and the JAX step."""
-    t = np.float32(count) + np.float32(1.0)
-    decay = np.float32(1.0) - t ** np.float32(-ADAFACTOR_DECAY)
-    return float(decay), float(np.float32(1.0) - decay)
 
 
 def factored_rms_vectors(count: int, vr, vc, vr_sum, vc_sum, c_actual: int,
@@ -630,16 +616,6 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
     return out[0], count + 1, vr_new, vc_new, tuple(out[1:]), terms
 
 
-def _adam_vector(x, g, mu, nu, lr: float, bc1: float, bc2: float):
-    """Exact torch/optax Adam, written out as the JAX package's
-    ``_adam_vector``, **in place** on ``x``, ``mu`` and ``nu`` (returned);
-    ``(lr, bc1, bc2)`` from :func:`adam_scalars`."""
-    mu.copy_(BETA1 * mu + (1.0 - BETA1) * g)
-    nu.copy_(BETA2 * nu + (1.0 - BETA2) * (g * g))
-    x.sub_(lr * (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
-    return x, mu, nu
-
-
 @torch.no_grad()
 def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
                            data: MapperData, lw: LossWeights, learning_rate: float,
@@ -691,5 +667,5 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
     M, mu, nu, m2, l2, u2 = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
                                      with_dh=with_dh, rounding=rounding,
                                      step=count_new, operands=ops)
-    F, muF, nuF = _adam_vector(F, gF, muF, nuF, *scalars)
+    make_adam(learning_rate).update(gF, (count, muF, nuF), F)
     return (M, F), count_new, (mu, muF), (nu, nuF), (m2, l2, u2), terms

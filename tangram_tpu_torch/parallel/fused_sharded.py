@@ -46,7 +46,6 @@ from ..models.mapper import (
 )
 from ..ops.cuda_core import _project, _rbar, _rowstats, dp_operand, dp_operands
 from ..ops.fused_step import (
-    _adam_vector,
     _check_rounding,
     _dm_adam,
     _needs_norms,
@@ -60,6 +59,7 @@ from ..ops.losses import (
     unconstrained_epilogue,
     val_metrics_from_projection,
 )
+from ..ops.optim import make_adam
 from ..ops.schedules import resolve_lr
 from .mesh import (
     F_PAD_LOGIT,
@@ -173,7 +173,7 @@ def _step(M, F, count, mu, nu, muF, nuF, stats, fb: _FusedBlocks, lay: _Layout,
         sig_grad = w_raw * (1.0 - w_raw) * cvalid
         dF_direct = ds1 * sig_grad + ds2 * (1.0 - 2.0 * w_raw) * sig_grad
         gF = (dF_direct + (1.0 - w) * (r[:, 0] - dh * (h + 1.0))) * cvalid
-        _adam_vector(F, gF, muF, nuF, *scalars)
+        make_adam(learning_rate).update(gF, (count, muF, nuF), F)
     return count_new, tuple(out[3:]), terms
 
 

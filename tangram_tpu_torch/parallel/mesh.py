@@ -44,20 +44,17 @@ from ..models.mapper import (
     CONSTRAINED_HISTORY_KEYS,
     TERM_KEYS,
     VAL_KEYS,
-    _adam_vector,
     _check_low_precision,
     _check_optimizer,
-    adafactor_vector_update,
-    adam_scalars,
-    adam_update_low_precision,
 )
-from ..ops.fused_step import ADAFACTOR_EPS, PAD_GUARD, adafactor_decay
+from ..ops.fused_step import PAD_GUARD
 from ..ops.losses import (
     MapperData,
     constrained_epilogue,
     unconstrained_epilogue,
     val_metrics_from_projection,
 )
+from ..ops.optim import make_optimizer
 from ..ops.schedules import resolve_lr
 
 __all__ = [
@@ -579,35 +576,34 @@ def _sharded_val_metrics(M, val_S, val_G, gene_mask, lay: _Layout):
                                        lay.n_spots, gene_mask=gene_mask)
 
 
-def _sharded_adafactor_update(M, g, count: int, vr, vc, learning_rate: float,
-                              lay: _Layout):
-    """:func:`~tangram_tpu_torch.models.mapper.adafactor_update` on this
-    rank's block: the row and column means of g² summed over the spot and
-    cell shards and taken over the real spots and cells, the normalizing
-    mean over the real cells or spots, in M's type as there."""
-    dt = M.dtype
-    decay, one_minus = adafactor_decay(count)
-    valid = lay.cvalid[:, None] * lay.svalid[None, :]
-    grad_sqr = (g * g + torch.tensor(ADAFACTOR_EPS, dtype=dt)).float() * valid
-    row = all_sum_(grad_sqr.sum(dim=1), lay.spot) / lay.n_spots
-    col = all_sum_(grad_sqr.sum(dim=0), lay.cell) / lay.n_cells
-    vr = (decay * vr.float() + one_minus * row.to(dt).float()).to(dt)
-    vc = (decay * vc.float() + one_minus * col.to(dt).float()).to(dt)
-    # padded rows and columns have g = 0: a unit statistic keeps their factor finite
-    vr_f = torch.where(lay.cvalid > 0, vr, torch.ones_like(vr))
-    vc_f = torch.where(lay.svalid > 0, vc, torch.ones_like(vc))
+class _ShardMeans:
+    """The means of the factored Adafactor update (``ops.optim.DeviceMeans``)
+    on this rank's block: the row and column means of g² summed over the
+    spot and cell shards and taken over the real spots and cells, the
+    normalizing mean over the real cells or spots, each stored in the
+    statistic's type."""
 
-    def mean(v, valid, axis, n):
-        return (all_sum_((v.float() * valid).sum(), axis) / n).to(dt)
+    def __init__(self, lay: _Layout):
+        self.lay = lay
+        self.shape = (lay.n_cells, lay.n_spots)
 
-    if lay.n_spots >= lay.n_cells:
-        rowf = (vr_f / mean(vr_f, lay.cvalid, lay.cell, lay.n_cells)) ** -0.5
-        u = g * rowf[:, None] * (vc_f ** -0.5)[None, :]
-    else:
-        colf = (vc_f / mean(vc_f, lay.svalid, lay.spot, lay.n_spots)) ** -0.5
-        u = g * colf[None, :] * (vr_f ** -0.5)[:, None]
-    M.sub_(torch.tensor(float(np.float32(learning_rate)), dtype=dt) * u)
-    return vr, vc
+    def grad_sqr(self, grad_sqr):
+        lay = self.lay
+        x = grad_sqr.float() * (lay.cvalid[:, None] * lay.svalid[None, :])
+        row = all_sum_(x.sum(dim=1), lay.spot) / lay.n_spots
+        col = all_sum_(x.sum(dim=0), lay.cell) / lay.n_cells
+        return row.to(grad_sqr.dtype), col.to(grad_sqr.dtype)
+
+    def factors(self, vr, vc):
+        # padded rows and columns have g = 0: a unit statistic keeps their factor finite
+        return (torch.where(self.lay.cvalid > 0, vr, torch.ones_like(vr)),
+                torch.where(self.lay.svalid > 0, vc, torch.ones_like(vc)))
+
+    def mean(self, v, cells: bool):
+        lay = self.lay
+        valid, axis, n = ((lay.cvalid, lay.cell, lay.n_cells) if cells
+                          else (lay.svalid, lay.spot, lay.n_spots))
+        return (all_sum_((v.float() * valid).sum(), axis) / n).to(v.dtype)
 
 
 _GENERIC_OPTIONS = ("optimizer", "constrained", "with_val", "val_data", "val_each",
@@ -673,7 +669,8 @@ def fit_mapping_sharded(params, data: MapperData, lw, num_epochs: int,
 
     keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
     rows = []
-    count = opt_state[0]
+    # the factored update's means summed over the shards, the padding left out
+    hook = {} if optimizer == "adam" else {"means": _ShardMeans(lay)}
     for t in range(num_epochs):
         with torch.enable_grad():
             req = tuple(p.detach().requires_grad_() for p in leaves)
@@ -681,21 +678,8 @@ def fit_mapping_sharded(params, data: MapperData, lw, num_epochs: int,
                                          constrained)
             grads = torch.autograd.grad(total, req)
         lr = learning_rate if np.ndim(learning_rate) == 0 else float(learning_rate[t])
+        opt_state = make_optimizer(optimizer, lr).update(grads, opt_state, leaves, **hook)
         with torch.no_grad():
-            if optimizer == "adam":
-                for p, g, mu, nu in zip(leaves, grads, *opt_state[1:]):
-                    if p.dtype == torch.float32:
-                        _adam_vector(p, g, mu, nu, *adam_scalars(count + 1, lr))
-                    else:
-                        adam_update_low_precision(p, g, mu, nu, count + 1, lr)
-            else:
-                state = _sharded_adafactor_update(M, grads[0], count, *opt_state[1:3], lr,
-                                                  lay)
-                if constrained:
-                    state += (adafactor_vector_update(F, grads[1], count, opt_state[3], lr),)
-                opt_state = (count,) + state
-            count += 1
-            opt_state = (count,) + tuple(opt_state[1:])
             row = [terms[k].detach() for k in keys]
             if with_val:
                 if (step_offset + t) % val_each == 0:
@@ -717,10 +701,13 @@ def fit_mapping_sharded(params, data: MapperData, lw, num_epochs: int,
 
 
 def _generic_state(state, leaves, optimizer: str, constrained: bool, lay: _Layout):
-    """The autograd carry on the padded blocks: fresh (moments in each
-    parameter's type, as optax's init makes them), or this rank's trimmed
-    blocks as a previous call returned them, padded with zeros. Adam's is
-    ``(count, mus, nus)`` with one moment per parameter."""
+    """The autograd carry on the padded blocks: fresh (``init`` of the
+    optimizer: moments in each parameter's type, as optax's init makes
+    them), or this rank's trimmed blocks as a previous call returned them,
+    padded with zeros. Adam's is ``(count, mus, nus)`` with one moment per
+    parameter."""
+    if state is None:
+        return make_optimizer(optimizer, 1.0).init(leaves)
     M = leaves[0]
 
     def pad(x, like, spots=True):
@@ -728,17 +715,10 @@ def _generic_state(state, leaves, optimizer: str, constrained: bool, lay: _Layou
         return (lay._pad(x, 1, lay.s_local, 0.0) if spots else x).to(like.dtype)
 
     if optimizer == "adam":
-        if state is None:
-            return (0, tuple(torch.zeros_like(p) for p in leaves),
-                    tuple(torch.zeros_like(p) for p in leaves))
         count, mu, nu = state
         mus, nus = (mu, nu) if constrained else ((mu,), (nu,))
         return (int(count), tuple(pad(m, p, p.dim() == 2) for m, p in zip(mus, leaves)),
                 tuple(pad(n, p, p.dim() == 2) for n, p in zip(nus, leaves)))
-    if state is None:
-        fresh = (0, torch.zeros(lay.c_local, dtype=M.dtype, device=lay.device),
-                 torch.zeros(lay.s_local, dtype=M.dtype, device=lay.device))
-        return fresh + ((torch.zeros_like(leaves[1]),) if constrained else ())
     vr = pad(state[1], M, spots=False)
     vc = lay._pad(state[2], 0, lay.s_local, 0.0).to(M.dtype)
     extra = (pad(state[3], leaves[1], spots=False),) if constrained else ()

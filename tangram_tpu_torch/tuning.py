@@ -519,11 +519,15 @@ class _PopulationSetup:
         repeats): the update of ``make_adam(1.0)`` (the Adam of torch and optax,
         eps added after the sqrt), then scaled by each member's learning
         rate ``cosine_value(t, lr_peak, lr_end, num_epochs)`` — the JAX
-        tuner's order, which with lr_peak == lr_end is constant Adam. Then
+        tuner's order, which with lr_peak == lr_end is constant Adam. It is
+        written out here rather than taken from ``ops.optim.make_adam``,
+        whose update multiplies by the learning rate before the division
+        (JAX's fused order) and takes one count: per member, that would
+        round some entries an ulp apart. Then
         each member's map softmax(M) over spots and val gene score (the
         reference's quirk: on the train split), and the metrics of each
         config's repeat cube."""
-        from .ops.fused_step import ADAM_EPS, BETA1, BETA2
+        from .ops.optim import ADAM_EPS, BETA1, BETA2
         from .ops.losses import cosine_similarity
         from .ops.schedules import cosine_value
         from .parallel.mesh import all_sum_

@@ -289,13 +289,15 @@ def test_adafactor_update_matches_optax(c, s):
     opt = jm.make_adafactor(0.1)
     state = opt.init(jnp.asarray(M0))
     M_j, M_t = jnp.asarray(M0), torch.from_numpy(M0.copy())
-    vr, vc = torch.zeros(c), torch.zeros(s)
+    opt_t = tm.make_adafactor(0.1)
+    state_t = opt_t.init(M_t)
     for count in range(2):
         g = rng.normal(0, 1e-2, (c, s)).astype(np.float32)
         updates, state = opt.update(jnp.asarray(g), state, M_j)
         M_j = optax.apply_updates(M_j, updates)
-        vr, vc = tm.adafactor_update(M_t, torch.from_numpy(g), count, vr, vc, 0.1)
+        state_t = opt_t.update(torch.from_numpy(g), state_t, M_t)
         np.testing.assert_allclose(M_t.numpy(), np.asarray(M_j), atol=5e-5)
+    _, vr, vc = state_t
     _, vr_j, vc_j = adafactor_state_from_jax(state[0].count, state[0].v_row,
                                              state[0].v_col, c, s)
     np.testing.assert_allclose(vr.numpy(), vr_j.numpy(), rtol=1e-5)
