@@ -172,6 +172,25 @@ last line):
               (1e-5) with each rank's peak memory beside one device's;
               both ranks the same results, each trainer handed the folds,
               trials and cells the layout gives it
+15. contracts (runs after downstream) what the CPU tests pin, through the
+              kernels at the tutorial width: (a) tests/test_recovery.py's
+              planted problem at 26,000 x 9,852 x 249 with 22 types
+              (planted_pair), mapped 400 epochs by the kernels and by the
+              reference loop: per-type correlations of
+              project_cell_annotations with the planted composition (min >
+              0.6, mean > 0.8) and the mean score of every 10th gene held
+              out of training (> 0.8), the kernels within 4x the witness
+              of the reference loop, launch counts; (b) 25 epochs printed
+              every 10 (three lines in the JAX package's format, the
+              history's values), constrained mode's line, and the
+              divergence warning of lambda_l2 = 1e38 at lr 1e3 (its first
+              non-finite epoch; the norm kernel and dm_adam) beside a
+              healthy run's silence; (c) a Getis-Ord tuner config beside
+              one without it with every 10th gene out of training, on the
+              tuner phase's 22-cluster pair: every row finite, the other
+              row its run alone's bits in a batch of one config (within
+              TUNER_BATCH_TOL in a batch of two); the phase's seconds and
+              peak memory
 
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
@@ -183,6 +202,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -197,7 +217,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference", "spatial", "cv", "downstream", "tuner", "mesh")
+          "bf16", "reference", "spatial", "cv", "downstream", "contracts", "tuner", "mesh")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -1402,10 +1422,11 @@ def tutorial_pair():
     return ad_sc, ad_sp, time.perf_counter() - t0
 
 
-def check_mapping(phase, ad_map, n_obs, n_spots, n_genes, rising=True):
+def check_mapping(phase, ad_map, n_obs, n_spots, n_genes, rising=True, epochs=EPOCHS):
     """Fail unless the mapping is finite, row-stochastic and of the right
-    shape, its history finite, its train_genes_df complete, and (when
-    ``rising``) its gene-voxel score higher at the end than at the start."""
+    shape, its history finite and ``epochs`` long, its train_genes_df
+    complete, and (when ``rising``) its gene-voxel score higher at the end
+    than at the start."""
     X = np.asarray(ad_map.X)
     if X.shape != (n_obs, n_spots) or not np.isfinite(X).all():
         fail(f"{phase}: mapping has shape {X.shape} or non-finite values")
@@ -1415,7 +1436,7 @@ def check_mapping(phase, ad_map, n_obs, n_spots, n_genes, rising=True):
     hist = ad_map.uns["training_history"]
     main = np.asarray(hist["main_loss"])
     total = np.asarray(hist["total_loss"])
-    if len(main) != EPOCHS or not (np.isfinite(main).all() and np.isfinite(total).all()):
+    if len(main) != epochs or not (np.isfinite(main).all() and np.isfinite(total).all()):
         fail(f"{phase}: history has {len(main)} epochs or non-finite losses")
     if rising and not main[-1] > main[0]:
         fail(f"{phase}: main_loss did not rise ({main[0]:.4f} -> {main[-1]:.4f})")
@@ -2911,6 +2932,321 @@ def downstream_phase(dev, card, ad_sc, ad_sp, cells_mapper):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the contracts of the CPU tests, through the kernels at full width
+# ---------------------------------------------------------------------------
+
+CONTRACT_TYPES = 22      # (a) the planted pair's cell types: the tutorial's subclasses
+CONTRACT_EPOCHS = 400    # tests/test_recovery.py's budget
+CONTRACT_SEED = 1        # its default_rng seed
+# (a) thresholds of tests/test_recovery.py: per-type correlation of the
+# annotation with the planted composition, min and mean; mean held-out score
+CONTRACT_MIN_CORR, CONTRACT_MEAN_CORR, CONTRACT_HELD = 0.6, 0.8, 0.8
+# (a) the fused loop against the reference loop: within CONTRACT_SPREAD times
+# the witness, the fused loop's own distance from itself with the cells
+# trained in reverse order, each from its own start (the rule of GRAPH_SPREAD
+# and of tests/test_torch_recovery.py)
+CONTRACT_SPREAD = 4.0
+# (b) 25 epochs printed every 10: the lines of epochs 0, 10 and 20
+CONTRACT_PRINT = (25, 10)
+CONTRACT_FIELD = r"[A-Za-z][A-Za-z -]*: -?\d+\.\d{3}"
+# (c) the Getis-Ord config and one without it; every 10th gene left out
+CONTRACT_GETIS = ({"lr_peak": 0.2, "lr_end": 0.05, "lambda_g1": 1.0, "lambda_getis_ord": 0.7,
+                   "num_epochs": 100},
+                  {"learning_rate": 0.1, "lambda_g1": 1.0, "lambda_d": 0.4, "num_epochs": 100})
+
+
+def planted_pair():
+    """tests/test_recovery.py's construction at the tutorial width, numpy
+    seeded with CONTRACT_SEED: 22 lognormal(0, 1.2) expression programs over
+    the 249 genes; each of the 26,000 cells draws a type and Poisson counts
+    of twice its program; the 9,852 spots lie uniformly in the unit square,
+    and the composition of a spot is exp(-d²/0.05) of its squared distance
+    d² to each type's uniformly drawn center, normalized over the types; a
+    spot's counts are Poisson of 6 × composition @ programs. Returns the
+    pair after pp_adatas, the composition (spots × types) and seconds."""
+    import pandas as pd
+
+    import tangram_tpu_torch as tgt
+
+    t0 = time.perf_counter()
+    n_cells, n_spots, n_genes = SHAPE
+    rng = np.random.default_rng(CONTRACT_SEED)
+    programs = rng.lognormal(0.0, 1.2, (CONTRACT_TYPES, n_genes))
+    cell_types = rng.integers(0, CONTRACT_TYPES, n_cells)
+    S = rng.poisson(programs[cell_types] * 2.0).astype(np.float32)
+    coords = rng.random((n_spots, 2))
+    centers = rng.random((CONTRACT_TYPES, 2))
+    dist2 = ((coords[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+    composition = np.exp(-dist2 / 0.05)
+    composition /= composition.sum(1, keepdims=True)
+    G = rng.poisson(composition @ programs * 6.0).astype(np.float32)
+    genes = pd.DataFrame(index=[f"g{i}" for i in range(n_genes)])
+    ad_sc = tgt.AnnData(
+        X=S, obs=pd.DataFrame({"cell_type": pd.Categorical([f"t{t}" for t in cell_types])},
+                              index=[f"c{i}" for i in range(n_cells)]),
+        var=genes.copy())
+    ad_sp = tgt.AnnData(X=G, obs=pd.DataFrame(index=[f"s{i}" for i in range(n_spots)]),
+                        var=genes.copy())
+    ad_sp.obsm["spatial"] = coords
+    tgt.pp_adatas(ad_sc, ad_sp)
+    return ad_sc, ad_sp, composition, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def cells_reversed():
+    """map_cells_to_space's Mapper with its cells (the rows of S) in reverse
+    order, each starting from the logits the unpermuted run gives it."""
+    import torch
+
+    from tangram_tpu_torch import mapping
+
+    real = mapping.Mapper
+
+    def build(**kw):
+        perm = torch.arange(kw["S"].shape[0] - 1, -1, -1)
+        mapper = real(**dict(kw, S=np.ascontiguousarray(kw["S"][::-1])))
+        mapper.M = mapper.M[perm.to(mapper.M.device)].contiguous()
+        return mapper
+
+    mapping.Mapper = build
+    try:
+        yield
+    finally:
+        mapping.Mapper = real
+
+
+def planted_fit(dev, ad_sc, ad_sp, composition, impl, held_out, reverse=False):
+    """(per-type correlations or held-out scores, seconds) of one planted
+    fit: map_cells_to_space (cells, rna_count_based, Adam, CONTRACT_EPOCHS,
+    seed 1) on ``impl``; then project_cell_annotations, or, with every 10th
+    training gene held out, project_genes and compare_spatial_geneexp on
+    those genes; ``reverse`` trains the cells in reverse order
+    (``cells_reversed``, the witness)."""
+    import tangram_tpu_torch as tgt
+    from tangram_tpu_torch.ops import cuda_core
+
+    genes = list(ad_sc.uns["training_genes"])
+    held = genes[::10]
+    kw = dict(cv_train_genes=[g for g in genes if g not in set(held)]) if held_out else {}
+    cuda_core.reset_launches()
+    with cells_reversed() if reverse else contextlib.nullcontext():
+        ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
+            ad_sc, ad_sp, mode="cells", density_prior="rna_count_based",
+            num_epochs=CONTRACT_EPOCHS, random_state=SEED, impl=impl, verbose=False,
+            device=dev, **kw))
+    # the reference loop launches no kernel
+    check_launches("contracts", {"rowstats": 1, "project": CONTRACT_EPOCHS,
+                                 "rbar": CONTRACT_EPOCHS, "dm_adam": CONTRACT_EPOCHS}
+                   if impl == "kernels" else {})
+    check_mapping("contracts", ad_map, SHAPE[0], SHAPE[1], len(genes) - len(held) * held_out,
+                  epochs=CONTRACT_EPOCHS)
+    X = np.asarray(ad_map.X)
+    if reverse:
+        ad_map.X = np.ascontiguousarray(X[::-1])
+    if held_out:
+        ad_ge = tgt.project_genes(ad_map, ad_sc)
+        df = tgt.compare_spatial_geneexp(ad_ge, ad_sp, ad_sc)
+        return df.loc[held, "score"].to_numpy(np.float64), secs
+    tgt.project_cell_annotations(ad_map, ad_sp, annotation="cell_type")
+    pred = ad_sp.obsm.pop("tangram_ct_pred")[[f"t{t}" for t in range(CONTRACT_TYPES)]]
+    pred = pred.to_numpy(np.float64)
+    corrs = np.array([np.corrcoef(pred[:, t], composition[:, t])[0, 1]
+                      for t in range(CONTRACT_TYPES)])
+    return corrs, secs
+
+
+def contracts_recovery(dev, card):
+    """(a) The planted pair mapped by the kernels and by the reference loop:
+    thresholds, agreement within the witness, launch counts."""
+    ad_sc, ad_sp, composition, secs = planted_pair()
+    say("contracts", f"(a) planted pair {SHAPE}, {CONTRACT_TYPES} types + pp_adatas in "
+        f"{secs:.1f} s")
+    fits = {}
+    for impl, held, reverse in (("kernels", False, False), ("kernels", True, False),
+                                ("reference", False, False), ("reference", True, False),
+                                ("kernels", False, True), ("kernels", True, True)):
+        values, secs = planted_fit(dev, ad_sc, ad_sp, composition, impl, held, reverse)
+        label = f"{impl}{' reversed' if reverse else ''}, {'held-out' if held else 'composition'}"
+        fits[impl, held, reverse] = values
+        what = (f"held-out scores mean {values.mean():.4f} (min {values.min():.4f}) over "
+                f"{len(values)} genes" if held else
+                f"per-type correlations min {values.min():.4f}, mean {values.mean():.4f}: "
+                + " ".join(f"{v:.4f}" for v in values))
+        say("contracts", f"(a) {label}: map_cells_to_space {secs:.2f} s for "
+            f"{CONTRACT_EPOCHS} epochs; {what}")
+    misses = []
+    for impl in ("kernels", "reference"):
+        corrs, scores = fits[impl, False, False], fits[impl, True, False]
+        for name, value, bound in (("min correlation", corrs.min(), CONTRACT_MIN_CORR),
+                                   ("mean correlation", corrs.mean(), CONTRACT_MEAN_CORR),
+                                   ("held-out mean score", scores.mean(), CONTRACT_HELD)):
+            if not value > bound:
+                misses.append((impl, name, value, bound))
+    for impl, name, value, bound in misses:
+        say("contracts", f"(a) {impl}: {name} {value:.4f} is not above {bound}")
+    if any(impl == "kernels" for impl, *_ in misses) and not any(
+            impl == "reference" for impl, *_ in misses):
+        fail("contracts: (a) the kernels miss a threshold that the reference loop meets")
+    if misses:
+        say("contracts", "(a) the reference loop misses a threshold at this size too: a "
+            "finding about the problem; gated on the two loops' agreement alone")
+    for held, name in ((False, "correlations"), (True, "held-out scores")):
+        gap = np.abs(fits["kernels", held, False] - fits["reference", held, False]).max()
+        witness = np.abs(fits["kernels", held, True] - fits["kernels", held, False]).max()
+        say("contracts", f"(a) {name}: kernels against the reference loop {gap:.3e} max-abs; "
+            f"witness (the kernels with the cells reversed) {witness:.3e}; bound "
+            f"{CONTRACT_SPREAD:g} x witness = {CONTRACT_SPREAD * witness:.3e} ({card})")
+        if not gap <= CONTRACT_SPREAD * witness:
+            fail(f"contracts: (a) the kernels' {name} are {gap:.3e} from the reference "
+                 f"loop's, beyond {CONTRACT_SPREAD:g} x the witness {witness:.3e}")
+
+
+def printed_lines(fn):
+    """(``fn()``, the non-blank lines it printed, the messages it logged at
+    WARNING or above)."""
+    import io
+    import logging
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler, root = Keep(level=logging.WARNING), logging.getLogger()
+    root.addHandler(handler)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        root.removeHandler(handler)
+    return out, [line for line in buf.getvalue().splitlines() if line.strip()], records
+
+
+def contracts_printing(card, cells_mapper):
+    """(b) The printed and warned contract through the kernels."""
+    import re
+
+    import torch
+
+    from tangram_tpu_torch.models.mapper import Mapper, MapperConstrained
+    from tangram_tpu_torch.ops import cuda_core
+
+    epochs, every = CONTRACT_PRINT
+    mapper = copy.copy(cells_mapper)  # its own logits; the data is shared
+    mapper.M = cells_mapper.M.clone()
+    cuda_core.reset_launches()
+    (_, hist), lines, _ = printed_lines(lambda: mapper.train(epochs, print_each=every))
+    chunks = -(-epochs // every)
+    check_launches("contracts", {"rowstats": chunks, "project": epochs, "rbar": epochs,
+                                 "dm_adam": epochs})
+    del mapper
+    want_first = [f"Gene-voxel score: {hist['main_loss'][t]:.3f}" for t in range(0, epochs, every)]
+    if (len(lines) != chunks or [line.split(",")[0] for line in lines] != want_first
+            or not all(re.fullmatch(f"{CONTRACT_FIELD}(, {CONTRACT_FIELD})*", line)
+                       for line in lines)):
+        fail(f"contracts: (b) {epochs} epochs printed every {every}: {lines}")
+    say("contracts", f"(b) {epochs} epochs, print_each={every}, on the kernels: "
+        + " | ".join(lines))
+
+    S, G = (x.cpu().numpy() for x in (cells_mapper.data.S, cells_mapper.data.G))
+    d = cells_mapper.data.d.cpu().numpy()
+    con = MapperConstrained(S, G, d, target_count=SHAPE[1], device=cells_mapper.device,
+                            random_state=SEED, init_method="jax")
+    cuda_core.reset_launches()
+    _, lines, _ = printed_lines(lambda: con.train(5, print_each=5))
+    check_launches("contracts", {"rowstats": 1, "project": 5, "rbar": 5, "dm_adam": 5})
+    del con
+    if (len(lines) != 1 or not lines[0].startswith("Score: ")
+            or "Count reg: " not in lines[0] or "Lambda f reg: " not in lines[0]
+            or not re.fullmatch(f"{CONTRACT_FIELD}(, {CONTRACT_FIELD})*", lines[0])):
+        fail(f"contracts: (b) constrained mode printed {lines}")
+    say("contracts", f"(b) constrained, 5 epochs on the kernels: {lines[0]}")
+
+    for label, lam_l2, lr in (("lambda_l2=1e38, lr 1e3", 1e38, 1e3), ("healthy", 0.0, 0.1)):
+        diverging = lam_l2 > 0
+        m = Mapper(S, G, d=d, lambda_d=cells_mapper.lw.lambda_d, lambda_l2=lam_l2,
+                   device=cells_mapper.device, random_state=SEED, init_method="jax")
+        cuda_core.reset_launches()
+        (_, hist), _, warned = printed_lines(
+            lambda: m.train(8, learning_rate=lr, print_each=None))
+        check_launches("contracts", {"rowstats_norms" if diverging else "rowstats": 1,
+                                     "project": 8, "rbar": 8, "dm_adam": 8})
+        del m
+        warned = [w for w in warned if "diverged" in w]
+        first = int(np.flatnonzero(~np.isfinite(hist["total_loss"]))[0]) if diverging else None
+        if diverging and (len(warned) != 1
+                          or f"non-finite at epoch {first} of 8" not in warned[0]):
+            fail(f"contracts: (b) {label}: warnings {warned} (first non-finite epoch {first})")
+        if not diverging and warned:
+            fail(f"contracts: (b) the healthy run warned: {warned}")
+        say("contracts", f"(b) {label}, 8 epochs on the kernels: "
+            + (f"warned '{warned[0]}'" if warned else "no warning"))
+    torch.cuda.empty_cache()
+
+
+def contracts_getis(dev, card, ad_sc, ad_sp):
+    """(c) A Getis-Ord config beside one without it under a gene split, on
+    the tuner phase's 22-cluster pair: every row finite; the other row the
+    bits of its run alone (in a batch of one config), and within
+    TUNER_BATCH_TOL of it in a batch of two."""
+    from tangram_tpu_torch import spatial as sw
+    from tangram_tpu_torch import tuning
+    from tangram_tpu_torch.deconv import one_hot_encoding
+    from tangram_tpu_torch.mapping import _densify, adata_to_cluster_expression
+
+    ad_cl = adata_to_cluster_expression(ad_sc, TUNER_LABEL, scale=False, add_density=False)
+    genes = ad_cl.uns["overlap_genes"]
+    train = [i for i in range(len(genes)) if i % 10]
+    np.random.seed(SEED)
+    setup = tuning._PopulationSetup(
+        _densify(ad_cl[:, genes].X), _densify(ad_sp[:, genes].X),
+        np.asarray(ad_sp.obs["rna_count_based_density"], dtype=np.float32),
+        sw.spatial_weights(ad_sp, standardized=True, self_inclusion=True),
+        sw.spatial_weights(ad_sp, standardized=False, self_inclusion=False),
+        one_hot_encoding(ad_cl.obs[TUNER_LABEL]).values,
+        sw.spatial_weights(ad_sp, standardized=False, self_inclusion=True),
+        train, list(range(len(genes))), device=dev)
+
+    def run(configs, batch):
+        return tuning._run_population(list(configs), *[None] * 9, population_batch_size=batch,
+                                      setup=setup).to_numpy(np.float64)
+
+    alone, secs = cuda_seconds(lambda: run(CONTRACT_GETIS[1:], 1))
+    for batch in (1, 2):
+        mixed = run(CONTRACT_GETIS, batch)
+        same_bits = np.array_equal(mixed[1], alone[0])
+        gap = np.abs(mixed[1] - alone[0]).max()
+        say("contracts", f"(c) {len(train)} of {len(genes)} genes train, "
+            f"{CONTRACT_GETIS[0]['num_epochs']} epochs, batch of {batch} config(s): Getis-Ord "
+            f"row {np.round(mixed[0], 6).tolist()}, the other row "
+            f"{np.round(mixed[1], 6).tolist()}; alone {np.round(alone[0], 6).tolist()} "
+            f"({secs:.2f} s); the same bits: {same_bits}, max-abs {gap:.2e} ({card})")
+        if not np.isfinite(mixed).all():
+            fail(f"contracts: (c) a row is not finite in a batch of {batch}")
+        if batch == 1 and not same_bits:
+            fail("contracts: (c) the other row differs from its run alone")
+        if gap > TUNER_BATCH_TOL:
+            fail(f"contracts: (c) the other row is {gap:.2e} from its run alone")
+
+
+def contracts_phase(dev, card, ad_sc, ad_sp, cells_mapper):
+    """Phase 15: the contracts that the CPU tests pin, on the card at the
+    tutorial width (module docstring)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with device_peak() as peak:
+        contracts_recovery(dev, card)
+        contracts_printing(card, cells_mapper)
+        contracts_getis(dev, card, ad_sc, ad_sp)
+    say("contracts", f"phase done in {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {peak['gib']:.3f} GiB above "
+        f"the resident ({card})")
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the hyperparameter tuner
 # ---------------------------------------------------------------------------
 
@@ -3946,7 +4282,7 @@ def main(argv=None) -> int:
             f"from the tile shape")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference", "spatial",
-            "cv", "downstream", "tuner", "mesh"} & set(phases):
+            "cv", "downstream", "contracts", "tuner", "mesh"} & set(phases):
         ad_sc, ad_sp, secs = tutorial_pair()
         say("cells", f"synthetic pair {SHAPE} + pp_adatas in {secs:.1f} s")
         cells_mapper = mapper_for(ad_sc, ad_sp, dev, "cells")
@@ -4184,6 +4520,9 @@ def main(argv=None) -> int:
 
     if "downstream" in phases:
         downstream_phase(dev, card, ad_sc, ad_sp, cells_mapper)
+
+    if "contracts" in phases:
+        contracts_phase(dev, card, ad_sc, ad_sp, cells_mapper)
 
     if "tuner" in phases:
         tuner_phase(dev, card, ad_sc, ad_sp)

@@ -376,6 +376,11 @@ def _tuner_loss(M, lam, data_arrays, active=None, cell=None, n_cells=None):
         )
         total = total - lam["lambda_neighborhood_g1"] * nb_sim
     if on("lambda_getis_ord"):
+        # A gene masked out of training has Σ G_pred = 0. The clamp passes no
+        # gradient to a clamped sum, so that column adds nothing, as if it
+        # were dropped; JAX's jnp.maximum passes 0 · (−0 / 1e-60), NaN, which
+        # poisons every member of the population, λ = 0 ones too (ROADMAP
+        # queue C, tests/test_torch_tuning.py pins both).
         getis_pred = graph_matmul(spatial_w, G_pred) / torch.clamp(
             torch.sum(G_pred, dim=-2, keepdim=True), min=1e-30
         )

@@ -1,16 +1,19 @@
-"""The port's side of ``tests/test_torch_parallel.py``: every case trained
-on a mesh of ``gloo`` processes on the CPU.
+"""The port's side of ``tests/test_torch_parallel.py`` and of the mesh
+cases of ``tests/test_torch_printing.py``: every case trained on a mesh of
+``gloo`` processes on the CPU.
 
 This module imports numpy, torch and ``tangram_tpu_torch`` only (no JAX),
 so a spawned worker starts in about a second. :func:`run` spawns
 ``WORLD`` workers with a ``file://`` rendezvous in a directory (no port to
-collide between test workers); each runs every case of :data:`CASES` and
-the checks below, one torch thread each, and pickles its results to
-``rank<r>.pkl`` there.
+collide between test workers); each runs every case of one suite (the
+fits of :data:`CASES` and the checks below, or the printing cases), one
+torch thread each, and pickles its results to ``rank<r>.pkl`` there.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import pickle
 import sys
@@ -294,7 +297,110 @@ def shardings_case(meshes):
                 shape=tuple(M_b.shape))
 
 
-def worker(rank, directory):
+def schedule_case(meshes):
+    """A cosine learning-rate vector on the fused sharded path (1-D and 2-D)
+    and the generic one (2-D), as ``tests/test_lr_schedule.py`` runs them,
+    ``Mapper(mesh=).train`` with a schedule on the 2-D mesh, and whether a
+    vector of the wrong length is refused."""
+    from tangram_tpu_torch import parallel as par
+    from tangram_tpu_torch.models.mapper import Mapper
+    from tangram_tpu_torch.ops.losses import LossWeights
+    from tangram_tpu_torch.ops.schedules import cosine_lr
+
+    p = make_problem(c=32, s=24)
+    data, lw = torch_data(p, {}), LossWeights(**DENSITY)
+    lrs = cosine_lr(0.5, 10, end=0.05)
+
+    def fit(fn, mesh):
+        M, hist = fn(torch.from_numpy(p["M0"].copy()), data, lw, 10, lrs, mesh=meshes[mesh])
+        return M.numpy(), hist["total_loss"].numpy()
+
+    out = {"fused 1d": fit(par.fit_mapping_fused_sharded, "1d"),
+           "fused 2d": fit(par.fit_mapping_fused_sharded, "2d"),
+           "generic 2d": fit(par.fit_mapping_sharded, "2d")}
+    rng = np.random.default_rng(21)
+    S = (rng.poisson(2.0, (32, 8)) + 0.5).astype(np.float32)
+    G = (rng.poisson(3.0, (24, 8)) + 0.5).astype(np.float32)
+    out["mapper"] = Mapper(S=S, G=G, random_state=2, device="cpu", mesh=meshes["2d"]).train(
+        num_epochs=15, learning_rate=cosine_lr(0.4, 15, end=0.04), print_each=None)[0]
+    try:
+        par.fit_mapping_fused_sharded(torch.from_numpy(p["M0"].copy()), data, lw, 6,
+                                      np.asarray([0.1, 0.2], np.float32), mesh=meshes["1d"])
+        out["refused"] = None
+    except ValueError as err:
+        out["refused"] = str(err)
+    return out
+
+
+def printing_problem():
+    """``tests/test_printing.py``'s ``problem`` fixture (``default_rng(0)``)."""
+    rng = np.random.default_rng(0)
+    S = (rng.poisson(2.0, (12, 8)) + 0.5).astype(np.float32)
+    G = (rng.poisson(3.0, (9, 8)) + 0.5).astype(np.float32)
+    return S, G, np.full(9, 1 / 9, np.float32)
+
+
+def printed(fn):
+    """``fn()``'s result and the non-blank lines it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, [line for line in buf.getvalue().splitlines() if line.strip()]
+
+
+def printing_jobs(meshes):
+    """The mesh cases of ``tests/test_printing.py`` on the 1-D ``("cell",)``
+    mesh of 4: what each printed, its mapping and its history."""
+    from tangram_tpu_torch.models.mapper import Mapper, MapperConstrained
+
+    S, G, d = printing_problem()
+    kw = dict(random_state=2, device="cpu", mesh=meshes["1d"])
+
+    def stream():
+        (probs, hist), lines = printed(lambda: Mapper(S=S, G=G, d=d, lambda_d=1.0, **kw).train(
+            num_epochs=20, learning_rate=0.1, print_each=10))
+        return dict(lines=lines, probs=probs, main_loss=np.asarray(hist["main_loss"]))
+
+    def val_cadence():
+        (_, hist), lines = printed(lambda: Mapper(S=S, G=G, **kw).train(
+            num_epochs=20, learning_rate=0.1, print_each=10, val_each=7))
+        return dict(lines=lines, val=np.asarray(hist["val_gene_sim"]))
+
+    def early_stop():
+        (_, hist), lines = printed(lambda: Mapper(S=S, G=G, **kw).train(
+            num_epochs=24, learning_rate=0.1, print_each=None, val_each=3,
+            early_stop_tol=0.0, early_stop_window=10))
+        return dict(lines=lines, main_loss=np.asarray(hist["main_loss"]),
+                    val=np.asarray(hist["val_gene_sim"]))
+
+    def constrained():
+        (probs, F, _), lines = printed(lambda: MapperConstrained(
+            S=S, G=G, d=d, target_count=6, **kw).train(num_epochs=20, learning_rate=0.1,
+                                                       print_each=10))
+        return dict(lines=lines, probs=probs, F=F)
+
+    return [("stream", stream), ("val cadence", val_cadence), ("early stop", early_stop),
+            ("constrained", constrained)]
+
+
+def parallel_jobs(meshes, directory):
+    """The fits of :data:`CASES` and the checks of
+    ``tests/test_torch_parallel.py``."""
+    jobs = [(name, lambda name=name: fit_case(name, meshes)) for name in CASES]
+    perm = np.random.default_rng(1).permutation(CASES["generic adafactor"][0]["c"])
+    return jobs + [
+        ("generic adafactor permuted", lambda: fit_case("generic adafactor", meshes, perm)),
+        ("resume", lambda: resume_case(meshes)),
+        ("mapper val", lambda: mapper_val_case(meshes)),
+        ("public api", lambda: public_api_case(meshes)),
+        ("adjoint", lambda: adjoint_case(meshes)),
+        ("checkpoint", lambda: checkpoint_case(meshes, directory)),
+        ("shardings", lambda: shardings_case(meshes)),
+        ("schedule", lambda: schedule_case(meshes)),
+    ]
+
+
+def worker(rank, directory, suite="parallel"):
     torch.set_num_threads(1)
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -311,17 +417,8 @@ def worker(rank, directory):
                               mesh_dim_names=("slice", "cell", "spot")),
     }
     results = {}
-    jobs = [(name, lambda name=name: fit_case(name, meshes)) for name in CASES]
-    perm = np.random.default_rng(1).permutation(CASES["generic adafactor"][0]["c"])
-    jobs += [
-        ("generic adafactor permuted", lambda: fit_case("generic adafactor", meshes, perm)),
-        ("resume", lambda: resume_case(meshes)),
-        ("mapper val", lambda: mapper_val_case(meshes)),
-        ("public api", lambda: public_api_case(meshes)),
-        ("adjoint", lambda: adjoint_case(meshes)),
-        ("checkpoint", lambda: checkpoint_case(meshes, directory)),
-        ("shardings", lambda: shardings_case(meshes)),
-    ]
+    jobs = (printing_jobs(meshes) if suite == "printing"
+            else parallel_jobs(meshes, directory))
     for name, job in jobs:
         try:
             results[name] = job()
@@ -339,15 +436,16 @@ def worker(rank, directory):
     os._exit(0)
 
 
-def run(directory, timeout=300.0):
-    """Spawn the workers and return each rank's results; the workers are
-    stopped after ``timeout`` seconds (a collective that one rank never
-    reaches would wait for ever)."""
+def run(directory, timeout=300.0, suite="parallel"):
+    """Spawn the workers on ``suite`` (``"parallel"`` or ``"printing"``)
+    and return each rank's results; the workers are stopped after
+    ``timeout`` seconds (a collective that one rank never reaches would
+    wait for ever)."""
     import time
 
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(worker, args=(directory,), nprocs=WORLD,
+    ctx = mp.start_processes(worker, args=(directory, suite), nprocs=WORLD,
                              start_method="spawn", join=False)
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):

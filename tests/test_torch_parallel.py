@@ -265,6 +265,34 @@ def test_early_stop_on_a_mesh_matches_one_process(port):
     np.testing.assert_allclose(mesh, one, rtol=1e-4, atol=1e-5)
 
 
+def test_learning_rate_vectors_on_a_mesh_match_one_process(port):
+    """``tests/test_lr_schedule.py``'s mesh cases on the port: a cosine
+    vector through the fused sharded step (1-D, 2-D) and the generic
+    sharded loop (2-D) follows the one-process fused and reference loops
+    (JAX's 5e-5), ``Mapper(mesh=).train`` with a schedule the one-process
+    mapper (5e-4), and a vector of the wrong length is refused."""
+    from tangram_tpu_torch.models.mapper import Mapper, fit_mapping
+    from tangram_tpu_torch.ops.schedules import cosine_lr
+
+    out = result(port, "schedule")
+    p = pw.make_problem(c=32, s=24)
+    data, lw = pw.torch_data(p, {}), LossWeights(**pw.DENSITY)
+    lrs = cosine_lr(0.5, 10, end=0.05)
+    for name, impl in (("fused 1d", "fused"), ("fused 2d", "fused"),
+                       ("generic 2d", "reference")):
+        M, hist = fit_mapping(torch.from_numpy(p["M0"].copy()), data, lw, 10, lrs, impl=impl)
+        np.testing.assert_allclose(out[name][0], M.numpy(), atol=5e-5, err_msg=name)
+        np.testing.assert_allclose(out[name][1], hist["total_loss"].numpy(), atol=5e-5,
+                                   err_msg=name)
+    rng = np.random.default_rng(21)
+    S = (rng.poisson(2.0, (32, 8)) + 0.5).astype(np.float32)
+    G = (rng.poisson(3.0, (24, 8)) + 0.5).astype(np.float32)
+    one, _ = Mapper(S=S, G=G, random_state=2, device="cpu").train(
+        num_epochs=15, learning_rate=cosine_lr(0.4, 15, end=0.04), print_each=None)
+    np.testing.assert_allclose(out["mapper"], one, atol=5e-4)
+    assert out["refused"] is not None and "learning_rate vector" in out["refused"]
+
+
 def test_map_cells_to_space_on_a_mesh_matches_jax(port):
     import pandas as pd
 

@@ -102,6 +102,25 @@ def test_schedule_errors_match_jax():
             api.cosine_lr(1.0, 10, warmup=11)
 
 
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+def test_fit_mapping_validates_and_resolves_lr(rng, impl):
+    """``fit_mapping`` refuses a vector of the wrong length, as JAX's does,
+    and resolves a callable itself: a constant callable stores the bits of
+    the constant."""
+    _, _, jdata = make_problem(rng)
+    data = mapper_data_from_jax(jdata)
+    M0 = torch.from_numpy(np.random.default_rng(2).normal(size=(24, 40)).astype(np.float32))
+    lw = LossWeights(lambda_g1=1.0)
+    short = np.asarray([0.1, 0.2], np.float32)
+    with pytest.raises(ValueError, match="learning_rate vector"):
+        tm.fit_mapping(M0.clone(), data, lw, 6, short, impl=impl)
+    with pytest.raises(ValueError, match="learning_rate vector"):
+        jm.fit_mapping(M0.numpy(), jdata, JLossWeights(lambda_g1=1.0), 6, short)
+    p_fn, _ = tm.fit_mapping(M0.clone(), data, lw, 4, lambda t: 0.1, impl=impl)
+    p_c, _ = tm.fit_mapping(M0.clone(), data, lw, 4, 0.1, impl=impl)
+    assert torch.equal(p_fn, p_c)
+
+
 # ---------------------------------------------------------------------------
 # lr vectors on the three loops
 # ---------------------------------------------------------------------------

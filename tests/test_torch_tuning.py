@@ -324,6 +324,94 @@ def test_tuner_loss_matches_jax(active):
                                    atol=1e-4 * np.abs(g_j).max())
 
 
+MASKED = (1, 4)
+
+
+def kept_genes(arrays, masked=MASKED):
+    """``loss_arrays`` with the masked gene columns dropped (a mask of ones
+    over the rest): the same problem on the training genes alone."""
+    S, G, d, mask, voxel_w, nb_filter, ct, spatial_w, getis_ref = arrays
+    keep = [j for j in range(S.shape[1]) if j not in masked]
+    return (S[:, keep], G[:, keep], d, np.ones(len(keep), np.float32), voxel_w, nb_filter,
+            ct, spatial_w, getis_ref[:, keep])
+
+
+def jax_value_and_grad(M, arrays, lam):
+    import jax
+    import jax.numpy as jnp
+
+    j_arrays = tuple(jnp.asarray(a) for a in arrays)
+    lam_j = {k: jnp.float32(v) for k, v in lam.items()}
+    (v, gv), g = jax.value_and_grad(lambda x: jt._tuner_loss(x, lam_j, j_arrays, None),
+                                    has_aux=True)(jnp.asarray(M))
+    return float(v), float(gv), np.asarray(g)
+
+
+def test_tuner_loss_with_getis_ord_and_masked_genes_matches_jax_on_the_kept_genes():
+    """Getis-Ord on, with genes masked out of training (queue C): the port's
+    loss on the masked arrays equals JAX's on the same problem with the
+    masked columns dropped, value and gradient, at the tolerances of
+    test_tuner_loss_matches_jax. A masked gene adds nothing: on JAX's side
+    dropping its column leaves the value unchanged to 1e-6 (the sums run
+    over other lengths), and only JAX's gradient of the masked arrays is
+    NaN (test_jax_getis_ord_gradient_of_a_masked_gene_is_nan)."""
+    arrays = loss_arrays(masked=MASKED)
+    rng = np.random.default_rng(11)
+    c, s = arrays[0].shape[0], arrays[1].shape[0]
+    Ms = rng.normal(size=(3, c, s)).astype(np.float32)
+    scales = np.array([1.0, 0.5, 2.0], np.float32)
+
+    lam_t = {k: torch.tensor(v * scales) for k, v in LAM.items()}
+    Mv = torch.tensor(Ms, requires_grad=True)
+    total, gv = tt._tuner_loss(Mv, lam_t, tuple(torch.tensor(a) for a in arrays), None)
+    (grad,) = torch.autograd.grad(total.sum(), (Mv,))
+    assert torch.isfinite(grad).all()
+    for m in range(3):
+        lam = {k: v * scales[m] for k, v in LAM.items()}
+        v_mask, gv_mask, _ = jax_value_and_grad(Ms[m], arrays, lam)
+        v_j, gv_j, g_j = jax_value_and_grad(Ms[m], kept_genes(arrays), lam)
+        assert v_mask == pytest.approx(v_j, rel=1e-6)
+        assert gv_mask == pytest.approx(gv_j, rel=1e-6)
+        assert np.isfinite(g_j).all()
+        assert float(total[m].detach()) == pytest.approx(v_j, rel=1e-5)
+        assert float(gv[m].detach()) == pytest.approx(gv_j, rel=1e-5)
+        np.testing.assert_allclose(grad[m].numpy(), g_j, rtol=0, atol=1e-4 * np.abs(g_j).max())
+
+
+def test_jax_getis_ord_gradient_of_a_masked_gene_is_nan(pairs):
+    """JAX's tuner divides by ``jnp.maximum(Σ G_pred, 1e-30)``: on a masked
+    gene's column Σ G_pred is 0, and the gradient there is 0 · (−0 / 1e-60)
+    in f32, NaN. The port's ``torch.clamp`` passes no gradient to the
+    clamped sum, so its gradient is finite (the test above holds it to
+    JAX's on the kept genes). Through the tuner, JAX's NaN poisons every
+    trial of a population whose search space holds Getis-Ord, the λ = 0
+    rows too (0 · NaN), where the port's rows are finite. The port keeps
+    its answer; this pins the difference, as
+    test_l1_gradient_of_a_zero_logit_is_zero pins sign(0)'s."""
+    arrays = loss_arrays(masked=MASKED)
+    rng = np.random.default_rng(11)
+    M = rng.normal(size=(arrays[0].shape[0], arrays[1].shape[0])).astype(np.float32)
+    _, _, g_j = jax_value_and_grad(M, arrays, LAM)
+    assert np.isnan(g_j).any()
+    # at λ = 0 too: the term is computed whenever the population holds it
+    assert np.isnan(jax_value_and_grad(M, arrays, dict(LAM, lambda_getis_ord=0.0))[2]).any()
+    Mv = torch.tensor(M, requires_grad=True)
+    total, _ = tt._tuner_loss(Mv, {k: torch.tensor(v) for k, v in LAM.items()},
+                              tuple(torch.tensor(a) for a in arrays), None)
+    assert torch.isfinite(torch.autograd.grad(total, (Mv,))[0]).all()
+
+    (jpair, tpair) = pairs
+    configs = getis_split_configs()
+    np.random.seed(21)
+    want = jt._run_population(configs, population_batch_size=2,
+                              **population_kwargs(jpair, tg, **GENE_SPLIT))
+    assert np.isnan(want["gene_expr_correctness"]).all()
+    np.random.seed(21)
+    got = tt._run_population(configs, population_batch_size=2, device="cpu",
+                             **population_kwargs(tpair, tgt, **GENE_SPLIT))
+    assert np.isfinite(got.to_numpy()).all()
+
+
 def test_tuner_loss_active_skip_is_exact():
     """Skipping the terms whose λ is zero across the population is bit
     for bit computing them with λ = 0: value and gradient."""
@@ -457,6 +545,38 @@ def test_run_population_matches_jax(pairs, genes):
     np.testing.assert_allclose(got.to_numpy(), want.to_numpy(), rtol=0, atol=METRIC_ATOL)
 
 
+GENE_SPLIT = dict(train_genes_idx=list(range(9)), val_genes_idx=[1, 5, 8, 11])
+
+
+def getis_split_configs():
+    """A Getis-Ord config and one without it (the probe of queue C)."""
+    return [{"lr_peak": 0.2, "lr_end": 0.05, "lambda_g1": 1.0, "lambda_getis_ord": 0.7,
+             "num_epochs": 30},
+            {"learning_rate": 0.1, "lambda_g1": 1.0, "lambda_d": 0.4, "num_epochs": 30}]
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_getis_ord_row_leaves_the_others_alone_under_a_gene_split(pairs, batch):
+    """A Getis-Ord config beside one without it, genes split: every row is
+    finite, and the other row stores the metrics of that config run alone,
+    bit for bit (its Getis-Ord term has λ = 0: a zero value and a zero
+    gradient), and agrees with JAX's run of it alone to METRIC_ATOL (JAX's
+    run of the pair is NaN: test_jax_getis_ord_gradient_of_a_masked_gene_is_nan)."""
+    (jpair, tpair) = pairs
+    configs = getis_split_configs()
+    kw = population_kwargs(tpair, tgt, **GENE_SPLIT)
+    np.random.seed(21)
+    mixed = tt._run_population(configs, population_batch_size=batch, device="cpu", **kw)
+    assert np.isfinite(mixed.to_numpy()).all()
+    np.random.seed(21)
+    alone = tt._run_population(configs[1:], population_batch_size=1, device="cpu", **kw)
+    np.testing.assert_array_equal(mixed.iloc[1].to_numpy(), alone.iloc[0].to_numpy())
+    np.random.seed(21)
+    want = jt._run_population(configs[1:], population_batch_size=1,
+                              **population_kwargs(jpair, tg, **GENE_SPLIT))
+    np.testing.assert_allclose(alone.to_numpy(), want.to_numpy(), rtol=0, atol=METRIC_ATOL)
+
+
 def test_train_multiple_mapper_matches_jax(pairs):
     (jpair, tpair) = pairs
 
@@ -584,6 +704,101 @@ def test_input_errors_match_jax(pairs):
 # ---------------------------------------------------------------------------
 # the port alone
 # ---------------------------------------------------------------------------
+
+
+ADAPTIVE_SPACE = {"learning_rate": tt.loguniform(0.01, 0.5), "lambda_g1": tt.uniform(0.5, 1.0),
+                  "num_epochs": 24}
+
+
+@pytest.mark.parametrize("search,eta,counts", [
+    ("adaptive", None, None),
+    ("halving", 2, {3: 4, 6: 2, 12: 1, 24: 1}),
+    ("adaptive+halving", 2, {6: 4, 12: 2, 24: 2}),
+])
+def test_searches_repeat_and_keep_their_rungs(pairs, search, eta, counts):
+    """``tests/test_adaptive_search.py``'s end-to-end runs on the port: 8
+    trials, every metric finite, the rung structure of halving (eta 2: 4
+    eliminated at 3 epochs, 2 at 6, 1 at 12, the winner at 24) and of two
+    TPE brackets of 4, and the same frame again from the same seeds."""
+    (_, tpair) = pairs
+    kw = dict(metric=["gene_expr_correctness"], config=ADAPTIVE_SPACE, tuner_num_samples=8,
+              cluster_label="subclass_label", search=search, random_state=3,
+              population_batch_size=4 if search == "adaptive+halving" else 3, device="cpu")
+    if eta:
+        kw["halving_eta"] = eta
+    frames = []
+    for _ in range(2):
+        np.random.seed(7)
+        frames.append(tgt.mapping_hyperparameter_tuning(*tpair, **kw)
+                      .get_results().get_dataframe())
+    df = frames[0]
+    assert len(df) == 8
+    assert np.isfinite(df[tt.METRIC_KEYS].to_numpy()).all()
+    assert (df["config/lambda_g1"] >= 0.5).all()
+    if counts:
+        assert df["trained_epochs"].value_counts().to_dict() == counts
+    pd.testing.assert_frame_equal(frames[1], df)
+
+
+def test_halving_winner_prefix_matches_full_training(pairs):
+    """The halving winner's metrics are those of a sobol run of that config
+    alone to the full budget (carried Adam state, the cosine schedule over
+    the whole budget)."""
+    (_, tpair) = pairs
+    kw = dict(metric=["gene_expr_correctness"], cluster_label="subclass_label",
+              random_state=1, device="cpu")
+    np.random.seed(11)
+    df = tgt.mapping_hyperparameter_tuning(
+        *tpair, config={"learning_rate": tt.loguniform(0.05, 0.5), "num_epochs": 12},
+        tuner_num_samples=4, search="halving", halving_eta=2, **kw).get_results().get_dataframe()
+    win = df[df["trained_epochs"] == 12].iloc[0]
+    np.random.seed(11)
+    full = tgt.mapping_hyperparameter_tuning(
+        *tpair, config={"learning_rate": float(win["config/learning_rate"]), "num_epochs": 12},
+        tuner_num_samples=1, **kw).get_results().get_dataframe()
+    assert win["gene_expr_correctness"] == pytest.approx(
+        float(full["gene_expr_correctness"].iloc[0]), abs=2e-4)
+
+
+def test_adaptive_halving_reuses_one_trainer(pairs, monkeypatch):
+    """Every TPE bracket replays the same rung shapes: ``_run_halving``
+    takes the setup's cached trainer instead of building one per bracket."""
+    (_, tpair) = pairs
+    returned = []
+    orig = tt._PopulationSetup.fit_halving
+
+    def spy(self, num_epochs, active=None):
+        fn = orig(self, num_epochs, active)
+        returned.append(fn)
+        return fn
+
+    monkeypatch.setattr(tt._PopulationSetup, "fit_halving", spy)
+    np.random.seed(7)
+    tgt.mapping_hyperparameter_tuning(
+        *tpair, metric=["gene_expr_correctness"],
+        config={"learning_rate": tt.loguniform(0.01, 0.5), "num_epochs": 24},
+        tuner_num_samples=8, cluster_label="subclass_label", search="adaptive+halving",
+        halving_eta=2, random_state=3, population_batch_size=4, device="cpu")
+    assert len(returned) >= 2
+    assert all(fn is returned[0] for fn in returned)
+
+
+def test_adaptive_halving_concentrates_later_brackets(pairs):
+    """Metrics fed back from pruned brackets steer later brackets toward the
+    best trial: the last bracket's log-lr sits closer to the best than the
+    first (Sobol start-up) bracket's."""
+    (_, tpair) = pairs
+    np.random.seed(5)
+    df = tgt.mapping_hyperparameter_tuning(
+        *tpair, metric=["gene_expr_correctness"],
+        config={"learning_rate": tt.loguniform(1e-4, 2.0), "num_epochs": 16},
+        tuner_num_samples=24, cluster_label="subclass_label", search="adaptive+halving",
+        halving_eta=2, random_state=0, population_batch_size=4,
+        device="cpu").get_results().get_dataframe()
+    assert len(df) == 24
+    lr = np.log10(df["config/learning_rate"].to_numpy())
+    best = lr[int(np.argmax(df["gene_expr_correctness"].to_numpy()))]
+    assert np.median(np.abs(lr[-4:] - best)) < np.median(np.abs(lr[:4] - best))
 
 
 def test_resume_sobol(pairs, tmp_path):
