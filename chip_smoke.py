@@ -192,6 +192,24 @@ last line):
               TUNER_BATCH_TOL in a batch of two); the phase's seconds and
               peak memory
 
+16. north_star tangram_tpu_torch.north_star's main path at its full width,
+              100,000 cells x 50,000 spots x 249 genes, in its storage (f32 M,
+              bf16 Adam moments, bf16 A and dY, rounding to nearest):
+              make_problem, the warm-up, then 20 epochs of train with launch
+              counts (rowstats 1; project, rbar and dm_adam one per step), a
+              finite history and a falling total_loss (the score falls on
+              these unstructured data under the density prior, in the JAX
+              package too), ms/step and the phase's own peak memory
+              (earlier phases' tensors freed first); then each of its
+              kernels against its twin on 64-row blocks at the first
+              rows, around the rows where offsets into M pass 2^31 bytes of
+              f32, 2^31 bytes of a bf16 moment and 2^31 entries, and at the
+              last rows (row stats, rbar's r, one dm_adam step's M, mu, nu and
+              next stats; rows of P summing to 1), project's Y and q against
+              a float64 sum over chunks of 4,096 cells by the f32-accuracy
+              rule, and every kernel and twin timed at the full width; these
+              four kernels join the kernels line as "<name>@north_star"
+
 The last three lines are a JSON object with every kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and
 ``{"ok": true, "device": {...}}``; the last is printed only when every
@@ -217,7 +235,8 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
-          "bf16", "reference", "spatial", "cv", "downstream", "contracts", "tuner", "mesh")
+          "bf16", "reference", "spatial", "cv", "downstream", "contracts", "tuner", "mesh",
+          "north_star")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -430,7 +449,7 @@ BF16_SCORE_TOL = 3e-2
 SEED = 1
 
 
-def kernel_work(name, c, s, k):
+def kernel_work(name, c, s, k, mix=None):
     """(bytes, elementwise f32 flops, f32 contraction flops, bf16
     contraction flops) that kernel ``name`` must move and do at (c, s, k):
     each input read once and each output written once, and its contractions
@@ -445,12 +464,20 @@ def kernel_work(name, c, s, k):
     elementwise work per (cell, spot) entry (exp, the
     gradient, the optimizer update, rounding: 5-30 flops) is counted only
     where there is no contraction (the row stats); beside an f32
-    contraction it adds little, and a bf16 variant's bytes outweigh it."""
+    contraction it adds little, and a bf16 variant's bytes outweigh it.
+    ``mix`` = (bytes per element of M, of A and dY, of mu and nu) sets the
+    storage where it is none of those (NS_MIX: the north star's f32 M with
+    bf16 operands and moments); bf16 A and dY then count at the bf16
+    rate."""
     base, _, variant = name.partition(".")
     bf16 = variant == "bf16"
-    e = 2 if bf16 else 4  # bytes per element of M, mu, nu and dM
+    e = 2 if bf16 else 4  # bytes per element of M and dM
     bf16_ops = bf16 and base not in BACKWARD_KERNELS
     eo = 2 if bf16_ops else 4  # of A and dY
+    em = e  # of mu and nu
+    if mix is not None:
+        e, eo, em = mix
+        bf16_ops = eo == 2
     cs, K1 = c * s, k + 1
     # M, [A|w], [dY|dq], dh, m, l
     dp_in = e * cs + eo * (c * k + s * k) + 4 * (c + s + 3 * c)
@@ -459,11 +486,11 @@ def kernel_work(name, c, s, k):
     work = {
         "rowstats": (e * cs + 12 * c, 4 * cs, 0, 0),
         "rowstats_norms": (e * cs + 20 * c, 7 * cs, 0, 0),
-        "project": (e * cs + e * c * k + 4 * (c + 2 * c + s * K1), *ops),
+        "project": (e * cs + eo * c * k + 4 * (c + 2 * c + s * K1), *ops),
         "rbar": (dp_in + 4 * c, *ops),
         "backward_rbar": (dp_in + 4 * c, *ops),
-        # r; M/mu/nu read and written (M's read is in dp_in)
-        "dm_adam": (dp_in + 5 * e * cs + 4 * (c + 3 * c), *ops),
+        # r; M written, mu and nu read and written (M's read is in dp_in)
+        "dm_adam": (dp_in + (e + 4 * em) * cs + 4 * (c + 3 * c), *ops),
         "gsq": (dp_in + 4 * (c + c + s), *ops),
         "dm_adafactor": (dp_in + e * cs + 4 * (c + c + s + 3 * c), *ops),
         "dm_backward": (dp_in + 4 * c + e * cs + 4 * c * K1, *twice),
@@ -471,12 +498,13 @@ def kernel_work(name, c, s, k):
     return work[base]
 
 
-def bound_ms(name, shape):
-    """(the least ms the card could take for kernel ``name`` at ``shape``;
-    "bytes" or "operations": which sets it; the pipe behind "operations").
-    An f32 contraction counts at the faster of the FMA pipes and 3xTF32 on
-    the tensor cores, whichever the kernel uses."""
-    nbytes, f32_ops, f32_dot, bf16_dot = kernel_work(name, *shape)
+def bound_ms(name, shape, mix=None):
+    """(the least ms the card could take for kernel ``name`` at ``shape``
+    (in the storage ``mix``, as kernel_work takes it); "bytes" or
+    "operations": which sets it; the pipe behind "operations"). An f32
+    contraction counts at the faster of the FMA pipes and 3xTF32 on the
+    tensor cores, whichever the kernel uses."""
+    nbytes, f32_ops, f32_dot, bf16_dot = kernel_work(name, *shape, mix=mix)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops, pipe = max(
         (f32_ops / F32_FLOPS_PER_S, "f32 FMA"),
@@ -982,6 +1010,27 @@ def bf16_ulp(ref):
     return torch.exp2(e - 7)
 
 
+def bf16_store_check(got, ref, rtol):
+    """(pass, max abs error, what to print) of stored bf16 values ``got``
+    against the twin's ``ref``: within BF16_ULPS beyond the f32 kernel's own
+    tolerance (``rtol`` of max |twin|), apart in at most BF16_SHARE of the
+    entries or one."""
+    gf, rf = got.float(), ref.float()
+    diff, ulp = (gf - rf).abs(), bf16_ulp(rf)
+    apart = int((diff > 0).sum())
+    share = apart / diff.numel()
+    scale = float(rf[rf.abs() < 1e20].abs().max())
+    # where the update cancels (mu near 0), the f32 kernel's own tolerance
+    # already allows more than one ulp of the stored value
+    over = float(((diff - rtol * scale).clamp_min(0) / ulp).max())
+    line = (f"{share:.2e} of entries apart ({apart}), max "
+            f"{float((diff / ulp).max()):.0f} bf16 ulp, {over:.2f} ulp beyond the f32 "
+            f"tolerance (tol {BF16_ULPS:.0f} ulp beyond {rtol:.0e} of max |twin|, on at "
+            f"most {BF16_SHARE:.0e} of the entries or one)")
+    ok = over <= BF16_ULPS and apart <= max(1, BF16_SHARE * diff.numel())
+    return ok, float(diff.max()), line
+
+
 def compare_bf16_kernels(shape, dev, results, timed):
     """The bf16 variants of rows 1-9 against their twins on the same bf16
     inputs: rowstats and rowstats_norms of a bf16 M; project with a bf16 M
@@ -1026,21 +1075,9 @@ def compare_bf16_kernels(shape, dev, results, timed):
         for what, g, r in zip(names[:n_store], got[:n_store], ref[:n_store]):
             if g.dtype != bf or r.dtype != bf:
                 fail(f"{name} {what} at {shape} is stored as {g.dtype}, not bf16")
-            gf, rf = g.float(), r.float()
-            diff, ulp = (gf - rf).abs(), bf16_ulp(rf)
-            apart = int((diff > 0).sum())
-            share = apart / diff.numel()
-            err = float(diff.max())
-            scale = float(rf[rf.abs() < 1e20].abs().max())
-            # where the update cancels (mu near 0), the f32 kernel's own
-            # tolerance already allows more than one ulp of the stored value
-            over = float(((diff - RTOL[name] * scale).clamp_min(0) / ulp).max())
-            say("kernels", f"{name} {tag} {what}: {share:.2e} of entries apart "
-                f"({apart}), max {float((diff / ulp).max()):.0f} bf16 ulp, {over:.2f} "
-                f"ulp beyond the f32 tolerance (tol {BF16_ULPS:.0f} ulp beyond "
-                f"{RTOL[name]:.0e} of max |twin|, on at most {BF16_SHARE:.0e} of the "
-                f"entries or one)")
-            if not (over <= BF16_ULPS and apart <= max(1, BF16_SHARE * diff.numel())):
+            ok, err, line = bf16_store_check(g, r, RTOL[name])
+            say("kernels", f"{name} {tag} {what}: {line}")
+            if not ok:
                 fail(f"{name} {what} stored values disagree with the twin's at {shape} "
                      f"({tag})")
             results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0.0), err)
@@ -4186,6 +4223,258 @@ def mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
     say("mesh", f"phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the north star at full width
+# ---------------------------------------------------------------------------
+
+NS_EPOCHS = 20          # the main path's run (the module's 1000 are its own call)
+NS_ROWS = 64            # rows in each block held against the twins
+NS_CHUNK = 4_096        # cells per chunk of the float64 projection and the twins' timing
+#: the north star's storage (kernel_work's mix): f32 M, bf16 A and dY, bf16 mu and nu
+NS_MIX = (4, 2, 2)
+#: the kernels of its path in that storage: entry of the kernels line ->
+#: the launch counter it counts under (a bf16 A makes project's ".bf16",
+#: bf16 moments dm_adam's; rowstats and rbar read the f32 M)
+NS_KERNELS = {"rowstats@north_star": "rowstats", "project@north_star": "project.bf16",
+              "rbar@north_star": "rbar", "dm_adam@north_star": "dm_adam.bf16"}
+
+
+def ns_blocks(c, s):
+    """(what, first row) of the NS_ROWS-row blocks held against the twins:
+    the first rows; the rows around the first row whose offset reaches 2^31
+    bytes of f32 M, 2^31 bytes of a bf16 moment (2^32 bytes of M) and 2^31
+    entries; and the last rows."""
+    out = [("first rows", 0)]
+    for what, nbytes in (("2^31 bytes of f32 M", 4), ("2^31 bytes of a bf16 moment", 2),
+                         ("2^31 entries", 1)):
+        row = 2 ** 31 // (s * nbytes)  # the row that holds offset 2^31
+        out.append((f"{what} (row {row})", min(max(row - NS_ROWS // 2, 0), c - NS_ROWS)))
+    out.append(("last rows", c - NS_ROWS))
+    return out
+
+
+def north_star_checks(M, opt_state, data, args, results):
+    """Each kernel of the north star's path at its width against its twin,
+    on the row blocks of ns_blocks (the row stats, rbar's r, dm_adam's M,
+    mu, nu and next stats: row-local, so the twin runs on copies of those
+    rows with the same dY, dq and stats) and, for project's Y and q (sums
+    over every cell), against a float64 sum over chunks of NS_CHUNK cells
+    by the f32-accuracy rule (F32_WITNESS[0]; Y beyond the slack of P's
+    bf16 rounding, as check_rounded_y). Then each kernel and its twin timed
+    at the full width (the twins chunk by chunk: they hold P and dP whole).
+    Leaves its numbers in ``results``, keyed as NS_KERNELS."""
+    import torch
+
+    from tangram_tpu_torch.north_star import LOSS_WEIGHTS
+    from tangram_tpu_torch.ops import cuda_core as cc
+    from tangram_tpu_torch.ops import fused_step as fs
+    from tangram_tpu_torch.ops.losses import LossWeights
+
+    c, s = M.shape
+    bf = torch.bfloat16
+    lw = LossWeights(**LOSS_WEIGHTS)
+    count, mu, nu = opt_state
+    m, l, u = cc._rowstats(M)
+    A_op = fs.unconstrained_a_operand(M, data, lw, bf)
+    # one step's operands and cotangents as the fused step forms them (its
+    # project and rbar kernels)
+    A, w, _, _, dY, dq, dh, r, _, with_dh, _, ops = fs._unconstrained_cotangents(
+        M, (m, l, u), data, lw, bf, A_op)
+    if with_dh or ops.split:
+        fail("north_star: the step should run without the entropy term, on one exact "
+             "bf16 product")
+    blocks = ns_blocks(c, s)
+
+    def judge(entry, what, got, ref, rtol):
+        a, rel = rel_err(got, ref)
+        say("north_star", f"{entry} {what}: max_abs_err={a:.3e} rel={rel:.3e} (tol rel "
+            f"{rtol:.0e})")
+        results[entry]["max_abs_err"] = max(results[entry].get("max_abs_err", 0.0), a)
+        if not rel <= rtol:
+            fail(f"north_star: {entry} {what} disagrees with its twin")
+
+    # the row stats and rbar, row by row
+    for what, r0 in blocks:
+        rows = slice(r0, r0 + NS_ROWS)
+        ref = cc._rowstats_plain(M[rows])
+        for name, got, want in zip("mlu", (m, l, u), ref):
+            judge("rowstats@north_star", f"{name}, {what}", got[rows], want,
+                  RTOL["rowstats"])
+        r_p = cc._rbar_plain(M[rows], A[rows], w[rows], m[rows], l[rows], dY, dq, dh[rows],
+                             with_dh=False)
+        judge("rbar@north_star", f"r, {what}", r[rows], r_p, RTOL["rbar"])
+        row_sum = float((torch.exp(M[rows] - m[rows]) / l[rows]).sum(dim=1).sub(1).abs().max())
+        say("north_star", f"rows of P = exp(M - m) / l sum to 1 within {row_sum:.1e}, {what}")
+        if not row_sum <= 1e-4:
+            fail(f"north_star: rows of P do not sum to 1 ({what})")
+
+    # project: Y and q over every cell, against float64 chunk by chunk
+    Y, q = cc._project(M, A, w, m, l)
+    Y64 = torch.zeros((s, A.shape[1]), dtype=torch.float64, device=M.device)
+    q64 = torch.zeros((s,), dtype=torch.float64, device=M.device)
+    Yp, qp = torch.zeros_like(Y), torch.zeros_like(q)
+    slack = torch.zeros_like(Y)
+    for r0 in range(0, c, NS_CHUNK):
+        rows = slice(r0, min(r0 + NS_CHUNK, c))
+        Mc, Ac, wc, mc, lc = M[rows], A[rows], w[rows], m[rows], l[rows]
+        # Y takes P formed in f32 and rounded to A's type; q the P itself
+        Y64 += cc._project_p(Mc, mc, lc).to(bf).double().T @ Ac.double()
+        q64 += wc.double() @ (torch.exp(Mc.double() - mc.double()) / lc.double())
+        Yc, qc = cc._project_plain(Mc, Ac, wc, mc, lc)
+        Yp += Yc
+        qp += qc
+        slack += cc.project_rounding_slack(Mc, Ac, mc, lc)
+        del Yc, qc
+    for name, got, twin, want, room in (("Y", Y, Yp, Y64, slack), ("q", q, qp, q64, 0.0)):
+        err_k = float(((got.double() - want).abs() - room).clamp_min(0).max())
+        err_p = float((twin.double() - want).abs().max())
+        margin = F32_WITNESS[0] * err_p
+        say("north_star", f"project@north_star {name}: against float64 the kernel errs by "
+            f"{err_k:.3e}" + (" beyond the slack of P's bf16 rounding (max "
+                              f"{float(slack.max()):.3e})" if name == "Y" else "")
+            + f", the f32 twin summed by chunks by {err_p:.3e} (kernel must stay within "
+            f"{F32_WITNESS[0]:.0f}x: {margin:.3e})")
+        results["project@north_star"]["max_abs_err"] = max(
+            results["project@north_star"].get("max_abs_err", 0.0),
+            float((got - twin).abs().max()))
+        if not err_k <= margin:
+            fail(f"north_star: project {name} is less accurate than f32")
+    del Y64, q64, Yp, qp, slack
+
+    # dm_adam in place on the whole M, mu and nu; the twin on copies of the
+    # blocks' rows from before the step
+    step = count + 1
+    scalars = fs.adam_scalars(step, args.lr)
+    before = {what: tuple(t[r0:r0 + NS_ROWS].clone() for t in (M, mu, nu))
+              for what, r0 in blocks}
+    out = fs._dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh=False,
+                      step=step, operands=ops)
+    for what, r0 in blocks:
+        rows = slice(r0, r0 + NS_ROWS)
+        Mb, mub, nub = before[what]
+        ref = fs._dm_adam_plain(Mb, A[rows], w[rows], m[rows], l[rows], dY, dq, dh[rows],
+                                r[rows], mub, nub, scalars, False, step=step)
+        for name, got, want in zip(("M", "mu", "nu", "m'", "l'", "u'"), out, ref):
+            if name in ("mu", "nu"):
+                ok, err, line = bf16_store_check(got[rows], want, RTOL["dm_adam"])
+                say("north_star", f"dm_adam@north_star {name}, {what}: {line}")
+                results["dm_adam@north_star"]["max_abs_err"] = max(
+                    results["dm_adam@north_star"].get("max_abs_err", 0.0), err)
+                if not ok:
+                    fail(f"north_star: dm_adam {name} stored values disagree with the twin's "
+                         f"({what})")
+            else:
+                judge("dm_adam@north_star", f"{name}, {what}", got[rows], want,
+                      RTOL["dm_adam"])
+    del before, out
+
+    # times at the full width: the kernels as the fused step calls them, the
+    # twins chunk by chunk over every cell (dm_adam's in place, as the kernel)
+    def chunked(fn):
+        def run():
+            for r0 in range(0, c, NS_CHUNK):
+                fn(slice(r0, min(r0 + NS_CHUNK, c)))
+        return run
+
+    def project_twin(rows):
+        cc._project_plain(M[rows], A[rows], w[rows], m[rows], l[rows])
+
+    timed = {
+        "rowstats@north_star": (lambda: cc._rowstats(M),
+                                chunked(lambda rows: cc._rowstats_plain(M[rows]))),
+        "project@north_star": (lambda: cc._project(M, A, w, m, l), chunked(project_twin)),
+        "rbar@north_star": (
+            lambda: fs._rbar(M, A, w, m, l, dY, dq, dh, with_dh=False, operands=ops),
+            chunked(lambda rows: cc._rbar_plain(M[rows], A[rows], w[rows], m[rows], l[rows],
+                                                dY, dq, dh[rows], with_dh=False))),
+        "dm_adam@north_star": (
+            lambda: fs._dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
+                                with_dh=False, step=step, operands=ops),
+            chunked(lambda rows: fs._dm_adam_plain(
+                M[rows], A[rows], w[rows], m[rows], l[rows], dY, dq, dh[rows], r[rows],
+                mu[rows], nu[rows], scalars, False, step=step))),
+    }
+    for entry, (kernel, twin) in timed.items():
+        results[entry]["ms"] = cuda_ms(kernel, runs=5)
+        results[entry]["plain_ms"] = cuda_ms(twin, runs=1, warmup=1)
+
+
+def north_star_phase(dev, card):
+    """The north star (``tangram_tpu_torch.north_star``) at its full width,
+    100,000 x 50,000 x 249, in its storage, for NS_EPOCHS epochs after its
+    warm-up, through the module's own functions; launch counts, a finite
+    history and a falling objective; then north_star_checks. Returns the phase's
+    kernel entries for the kernels line."""
+    import torch
+
+    from tangram_tpu_torch import north_star as ns
+    from tangram_tpu_torch.models.mapper import init_logits
+    from tangram_tpu_torch.ops import cuda_core as cc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = ns.parse_args(["--epochs", str(NS_EPOCHS)])
+    shape = (args.cells, args.spots, args.genes)
+    say("north_star", f"{shape}, moments {args.moment_dtype}, A and dY "
+        f"{args.compute_dtype}, M float32; {base / 2**30:.3f} GiB resident before")
+    data = ns.mapper_data(*ns.make_problem(args), dev)
+
+    def start():
+        return init_logits(args.cells, args.spots, args.seed, method="jax", device=dev)
+
+    ns.train(start(), data, args, epochs=ns.WARM_STEPS)
+    M0 = start()
+    torch.cuda.synchronize()
+    cc.reset_launches()
+    t1 = time.perf_counter()
+    M, opt_state, hist = ns.train(M0, data, args, return_opt_state=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    counts = check_launches("north_star", {"rowstats": 1, "project.bf16": NS_EPOCHS,
+                                           "rbar": NS_EPOCHS, "dm_adam.bf16": NS_EPOCHS})
+    main = hist["main_loss"].cpu().numpy()
+    total = hist["total_loss"].cpu().numpy()
+    if len(main) != NS_EPOCHS or not (np.isfinite(main).all() and np.isfinite(total).all()):
+        fail(f"north_star: history has {len(main)} epochs or non-finite losses")
+    # the objective falls; the score itself falls too on these data (Poisson
+    # draws with no structure, under the density prior), in the JAX package
+    # as in the port
+    if not total[-1] < total[0]:
+        fail(f"north_star: total_loss did not fall ({total[0]:.4f} -> {total[-1]:.4f})")
+    fit_peak = torch.cuda.max_memory_allocated()
+    say("north_star", f"{NS_EPOCHS} epochs in {fit_s:.2f} s: {fit_s / NS_EPOCHS * 1e3:.2f} "
+        f"ms/step (host clock around the fit, synchronized; {card}); main_loss "
+        f"{main[0]:.4f} -> {main[-1]:.4f}, total_loss {total[0]:.4f} -> {total[-1]:.4f}; "
+        f"peak device memory {fit_peak / 2**30:.3f} GiB ({(fit_peak - base) / 2**30:.3f} "
+        f"above the resident)")
+
+    results = {entry: {} for entry in NS_KERNELS}
+    north_star_checks(M, opt_state, data, args, results)
+    entries = []
+    for entry, counter in NS_KERNELS.items():
+        base_name = counter.partition(".")[0]
+        bound, by, pipe = bound_ms(base_name, shape, NS_MIX)
+        r = results[entry]
+        say("north_star", f"{entry}: kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms "
+            f"(chunks of {NS_CHUNK} cells), bound {bound:.3f} ms ({by}: {pipe}) at {shape} "
+            f"({card})")
+        entries.append({
+            "name": entry, "route": "cuda",
+            "source": (TENSOR_SOURCE if base_name in TENSOR_KERNELS else
+                       PROJECT_SOURCE if base_name in PROJECT_KERNELS else SOURCE),
+            "replaces": REPLACES[base_name], "launches": counts[counter],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None})
+    peak = torch.cuda.max_memory_allocated()
+    say("north_star", f"phase done in {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{peak / 2**30:.3f} GiB with the checks ({card})")
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4530,6 +4819,12 @@ def main(argv=None) -> int:
     if "mesh" in phases:
         mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
 
+    north_star_kernels = []
+    if "north_star" in phases:
+        # the phase's peak is its own: what the earlier phases hold goes first
+        ad_sc = ad_sp = cells_mapper = con_mapper = None
+        north_star_kernels = north_star_phase(dev, card)
+
     if args.profile:
         profile_dp_tile(dev)
     say("done", f"{time.perf_counter() - t_start:.1f} s in all")
@@ -4548,7 +4843,7 @@ def main(argv=None) -> int:
          # prints cuBLAS at the contraction shapes as a note)
          "library_ms": None}
         for name, r in results.items()
-    ]
+    ] + north_star_kernels
     print(json.dumps({"kernels": kernels}))
     print(card)
     if list(phases) != list(PHASES) or shapes != list(KERNEL_SHAPES):

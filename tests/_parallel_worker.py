@@ -1,13 +1,16 @@
-"""The port's side of ``tests/test_torch_parallel.py`` and of the mesh
-cases of ``tests/test_torch_printing.py``: every case trained on a mesh of
+"""The port's side of ``tests/test_torch_parallel.py``, of the mesh cases
+of ``tests/test_torch_printing.py`` and of the torchrun branches of
+``tests/test_torch_north_star.py`` and
+``tests/test_torch_examples_torchrun.py``: every case trained on a mesh of
 ``gloo`` processes on the CPU.
 
 This module imports numpy, torch and ``tangram_tpu_torch`` only (no JAX),
 so a spawned worker starts in about a second. :func:`run` spawns
 ``WORLD`` workers with a ``file://`` rendezvous in a directory (no port to
 collide between test workers); each runs every case of one suite (the
-fits of :data:`CASES` and the checks below, or the printing cases), one
-torch thread each, and pickles its results to ``rank<r>.pkl`` there.
+fits of :data:`CASES` and the checks below, the printing cases, the north
+star's cases or the tutorials'), one torch thread each, and pickles its
+results to ``rank<r>.pkl`` there.
 """
 
 from __future__ import annotations
@@ -383,6 +386,67 @@ def printing_jobs(meshes):
             ("constrained", constrained)]
 
 
+def north_star_jobs():
+    """``tangram_tpu_torch.north_star`` in a world of ``WORLD`` processes:
+    ``main`` at the tiny shape on each mesh (what each rank printed), and
+    ``train`` from one numpy start on each mesh, in f32 and in the script's
+    bf16 mix (its history and logits)."""
+    from tangram_tpu_torch import north_star as ns
+
+    def run_main(mesh):
+        _, lines = printed(lambda: ns.main(["--tiny", "--device", "cpu", "--mesh", mesh]))
+        return dict(lines=lines)
+
+    def fit(mesh, low):
+        args = ns.parse_args(["--tiny", "--device", "cpu", "--mesh", mesh] + low)
+        args.epochs = NORTH_STAR_EPOCHS
+        S, G, d = ns.make_problem(args)
+        M0 = torch.from_numpy(north_star_start(args))
+        M, hist = ns.train(M0, ns.mapper_data(S, G, d, "cpu"), args,
+                           ns.world_mesh(args, torch.device("cpu")))
+        return dict(M=M.float().numpy(), hist={k: v.numpy() for k, v in hist.items()})
+
+    jobs = []
+    for mesh in ("1d", "2d"):
+        jobs.append((f"main {mesh}", lambda mesh=mesh: run_main(mesh)))
+        for name, low in NORTH_STAR_DTYPES.items():
+            jobs.append((f"fit {mesh} {name}", lambda mesh=mesh, low=low: fit(mesh, low)))
+    return jobs
+
+
+def tutorial_jobs():
+    """The atlas and sweep tutorials of ``tangram_tpu_torch.examples`` in
+    a world of ``WORLD`` processes: what each rank printed (the sweep after
+    seeding numpy's global stream with :data:`TUTORIAL_SEED`, which its
+    ``random_state=0`` leaves unseeded)."""
+    from tangram_tpu_torch.examples import tutorial_atlas_mesh as atlas
+    from tangram_tpu_torch.examples import tutorial_fault_tolerant_sweep as sweep
+
+    def atlas_job():
+        return dict(lines=printed(lambda: atlas.main(quick=True, device="cpu"))[1])
+
+    def sweep_job():
+        np.random.seed(TUTORIAL_SEED)
+        return dict(lines=printed(lambda: sweep.main(device="cpu"))[1])
+
+    return [("atlas", atlas_job), ("sweep", sweep_job)]
+
+
+TUTORIAL_SEED = 123
+
+#: the north-star fits' epochs and dtype flags (the script's own: bf16
+#: moments and contraction inputs)
+NORTH_STAR_EPOCHS = 20
+NORTH_STAR_DTYPES = {"f32": ["--moment-dtype", "float32", "--compute-dtype", "float32"],
+                     "bf16": []}
+
+
+def north_star_start(args):
+    """One numpy N(0, 1) start of the north star's shape for both packages."""
+    return np.random.default_rng(args.seed + 7).standard_normal(
+        (args.cells, args.spots)).astype(np.float32)
+
+
 def parallel_jobs(meshes, directory):
     """The fits of :data:`CASES` and the checks of
     ``tests/test_torch_parallel.py``."""
@@ -417,8 +481,14 @@ def worker(rank, directory, suite="parallel"):
                               mesh_dim_names=("slice", "cell", "spot")),
     }
     results = {}
-    jobs = (printing_jobs(meshes) if suite == "printing"
-            else parallel_jobs(meshes, directory))
+    if suite == "printing":
+        jobs = printing_jobs(meshes)
+    elif suite == "north_star":
+        jobs = north_star_jobs()
+    elif suite == "tutorials":
+        jobs = tutorial_jobs()
+    else:
+        jobs = parallel_jobs(meshes, directory)
     for name, job in jobs:
         try:
             results[name] = job()
@@ -437,10 +507,10 @@ def worker(rank, directory, suite="parallel"):
 
 
 def run(directory, timeout=300.0, suite="parallel"):
-    """Spawn the workers on ``suite`` (``"parallel"`` or ``"printing"``)
-    and return each rank's results; the workers are stopped after
-    ``timeout`` seconds (a collective that one rank never reaches would
-    wait for ever)."""
+    """Spawn the workers on ``suite`` (``"parallel"``, ``"printing"``,
+    ``"north_star"`` or ``"tutorials"``) and return each rank's results;
+    the workers are stopped after ``timeout`` seconds (a collective that
+    one rank never reaches would wait for ever)."""
     import time
 
     import torch.multiprocessing as mp

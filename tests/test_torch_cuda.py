@@ -1241,3 +1241,54 @@ def test_bf16_autograd_loop_on_the_card_matches_cpu(dev, optimizer):
                     .double().norm())
     dist = float((fit(M0, data, "kernels", 5).cpu() - M_cpu).double().norm())
     assert 0 < witness and dist <= 4.0 * witness, (dist, witness)
+
+
+def test_north_star_past_2_31_bytes_of_m(dev):
+    """tangram_tpu_torch.north_star's train at 12,000 × 50,000 × 249 (M is
+    2.4 GB of f32: offsets pass 2^31 bytes at row 10,737) in its storage
+    (bf16 moments, A and dY), 3 epochs; then the row stats and one dm_adam
+    step, run on the whole M, held on the rows around that offset and on
+    the last 64 rows against their twins on copies of those rows: the stats
+    and M within 1e-5 and 1e-4 of max |twin| (chip_smoke.RTOL), the bf16
+    moments within 1 bf16 ulp beyond that (chip_smoke.BF16_ULPS)."""
+    from tangram_tpu_torch import north_star as ns
+    from tangram_tpu_torch.models.mapper import init_logits
+
+    args = ns.parse_args(["--cells", "12000", "--epochs", "3"])
+    c, s = args.cells, args.spots
+    data = ns.mapper_data(*ns.make_problem(args), dev)
+    M0 = init_logits(c, s, args.seed, method="jax", device=dev)
+    cc.reset_launches()
+    M, (count, mu, nu), hist = ns.train(M0, data, args, return_opt_state=True)
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
+        "rowstats": 1, "project.bf16": 3, "rbar": 3, "dm_adam.bf16": 3}
+    assert torch.isfinite(hist["main_loss"]).all()
+    assert M.dtype == torch.float32 and mu.dtype == nu.dtype == torch.bfloat16
+    crossing = 2 ** 31 // (s * 4)
+    blocks = [slice(crossing - 32, crossing + 32), slice(c - 64, c)]
+
+    m, l, u = cc._rowstats(M)
+    for rows in blocks:
+        for got, want in zip((m, l, u), cc._rowstats_plain(M[rows])):
+            assert_close(got[rows], want, rtol=1e-5)
+
+    lw = LossWeights(**ns.LOSS_WEIGHTS)
+    A_op = fs.unconstrained_a_operand(M, data, lw, torch.bfloat16)
+    A, w, _, _, dY, dq, dh, r, _, _, _, ops = fs._unconstrained_cotangents(
+        M, (m, l, u), data, lw, torch.bfloat16, A_op)
+    scalars = fs.adam_scalars(count + 1, args.lr)
+    before = [tuple(t[rows].clone() for t in (M, mu, nu)) for rows in blocks]
+    out = fs._dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh=False,
+                      step=count + 1, operands=ops)
+    for rows, (Mb, mub, nub) in zip(blocks, before):
+        ref = fs._dm_adam_plain(Mb, A[rows], w[rows], m[rows], l[rows], dY, dq, dh[rows],
+                                r[rows], mub, nub, scalars, False, step=count + 1)
+        for i, (got, want) in enumerate(zip(out, ref)):
+            if i in (1, 2):  # mu, nu: stored in bf16
+                diff = (got[rows].float() - want.float()).abs()
+                slack = 1e-4 * float(want.float().abs().max())
+                ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().clamp_min(
+                    2.0 ** -126))) - 7)
+                assert float(((diff - slack).clamp_min(0) / ulp).max()) <= 1.0
+            else:
+                assert_close(got[rows], want, rtol=1e-4)
