@@ -192,7 +192,31 @@ last line):
               TUNER_BATCH_TOL in a batch of two); the phase's seconds and
               peak memory
 
-16. north_star tangram_tpu_torch.north_star's main path at its full width,
+16. fuzz      the kernels at shapes nobody picked: (a) 24 shapes drawn from
+              a fixed seed across the tiles' edges (c in 1-15, 63-65,
+              127-129, 200-3,000; s of every residue mod 8, at 63-65,
+              127-129 and up to 9,852; k + 1 in 2-33, 255-257, 287-289,
+              511-513), M, mu and nu views at entry offsets 0-7 of larger
+              buffers (unaligned bases), a padding sentinel in half of
+              them: every kernel and its bf16 variant against its twin
+              (with and without the entropy cotangent and the L1/L2 terms:
+              the kernel phase's checks but the f32-accuracy witness, which
+              needs depth enough for one TF32 rounding to show) inside
+              guard bands and three times for the same bits, a line per
+              shape with the paths it took (staging granules, row-stats
+              loads, 2-entry access, project and dP-tile splits, A panels,
+              column panels), then how often each value was reached: the
+              phase fails if a value reachable on the card went unreached;
+              (b) tangram_tpu_torch.scripts.fuzz_paths on a world of one
+              NCCL rank, 16 trials at c 9-3,000, s 8-2,000, g 4-300 and 4
+              at the JAX tool's ranges (the reference loop, the fused
+              kernels, the sharded and the chunked sharded fits, held to
+              the JAX tool's bounds and the tool's two rules of f32
+              scale), with the kernels' launch counts; (c)
+              tangram_tpu_torch.scripts.fuzz_tuner, 4 trials; trials and
+              failures of each, and the phase's seconds
+
+17. north_star tangram_tpu_torch.north_star's main path at its full width,
               100,000 cells x 50,000 spots x 249 genes, in its storage (f32 M,
               bf16 Adam moments, bf16 A and dY, rounding to nearest):
               make_problem, the warm-up, then 20 epochs of train with launch
@@ -236,7 +260,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
           "bf16", "reference", "spatial", "cv", "downstream", "contracts", "tuner", "mesh",
-          "north_star")
+          "fuzz", "north_star")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -577,13 +601,37 @@ def cuda_ms(fn, runs: int, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(c, s, k, seed, dev, pad=False):
+def at_offset(t, offset):
+    """A copy of ``t`` that starts ``offset`` entries into a buffer of its
+    own (a view, contiguous): the kernels pick their staging from the base
+    address, and a view at an offset is what a caller's slice hands them."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def same_base(t):
+    """A copy of ``t`` whose base sits as far past a 16-byte boundary as
+    ``t``'s does: what the checks copy for the kernels that update in place,
+    so that the copy takes the staging paths of ``t``."""
+    return at_offset(t, (t.data_ptr() % 16) // t.element_size())
+
+
+#: the (c, s) inputs of kernel_inputs that ``offsets`` may place off their base
+OFFSET_INPUTS = ("M", "mu", "nu")
+
+
+def kernel_inputs(c, s, k, seed, dev, pad=False, offsets=None):
     """Seeded inputs at the magnitudes of the main path: N(0, 1) logits
     (with one padding sentinel when ``pad``), Poisson counts for A, the
-    uniform cell weight, small cotangents and Adam moments a few steps in."""
+    uniform cell weight, small cotangents and Adam moments a few steps in.
+    ``offsets`` maps M, mu and nu to the entry offset of each one's view
+    (0 when absent)."""
     import torch
 
     rng = np.random.default_rng(seed)
+    offsets = offsets or {}
 
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
@@ -591,7 +639,7 @@ def kernel_inputs(c, s, k, seed, dev, pad=False):
     M = rng.standard_normal((c, s), dtype=np.float32)
     if pad:
         M[0, 1] = PAD
-    return dict(
+    x = dict(
         M=t(M),
         A=t(rng.poisson(1.0, (c, k))),
         w=t(np.full(c, 1.0 / c)),
@@ -601,6 +649,10 @@ def kernel_inputs(c, s, k, seed, dev, pad=False):
         mu=t(rng.standard_normal((c, s), dtype=np.float32) * 1e-6),
         nu=t(rng.random((c, s), dtype=np.float32) * 1e-10),
     )
+    for key in OFFSET_INPUTS:
+        if offsets.get(key):
+            x[key] = at_offset(x[key], offsets[key])
+    return x
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -803,14 +855,20 @@ def check_f32_accuracy(shape, x, m, l, scalars, parts=WITNESS_PARTS, fraction_co
         fail(f"f32-accuracy witness at {shape}: " + "; ".join(bad))
 
 
-def compare_kernels(shape, dev, results, timed):
+def compare_kernels(shape, dev, results, timed, pad=None, offsets=None, witness=True):
+    """Rows 1-9 in f32 against their twins at ``shape`` (with a padding
+    sentinel when ``pad``, the ragged shape's by default; M, mu and nu at
+    ``offsets`` as kernel_inputs takes them), with and without the entropy
+    cotangent and the L1/L2 terms; the f32-accuracy witness with
+    ``witness``, MapperCore at the tutorial shape; times with ``timed``."""
     import torch
 
     from tangram_tpu_torch.ops import cuda_core as cc
     from tangram_tpu_torch.ops import fused_step as fs
 
     c, s, k = shape
-    x = kernel_inputs(c, s, k, seed=11, dev=dev, pad=shape == RAGGED)
+    x = kernel_inputs(c, s, k, seed=11, dev=dev, pad=shape == RAGGED if pad is None else pad,
+                      offsets=offsets)
     M, A, w, dY, dq, dh = x["M"], x["A"], x["w"], x["dY"], x["dq"], x["dh"]
     M_host = M.cpu()  # every kernel and twin below leaves M as it is
     scalars = fs.adam_scalars(3, 0.1)
@@ -909,8 +967,8 @@ def compare_kernels(shape, dev, results, timed):
         norms = dict(lam_l1=lam[0], lam_l2=lam[1], with_norms=True)
         for kw, names in (({}, ("M", "mu", "nu", "m'", "l'", "u'")),
                           (norms, ("M", "mu", "nu", "m'", "l'", "u'", "s1'", "s2'"))):
-            Mk, muk, nuk = M.clone(), x["mu"].clone(), x["nu"].clone()
-            Mp, mup, nup = M.clone(), x["mu"].clone(), x["nu"].clone()
+            Mk, muk, nuk = same_base(M), same_base(x["mu"]), same_base(x["nu"])
+            Mp, mup, nup = same_base(M), same_base(x["mu"]), same_base(x["nu"])
             out_k = fs._dm_adam(Mk, A, w, m, l, dY, dq, dh, r_p, muk, nuk, scalars,
                                 with_dh=with_dh, **kw)
             out_p = fs._dm_adam_plain(Mp, A, w, m, l, dY, dq, dh, r_p, mup, nup,
@@ -947,7 +1005,7 @@ def compare_kernels(shape, dev, results, timed):
                     *args, r_p, l1, l2, with_dh=with_dh), lam, ntag)
             _, _, rowf, colf = fs.factored_rms_vectors(
                 0, torch.zeros_like(vr_p), torch.zeros_like(vc_p), vr_p, vc_p, c, s)
-            Mk, Mp = M.clone(), M.clone()
+            Mk, Mp = same_base(M), same_base(M)
             out_k = fs._dm_adafactor(Mk, A, w, m, l, dY, dq, dh, r_p, rowf, colf, 0.1,
                                      *lam_c, with_norms=with_norms, with_dh=with_dh)
             out_p = fs._dm_adafactor_plain(Mp, A, w, m, l, dY, dq, dh, r_p, rowf,
@@ -992,7 +1050,8 @@ def compare_kernels(shape, dev, results, timed):
                       lambda: cc._dm_backward_plain(*args, r_p, with_dh=True))
 
     del bops
-    check_f32_accuracy(shape, x, m, l, scalars)
+    if witness:
+        check_f32_accuracy(shape, x, m, l, scalars)
     if shape == SHAPE:
         check_mapper_core(x, results)
     if timed:
@@ -1031,7 +1090,7 @@ def bf16_store_check(got, ref, rtol):
     return ok, float(diff.max()), line
 
 
-def compare_bf16_kernels(shape, dev, results, timed):
+def compare_bf16_kernels(shape, dev, results, timed, pad=None, offsets=None):
     """The bf16 variants of rows 1-9 against their twins on the same bf16
     inputs: rowstats and rowstats_norms of a bf16 M; project with a bf16 M
     and a bf16 A (the fused steps) or an f32 A (the validation metrics);
@@ -1047,9 +1106,10 @@ def compare_bf16_kernels(shape, dev, results, timed):
 
     c, s, k = shape
     bf = torch.bfloat16
-    x = kernel_inputs(c, s, k, seed=13, dev=dev, pad=shape == RAGGED)
-    x = {key: v.to(bf) if key in ("M", "A", "dY", "mu", "nu") else v
-         for key, v in x.items()}
+    offsets = offsets or {}
+    x = kernel_inputs(c, s, k, seed=13, dev=dev, pad=shape == RAGGED if pad is None else pad)
+    x = {key: at_offset(v.to(bf), offsets.get(key, 0)) if key in ("M", "A", "dY", "mu", "nu")
+         else v for key, v in x.items()}
     M, A, w, dY, dq, dh = x["M"], x["A"], x["w"], x["dY"], x["dq"], x["dh"]
     M_host = M.cpu()
     runs = 10
@@ -1150,8 +1210,8 @@ def compare_bf16_kernels(shape, dev, results, timed):
             kw = dict(rounding=rounding, step=3)
             for norms in ({}, dict(lam_l1=lam[0], lam_l2=lam[1], with_norms=True)):
                 names = ("M", "mu", "nu", "m'", "l'", "u'", "s1'", "s2'")
-                k_state = [t.clone() for t in (M, x["mu"], x["nu"])]
-                p_state = [t.clone() for t in (M, x["mu"], x["nu"])]
+                k_state = [same_base(t) for t in (M, x["mu"], x["nu"])]
+                p_state = [same_base(t) for t in (M, x["mu"], x["nu"])]
                 scalars = fs.adam_scalars(3, 0.1)
                 out_k = fs._dm_adam(k_state[0], *args[1:], r_p, *k_state[1:], scalars,
                                     with_dh=with_dh, **norms, **kw)
@@ -1174,7 +1234,7 @@ def compare_bf16_kernels(shape, dev, results, timed):
                     check("gsq.bf16", [("vr", vr_k, vr_p), ("vc", vc_k, vc_p)], ntag)
                 _, _, rowf, colf = fs.factored_rms_vectors(
                     0, torch.zeros_like(vr_p), torch.zeros_like(vc_p), vr_p, vc_p, c, s)
-                Mk, Mp = M.clone(), M.clone()
+                Mk, Mp = same_base(M), same_base(M)
                 out_k = fs._dm_adafactor(Mk, *args[1:], r_p, rowf, colf, 0.1, *lam_c,
                                          with_norms=with_norms, with_dh=with_dh, **kw)
                 out_p = fs._dm_adafactor_plain(Mp, *args[1:], r_p, rowf, colf, 0.1,
@@ -1334,7 +1394,10 @@ def guarded_allocations(dev, where):
         n = math.prod(shape)
         int_type, bits = word[dtype]
         buf = empty(n + 2 * GUARD, dtype=int_type, device=dev).fill_(bits)
-        live.append((buf, n, bits, sys._getframe(2).f_code.co_name))
+        frame = sys._getframe(2)
+        while frame.f_code.co_name in ("at_offset", "same_base"):
+            frame = frame.f_back  # name the check that asked for the copy
+        live.append((buf, n, bits, frame.f_code.co_name))
         return buf.view(dtype)[GUARD:GUARD + n].view(shape)
 
     def p_empty(*size, dtype=None, device=None, **kw):
@@ -1373,7 +1436,7 @@ def guarded_allocations(dev, where):
         f"(guards of {GUARD} elements)")
 
 
-def check_repeatable(shape, dev, repeats=3):
+def check_repeatable(shape, dev, repeats=3, pad=None, offsets=None):
     """Each kernel, run ``repeats`` times on the same inputs (with the
     entropy cotangent and the L1/L2 terms on), gives the same bits. The
     kernels reduce in a fixed order with no atomics, so a difference is a
@@ -1384,7 +1447,9 @@ def check_repeatable(shape, dev, repeats=3):
     from tangram_tpu_torch.ops import fused_step as fs
 
     c, s, k = shape
-    x = kernel_inputs(c, s, k, seed=12, dev=dev, pad=shape == RAGGED)
+    offsets = offsets or {}
+    x = kernel_inputs(c, s, k, seed=12, dev=dev, pad=shape == RAGGED if pad is None else pad,
+                      offsets=offsets)
     M, mu, nu = x["M"], x["mu"], x["nu"]
     m, l, _ = cc._rowstats_plain(M)
     args = (M, x["A"], x["w"], m, l, x["dY"], x["dq"], x["dh"])
@@ -1401,15 +1466,16 @@ def check_repeatable(shape, dev, repeats=3):
         "backward_rbar": lambda: (cc._rbar(*args, counter="backward_rbar"),),
         "dm_backward": lambda: cc._dm_backward(*args, r),
         "dm_adam": lambda: fs._dm_adam(
-            M.clone(), *args[1:], r, mu.clone(), nu.clone(), fs.adam_scalars(3, 0.1),
+            same_base(M), *args[1:], r, same_base(mu), same_base(nu), fs.adam_scalars(3, 0.1),
             lam_l1=lam[0], lam_l2=lam[1], with_norms=True),
         "gsq": lambda: fs._gsq(*args, r, *lam),
         "dm_adafactor": lambda: fs._dm_adafactor(
-            M.clone(), *args[1:], r, rowf, colf, 0.1, *lam, with_norms=True),
+            same_base(M), *args[1:], r, rowf, colf, 0.1, *lam, with_norms=True),
     }
     # the bf16 variants, the updates with stochastic rounding
     bf = torch.bfloat16
-    Mb, mub, nub = M.to(bf), mu.to(bf), nu.to(bf)
+    Mb, mub, nub = (at_offset(t.to(bf), offsets.get(key, 0))
+                    for key, t in (("M", M), ("mu", mu), ("nu", nu)))
     mb, lb, _ = cc._rowstats_plain(Mb)
     argsb = (Mb, x["A"].to(bf), x["w"], mb, lb, x["dY"].to(bf), x["dq"], x["dh"])
     rb = cc._rbar_plain(*argsb)
@@ -1424,11 +1490,12 @@ def check_repeatable(shape, dev, repeats=3):
         "project.bf16": lambda: cc._project(*argsb[:5]),
         "rbar.bf16": lambda: (fs._rbar(*argsb),),
         "dm_adam.bf16": lambda: fs._dm_adam(
-            Mb.clone(), *argsb[1:], rb, mub.clone(), nub.clone(), fs.adam_scalars(3, 0.1),
+            same_base(Mb), *argsb[1:], rb, same_base(mub), same_base(nub),
+            fs.adam_scalars(3, 0.1),
             lam_l1=lam[0], lam_l2=lam[1], with_norms=True, **sr),
         "gsq.bf16": lambda: fs._gsq(*argsb, rb, *lam),
         "dm_adafactor.bf16": lambda: fs._dm_adafactor(
-            Mb.clone(), *argsb[1:], rb, rowfb, colfb, 0.1, *lam, with_norms=True, **sr),
+            same_base(Mb), *argsb[1:], rb, rowfb, colfb, 0.1, *lam, with_norms=True, **sr),
         # the backward's on a bf16 M, with f32 A and dY
         "backward_rbar.bf16": lambda: (cc._rbar(Mb, *args[1:3], mb, lb, *args[5:],
                                                 counter="backward_rbar"),),
@@ -3747,7 +3814,7 @@ def steady_period_ms(calls):
     return float(np.median([a.elapsed_time(b) for a, b in zip(starts, starts[1:])][MESH_WARM:]))
 
 
-def release_cached_memory():
+def release_cached_memory(phase="mesh"):
     """Hand the blocks that earlier phases left in PyTorch's cache back to
     the card: NCCL allocates its own buffers (after the whole script it
     found the card full: "Failed to CUDA calloc async 608 bytes"), and the
@@ -3756,7 +3823,7 @@ def release_cached_memory():
 
     gc.collect()
     torch.cuda.empty_cache()
-    say("mesh", f"device memory: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+    say(phase, f"device memory: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
 
 
@@ -4224,7 +4291,205 @@ def mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the north star at full width
+# phase 16: fuzz (every kernel at drawn shapes, the path and tuner fuzzers)
+# ---------------------------------------------------------------------------
+
+FUZZ_SEED = 0
+FUZZ_SHAPES = 24
+#: the drawn shapes' classes, each drawn with its weight: cells (a partial
+#: 16-cell project chunk, 64-cell groups at their edges, many); spots (few,
+#: a 64-spot project tile at its edge, a 128-spot dP tile at its edge, up to
+#: the tutorial's 9,852), each wide class snapped to the residue mod 8 of
+#: the draw's turn so that all eight occur; k + 1 (one panel, 256 columns at
+#: the edge, K padded past 256, two panels at the edge)
+FUZZ_C = (((1, 16), 0.25), ((63, 66), 0.25), ((127, 130), 0.2), ((200, 3_001), 0.3))
+FUZZ_S = (((2, 63), 0.4), ((63, 66), 0.15), ((127, 130), 0.15), ((130, 9_853), 0.3))
+FUZZ_K1 = (((2, 34), 0.25), ((255, 258), 0.25), ((287, 290), 0.25), ((511, 514), 0.25))
+#: (b): the path fuzzer's trials at ranges that span the tiles, then at the
+#: JAX tool's own; (c): the tuner fuzzer's trials
+FUZZ_PATHS_WIDE = (16, dict(c_range=(9, 3_000), s_range=(8, 2_000), g_range=(4, 300)))
+FUZZ_PATHS_JAX = 4
+FUZZ_TUNER = 4
+#: the path values the drawn shapes must reach on the H100 (132 SMs)
+FUZZ_NEEDS = {"granule": {16, 8, 4, 0}, "rowstats": {16, 8, 4, 2},
+              "project splits": {"1", ">1"}, "dp splits": {"1", ">1"},
+              "A panels": {1, 2}, "project panels": {1, 2}, "epilogue panels": {1, 2}}
+
+
+def fuzz_shapes(seed=FUZZ_SEED, n=FUZZ_SHAPES):
+    """``n`` drawn (shape, entry offsets of M, mu and nu (0-7), padding
+    sentinel or not) from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+
+    def draw(classes):
+        lo, hi = classes[rng.choice(len(classes), p=[p for _, p in classes])][0]
+        return lo, hi, int(rng.integers(lo, hi))
+
+    out = []
+    for i in range(n):
+        c = draw(FUZZ_C)[2]
+        lo, hi, s = draw(FUZZ_S)
+        if hi - lo > 8:
+            s += i % 8 - s % 8
+            s += 8 if s < lo else -8 if s >= hi else 0
+        k = draw(FUZZ_K1)[2] - 1
+        offsets = {key: int(rng.integers(0, 8)) for key in OFFSET_INPUTS}
+        out.append(((c, s, k), offsets, bool(rng.integers(0, 2))))
+    return out
+
+
+def kernel_paths(shape, offsets, dev, sm_count):
+    """The code paths the kernels take at ``shape`` with M, mu and nu at
+    ``offsets``, from the wrappers' own choosers on such tensors: the
+    staging granule of M and of the moments and the row-stats load (f32
+    and bf16), whether the dP tile reads 2 entries at once, the project and
+    dP-tile splits, the A panels of the resident K depth (fused operands
+    and the backward's), and the 256-column panels of project and of
+    dm_backward's epilogue."""
+    import torch
+
+    from tangram_tpu_torch.ops import cuda_core as cc
+
+    c, s, k = shape
+
+    def depth_panels(depth):
+        return math.ceil(cc.dp_operand(torch.empty((1, depth), device=dev)).shape[1] / 256)
+
+    paths = {"granule": {}, "rowstats": {}, "vec2": {}}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        M, mu, nu = (at_offset(torch.zeros((c, s), dtype=dtype, device=dev), offsets[key])
+                     for key in OFFSET_INPUTS)
+        paths["granule"][f"M {name}"] = cc.stage_granule(s, M)
+        paths["granule"][f"mu,nu {name}"] = min(cc.stage_granule(s, mu),
+                                                cc.stage_granule(s, nu))
+        paths["rowstats"][name] = cc.rowstats_load_bytes(M)
+        paths["vec2"][name] = (cc.vec2_ok(s, M), cc.vec2_ok(s, M, mu, nu))
+        del M, mu, nu
+    paths.update({
+        "project splits": cc.project_splits(c, s, k, sm_count),
+        "dp splits": cc.dp_splits(c, s, sm_count),
+        "A panels": {"fused": depth_panels(k), "backward": depth_panels(k + 1)},
+        "project panels": math.ceil((k + 1) / 256),
+        "epilogue panels": depth_panels(k + 1),
+        "bf16 A rows": "as given" if k % 8 == 0 else "padded to 8",
+    })
+    return paths
+
+
+def path_values(paths):
+    """Each coverage key of FUZZ_NEEDS and the values a shape's paths give it."""
+    def split(n):
+        return "1" if n == 1 else ">1"
+
+    return {"granule": set(paths["granule"].values()),
+            "rowstats": set(paths["rowstats"].values()),
+            "project splits": {split(paths["project splits"])},
+            "dp splits": {split(paths["dp splits"])},
+            "A panels": set(paths["A panels"].values()),
+            "project panels": {paths["project panels"]},
+            "epilogue panels": {paths["epilogue panels"]}}
+
+
+def fuzz_kernels(dev):
+    """(a) every kernel and its bf16 variant against its twin at the drawn
+    shapes, with and without the entropy cotangent and the L1/L2 terms,
+    inside guard bands and three times for the same bits; a line per shape
+    with its paths, then how often each path value was reached. The
+    checks' own lines are printed only for a shape that fails."""
+    import io
+
+    import torch
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    coverage = {key: {} for key in FUZZ_NEEDS}
+    scratch = {name: {} for name in REPLACES}  # the kernels line keeps the tutorial's
+    for i, (shape, offsets, pad) in enumerate(fuzz_shapes()):
+        paths = kernel_paths(shape, offsets, dev, sm_count)
+        for key, values in path_values(paths).items():
+            for v in values:
+                coverage[key][v] = coverage[key].get(v, 0) + 1
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log), guarded_allocations(dev, shape):
+                compare_kernels(shape, dev, scratch, timed=False, pad=pad, offsets=offsets,
+                                witness=False)
+                compare_bf16_kernels(shape, dev, scratch, timed=False, pad=pad,
+                                     offsets=offsets)
+                check_repeatable(shape, dev, pad=pad, offsets=offsets)
+        except Exception:
+            print("\n".join(log.getvalue().splitlines()[-40:]), flush=True)
+            say("fuzz", f"(a) {i}: {shape}, offsets {offsets}, pad {pad}: FAILED; paths {paths}")
+            raise
+        say("fuzz", f"(a) {i}: {shape}, entry offsets {offsets}, pad {pad}: every kernel "
+            f"and its bf16 variant agree with the twins, guards intact, same bits 3 times, in "
+            f"{time.perf_counter() - t0:.2f} s; paths {paths}")
+    say("fuzz", "(a) coverage, path value: shapes reaching it: " + "; ".join(
+        f"{key} " + ", ".join(f"{v}: {n}" for v, n in sorted(counts.items(), key=str))
+        for key, counts in coverage.items()))
+    unreached = {key: sorted(need - set(coverage[key]), key=str)
+                 for key, need in FUZZ_NEEDS.items() if need - set(coverage[key])}
+    if unreached:
+        fail(f"fuzz: (a) the drawn shapes left path values unreached: {unreached}")
+
+
+def fuzz_fits(dev, directory):
+    """(b) the path fuzzer (reference loop, fused kernels, sharded and
+    chunked sharded fits on a world of one NCCL rank) at ranges spanning
+    the tiles and at the JAX tool's; (c) the tuner fuzzer, its trial-mesh
+    runs on the same world."""
+    import torch.distributed as dist
+
+    from tangram_tpu_torch import parallel as par
+    from tangram_tpu_torch.ops import cuda_core
+    from tangram_tpu_torch.scripts import fuzz_paths, fuzz_tuner
+
+    par.init_distributed("file://" + os.path.join(directory, "fuzz_nccl"), 1, 0)
+    try:
+        n_wide, ranges = FUZZ_PATHS_WIDE
+        cuda_core.reset_launches()
+        t0 = time.perf_counter()
+        fails = fuzz_paths.run(FUZZ_SEED, n_wide, device=dev, **ranges)
+        fails += fuzz_paths.run(FUZZ_SEED, FUZZ_PATHS_JAX, device=dev)
+        launched = {k: v for k, v in cuda_core.LAUNCHES.items() if v}
+        say("fuzz", f"(b) paths: {n_wide} trials at c, s, g in {ranges} and "
+            f"{FUZZ_PATHS_JAX} at the JAX tool's ranges, seed {FUZZ_SEED}: {fails} failures "
+            f"in {time.perf_counter() - t0:.1f} s; kernel launches {launched}")
+        if fails:
+            fail(f"fuzz: (b) {fails} path trials diverged")
+        missing = [k for k in ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms")
+                   if not launched.get(k)]
+        if missing:
+            fail(f"fuzz: (b) the fused loops launched no {missing}")
+        t0 = time.perf_counter()
+        fails = fuzz_tuner.run(FUZZ_SEED, FUZZ_TUNER, device=dev)
+        say("fuzz", f"(c) tuner: {FUZZ_TUNER} trials, seed {FUZZ_SEED}: {fails} failures in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if fails:
+            fail(f"fuzz: (c) {fails} tuner trials failed")
+    finally:
+        dist.destroy_process_group()
+
+
+def fuzz_phase(dev, card):
+    """Phase 16: the kernels at drawn shapes, the path and tuner fuzzers
+    (module docstring)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    release_cached_memory("fuzz")
+    fuzz_kernels(dev)
+    directory = tempfile.mkdtemp(prefix="chip_smoke_fuzz_")
+    try:
+        fuzz_fits(dev, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    say("fuzz", f"phase done in {time.perf_counter() - t0:.1f} s ({card})")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the north star at full width
 # ---------------------------------------------------------------------------
 
 NS_EPOCHS = 20          # the main path's run (the module's 1000 are its own call)
@@ -4522,6 +4787,7 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}")
     say("device", f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    say("device", f"phase done in {time.perf_counter() - t_start:.1f} s")
 
     from tangram_tpu_torch.ops import cuda_core
     from tangram_tpu_torch.ops._build import load_kernels
@@ -4537,8 +4803,10 @@ def main(argv=None) -> int:
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say("build", "ptxas " + line.strip().removeprefix("ptxas info    : "))
+        say("build", f"phase done in {time.perf_counter() - t0:.1f} s")
 
     if "kernels" in phases:
+        t_phase = time.perf_counter()
         for key in shapes:
             shape = KERNEL_SHAPES[key]
             t0 = time.perf_counter()
@@ -4569,6 +4837,7 @@ def main(argv=None) -> int:
             f"{math.ceil(SHAPE[1] / 64)} spot tiles; [A | w] moves "
             f"{project_l2_bytes(*SHAPE) / 1e9:.2f} GB through L2 per launch, as reckoned "
             f"from the tile shape")
+        say("kernels", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if {"cells", "clusters", "adafactor", "constrained", "bf16", "reference", "spatial",
             "cv", "downstream", "contracts", "tuner", "mesh"} & set(phases):
@@ -4580,6 +4849,7 @@ def main(argv=None) -> int:
     peaks, f32_runs, con_mapper = {}, {}, None
 
     if "cells" in phases:
+        t_phase = time.perf_counter()
         import tangram_tpu_torch as tgt
 
         torch.cuda.synchronize()
@@ -4610,8 +4880,10 @@ def main(argv=None) -> int:
             f"gene score {float(report['score'].median()):.4f}; peak device "
             f"memory of the mapping {peaks['adam'] / 2**30:.3f} GiB ({card})")
         del ad_map, ad_ge
+        say("cells", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if "clusters" in phases:
+        t_phase = time.perf_counter()
         import tangram_tpu_torch as tgt
 
         cuda_core.reset_launches()
@@ -4629,8 +4901,10 @@ def main(argv=None) -> int:
                        warm=5, steps=50)
         say("clusters", f"{n_clusters} clusters, {EPOCHS} epochs in {t_map:.2f} s; "
             f"steady-state {ms_c:.3f} ms/step ({card})")
+        say("clusters", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if "adafactor" in phases:
+        t_phase = time.perf_counter()
         import tangram_tpu_torch as tgt
 
         g_soft, g_norm = norm_gradient_ratio(cells_mapper)
@@ -4705,8 +4979,10 @@ def main(argv=None) -> int:
             say("adafactor", f"peak device memory of map_cells_to_space: adam "
                 f"{peaks['adam'] / 2**30:.3f} GiB, adafactor + L1/L2 "
                 f"{peaks['adafactor'] / 2**30:.3f} GiB ({card})")
+        say("adafactor", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if "constrained" in phases:
+        t_phase = time.perf_counter()
         import tangram_tpu_torch as tgt
 
         for opt, expect in (
@@ -4765,15 +5041,19 @@ def main(argv=None) -> int:
                     train=(torch.cuda.max_memory_allocated() - base) / 2**30)
         say("constrained", "steady-state ms/step at " + str(SHAPE) + ": " + ", ".join(
             f"{k} {v:.2f}" for k, v in ms_con.items()) + f" ({card})")
+        say("constrained", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if "bf16" in phases:
+        t_phase = time.perf_counter()
         counts = bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs,
                             con_mapper)
         launches = dict(launches or {}, **counts)
         con_mapper = con_mapper or mapper_for(ad_sc, ad_sp, dev, "constrained")
         check_fit_repeats(cells_mapper, norm_lw, con_mapper)
+        say("bf16", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if "reference" in phases:
+        t_phase = time.perf_counter()
         mapper = cells_mapper
         compare_with_reference(mapper, mapper.lw, "adam", "adam",
                                {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10})
@@ -4800,6 +5080,7 @@ def main(argv=None) -> int:
         unfused_fit_hashes(mapper, con_mapper)
         if args.profile:
             profile_steps(mapper)
+        say("reference", f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
     if "spatial" in phases:
         spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, args.profile)
@@ -4818,6 +5099,9 @@ def main(argv=None) -> int:
 
     if "mesh" in phases:
         mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
+
+    if "fuzz" in phases:
+        fuzz_phase(dev, card)
 
     north_star_kernels = []
     if "north_star" in phases:

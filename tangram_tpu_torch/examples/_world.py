@@ -1,6 +1,6 @@
-"""What the tutorials need to run alike in one process and under
-``torchrun``: the world's size, its process group, printing from the lead
-rank, and a directory that every rank sees."""
+"""What the tutorials and the fuzzers need to run alike in one process and
+under ``torchrun``: the world's size, its process group, meshes over it,
+printing from the lead rank, and a directory that every rank sees."""
 
 from __future__ import annotations
 
@@ -29,6 +29,25 @@ def start_world(device) -> int:
 
     init_distributed(backend="gloo" if device.type == "cpu" else None)
     return dist.get_world_size()
+
+
+def world_meshes(device, names_1d, names_2d):
+    """Two meshes over the running process group's n ranks, their blocks on
+    ``device``'s type: {"1d": ``names_1d`` over all n, "2d": ``names_2d``
+    of 2 × n/2 when n is even, else 1 × n}; None when no process group is
+    running (what the fuzzers' mesh runs take)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    n = dist.get_world_size()
+    ranks = torch.arange(n)
+    rows = 2 if n % 2 == 0 else 1
+    return {"1d": DeviceMesh(device.type, ranks, mesh_dim_names=names_1d),
+            "2d": DeviceMesh(device.type, ranks.reshape(rows, n // rows),
+                             mesh_dim_names=names_2d)}
 
 
 def lead_print(mesh):

@@ -1,16 +1,17 @@
 """The port's side of ``tests/test_torch_parallel.py``, of the mesh cases
 of ``tests/test_torch_printing.py`` and of the torchrun branches of
-``tests/test_torch_north_star.py`` and
-``tests/test_torch_examples_torchrun.py``: every case trained on a mesh of
-``gloo`` processes on the CPU.
+``tests/test_torch_north_star.py``,
+``tests/test_torch_examples_torchrun.py`` and
+``tests/test_torch_fuzz_{paths,tuner}.py``: every case trained on a mesh
+of ``gloo`` processes on the CPU.
 
 This module imports numpy, torch and ``tangram_tpu_torch`` only (no JAX),
 so a spawned worker starts in about a second. :func:`run` spawns
 ``WORLD`` workers with a ``file://`` rendezvous in a directory (no port to
 collide between test workers); each runs every case of one suite (the
 fits of :data:`CASES` and the checks below, the printing cases, the north
-star's cases or the tutorials'), one torch thread each, and pickles its
-results to ``rank<r>.pkl`` there.
+star's cases, the tutorials' or the fuzzers'), one torch thread each, and
+pickles its results to ``rank<r>.pkl`` there.
 """
 
 from __future__ import annotations
@@ -440,6 +441,33 @@ NORTH_STAR_EPOCHS = 20
 NORTH_STAR_DTYPES = {"f32": ["--moment-dtype", "float32", "--compute-dtype", "float32"],
                      "bf16": []}
 
+#: the fuzzers' seeds and trial counts on the gloo ranks: seed 0's first
+#: four path trials draw both meshes, constrained mode and chunked runs;
+#: seed 5's first two tuner trials draw the ("trial", "cell") and
+#: ("trial",) meshes (adaptive, then halving)
+FUZZ_SEED, FUZZ_TRIALS = 0, 4
+FUZZ_TUNER_SEED, FUZZ_TUNER_TRIALS = 5, 2
+
+
+def fuzz_jobs(suite):
+    """``tangram_tpu_torch.scripts.fuzz_paths`` (suite ``"fuzz_paths"``) or
+    ``fuzz_tuner`` (``"fuzz_tuner"``) in a world of ``WORLD`` processes: its
+    failures, what it printed, and the meshes it drew on (axis name to
+    size)."""
+    from tangram_tpu_torch.scripts import fuzz_paths, fuzz_tuner
+
+    tool, seed, trials = {"fuzz_paths": (fuzz_paths, FUZZ_SEED, FUZZ_TRIALS),
+                          "fuzz_tuner": (fuzz_tuner, FUZZ_TUNER_SEED,
+                                         FUZZ_TUNER_TRIALS)}[suite]
+
+    def job():
+        fails, lines = printed(lambda: tool.run(seed, trials, device="cpu"))
+        meshes = {name: dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+                  for name, mesh in tool.trial_meshes(torch.device("cpu")).items()}
+        return dict(fails=fails, lines=lines, meshes=meshes)
+
+    return [("fuzz", job)]
+
 
 def north_star_start(args):
     """One numpy N(0, 1) start of the north star's shape for both packages."""
@@ -487,6 +515,8 @@ def worker(rank, directory, suite="parallel"):
         jobs = north_star_jobs()
     elif suite == "tutorials":
         jobs = tutorial_jobs()
+    elif suite in ("fuzz_paths", "fuzz_tuner"):
+        jobs = fuzz_jobs(suite)
     else:
         jobs = parallel_jobs(meshes, directory)
     for name, job in jobs:
@@ -508,9 +538,10 @@ def worker(rank, directory, suite="parallel"):
 
 def run(directory, timeout=300.0, suite="parallel"):
     """Spawn the workers on ``suite`` (``"parallel"``, ``"printing"``,
-    ``"north_star"`` or ``"tutorials"``) and return each rank's results;
-    the workers are stopped after ``timeout`` seconds (a collective that
-    one rank never reaches would wait for ever)."""
+    ``"north_star"``, ``"tutorials"``, ``"fuzz_paths"`` or ``"fuzz_tuner"``)
+    and return each rank's results; the workers are stopped after
+    ``timeout`` seconds (a collective that one rank never reaches would
+    wait for ever)."""
     import time
 
     import torch.multiprocessing as mp

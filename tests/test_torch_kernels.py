@@ -960,7 +960,8 @@ def test_wrappers_reject_mixed_devices():
 def test_import_leaves_jax_out():
     """Importing every module of the port (walked from the package, so a new
     module is covered when it lands) pulls in neither jax nor tangram_tpu,
-    nor the repo's ``examples`` package (the JAX tutorials), nor the
+    nor the repo's ``examples`` package (the JAX tutorials) or ``scripts``
+    (the JAX tools; the port's are ``tangram_tpu_torch.scripts``), nor the
     plotting libraries that plot_utils and the mapping tutorial import only
     to draw."""
     code = (
@@ -970,13 +971,16 @@ def test_import_leaves_jax_out():
         "need = {'deconv', 'cell_selection', 'gene_selection', 'plot_utils', 'profiling',\n"
         "        'utils', 'evaluation', 'mapping', 'models.mapper', 'ops.cuda_core',\n"
         "        'north_star', 'examples.tutorial_mapping', 'examples.tutorial_deconvolution',\n"
-        "        'examples.tutorial_atlas_mesh', 'examples.tutorial_fault_tolerant_sweep'}\n"
+        "        'examples.tutorial_atlas_mesh', 'examples.tutorial_fault_tolerant_sweep',\n"
+        "        'scripts.fuzz_paths', 'scripts.fuzz_tuner', 'scripts.gen_api_docs',\n"
+        "        'scripts.gen_tutorial_notebook'}\n"
         "missing = sorted(n for n in need if 'tangram_tpu_torch.' + n not in names)\n"
         "for m in names:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'tangram_tpu' or m.startswith('tangram_tpu.')\n"
         "             or m == 'examples' or m.startswith('examples.')\n"
+        "             or m == 'scripts' or m.startswith('scripts.')\n"
         "             or m in ('matplotlib', 'seaborn'))\n"
         "print(len(names), missing, bad)\n"
         "sys.exit(1 if bad or missing else 0)\n"
