@@ -2810,8 +2810,9 @@ def projection_tol(n_cells: int) -> float:
 
 
 def downstream_mapping(dev, card, ad_sc, ad_sp):
-    """(a) The main path inside profiling.record_phases: its phases and the
-    launch counts of rows 1-4."""
+    """(a) The main path inside profiling.record_phases: its phases, the
+    launch counts of rows 1-4 and the card seconds of each kernel that
+    launched."""
     import tangram_tpu_torch as tgt
     from tangram_tpu_torch.ops import cuda_core
 
@@ -2820,12 +2821,20 @@ def downstream_mapping(dev, card, ad_sc, ad_sp):
         ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
             ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
             random_state=SEED, **CELLS))
-    check_launches("downstream", ADAM_LAUNCHES)
+    launches = check_launches("downstream", ADAM_LAUNCHES)
     check_mapping("downstream", ad_map, *SHAPE)
-    want = {"preprocess", "mapper_init", "train_dispatch", "train_execute_history",
-            "mapping_fetch", "gene_report"}
+    want = {"inputs", "preprocess", "mapper_init", "init_draw", "init_cast", "init_upload",
+            "train_dispatch", "train_execute_history", "mapping_fetch", "result_build",
+            "gene_report"}
     if set(phases) != want:
         fail(f"downstream: record_phases recorded {sorted(phases)}, not {sorted(want)}")
+    card_s = cuda_core.device_seconds()
+    say("downstream", "card seconds by kernel: " + ", ".join(
+        f"{k} {card_s[k]:.4f} s over {n} launches ({card_s[k] / n * 1e3:.3f} ms each)"
+        for k, n in launches.items() if n))
+    untimed = sorted(k for k, n in launches.items() if n and not card_s[k] > 0)
+    if untimed:
+        fail(f"downstream: kernels launched with no card seconds: {untimed}")
     say("downstream", f"(a) map_cells_to_space {secs:.3f} s for {EPOCHS} epochs; "
         "record_phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
         + f" ({card})")

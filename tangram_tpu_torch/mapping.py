@@ -348,38 +348,45 @@ def map_cells_to_space(
     constrained mode); ``init_method`` is ``"auto"``, ``"numpy"``,
     ``"jax"`` (drawn on the device) or ``"expression"``
     (:class:`~tangram_tpu_torch.models.mapper.Mapper`).
+
+    Under :func:`~tangram_tpu_torch.profiling.record_phases` each step of
+    the job runs in one phase: ``inputs``, ``preprocess``, ``mapper_init``,
+    training (``train_dispatch``, ``train_execute_history``,
+    ``mapping_fetch``), ``result_build`` and ``gene_report``.
     """
-    lambda_d = _check_mapping_args(
-        mode, lambda_g1, lambda_d, density_prior, cluster_label,
-        target_count, lambda_f_reg, lambda_count,
-    )
-    if mode == "constrained" and early_stop_tol is not None:
-        # before the constructor draws the (cells × spots) init
-        raise ValueError(
-            "early_stop_tol is not supported in constrained mode (the "
-            "count/filter penalties keep moving the score target)"
+    with profiling.phase("inputs"):
+        lambda_d = _check_mapping_args(
+            mode, lambda_g1, lambda_d, density_prior, cluster_label,
+            target_count, lambda_f_reg, lambda_count,
         )
-    low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
-                         param_dtype=param_dtype, rounding=rounding)
+        if mode == "constrained" and early_stop_tol is not None:
+            # before the constructor draws the (cells × spots) init
+            raise ValueError(
+                "early_stop_tol is not supported in constrained mode (the "
+                "count/filter penalties keep moving the score target)"
+            )
+        low_precision = dict(moment_dtype=moment_dtype, compute_dtype=compute_dtype,
+                             param_dtype=param_dtype, rounding=rounding)
 
-    if mode == "clusters":
-        adata_sc = adata_to_cluster_expression(
-            adata_sc, cluster_label, scale, add_density=True
-        )
+        if mode == "clusters":
+            adata_sc = adata_to_cluster_expression(
+                adata_sc, cluster_label, scale, add_density=True
+            )
 
-    training_genes = _resolve_training_genes(adata_sc, adata_sp, cv_train_genes)
+        training_genes = _resolve_training_genes(adata_sc, adata_sp, cv_train_genes)
 
     with profiling.phase("preprocess"):
         S = _densify(adata_sc[:, training_genes].X)
         G = _densify(adata_sp[:, training_genes].X)
-    if not S.any(axis=0).all() or not G.any(axis=0).all():
-        raise ValueError("Genes with all zero values detected. Run `pp_adatas()`.")
+        if not S.any(axis=0).all() or not G.any(axis=0).all():
+            raise ValueError("Genes with all zero values detected. Run `pp_adatas()`.")
 
-    prior = _resolve_density(mode, density_prior, lambda_d, adata_sc, adata_sp)
-    print_each = 100 if verbose else None
-    logging.info(
-        f"training: {len(training_genes)} genes, prior={prior.label}, mode={mode}"
-    )
+    with profiling.phase("inputs"):
+        prior = _resolve_density(mode, density_prior, lambda_d, adata_sc, adata_sp)
+        print_each = 100 if verbose else None
+        logging.info(
+            f"training: {len(training_genes)} genes, prior={prior.label}, mode={mode}"
+        )
 
     if mode == "constrained":
         with profiling.phase("mapper_init"):
@@ -406,22 +413,24 @@ def map_cells_to_space(
             learning_rate=learning_rate, num_epochs=num_epochs, print_each=print_each,
         )
     else:
-        lambdas = {
-            "lambda_neighborhood_g1": lambda_neighborhood_g1,
-            "lambda_ct_islands": lambda_ct_islands,
-            "lambda_getis_ord": lambda_getis_ord,
-            "lambda_moran": lambda_moran,
-            "lambda_geary": lambda_geary,
-        }
-        graphs = _build_spot_graphs(adata_sp, lambdas, graph_format)
+        with profiling.phase("inputs"):
+            lambdas = {
+                "lambda_neighborhood_g1": lambda_neighborhood_g1,
+                "lambda_ct_islands": lambda_ct_islands,
+                "lambda_getis_ord": lambda_getis_ord,
+                "lambda_moran": lambda_moran,
+                "lambda_geary": lambda_geary,
+            }
+            graphs = _build_spot_graphs(adata_sp, lambdas, graph_format)
 
-        ct_encode = None
-        if lambda_ct_islands > 0:
-            if cluster_label not in adata_sc.obs.keys():
-                raise ValueError(
-                    "cluster_label must be specified for the cell type island extension."
-                )
-            ct_encode = one_hot_encoding(adata_sc.obs[cluster_label]).values
+            ct_encode = None
+            if lambda_ct_islands > 0:
+                if cluster_label not in adata_sc.obs.keys():
+                    raise ValueError(
+                        "cluster_label must be specified for the cell type island "
+                        "extension."
+                    )
+                ct_encode = one_hot_encoding(adata_sc.obs[cluster_label]).values
 
         with profiling.phase("mapper_init"):
             mapper = Mapper(
@@ -458,16 +467,18 @@ def map_cells_to_space(
             early_stop_tol=early_stop_tol, early_stop_window=early_stop_window,
         )
 
-    adata_map = adlite.AnnData(
-        X=mapping_matrix,
-        obs=adata_sc[:, training_genes].obs.copy(),
-        var=adata_sp[:, training_genes].obs.copy(),
-    )
-    if mode == "constrained":
-        adata_map.obs["F_out"] = F_out
+    with profiling.phase("result_build"):
+        adata_map = adlite.AnnData(
+            X=mapping_matrix,
+            obs=adata_sc[:, training_genes].obs.copy(),
+            var=adata_sp[:, training_genes].obs.copy(),
+        )
+        if mode == "constrained":
+            adata_map.obs["F_out"] = F_out
     with profiling.phase("gene_report"):
         adata_map.uns["train_genes_df"] = _train_gene_report(
             mapper.M, S, G, training_genes, adata_sc, adata_sp,
         )
-    adata_map.uns["training_history"] = training_history
+    with profiling.phase("result_build"):
+        adata_map.uns["training_history"] = training_history
     return adata_map

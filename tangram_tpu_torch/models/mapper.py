@@ -174,15 +174,24 @@ def init_logits(n_cells: int, n_spots: int, random_state: Optional[int] = None,
     than JAX's, so its bits differ from the JAX package's; its moments and
     its determinism per seed are what it shares. ``"auto"`` picks numpy
     below 2^30 entries and the device draw above.
+
+    Under :func:`~tangram_tpu_torch.profiling.record_phases` the draw is
+    phase ``init_draw``, the host's casts ``init_cast`` and the copy to
+    ``device`` ``init_upload``.
     """
     method = _draw_method(method, n_cells * n_spots)
     if method == "jax":
-        return torch.randn((n_cells, n_spots), dtype=dtype, device=device,
-                           generator=_device_generator(random_state, device))
+        with profiling.phase("init_draw"):
+            return torch.randn((n_cells, n_spots), dtype=dtype, device=device,
+                               generator=_device_generator(random_state, device))
     if random_state:
         np.random.seed(seed=random_state)
-    M = np.random.normal(0, 1, (n_cells, n_spots)).astype(np.float32)
-    return torch.from_numpy(M).to(device=device, dtype=dtype)
+    with profiling.phase("init_draw"):
+        M = np.random.normal(0, 1, (n_cells, n_spots))
+    with profiling.phase("init_cast"):
+        M = torch.from_numpy(M.astype(np.float32)).to(dtype=dtype)
+    with profiling.phase("init_upload"):
+        return M.to(device)
 
 
 def expression_init_logits(S, G, scale=4.0, dtype=torch.float32):
@@ -205,17 +214,22 @@ def init_constrained_logits(n_cells: int, n_spots: int,
     truthy), one *discarded* N(0, 1) draw of M's shape, then M, then F
     (cells,), each cast to f32. ``"jax"`` draws M, then F, on ``device``
     from one generator seeded as in :func:`init_logits`; ``"auto"`` picks
-    by size as there."""
+    by size as there. Phases as in :func:`init_logits`."""
     if _draw_method(method, n_cells * n_spots) == "jax":
-        gen = _device_generator(random_state, device)
-        M = torch.randn((n_cells, n_spots), device=device, generator=gen)
-        return M, torch.randn((n_cells,), device=device, generator=gen)
+        with profiling.phase("init_draw"):
+            gen = _device_generator(random_state, device)
+            M = torch.randn((n_cells, n_spots), device=device, generator=gen)
+            return M, torch.randn((n_cells,), device=device, generator=gen)
     if random_state:
         np.random.seed(seed=random_state)
-    np.random.normal(0, 1, (n_cells, n_spots))  # discarded first draw
-    M = np.random.normal(0, 1, (n_cells, n_spots)).astype(np.float32)
-    F = np.random.normal(0, 1, n_cells).astype(np.float32)
-    return torch.from_numpy(M).to(device), torch.from_numpy(F).to(device)
+    with profiling.phase("init_draw"):
+        np.random.normal(0, 1, (n_cells, n_spots))  # discarded first draw
+        M = np.random.normal(0, 1, (n_cells, n_spots))
+        F = np.random.normal(0, 1, n_cells)
+    with profiling.phase("init_cast"):
+        M, F = (torch.from_numpy(x.astype(np.float32)) for x in (M, F))
+    with profiling.phase("init_upload"):
+        return M.to(device), F.to(device)
 
 
 def _warm_start_logits(adata_map) -> torch.Tensor:
@@ -486,11 +500,14 @@ def _upload_logits(M, device, impl, low_precision, fused=True):
     """The host logits ``M`` on ``device``, in the fused loop's storage type
     when training will take that loop: cast on the host, so that the device
     never holds the f32 init beside the copy that the fused loop would make
-    (the JAX package donates it). Rejects a bad impl."""
+    (the JAX package donates it). Rejects a bad impl. The cast is phase
+    ``init_cast``, the copy ``init_upload``."""
     resolved = resolve_impl(impl, torch.empty(0, device=device))
-    if fused and resolved != "reference":
-        M = M.to(_torch_dtype("param_dtype", low_precision["param_dtype"]))
-    return M.to(device)
+    with profiling.phase("init_cast"):
+        if fused and resolved != "reference":
+            M = M.to(_torch_dtype("param_dtype", low_precision["param_dtype"]))
+    with profiling.phase("init_upload"):
+        return M.to(device)
 
 
 def _print_epoch(terms_at_t, names):
@@ -933,7 +950,8 @@ class MapperConstrained:
         if self.mesh is not None:
             self.M, self.F = M.cpu(), F.cpu()
         else:
-            self.F = F.to(self.device)
+            with profiling.phase("init_upload"):
+                self.F = F.to(self.device)
             self.M = _upload_logits(M, self.device, impl, self.low_precision,
                                     fused=self.optimizer == "adam")
 

@@ -9,7 +9,9 @@ hand-written kernel from ``csrc/`` (the row stats from ``mapper_kernels.cu``;
 rbar and the unfused backward from ``dp_tensor_kernels.cu``, the
 tensor-core dP tile; the projection from ``project_tc_kernels.cu``, on the
 tensor cores too)
-(and counts the launch in :data:`LAUNCHES`); on a CPU tensor it runs the
+(and counts the launch in :data:`LAUNCHES`, and while a
+:func:`~tangram_tpu_torch.profiling.record_phases` recording is active
+times it on the card in :data:`DEVICE_SECONDS`); on a CPU tensor it runs the
 plain PyTorch twin that sits beside it. There is no other path: a CUDA
 launch that fails raises.
 
@@ -25,14 +27,18 @@ with f32 A and dY, and returns dM in M's type, as ``pallas_core._backward``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
 from typing import NamedTuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "kernels_for", "MapperCore", "_rowstats",
-           "rowstats_load_bytes", "_project", "_rbar", "_backward", "tf32_split",
-           "DpOperands", "dp_operand", "dp_operands", "backward_operands",
+from .. import profiling
+
+__all__ = ["LAUNCHES", "DEVICE_SECONDS", "reset_launches", "device_seconds", "kernels_for",
+           "MapperCore", "_rowstats", "rowstats_load_bytes", "_project", "_rbar", "_backward",
+           "tf32_split", "DpOperands", "dp_operand", "dp_operands", "backward_operands",
            "project_operand", "project_tf32_plain", "dm_backward_tf32_plain",
            "ext_product_tf32_plain"]
 
@@ -52,16 +58,92 @@ F32 = (torch.float32,)
 F32_BF16 = (torch.float32, torch.bfloat16)
 
 
+#: card seconds of each kernel's launches since the last
+#: :func:`reset_launches`, keyed as :data:`LAUNCHES`: a wrapper's whole
+#: launch sequence (the kernel with its merge or reduction) between two
+#: timing events on its stream, timed while a
+#: :func:`~tangram_tpu_torch.profiling.record_phases` recording is active.
+#: Launches finish on the card after the host moves on: read the totals
+#: with :func:`device_seconds`.
+DEVICE_SECONDS = dict.fromkeys(LAUNCHES, 0.0)
+
+#: (key, start event, end event, device) of the timed launches not yet
+#: added to DEVICE_SECONDS, oldest first
+_PENDING: collections.deque = collections.deque()
+#: event pairs of added launches, for reuse, by device
+_FREE_EVENTS: dict = {}
+
+
 def reset_launches() -> None:
+    """Zero :data:`LAUNCHES` and :data:`DEVICE_SECONDS`, and drop the timed
+    launches not yet added."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        DEVICE_SECONDS[name] = 0.0
+    _PENDING.clear()
 
 
-def count_launch(name: str, *storage: torch.Tensor) -> None:
-    """Add one to ``name``'s count, or to ``name.bf16``'s when any of the
-    ``storage`` tensors is bf16."""
-    bf16 = any(t.dtype == torch.bfloat16 for t in storage)
-    LAUNCHES[name + ".bf16" if bf16 else name] += 1
+def launch_key(name: str, *storage: torch.Tensor) -> str:
+    """``name``, or ``name.bf16`` when any of the ``storage`` tensors is
+    bf16: the key of a launch in :data:`LAUNCHES`."""
+    return name + ".bf16" if any(t.dtype == torch.bfloat16 for t in storage) else name
+
+
+def _timing_event():
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _add_finished(all_pending: bool) -> None:
+    """Add the card time of each timed launch whose end event has passed
+    to :data:`DEVICE_SECONDS`, oldest first, stopping at the first one
+    still running unless ``all_pending``. Queries events; never waits."""
+    running = []
+    while _PENDING:
+        item = _PENDING.popleft()
+        key, start, end, device = item
+        if end.query():
+            DEVICE_SECONDS[key] += start.elapsed_time(end) / 1e3
+            _FREE_EVENTS.setdefault(device, []).append((start, end))
+        elif all_pending:
+            running.append(item)
+        else:
+            _PENDING.appendleft(item)
+            break
+    _PENDING.extend(running)
+
+
+def device_seconds() -> dict:
+    """:data:`DEVICE_SECONDS` with every timed launch that the card has
+    finished added, as a new dict. It does not wait: a launch still running
+    counts at a later call, so call it after a synchronize for the totals
+    of a finished run."""
+    _add_finished(all_pending=True)
+    return dict(DEVICE_SECONDS)
+
+
+@contextlib.contextmanager
+def launch(name: str, *storage: torch.Tensor):
+    """One launch of kernel ``name`` on the card: the body makes the
+    kernel library's call, inside the wrapper's device guard. Counts it
+    in :data:`LAUNCHES` under :func:`launch_key` once the call returns,
+    and while a recording is active brackets the call with two timing
+    events on the current stream, taken from a pool of reused pairs; the
+    launches that have finished by then are added to
+    :data:`DEVICE_SECONDS` first."""
+    key = launch_key(name, *storage)
+    if not profiling.recording():
+        yield
+        LAUNCHES[key] += 1
+        return
+    _add_finished(all_pending=False)
+    device = storage[0].device
+    free = _FREE_EVENTS.get(device)
+    start, end = free.pop() if free else (_timing_event(), _timing_event())
+    start.record()
+    yield
+    end.record()
+    _PENDING.append((key, start, end, device))
+    LAUNCHES[key] += 1
 
 
 def is_bf16(t: torch.Tensor) -> int:
@@ -142,11 +224,10 @@ def _rowstats(M):
     m, l, u = (torch.empty((c, 1), dtype=torch.float32, device=M.device)
                for _ in range(3))
     if c:
-        with torch.cuda.device(M.device):
+        with torch.cuda.device(M.device), launch("rowstats", M):
             lib.call("tg_rowstats", M.data_ptr(), m.data_ptr(), l.data_ptr(),
                      u.data_ptr(), c, s, is_bf16(M), rowstats_load_bytes(M),
                      stream_of(M))
-        count_launch("rowstats", M)
     return m, l, u
 
 
@@ -274,12 +355,11 @@ def _project(M, A, w, m, l):
     # the kernel copies w, m and l 16 bytes at a time
     w, m, l = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (w, m, l))
     if s:
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), launch("project", M, A):
             lib.call("tg_project", M.data_ptr(), X.data_ptr(), w.data_ptr(),
                      m.data_ptr(), l.data_ptr(), partial.data_ptr(), Y.data_ptr(),
                      q.data_ptr(), c, s, k, ldx, nsplit, is_bf16(M), is_bf16(A),
                      stage_granule(s, M), stream_of(M))
-        count_launch("project", M, A)
     return Y, q
 
 
@@ -507,13 +587,12 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"
     r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
     r = torch.empty((c, 1), dtype=torch.float32, device=M.device)
     if c:
-        with torch.cuda.device(M.device):
+        with torch.cuda.device(M.device), launch(counter, M):
             lib.call("tg_rbar", M.data_ptr(), ops.A_op.data_ptr(),
                      ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(),
                      dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
                      r.data_ptr(), c, s, Kp, int(with_dh), vec2_ok(s, M), nsplit,
                      is_bf16(M), int(ops.split), stage_granule(s, M), stream_of(M))
-        count_launch(counter, M)
     return r
 
 
@@ -576,14 +655,13 @@ def _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh: bool = True,
     dA = torch.empty((c, k), dtype=torch.float32, device=dev)
     dw = torch.empty((c,), dtype=torch.float32, device=dev)
     if c:
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), launch("dm_backward", M):
             lib.call("tg_dm_backward_tc", M.data_ptr(), ops.A_op.data_ptr(),
                      ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(), dh.data_ptr(),
                      m.data_ptr(), l.data_ptr(), r.data_ptr(), dM.data_ptr(),
                      ext_part.data_ptr(), dA.data_ptr(), dw.data_ptr(), c, s, k,
                      ops.A_op.shape[1], int(with_dh), vec2_ok(s, dM), nsplit, is_bf16(M),
                      stage_granule(s, M), stream_of(M))
-        count_launch("dm_backward", M)
     return dM, dA, dw
 
 

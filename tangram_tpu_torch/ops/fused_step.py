@@ -68,9 +68,9 @@ from .cuda_core import (
     _rowstats,
     _rowstats_plain,
     check,
-    count_launch,
     is_bf16,
     kernels_for,
+    launch,
     rowstats_load_bytes,
     stage_granule,
     stream_of,
@@ -256,11 +256,10 @@ def _rowstats_norms(M):
         return _rowstats_norms_plain(M)
     out = _stat_outputs(M, 5)
     if c:
-        with torch.cuda.device(M.device):
+        with torch.cuda.device(M.device), launch("rowstats_norms", M):
             lib.call("tg_rowstats_norms", M.data_ptr(),
                      *(t.data_ptr() for t in out), c, s, is_bf16(M),
                      rowstats_load_bytes(M), stream_of(M))
-        count_launch("rowstats_norms", M)
     return tuple(out)
 
 
@@ -325,7 +324,7 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
     nsplit = dp_splits(c, s, _sm_count(M))
     st_part, out, ptrs = _next_stat_buffers(M, nsplit, with_norms)
     if c:
-        with torch.cuda.device(M.device):
+        with torch.cuda.device(M.device), launch("dm_adam", M, mu, nu):
             lib.call("tg_dm_adam", M.data_ptr(), ops.A_op.data_ptr(),
                      ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(),
                      dh.data_ptr(), m.data_ptr(), l.data_ptr(), r.data_ptr(),
@@ -335,7 +334,6 @@ def _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh: bool = True
                      nsplit, is_bf16(M), is_bf16(mu), int(sr), step & 0x7FFFFFFF,
                      int(ops.split), stage_granule(s, M),
                      min(stage_granule(s, mu), stage_granule(s, nu)), stream_of(M))
-        count_launch("dm_adam", M, mu, nu)
     return (M, mu, nu) + tuple(out)
 
 
@@ -390,14 +388,13 @@ def _gsq(M, A, w, m, l, dY, dq, dh, r, lam_l1: float, lam_l2: float,
     vc = torch.empty((s,), dtype=torch.float32, device=dev)
     if not c:
         return vr, vc.zero_()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch("gsq", M):
         lib.call("tg_gsq_tc", M.data_ptr(), ops.A_op.data_ptr(), ops.dY_op.data_ptr(),
                  w.data_ptr(), dq.data_ptr(), dh.data_ptr(), m.data_ptr(), l.data_ptr(),
                  r.data_ptr(), vr_part.data_ptr(), vc_part.data_ptr(), vr.data_ptr(),
                  vc.data_ptr(), c, s, ops.A_op.shape[1], int(with_dh),
                  *_norm_scalars(lam_l1, lam_l2), vec2_ok(s, vc_part), nsplit, is_bf16(M),
                  int(ops.split), stage_granule(s, M), stream_of(M))
-    count_launch("gsq", M)
     return vr, vc
 
 
@@ -464,7 +461,7 @@ def _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr: float,
     nsplit = dp_splits(c, s, _sm_count(M))
     st_part, out, ptrs = _next_stat_buffers(M, nsplit, with_norms)
     if c:
-        with torch.cuda.device(M.device):
+        with torch.cuda.device(M.device), launch("dm_adafactor", M):
             lib.call("tg_dm_adafactor_tc", M.data_ptr(), ops.A_op.data_ptr(),
                      ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(), dh.data_ptr(),
                      m.data_ptr(), l.data_ptr(), r.data_ptr(), rowf.data_ptr(),
@@ -473,7 +470,6 @@ def _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, lr: float,
                      float(np.float32(lr)), *_norm_scalars(lam_l1, lam_l2),
                      vec2_ok(s, M), nsplit, is_bf16(M), int(sr), step & 0x7FFFFFFF,
                      int(ops.split), stage_granule(s, M), stream_of(M))
-        count_launch("dm_adafactor", M)
     return (M,) + tuple(out)
 
 

@@ -2,8 +2,11 @@
 ``tangram_tpu/profiling.py`` on ``torch.profiler`` and the host clock.
 
 * :func:`record_phases` / :func:`phase` — wall-clock phase timings of the
-  library's own stages (the same phase names as the JAX package), no-ops
-  unless a recording is active.
+  library's own stages (the JAX package's phase names and the port's finer
+  ones), no-ops unless a recording is active; each phase is also a
+  ``tangram.<name>`` range in a :func:`trace`. While a recording is
+  active the kernels are timed on the card too
+  (:data:`~tangram_tpu_torch.ops.cuda_core.DEVICE_SECONDS`).
 * :func:`trace` — a ``torch.profiler`` trace (CPU, and CUDA when present)
   that TensorBoard's profiler plugin or Chrome's trace viewer loads.
 * :func:`annotate` — a named range inside such a trace.
@@ -31,6 +34,7 @@ __all__ = [
     "StepTimer",
     "record_phases",
     "phase",
+    "recording",
 ]
 
 _PHASE_SINK = threading.local()
@@ -41,18 +45,28 @@ def record_phases():
     """Collect wall-clock phase timings from library internals.
 
     :func:`tangram_tpu_torch.map_cells_to_space` and ``Mapper.train`` mark
-    their stages with :func:`phase`: ``preprocess``, ``mapper_init``,
-    ``train_dispatch`` (each training chunk's ``fit_mapping`` call: the host
-    issuing the steps), ``train_execute_history`` (each chunk's history
-    fetch, which waits for the card to finish the chunk), ``mapping_fetch``
-    and ``gene_report``:
+    their stages with :func:`phase`, under the JAX package's names:
+    ``preprocess``, ``mapper_init``, ``train_dispatch`` (each training
+    chunk's ``fit_mapping`` call: the host issuing the steps),
+    ``train_execute_history`` (each chunk's history fetch, which waits for
+    the card to finish the chunk), ``mapping_fetch`` and ``gene_report``;
+    and under the port's own: ``inputs`` (the training genes, the
+    clusters aggregation, the density prior, the spot graphs and the
+    one-hot cell types) and ``result_build`` (the returned AnnData). Inside
+    ``mapper_init``, ``init_draw`` holds the draw of the seeded start,
+    ``init_cast`` its cast on the host and ``init_upload`` its copy to the
+    device; an inner phase counts in its outer one's total too.
 
     >>> with tgt.profiling.record_phases() as phases:
     ...     tgt.map_cells_to_space(ad_sc, ad_sp, ...)
-    >>> phases  # {"mapper_init": 1.2, "train_dispatch": 0.9, ...}
+    >>> phases  # {"mapper_init": 1.2, "init_draw": 1.0, ...}
 
     Thread-local and reentrant (an inner recording shadows the outer for
     its duration). With no recording active, :func:`phase` is a no-op.
+    While one is active, each kernel launch of
+    :mod:`~tangram_tpu_torch.ops.cuda_core` is also timed on the card,
+    without a synchronization
+    (:func:`~tangram_tpu_torch.ops.cuda_core.device_seconds`).
     """
     prev = getattr(_PHASE_SINK, "sink", None)
     sink: dict = {}
@@ -63,19 +77,27 @@ def record_phases():
         _PHASE_SINK.sink = prev
 
 
+def recording() -> bool:
+    """True while a :func:`record_phases` recording is active in this
+    thread."""
+    return getattr(_PHASE_SINK, "sink", None) is not None
+
+
 @contextlib.contextmanager
 def phase(name: str):
     """Accumulate a named wall-clock segment into the active
-    :func:`record_phases` sink; no-op when none is active."""
+    :func:`record_phases` sink, inside a ``tangram.<name>`` range of a
+    :func:`trace`; no-op when no recording is active."""
     sink = getattr(_PHASE_SINK, "sink", None)
     if sink is None:
         yield
         return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
+    with annotate(f"tangram.{name}"):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sink[name] = sink.get(name, 0.0) + time.perf_counter() - t0
 
 
 @contextlib.contextmanager

@@ -621,6 +621,37 @@ def test_kernels_fit_matches_cpu_reference(dev):
     np.testing.assert_allclose(M_k.cpu().numpy(), M_r.numpy(), atol=3e-3)
 
 
+def test_kernels_are_timed_on_the_card_inside_a_recording(dev):
+    """Under record_phases each launch is timed between two events; after a
+    synchronize device_seconds holds card time for each kernel that
+    launched and none for the others. Without a recording nothing is
+    timed."""
+    from tangram_tpu_torch import profiling
+
+    rng = np.random.default_rng(3)
+    S = (rng.poisson(2.0, (300, 40)) + 0.1).astype(np.float32)
+    G = (rng.poisson(3.0, (200, 40)) + 0.1).astype(np.float32)
+    M0 = torch.from_numpy(rng.normal(0, 1, (300, 200)).astype(np.float32))
+    data = MapperData(torch.from_numpy(S).to(dev), torch.from_numpy(G).to(dev))
+    lw = LossWeights()
+    cc.reset_launches()
+    fit_mapping(M0.to(dev), data, lw, 5, impl="kernels")
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["dm_adam"] == 5 and not cc._PENDING
+    assert set(cc.device_seconds().values()) == {0.0}
+    cc.reset_launches()
+    with profiling.record_phases():
+        fit_mapping(M0.to(dev), data, lw, 5, impl="kernels")
+    torch.cuda.synchronize()
+    seconds = cc.device_seconds()
+    assert not cc._PENDING
+    for name, n in cc.LAUNCHES.items():
+        assert (seconds[name] > 0) == (n > 0), name
+    assert {k for k, n in cc.LAUNCHES.items() if n} == {"rowstats", "project", "rbar",
+                                                          "dm_adam"}
+    cc.reset_launches()
+
+
 # ---------------------------------------------------------------------------
 # bf16 storage and stochastic rounding
 # ---------------------------------------------------------------------------
