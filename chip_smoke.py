@@ -192,6 +192,15 @@ last line):
               TUNER_BATCH_TOL in a batch of two); the phase's seconds and
               peak memory
 
+16a. init_draw the seeded start drawn on the card (ops/init_draw.py): at the
+              tutorial's 26,431 x 9,852, under the benchmark's random_state
+              of two seeds, init_logits on the card against
+              np.random.normal(0, 1, shape).astype(np.float32), bit for bit
+              (the count of entries that differ), numpy's state after it
+              (key, pos, the cached Gaussian, the next uniform), the bf16
+              start against the host's cast, one launch each; pass A and
+              pass B timed apart by CUDA events, the whole card draw and the
+              host's draw, cast and copy on the host's clock
 16. fuzz      the kernels at shapes nobody picked: (a) 24 shapes drawn from
               a fixed seed across the tiles' edges (c in 1-15, 63-65,
               127-129, 200-3,000; s of every residue mod 8, at 63-65,
@@ -260,7 +269,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
           "bf16", "reference", "spatial", "cv", "downstream", "contracts", "tuner", "mesh",
-          "fuzz", "north_star")
+          "init_draw", "fuzz", "north_star")
 SHAPE = (26_000, 9_852, 249)      # the reference tutorial workload
 CLUSTERS = (22, 9_852, 249)       # its clusters mode: 22 subclasses
 RAGGED = (37, 53, 7)
@@ -1554,6 +1563,16 @@ def check_mapping(phase, ad_map, n_obs, n_spots, n_genes, rising=True, epochs=EP
         f"{float(df['train_score'].median()):.4f}")
 
 
+def draw_launches(constrained=False, bf16=False, n=1):
+    """The init draw's launches (ops/init_draw.py) in ``n`` mappings with
+    init_method="auto" on the card: M's draw in its storage type, and for
+    the constrained mapper the discarded draw and F's draw too, in f32."""
+    counts = {"init_normal.bf16" if bf16 else "init_normal": n}
+    if constrained:
+        counts["init_normal"] = counts.get("init_normal", 0) + 2 * n
+    return counts
+
+
 def check_launches(phase, expect):
     """Fail unless the launch counts since the last reset are ``expect``,
     with 0 for every kernel it does not name."""
@@ -1970,7 +1989,9 @@ def bf16_phase(ad_sc, ad_sp, dev, card, cells_mapper, norm_lw, f32_runs, con_map
             f32["ms"], f32["train"] = step_and_memory(opts, {})
         low = dict(BF16_STORAGE, rounding=rounding)
         ad_map, secs, counts, peak = run(dict(opts, **low))
-        check_launches("bf16", {f"{name}.bf16": n for name, n in expect.items()})
+        check_launches("bf16", dict(
+            {f"{name}.bf16": n for name, n in expect.items()},
+            **draw_launches(opts.get("mode") == "constrained", bf16=True)))
         for name in expect:
             launches.setdefault(f"{name}.bf16", counts[f"{name}.bf16"])
         X = np.asarray(ad_map.X)
@@ -2378,7 +2399,7 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
                 ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
                 random_state=SEED, cluster_label=ISLANDS_LABEL, graph_format=fmt,
                 **GRAPH_TERMS))
-        check_launches("spatial", ADAM_LAUNCHES)
+        check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()))
         check_mapping("spatial", ad_map, *SHAPE)
         say("spatial", f"{fmt} five-term stack: map_cells_to_space {secs:.2f} s for "
             f"{EPOCHS} epochs (graphs built on the host included); peak device memory "
@@ -2441,7 +2462,7 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
         ad_sc, ad_sp, mode="clusters", cluster_label=ISLANDS_LABEL, num_epochs=EPOCHS,
         random_state=SEED, graph_format="knn", **GRAPH_TERMS))
-    check_launches("spatial", ADAM_LAUNCHES)
+    check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()))
     n_clusters = ad_map.X.shape[0]
     check_mapping("spatial", ad_map, n_clusters, SHAPE[1], SHAPE[2])
     clusters = mapper_for(ad_sc, ad_sp, dev, "clusters")
@@ -2585,7 +2606,8 @@ def cv_loo(dev, card, problems, profile=False):
     per_fold = (time.perf_counter() - t0) / LOOP_FOLDS
     try:
         check_launches("cv", {"rowstats": LOOP_FOLDS, "project": LOOP_FOLDS * epochs,
-                              "rbar": LOOP_FOLDS * epochs, "dm_adam": LOOP_FOLDS * epochs})
+                              "rbar": LOOP_FOLDS * epochs, "dm_adam": LOOP_FOLDS * epochs,
+                              **draw_launches(n=LOOP_FOLDS)})
     except RuntimeError as err:
         problems.append(str(err))
     say("cv", f"loop path: {per_fold:.2f} s per fold of {epochs} epochs through the "
@@ -2821,7 +2843,7 @@ def downstream_mapping(dev, card, ad_sc, ad_sp):
         ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
             ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
             random_state=SEED, **CELLS))
-    launches = check_launches("downstream", ADAM_LAUNCHES)
+    launches = check_launches("downstream", dict(ADAM_LAUNCHES, **draw_launches()))
     check_mapping("downstream", ad_map, *SHAPE)
     want = {"inputs", "preprocess", "mapper_init", "init_draw", "init_cast", "init_upload",
             "train_dispatch", "train_execute_history", "mapping_fetch", "result_build",
@@ -3147,10 +3169,10 @@ def planted_fit(dev, ad_sc, ad_sp, composition, impl, held_out, reverse=False):
             ad_sc, ad_sp, mode="cells", density_prior="rna_count_based",
             num_epochs=CONTRACT_EPOCHS, random_state=SEED, impl=impl, verbose=False,
             device=dev, **kw))
-    # the reference loop launches no kernel
-    check_launches("contracts", {"rowstats": 1, "project": CONTRACT_EPOCHS,
-                                 "rbar": CONTRACT_EPOCHS, "dm_adam": CONTRACT_EPOCHS}
-                   if impl == "kernels" else {})
+    # the reference loop launches no kernel; the start is drawn on the card
+    check_launches("contracts", dict({"rowstats": 1, "project": CONTRACT_EPOCHS,
+                                      "rbar": CONTRACT_EPOCHS, "dm_adam": CONTRACT_EPOCHS}
+                                     if impl == "kernels" else {}, **draw_launches()))
     check_mapping("contracts", ad_map, SHAPE[0], SHAPE[1], len(genes) - len(held) * held_out,
                   epochs=CONTRACT_EPOCHS)
     X = np.asarray(ad_map.X)
@@ -4480,6 +4502,95 @@ def fuzz_fits(dev, directory):
         dist.destroy_process_group()
 
 
+INIT_DRAW_SEEDS = (3121000101, 3121000102)   # two seeds of the benchmark's runs
+INIT_DRAW_SHAPE = (26_431, 9_852)            # the benchmark's mop_slideseq cell
+
+
+def init_draw_phase(dev, card):
+    """Phase 16a: the seeded start drawn on the card (module docstring)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from benchmark.drivers.job import random_state_of
+    from tangram_tpu_torch.models import mapper as mp
+    from tangram_tpu_torch.ops import cuda_core
+    from tangram_tpu_torch.ops import init_draw as idr
+    from tangram_tpu_torch.ops._build import load_kernels
+
+    t0 = time.perf_counter()
+    release_cached_memory("init_draw")
+    c, s = INIT_DRAW_SHAPE
+
+    def state():
+        _, key, pos, has_gauss, gauss = np.random.get_state()
+        return key.copy(), pos, has_gauss, gauss, np.random.random()
+
+    for seed in INIT_DRAW_SEEDS:
+        rs = random_state_of(seed)
+        cuda_core.reset_launches()
+        M, card_s = cuda_seconds(lambda: mp.init_logits(c, s, rs, "auto", device=dev))
+        after = state()
+        launches = dict(cuda_core.LAUNCHES)
+        np.random.seed(rs)
+        t1 = time.perf_counter()
+        want = np.random.normal(0, 1, (c, s))
+        t2 = time.perf_counter()
+        want = want.astype(np.float32)
+        t3 = time.perf_counter()
+        want_after = state()
+        (_, up_s) = cuda_seconds(lambda: torch.from_numpy(want).to(dev))
+        differ = int((M.cpu().numpy() != want).sum())
+        same = (np.array_equal(after[0], want_after[0]) and after[1:] == want_after[1:])
+        np.random.seed(rs)
+        cuda_core.reset_launches()
+        Mb = mp.init_logits(c, s, rs, "auto", dtype=torch.bfloat16, device=dev)
+        b_differ = int((Mb.cpu() != torch.from_numpy(want).to(torch.bfloat16)).sum())
+        b_launches = dict(cuda_core.LAUNCHES)
+        say("init_draw", f"seed {seed} (random_state {rs}), {c} x {s}: f32 entries that differ "
+            f"from numpy's {differ}, bf16 {b_differ}; state after {'equal' if same else 'DIFFERS'}"
+            f" (pos {after[1]}, has_gauss {after[2]}, gauss {after[3]!r}); card draw "
+            f"{card_s:.4f} s; host draw {t2 - t1:.3f} s, cast {t3 - t2:.3f} s, copy {up_s:.3f} s")
+        if differ or b_differ or not same:
+            fail(f"init_draw: the card's start is not numpy's stream (seed {seed}: {differ} "
+                 f"f32 and {b_differ} bf16 entries differ, state equal: {same})")
+        if (launches["init_normal"], b_launches["init_normal.bf16"]) != (1, 1):
+            fail(f"init_draw: launch counts {launches}, {b_launches}")
+        del M, Mb
+
+    # pass A and pass B apart, CUDA events, median of 5 after one
+    lib = load_kernels()
+    np.random.seed(random_state_of(INIT_DRAW_SEEDS[0]))
+    _, key, pos, _, _ = np.random.get_state()
+    n = c * s
+    draw = SimpleNamespace(key=key.astype(np.uint32), pos=int(pos), n=n, head=0,
+                           head_value=0.0, pairs=(n + 1) // 2, segment_blocks=idr.SEGMENT_BLOCKS)
+    key_d = torch.from_numpy(draw.key.view(np.int32)).to(dev)
+    out = torch.empty((c, s), dtype=torch.float32, device=dev)
+    buf = idr.card_buffers(draw, dev, idr._attempt_bound(draw.pairs), idr._fix_capacity(n))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    times = {"a": [], "b": []}
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        idr.pass_a(lib, draw, key_d, buf, stream)
+        ev[1].record()
+        idr.pass_b(lib, draw, out, buf, stream)
+        ev[2].record()
+        torch.cuda.synchronize()
+        times["a"].append(ev[0].elapsed_time(ev[1]))
+        times["b"].append(ev[1].elapsed_time(ev[2]))
+    meta = buf.meta.cpu().numpy()
+    a_ms, b_ms = (float(np.median(times[k][1:])) for k in ("a", "b"))
+    say("init_draw", f"pass A {a_ms:.3f} ms ({buf.segments} segments of "
+        f"{idr.SEGMENT_BLOCKS} blocks; serial walk, counts, scan), pass B {b_ms:.3f} ms "
+        f"(1.04 GB written: {n * 4 / (b_ms * 1e-3) / 1e12:.2f} TB/s); near-tie outputs "
+        f"{int(meta[idr.META_NFIX])}; runs (ms): A {times['a']}, B {times['b']}")
+    del out, buf
+
+    say("init_draw", f"phase done in {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def fuzz_phase(dev, card):
     """Phase 16: the kernels at drawn shapes, the path and tuner fuzzers
     (module docstring)."""
@@ -4873,7 +4984,7 @@ def main(argv=None) -> int:
         t_map = time.perf_counter() - t0
         launches = check_launches(
             "cells", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
-                      "dm_adam": EPOCHS})
+                      "dm_adam": EPOCHS, **draw_launches()})
         peaks["adam"] = torch.cuda.max_memory_allocated()
         check_mapping("cells", ad_map, SHAPE[0], SHAPE[1], SHAPE[2])
         baseline(f32_runs, CELLS).update(
@@ -4903,7 +5014,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t0
         check_launches("clusters", {"rowstats": 1, "project": EPOCHS,
-                                    "rbar": EPOCHS, "dm_adam": EPOCHS})
+                                    "rbar": EPOCHS, "dm_adam": EPOCHS, **draw_launches()})
         n_clusters = ad_map.X.shape[0]
         check_mapping("clusters", ad_map, n_clusters, SHAPE[1], SHAPE[2])
         ms_c = step_ms(mapper_for(ad_sc, ad_sp, dev, "clusters"), "kernels",
@@ -4933,7 +5044,7 @@ def main(argv=None) -> int:
         t_map = time.perf_counter() - t0
         counts = check_launches(
             "adafactor", {"rowstats_norms": 1, "project": EPOCHS, "rbar": EPOCHS,
-                          "gsq": EPOCHS, "dm_adafactor": EPOCHS})
+                          "gsq": EPOCHS, "dm_adafactor": EPOCHS, **draw_launches()})
         peaks["adafactor"] = torch.cuda.max_memory_allocated()
         launches = dict(launches or {}, **{k: counts[k] for k in ADAFACTOR_KERNELS})
         # not required to rise: at this shape Adafactor at the default
@@ -4956,7 +5067,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t0
         check_launches("adafactor", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
-                                     "gsq": EPOCHS, "dm_adafactor": EPOCHS})
+                                     "gsq": EPOCHS, "dm_adafactor": EPOCHS,
+                                     **draw_launches()})
         n_clusters = ad_map.X.shape[0]
         check_mapping("adafactor", ad_map, n_clusters, SHAPE[1], SHAPE[2])
         say("adafactor", f"clusters ({n_clusters} < {SHAPE[1]} spots): {EPOCHS} "
@@ -5010,7 +5122,7 @@ def main(argv=None) -> int:
                 num_epochs=EPOCHS, random_state=SEED, **CONSTRAINED)
             torch.cuda.synchronize()
             t_map = time.perf_counter() - t0
-            counts = check_launches("constrained", expect)
+            counts = check_launches("constrained", dict(expect, **draw_launches(True)))
             peaks[f"constrained {opt}"] = torch.cuda.max_memory_allocated()
             if opt == "adafactor":
                 launches = dict(launches or {}, **{k: counts[k] for k in BACKWARD_KERNELS})
@@ -5108,6 +5220,9 @@ def main(argv=None) -> int:
 
     if "mesh" in phases:
         mesh_phase(dev, card, ad_sc, ad_sp, cells_mapper, norm_lw)
+
+    if "init_draw" in phases:
+        init_draw_phase(dev, card)
 
     if "fuzz" in phases:
         fuzz_phase(dev, card)

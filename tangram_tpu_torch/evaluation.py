@@ -667,7 +667,7 @@ def _cross_val_batched(
             n_cells, n_spots, len(training_genes), device,
             cell_shards=layout.cell.block.count, fold_shards=layout.batch.block.count)
     fold_batch_size = int(fold_batch_size)
-    init_device = _draw_device("auto", n_cells * n_spots, device)
+    init_device = _draw_device("auto", n_cells * n_spots, device, mesh)
     if constrained:
         params0 = init_constrained_logits(n_cells, n_spots, random_state, "auto",
                                           device=init_device)

@@ -42,6 +42,7 @@ from ..ops.fused_step import (
     initial_stats,
     unconstrained_a_operand,
 )
+from ..ops.init_draw import legacy_normal
 from ..ops.losses import (
     VAL_METRIC_KEYS,
     LossWeights,
@@ -167,7 +168,9 @@ def init_logits(n_cells: int, n_spots: int, random_state: Optional[int] = None,
 
     ``method="numpy"`` is the reference's stream (``np.random.seed(seed)``
     only when the seed is truthy, then ``np.random.normal(0, 1, (c, s))``
-    cast to f32), so both packages start from the identical M.
+    cast to f32, then to ``dtype``), so both packages start from the
+    identical M; on a CUDA ``device`` it is drawn there
+    (:func:`_numpy_stream`).
     ``method="jax"`` draws on ``device`` with ``torch.randn`` from a
     generator seeded like the JAX package's ``PRNGKey`` (0 for None): no
     host copy, the draw for atlas-scale M. It follows a different generator
@@ -177,7 +180,7 @@ def init_logits(n_cells: int, n_spots: int, random_state: Optional[int] = None,
 
     Under :func:`~tangram_tpu_torch.profiling.record_phases` the draw is
     phase ``init_draw``, the host's casts ``init_cast`` and the copy to
-    ``device`` ``init_upload``.
+    ``device`` ``init_upload`` (on the card, the state's copy).
     """
     method = _draw_method(method, n_cells * n_spots)
     if method == "jax":
@@ -186,8 +189,23 @@ def init_logits(n_cells: int, n_spots: int, random_state: Optional[int] = None,
                                generator=_device_generator(random_state, device))
     if random_state:
         np.random.seed(seed=random_state)
+    return _numpy_stream((n_cells, n_spots), dtype, device)
+
+
+def _numpy_stream(shape, dtype=torch.float32, device="cpu", keep=True):
+    """``np.random.normal(0, 1, shape)`` from numpy's global state, cast to
+    f32 and then ``dtype``, on ``device``: drawn there by the card's kernels
+    (:func:`~tangram_tpu_torch.ops.init_draw.legacy_normal`) on a CUDA
+    device, else on the host, cast there and copied. Both leave numpy's
+    state alike and give the same bits. ``keep=False`` draws only to move
+    the state and returns None."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return legacy_normal(shape, dtype, device, keep=keep)
     with profiling.phase("init_draw"):
-        M = np.random.normal(0, 1, (n_cells, n_spots))
+        M = np.random.normal(0, 1, shape)
+    if not keep:
+        return None
     with profiling.phase("init_cast"):
         M = torch.from_numpy(M.astype(np.float32)).to(dtype=dtype)
     with profiling.phase("init_upload"):
@@ -208,11 +226,13 @@ def expression_init_logits(S, G, scale=4.0, dtype=torch.float32):
 
 def init_constrained_logits(n_cells: int, n_spots: int,
                             random_state: Optional[int] = None,
-                            method: str = "auto", device="cpu"):
+                            method: str = "auto", device="cpu", dtype=torch.float32):
     """(M, F) of the constrained mapper. ``method="numpy"`` is the
     reference's stream (``mapping_optimizer.py:472-493``): seed (only when
     truthy), one *discarded* N(0, 1) draw of M's shape, then M, then F
-    (cells,), each cast to f32. ``"jax"`` draws M, then F, on ``device``
+    (cells,), each cast to f32 (M then to ``dtype``); each draw is made on
+    ``device`` as in :func:`init_logits`, numpy's state carried from one to
+    the next. ``"jax"`` draws M, then F, on ``device``
     from one generator seeded as in :func:`init_logits`; ``"auto"`` picks
     by size as there. Phases as in :func:`init_logits`."""
     if _draw_method(method, n_cells * n_spots) == "jax":
@@ -222,14 +242,9 @@ def init_constrained_logits(n_cells: int, n_spots: int,
             return M, torch.randn((n_cells,), device=device, generator=gen)
     if random_state:
         np.random.seed(seed=random_state)
-    with profiling.phase("init_draw"):
-        np.random.normal(0, 1, (n_cells, n_spots))  # discarded first draw
-        M = np.random.normal(0, 1, (n_cells, n_spots))
-        F = np.random.normal(0, 1, n_cells)
-    with profiling.phase("init_cast"):
-        M, F = (torch.from_numpy(x.astype(np.float32)) for x in (M, F))
-    with profiling.phase("init_upload"):
-        return M.to(device), F.to(device)
+    _numpy_stream((n_cells, n_spots), device=device, keep=False)  # discarded first draw
+    M = _numpy_stream((n_cells, n_spots), dtype, device)
+    return M, _numpy_stream((n_cells,), device=device)
 
 
 def _warm_start_logits(adata_map) -> torch.Tensor:
@@ -239,11 +254,22 @@ def _warm_start_logits(adata_map) -> torch.Tensor:
     return torch.from_numpy(np.log(np.clip(P0, 1e-12, None)))
 
 
-def _draw_device(method: str, n_entries: int, device):
+def _draw_device(method: str, n_entries: int, device, mesh=None):
     """Where the init of ``method`` is drawn: on ``device`` for the device
-    draw, on the host for the numpy stream (cast and moved from there, so
-    that the device never holds the f32 draw beside its cast)."""
-    return device if _draw_method(method, n_entries) == "jax" else "cpu"
+    draw; for the numpy stream on a CUDA ``device`` without a mesh too
+    (:func:`_numpy_stream` then takes the card's kernels), else on the host
+    (a mesh keeps the full M there)."""
+    if _draw_method(method, n_entries) == "jax":
+        return device
+    return device if torch.device(device).type == "cuda" and mesh is None else "cpu"
+
+
+def _draw_dtype(method: str, n_entries: int, draw_device, storage):
+    """The type the start is drawn in: ``storage`` for the numpy stream on
+    the card (written there in its storage type, so the card never holds
+    the f32 start beside its cast), else f32 (cast later, as before)."""
+    on_card = torch.device(draw_device).type == "cuda"
+    return storage if on_card and _draw_method(method, n_entries) == "numpy" else torch.float32
 
 
 def _lr_at(learning_rate, t: int) -> float:
@@ -496,16 +522,24 @@ def _final_softmax(M) -> np.ndarray:
     return out
 
 
-def _upload_logits(M, device, impl, low_precision, fused=True):
-    """The host logits ``M`` on ``device``, in the fused loop's storage type
-    when training will take that loop: cast on the host, so that the device
-    never holds the f32 init beside the copy that the fused loop would make
-    (the JAX package donates it). Rejects a bad impl. The cast is phase
-    ``init_cast``, the copy ``init_upload``."""
+def _storage_dtype(device, impl, low_precision, fused=True) -> torch.dtype:
+    """The type M is stored in on ``device``: the fused loop's
+    ``param_dtype`` when training will take that loop, else f32. Rejects a
+    bad impl."""
     resolved = resolve_impl(impl, torch.empty(0, device=device))
+    if fused and resolved != "reference":
+        return _torch_dtype("param_dtype", low_precision["param_dtype"])
+    return torch.float32
+
+
+def _upload_logits(M, device, dtype):
+    """The logits ``M`` on ``device`` in their storage type ``dtype``: a host
+    M cast on the host, so that the device never holds the f32 init beside
+    the copy that the fused loop would make (the JAX package donates it).
+    The cast is phase ``init_cast``, the copy ``init_upload``; a start drawn
+    on the card in ``dtype`` passes through both unchanged."""
     with profiling.phase("init_cast"):
-        if fused and resolved != "reference":
-            M = M.to(_torch_dtype("param_dtype", low_precision["param_dtype"]))
+        M = M.to(dtype)
     with profiling.phase("init_upload"):
         return M.to(device)
 
@@ -770,6 +804,8 @@ class Mapper:
             ct_encode=dev(ct_encode), spatial_weights=W_spatial,
             getis_ord_ref=getis_ref, moran_ref=moran_ref, geary_ref=geary_ref,
         )
+        storage = (None if self.mesh is not None
+                   else _storage_dtype(self.device, impl, self.low_precision))
         if adata_map is not None:
             # the warm start wins over init_method: logits are the log of
             # the given mapping (softmax removes the per-row constant)
@@ -777,12 +813,13 @@ class Mapper:
         elif init_method == "expression":
             M = sharded_expression_init(S_train, G_train, self.mesh)
         else:
+            n_entries = S.shape[0] * G.shape[0]
+            on = _draw_device(init_method, n_entries, self.device, self.mesh)
             M = init_logits(S.shape[0], G.shape[0], random_state, init_method,
-                            device=_draw_device(init_method, S.shape[0] * G.shape[0],
-                                                self.device))
+                            dtype=_draw_dtype(init_method, n_entries, on, storage),
+                            device=on)
         # on a mesh the full M stays on the host: each rank's fit keeps its block
-        self.M = (M.cpu() if self.mesh is not None
-                  else _upload_logits(M, self.device, impl, self.low_precision))
+        self.M = M.cpu() if self.mesh is not None else _upload_logits(M, self.device, storage)
 
     def _to_weights(self, W):
         """A spot graph on the mapper's device in f32: a NeighborGraph moved
@@ -931,6 +968,9 @@ class MapperConstrained:
             target_count=dev(np.float32(target_count)),
         )
         n_entries = n_cells * n_spots
+        storage = (None if self.mesh is not None
+                   else _storage_dtype(self.device, impl, self.low_precision,
+                                       fused=self.optimizer == "adam"))
         if adata_map is not None:
             # the warm start wins over an expression request; F is drawn by
             # the method M would have been drawn by
@@ -938,22 +978,22 @@ class MapperConstrained:
             method = _draw_method("auto" if init_method == "expression" else init_method,
                                   n_entries)
             F = init_logits(1, n_cells, random_state, method,
-                            device=_draw_device(method, n_entries, self.device))[0]
+                            device=_draw_device(method, n_entries, self.device, self.mesh))[0]
         elif init_method == "expression":
             # F keeps the reference's N(0, 1) draw, so the filter starts unbiased
             M = sharded_expression_init(self.data.S, self.data.G, self.mesh)
             F = init_logits(1, n_cells, random_state, "auto")[0]
         else:
+            on = _draw_device(init_method, n_entries, self.device, self.mesh)
             M, F = init_constrained_logits(
-                n_cells, n_spots, random_state, init_method,
-                device=_draw_device(init_method, n_entries, self.device))
+                n_cells, n_spots, random_state, init_method, device=on,
+                dtype=_draw_dtype(init_method, n_entries, on, storage))
         if self.mesh is not None:
             self.M, self.F = M.cpu(), F.cpu()
         else:
             with profiling.phase("init_upload"):
                 self.F = F.to(self.device)
-            self.M = _upload_logits(M, self.device, impl, self.low_precision,
-                                    fused=self.optimizer == "adam")
+            self.M = _upload_logits(M, self.device, storage)
 
     def train(self, num_epochs, learning_rate=0.1, print_each=100):
         """Returns ``(M_probs, F_probs, training_history)`` like the

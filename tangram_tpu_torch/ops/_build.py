@@ -8,7 +8,8 @@ hash of the sources (headers included) and flags, and is reused while the
 hash matches.
 It is loaded with :mod:`ctypes`; every entry point takes device pointers
 and the CUDA stream as ``c_void_p``, sizes as ``c_int`` and scalars as
-``c_float``, and returns the launch's ``cudaError_t``.
+``c_float`` (``c_longlong`` and ``c_double`` for the init draw's counts
+and cached Gaussian), and returns the launch's ``cudaError_t``.
 
 A missing ``nvcc`` or a failed build raises with the compiler's output; no
 caller falls back to the plain PyTorch versions on a CUDA tensor.
@@ -38,6 +39,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D = ctypes.c_longlong, ctypes.c_double
 # entry point -> argtypes, as csrc/*.cu declare them
 SIGNATURES = {
     "tg_rowstats": (_P,) * 4 + (_I,) * 4 + (_P,),
@@ -48,6 +50,8 @@ SIGNATURES = {
     "tg_gsq_tc": (_P,) * 13 + (_I,) * 4 + (_F,) * 2 + (_I,) * 5 + (_P,),
     "tg_dm_adafactor_tc": (_P,) * 17 + (_I,) * 5 + (_F,) * 3 + (_I,) * 7 + (_P,),
     "tg_dm_backward_tc": (_P,) * 13 + (_I,) * 9 + (_P,),
+    "tg_normal_pass_a": (_P,) + (_I,) * 3 + (_L,) + (_P,) * 5,
+    "tg_normal_pass_b": (_P,) + (_I,) * 3 + (_P,) * 2 + (_L,) * 2 + (_I, _D, _P, _I, _P, _L, _P),
 }
 
 

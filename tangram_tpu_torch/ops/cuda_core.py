@@ -45,13 +45,15 @@ __all__ = ["LAUNCHES", "DEVICE_SECONDS", "reset_launches", "device_seconds", "ke
 #: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
 #: A for project) counts as ``name + ".bf16"``
 BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-                "dm_adafactor", "backward_rbar", "dm_backward")
+                "dm_adafactor", "backward_rbar", "dm_backward", "init_normal")
 
 #: launches of each kernel since the last :func:`reset_launches`;
-#: ``backward_rbar`` counts the rbar kernel when :func:`_backward` runs it
+#: ``backward_rbar`` counts the rbar kernel when :func:`_backward` runs it,
+#: ``init_normal`` the two passes of a seeded start drawn on the card
+#: (``ops/init_draw.py``)
 LAUNCHES = dict.fromkeys(
     ["rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-     "dm_adafactor", "backward_rbar", "dm_backward"]
+     "dm_adafactor", "backward_rbar", "dm_backward", "init_normal"]
     + [name + ".bf16" for name in BF16_KERNELS], 0)
 
 F32 = (torch.float32,)

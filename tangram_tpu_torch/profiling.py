@@ -55,7 +55,9 @@ def record_phases():
     one-hot cell types) and ``result_build`` (the returned AnnData). Inside
     ``mapper_init``, ``init_draw`` holds the draw of the seeded start,
     ``init_cast`` its cast on the host and ``init_upload`` its copy to the
-    device; an inner phase counts in its outer one's total too.
+    device (for a start drawn on the card, ``init_draw`` holds the kernels
+    and the read-back of numpy's state, ``init_upload`` the state's copy);
+    an inner phase counts in its outer one's total too.
 
     >>> with tgt.profiling.record_phases() as phases:
     ...     tgt.map_cells_to_space(ad_sc, ad_sp, ...)

@@ -48,6 +48,7 @@ MODULES = [
     "tangram_tpu_torch.ops.schedules",
     "tangram_tpu_torch.ops.fused_step",
     "tangram_tpu_torch.ops.cuda_core",
+    "tangram_tpu_torch.ops.init_draw",
     "tangram_tpu_torch.parallel.mesh",
     "tangram_tpu_torch.parallel.fused_sharded",
     "tangram_tpu_torch.ops.optim",

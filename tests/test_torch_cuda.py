@@ -29,9 +29,13 @@ graph terms on k-NN graphs and the island term with a standardized filter
 ``projected_expression``'s device path against a float64 product.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
+
+from _init_draw_cases import CASES, STARTS, same_state, state_after
 
 from tangram_tpu_torch.models.mapper import fit_mapping
 from tangram_tpu_torch.ops import cuda_core as cc
@@ -910,6 +914,72 @@ def test_device_init_draw_on_the_card(dev):
     assert M_c.is_cuda and F_c.is_cuda and F_c.shape == (30,)
 
 
+@pytest.mark.parametrize("start,shape,segment_blocks", CASES)
+def test_card_init_draw_is_numpys_stream(dev, start, shape, segment_blocks, monkeypatch):
+    """The init draw's kernels (``ops/init_draw.py``) at the CPU twin's
+    cases: the f32 start and numpy's state after it equal the host's draw,
+    one launch counted."""
+    from tangram_tpu_torch.ops import init_draw
+
+    monkeypatch.setattr(init_draw, "SEGMENT_BLOCKS", segment_blocks)
+    STARTS[start]()
+    cc.reset_launches()
+    got = init_draw.legacy_normal(shape, torch.float32, dev)
+    after = state_after()
+    assert cc.LAUNCHES["init_normal"] == (1 if math.prod(shape) > 1 else 0)
+    STARTS[start]()
+    want = np.random.normal(0, 1, shape).astype(np.float32)
+    assert got.is_cuda and np.array_equal(got.cpu().numpy(), want)
+    assert same_state(after, state_after())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_init_draw_constrained_triple(dev, dtype):
+    """MapperConstrained's draws in turn on the card, the state carried:
+    the discarded draw of M's shape (nothing written), M in its storage
+    type, then F in f32."""
+    from tangram_tpu_torch.models.mapper import init_constrained_logits
+
+    c, s = 300, 401
+    cc.reset_launches()
+    M, F = init_constrained_logits(c, s, 11, "numpy", device=dev, dtype=dtype)
+    after = state_after()
+    # the discarded draw counts as f32 (it writes nothing), M in its type
+    bf16 = dtype == torch.bfloat16
+    assert (cc.LAUNCHES["init_normal"], cc.LAUNCHES["init_normal.bf16"]) == (
+        (2, 1) if bf16 else (3, 0))
+    np.random.seed(11)
+    np.random.normal(0, 1, (c, s))
+    want_M = np.random.normal(0, 1, (c, s)).astype(np.float32)
+    want_F = np.random.normal(0, 1, c).astype(np.float32)
+    assert M.dtype == dtype and torch.equal(M.cpu(), torch.from_numpy(want_M).to(dtype))
+    assert F.is_cuda and np.array_equal(F.cpu().numpy(), want_F)
+    assert same_state(after, state_after())
+
+
+@pytest.mark.parametrize("seed", [3121000101, 3121000102])
+def test_card_init_draw_at_the_benchmark_shape(dev, seed):
+    """The benchmark cell's start, 26,431 x 9,852 under the job's
+    random_state of two of its seeds: init_logits on the card against
+    np.random.normal(...).astype(np.float32), every entry, and numpy's
+    state after it; the bf16 start against the host's cast."""
+    from benchmark.drivers.job import random_state_of
+    from tangram_tpu_torch.models.mapper import init_logits
+
+    c, s = 26_431, 9_852
+    rs = random_state_of(seed)
+    cc.reset_launches()
+    M = init_logits(c, s, rs, "auto", device=dev).cpu().numpy()
+    after = state_after()
+    Mb = init_logits(c, s, rs, "auto", dtype=torch.bfloat16, device=dev).cpu()
+    assert cc.LAUNCHES["init_normal"] == 1 and cc.LAUNCHES["init_normal.bf16"] == 1
+    np.random.seed(rs)
+    want = np.random.normal(0, 1, (c, s)).astype(np.float32)
+    assert same_state(after, state_after())
+    assert int((M != want).sum()) == 0
+    assert torch.equal(Mb, torch.from_numpy(want).to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("mode", ["cells", "clusters", "constrained"])
 def test_cross_val_on_the_card_matches_cpu(dev, mode):
     """The batched and loop CV on the card against the batched CV on the
@@ -1024,7 +1094,8 @@ def test_map_cells_to_space_knn_graph_terms_on_the_card(dev):
     """The five graph terms on k-NN graphs through the kernels against the
     CPU reference loop on the same spot graph: each step through rowstats
     once, then project, rbar and dm_adam, at the losses' and the mapping's
-    tolerances of tests/test_torch_mapping.py."""
+    tolerances of tests/test_torch_mapping.py; the seeded start drawn on the
+    card, one launch."""
     import tangram_tpu_torch as tgt
     from tangram_tpu_torch.datasets import synthetic_mapping_pair
 
@@ -1037,7 +1108,7 @@ def test_map_cells_to_space_knn_graph_terms_on_the_card(dev):
     cc.reset_launches()
     got = tgt.map_cells_to_space(ad_sc, ad_sp, device=dev, **kw)
     assert {n: v for n, v in cc.LAUNCHES.items() if v} == dict(
-        rowstats=1, project=20, rbar=20, dm_adam=20)
+        rowstats=1, project=20, rbar=20, dm_adam=20, init_normal=1)
     want = tgt.map_cells_to_space(ad_sc, ad_sp, device="cpu", **kw)
     np.testing.assert_allclose(got.X, want.X, rtol=3e-3, atol=1e-7)
     for key in ("total_loss", "main_loss", "kl_reg"):

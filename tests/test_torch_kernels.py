@@ -390,7 +390,7 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
     m, l, _ = cc._rowstats(M)
     cc._project(M, T(x["A"]), T(x["w"]), m, l)
     kernels = {"rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-               "dm_adafactor", "backward_rbar", "dm_backward"}
+               "dm_adafactor", "backward_rbar", "dm_backward", "init_normal"}
     assert set(cc.LAUNCHES) == kernels | {name + ".bf16" for name in kernels}
     assert not any(cc.LAUNCHES.values())
     assert resolve_impl("auto", M) == "reference"

@@ -200,6 +200,7 @@ def test_reset_launches_clears_counts_seconds_and_pending(fake_card):
     assert set(cc.DEVICE_SECONDS.values()) == {0.0}
     assert not cc._PENDING
     assert set(cc.DEVICE_SECONDS) == set(cc.LAUNCHES)
+    assert {"init_normal", "init_normal.bf16"} <= set(cc.DEVICE_SECONDS)
 
 
 # ---------------------------------------------------------------------------
