@@ -536,7 +536,10 @@ def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights,
     # h = Σ_s P log P = u/l − m − log l
     h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
 
-    with torch.enable_grad():
+    # the epilogue's backward on this thread: on a CUDA device the autograd
+    # engine's own thread may free its last buffers after this one resumes,
+    # which moves the device's peak memory from run to run
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
         Yv, qv, hv = (x.detach().requires_grad_() for x in (Y, q, h))
         total, terms = unconstrained_epilogue(Yv, qv, hv, l1_sum, l2_sum, data, lw)
         dY, dq, dh = torch.autograd.grad(total, (Yv, qv, hv), allow_unused=True)
@@ -640,7 +643,8 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
     Y, q = _project(M, A, w, m, l)
     h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
 
-    with torch.enable_grad():
+    # on this thread, as in _unconstrained_cotangents
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
         Yv, qv, hsv, Fv = (x.detach().requires_grad_() for x in (Y, q, h.sum(), F))
         total, terms = constrained_epilogue(Yv, qv, hsv, Fv, data, lw)
         dY, dq, dhs, dF_direct = torch.autograd.grad(
