@@ -277,11 +277,13 @@ DEEP = (150, 301, 300)            # k > 256 and an odd s
 KERNEL_SHAPES = {"ragged": RAGGED, "deep": DEEP, "clusters": CLUSTERS, "tutorial": SHAPE}
 EPOCHS = 100
 SOURCE = "tangram_tpu_torch/csrc/mapper_kernels.cu"
-# the kernels of the tensor-core dP tile have their own source
+# the kernels of the tensor-core dP tile have their own source, and rbar at
+# the shapes this script times (K <= 256) the warpgroup-MMA kernel's
 TENSOR_SOURCE = "tangram_tpu_torch/csrc/dp_tensor_kernels.cu"
-TENSOR_KERNELS = ("rbar", "dm_adam", "backward_rbar", "gsq", "dm_adafactor", "dm_backward",
-                  "rbar.bf16", "dm_adam.bf16", "gsq.bf16", "dm_adafactor.bf16",
-                  "backward_rbar.bf16", "dm_backward.bf16")
+TENSOR_KERNELS = ("dm_adam", "gsq", "dm_adafactor", "dm_backward", "dm_adam.bf16",
+                  "gsq.bf16", "dm_adafactor.bf16", "dm_backward.bf16")
+WGMMA_SOURCE = "tangram_tpu_torch/csrc/dp_wgmma_kernels.cu"
+WGMMA_KERNELS = ("rbar", "backward_rbar", "rbar.bf16", "backward_rbar.bf16")
 # and so has the projection on the tensor cores
 PROJECT_SOURCE = "tangram_tpu_torch/csrc/project_tc_kernels.cu"
 PROJECT_KERNELS = ("project", "project.bf16")
@@ -1327,7 +1329,11 @@ def check_mapper_core(x, results):
     got = core_gradients(lambda *t: mapper_core(*t, "kernels"), M, A, w, cts)
     torch.cuda.synchronize()
     ran = {n: v for n, v in cc.LAUNCHES.items() if v}
-    if ran != dict.fromkeys(names, 1):
+    expect = dict.fromkeys(names, 1)
+    Kp = cc.dp_operand(A[:1], A.shape[1] + 1).shape[1]  # the backward's depth
+    if cc.dp_route("backward_rbar", Kp, M.shape[0], A.dtype, torch.float32) != "tile":
+        expect["dp_wgmma" + (".bf16" if bf16 else "")] = 1  # its rbar pass
+    if ran != expect:
         fail(f"mapper_core(impl='kernels') launched {ran}")
     if bf16:
         for name in names[2:]:
@@ -1573,12 +1579,21 @@ def draw_launches(constrained=False, bf16=False, n=1):
     return counts
 
 
-def check_launches(phase, expect):
+def check_launches(phase, expect, wgmma=True):
     """Fail unless the launch counts since the last reset are ``expect``,
-    with 0 for every kernel it does not name."""
+    with 0 for every kernel it does not name. Unless ``expect`` names them,
+    the warpgroup-MMA kernel's counts (``dp_wgmma``, ``.bf16``) are those of
+    rbar and backward_rbar with ``wgmma`` (K up to 256, every phase but the
+    island term's), else 0."""
     from tangram_tpu_torch.ops.cuda_core import LAUNCHES
 
     counts = dict(LAUNCHES)
+    if wgmma and not any(name.startswith("dp_wgmma") for name in expect):
+        expect = dict(expect)
+        for suffix in ("", ".bf16"):
+            n = expect.get("rbar" + suffix, 0) + expect.get("backward_rbar" + suffix, 0)
+            if n:
+                expect["dp_wgmma" + suffix] = n
     expect = {name: expect.get(name, 0) for name in LAUNCHES}
     say(phase, f"launch counts {counts} (expected {expect})")
     if counts != expect:
@@ -1800,14 +1815,15 @@ def permuted_reference_distance(mapper, lw, M_ref, epochs=10):
 
 
 def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True,
-                           rounding_witness=False):
+                           rounding_witness=False, wgmma=True):
     """10 epochs of the kernels and of the materialized reference loop from
     the same parameters (the logits M, and the filter F of a
     MapperConstrained); fails beyond the stated tolerances, or unless the
     kernels' run launched ``expect``. ``fused=False`` runs the kernels'
     autograd loop through MapperCore. ``rounding_witness`` (Adam with the
     graph terms) holds the logits to GRAPH_SPREAD times the distance of the
-    reference loop on permuted cells. Returns the kernels' history (numpy)."""
+    reference loop on permuted cells. ``wgmma`` as check_launches takes it.
+    Returns the kernels' history (numpy)."""
     import torch
 
     from tangram_tpu_torch.models.mapper import (
@@ -1831,7 +1847,7 @@ def compare_with_reference(mapper, lw, optimizer, label, expect, fused=True,
                                    constrained=constrained)
         torch.cuda.synchronize()
         if impl == "kernels":
-            check_launches("reference", expect)
+            check_launches("reference", expect, wgmma)
         runs[impl] = (params, {k: v.cpu().numpy() for k, v in hist.items()})
     (pk, hk), (pr, hr) = runs["kernels"], runs["reference"]
     for key in CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS:
@@ -2399,7 +2415,8 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
                 ad_sc, ad_sp, density_prior="rna_count_based", num_epochs=EPOCHS,
                 random_state=SEED, cluster_label=ISLANDS_LABEL, graph_format=fmt,
                 **GRAPH_TERMS))
-        check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()))
+        # the island term's one-hot types take K past 256: the mma.sync tile
+        check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()), wgmma=False)
         check_mapping("spatial", ad_map, *SHAPE)
         say("spatial", f"{fmt} five-term stack: map_cells_to_space {secs:.2f} s for "
             f"{EPOCHS} epochs (graphs built on the host included); peak device memory "
@@ -2431,7 +2448,7 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     knn = stacks["knn"]
     compare_with_reference(knn, knn.lw, "adam", "five-term k-NN stack",
                            {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10},
-                           rounding_witness=True)
+                           rounding_witness=True, wgmma=False)
     runs = []
     for _ in range(2):
         M, hist = fit_mapping(knn.M.clone(), knn.data, knn.lw, REPEAT_EPOCHS,
@@ -2448,7 +2465,7 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     hist = compare_with_reference(islands, islands.lw, "adam",
                                   "islands, standardized filter",
                                   {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10},
-                                  rounding_witness=True)
+                                  rounding_witness=True, wgmma=False)
     penalty = hist["ct_island_penalty"]
     if not (np.isfinite(penalty).all() and (penalty > 0).all()):
         fail(f"spatial: the island penalty with a standardized filter is not positive: "
@@ -2462,7 +2479,7 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
         ad_sc, ad_sp, mode="clusters", cluster_label=ISLANDS_LABEL, num_epochs=EPOCHS,
         random_state=SEED, graph_format="knn", **GRAPH_TERMS))
-    check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()))
+    check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()), wgmma=False)
     n_clusters = ad_map.X.shape[0]
     check_mapping("spatial", ad_map, n_clusters, SHAPE[1], SHAPE[2])
     clusters = mapper_for(ad_sc, ad_sp, dev, "clusters")
@@ -4344,7 +4361,8 @@ FUZZ_TUNER = 4
 #: the path values the drawn shapes must reach on the H100 (132 SMs)
 FUZZ_NEEDS = {"granule": {16, 8, 4, 0}, "rowstats": {16, 8, 4, 2},
               "project splits": {"1", ">1"}, "dp splits": {"1", ">1"},
-              "A panels": {1, 2}, "project panels": {1, 2}, "epilogue panels": {1, 2}}
+              "A panels": {1, 2}, "project panels": {1, 2}, "epilogue panels": {1, 2},
+              "rbar kernel": {"wgmma", "tile"}, "wgmma tiles a block": {"1-2", ">2"}}
 
 
 def fuzz_shapes(seed=FUZZ_SEED, n=FUZZ_SHAPES):
@@ -4375,8 +4393,10 @@ def kernel_paths(shape, offsets, dev, sm_count):
     staging granule of M and of the moments and the row-stats load (f32
     and bf16), whether the dP tile reads 2 entries at once, the project and
     dP-tile splits, the A panels of the resident K depth (fused operands
-    and the backward's), and the 256-column panels of project and of
-    dm_backward's epilogue."""
+    and the backward's), the 256-column panels of project and of
+    dm_backward's epilogue, rbar's kernel (dp_route) and, on the
+    warpgroup-MMA kernel, the most 64-spot tiles a block walks (past two,
+    each warpgroup takes several and the ring and staging wrap)."""
     import torch
 
     from tangram_tpu_torch.ops import cuda_core as cc
@@ -4396,7 +4416,12 @@ def kernel_paths(shape, offsets, dev, sm_count):
         paths["rowstats"][name] = cc.rowstats_load_bytes(M)
         paths["vec2"][name] = (cc.vec2_ok(s, M), cc.vec2_ok(s, M, mu, nu))
         del M, mu, nu
+    Kp = cc.dp_operand(torch.empty((1, k), device=dev)).shape[1]
+    nsplit, blocks = cc.wgmma_splits(c, s, sm_count)
+    units, per = math.ceil(c / 64) * nsplit, math.ceil(math.ceil(s / 64) / nsplit)
     paths.update({
+        "rbar kernel": cc.dp_route("rbar", Kp, c, torch.float32, torch.float32),
+        "wgmma tiles a block": math.ceil(units / blocks) * per,
         "project splits": cc.project_splits(c, s, k, sm_count),
         "dp splits": cc.dp_splits(c, s, sm_count),
         "A panels": {"fused": depth_panels(k), "backward": depth_panels(k + 1)},
@@ -4418,7 +4443,10 @@ def path_values(paths):
             "dp splits": {split(paths["dp splits"])},
             "A panels": set(paths["A panels"].values()),
             "project panels": {paths["project panels"]},
-            "epilogue panels": {paths["epilogue panels"]}}
+            "epilogue panels": {paths["epilogue panels"]},
+            "rbar kernel": {paths["rbar kernel"].split(".")[0]},
+            "wgmma tiles a block": set() if paths["rbar kernel"] == "tile" else
+            {"1-2" if paths["wgmma tiles a block"] <= 2 else ">2"}}
 
 
 def fuzz_kernels(dev):
@@ -4850,6 +4878,7 @@ def north_star_phase(dev, card):
         entries.append({
             "name": entry, "route": "cuda",
             "source": (TENSOR_SOURCE if base_name in TENSOR_KERNELS else
+                       WGMMA_SOURCE if base_name in WGMMA_KERNELS else
                        PROJECT_SOURCE if base_name in PROJECT_KERNELS else SOURCE),
             "replaces": REPLACES[base_name], "launches": counts[counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4984,7 +5013,10 @@ def main(argv=None) -> int:
         t_map = time.perf_counter() - t0
         launches = check_launches(
             "cells", {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS,
-                      "dm_adam": EPOCHS, **draw_launches()})
+                      "dm_adam": EPOCHS, "dp_wgmma": EPOCHS, **draw_launches()})
+        say("cells", f"every rbar launch went through the warpgroup-MMA kernel: "
+            f"dp_wgmma {launches['dp_wgmma']} in {EPOCHS} epochs; dm_adam stays on the "
+            f"mma.sync tile ({launches['dm_adam']})")
         peaks["adam"] = torch.cuda.max_memory_allocated()
         check_mapping("cells", ad_map, SHAPE[0], SHAPE[1], SHAPE[2])
         baseline(f32_runs, CELLS).update(
@@ -5239,6 +5271,7 @@ def main(argv=None) -> int:
     kernels = [
         {"name": name, "route": "cuda",
          "source": (TENSOR_SOURCE if name in TENSOR_KERNELS else
+                    WGMMA_SOURCE if name in WGMMA_KERNELS else
                     PROJECT_SOURCE if name in PROJECT_KERNELS else SOURCE),
          "replaces": REPLACES[name],
          # a kernel no training loop launches (the bf16-M backward) counts

@@ -4,7 +4,10 @@
 //
 //   tg_rbar             replaces tangram_tpu/ops/fused_step.py::_rbar (kernel
 //                       pallas_core._rbar_kernel / _dp_tile), also as the
-//                       first pass of pallas_core._backward
+//                       first pass of pallas_core._backward; since
+//                       dp_wgmma_kernels.cu takes rbar at K <= 256, only
+//                       deeper K comes here (the island term's one-hot
+//                       types past 256 genes: cuda_core.dp_route)
 //   tg_gsq_tc           replaces tangram_tpu/ops/fused_step.py::_gsq
 //                       (_gsq_kernel): sum_spots g^2 per cell and sum_cells
 //                       g^2 per spot, L1/L2 terms and a bf16 M included
@@ -22,7 +25,9 @@
 //                       [dA | dw] = P [dY | dq]
 //
 // All form dP = A dY^T + w (x) dq [+ dh (x) (log P + 1)] tile by tile and
-// never store it.
+// never store it. Every launch of gsq, dm_adam, dm_adafactor and
+// dm_backward comes here, at any K (a dm_adam on the warpgroup-MMA loop of
+// dp_wgmma_kernels.cu measured slower than this tile's: see that file).
 //
 // What bounds them on the H100. The product is 2 c s k flops (1.28e11 at
 // 26,000 x 9,852 x 249). On the f32 FMA pipes that is 1.9 ms at best, and a

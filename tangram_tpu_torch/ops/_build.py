@@ -50,6 +50,8 @@ SIGNATURES = {
     "tg_gsq_tc": (_P,) * 13 + (_I,) * 4 + (_F,) * 2 + (_I,) * 5 + (_P,),
     "tg_dm_adafactor_tc": (_P,) * 17 + (_I,) * 5 + (_F,) * 3 + (_I,) * 7 + (_P,),
     "tg_dm_backward_tc": (_P,) * 13 + (_I,) * 9 + (_P,),
+    "tg_dp_wgmma_operand": (_P,) * 2 + (_I,) * 6 + (_P,),
+    "tg_rbar_wgmma": (_P,) * 10 + (_I,) * 9 + (_P,),
     "tg_normal_pass_a": (_P,) + (_I,) * 3 + (_L,) + (_P,) * 5,
     "tg_normal_pass_b": (_P,) + (_I,) * 3 + (_P,) * 2 + (_L,) * 2 + (_I, _D, _P, _I, _P, _L, _P),
 }

@@ -6,9 +6,10 @@ Counterpart of ``tangram_tpu/ops/pallas_core.py`` (``_rowstats``,
 of ``tangram_tpu/ops/fused_step.py::_rbar``. Each wrapper takes the JAX
 function's arguments and returns its outputs in the same shapes. On a CUDA tensor it launches the
 hand-written kernel from ``csrc/`` (the row stats from ``mapper_kernels.cu``;
-rbar and the unfused backward from ``dp_tensor_kernels.cu``, the
-tensor-core dP tile; the projection from ``project_tc_kernels.cu``, on the
-tensor cores too)
+rbar at K depths up to 256 from ``dp_wgmma_kernels.cu``, the persistent
+warpgroup-MMA dP tile, deeper rbar and the unfused backward's second pass
+from ``dp_tensor_kernels.cu``, the ``mma.sync`` dP tile (:func:`dp_route`);
+the projection from ``project_tc_kernels.cu``, on the tensor cores too)
 (and counts the launch in :data:`LAUNCHES`, and while a
 :func:`~tangram_tpu_torch.profiling.record_phases` recording is active
 times it on the card in :data:`DEVICE_SECONDS`); on a CPU tensor it runs the
@@ -40,20 +41,24 @@ __all__ = ["LAUNCHES", "DEVICE_SECONDS", "reset_launches", "device_seconds", "ke
            "MapperCore", "_rowstats", "rowstats_load_bytes", "_project", "_rbar", "_backward",
            "tf32_split", "DpOperands", "dp_operand", "dp_operands", "backward_operands",
            "project_operand", "project_tf32_plain", "dm_backward_tf32_plain",
-           "ext_product_tf32_plain"]
+           "ext_product_tf32_plain", "dp_route", "wgmma_splits", "wgmma_operand",
+           "wgmma_operand_plain", "wgmma_operand_rows"]
 
 #: the kernels with a bf16 variant: a launch on bf16 storage (M, mu or nu;
 #: A for project) counts as ``name + ".bf16"``
 BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-                "dm_adafactor", "backward_rbar", "dm_backward", "init_normal")
+                "dm_adafactor", "backward_rbar", "dm_backward", "init_normal", "dp_wgmma")
 
 #: launches of each kernel since the last :func:`reset_launches`;
 #: ``backward_rbar`` counts the rbar kernel when :func:`_backward` runs it,
 #: ``init_normal`` the two passes of a seeded start drawn on the card
-#: (``ops/init_draw.py``)
+#: (``ops/init_draw.py``); ``dp_wgmma`` counts, beside its role's own
+#: count (``rbar``, ``backward_rbar``), each launch that
+#: :func:`dp_route` sends to the warpgroup-MMA kernel, with the role's key
+#: suffix (untimed: the role's :data:`DEVICE_SECONDS` time the launch)
 LAUNCHES = dict.fromkeys(
     ["rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-     "dm_adafactor", "backward_rbar", "dm_backward", "init_normal"]
+     "dm_adafactor", "backward_rbar", "dm_backward", "init_normal", "dp_wgmma"]
     + [name + ".bf16" for name in BF16_KERNELS], 0)
 
 F32 = (torch.float32,)
@@ -493,26 +498,162 @@ def dp_operand(X, depth: int | None = None):
     return op
 
 
+# the warpgroup-MMA dP tile (dp_wgmma_kernels.cu)
+_WG_CELLS = 64    # cells per group: wgmma's M
+_WG_SPOTS = 64    # spots per tile: wgmma's N
+_WG_KMAX = 256    # deepest K of its resident A panel
+#: the roles whose dP tile the warpgroup-MMA kernel forms
+WGMMA_ROLES = ("rbar", "backward_rbar")
+# what a unit (a 64-cell group's run of spot tiles) pays once, whatever its
+# tiles (its partial rows; at a new group the A panel), in tiles
+_WG_UNIT_OVERHEAD = 0.5
+
+
+def dp_route(role: str, Kp: int, c: int, a_dtype, dy_dtype) -> str:
+    """The kernel that forms a launch's dP tile: ``"wgmma.tf32"`` (the
+    persistent warpgroup-MMA kernel of ``dp_wgmma_kernels.cu``, 3×TF32 on
+    f32 operands), ``"wgmma.bf16"`` (the same on bf16 operands: A and dY
+    both bf16, one exact product) or ``"tile"`` (``dp_tensor_kernels.cu``).
+    The warpgroup kernel takes rbar (``"rbar"``, ``"backward_rbar"``) while
+    the operands' depth Kp fits its resident panel (256) and there is a
+    cell to map; deeper K (the island term's one-hot types past 256 genes)
+    walks panels on the tile, and dm_adam, gsq, dm_adafactor and
+    dm_backward stay there (an Adam epilogue on the warpgroup kernel
+    measured slower than the tile's; ``dp_wgmma_kernels.cu``)."""
+    if role not in WGMMA_ROLES or not 0 < Kp <= _WG_KMAX or c < 1:
+        return "tile"
+    both_bf16 = a_dtype == torch.bfloat16 and dy_dtype == torch.bfloat16
+    return "wgmma.bf16" if both_bf16 else "wgmma.tf32"
+
+
+def wgmma_splits(c: int, s: int, sm_count: int) -> tuple[int, int]:
+    """(nsplit, blocks) of the warpgroup-MMA kernel: each 64-cell group's
+    64-spot tiles are cut into ``nsplit`` runs (units), and ``blocks``
+    persistent blocks, one per SM at most, take contiguous ranges of the
+    units; a block's two warpgroups take its tiles in turn. The split is
+    the one with the least estimated time, units per block × (tiles per
+    unit + a unit's fixed cost), the fewest splits on a tie: 7 at the
+    tutorial shape (22 tiles a unit, 2,891 units, 22 a block)."""
+    groups, tiles = math.ceil(c / _WG_CELLS), math.ceil(s / _WG_SPOTS)
+    best, best_cost = 1, math.inf
+    for n in range(1, max(tiles, 1) + 1):
+        per = math.ceil(tiles / n) if tiles else 0
+        if tiles and math.ceil(tiles / per) != n:  # the same units as a smaller n
+            continue
+        cost = math.ceil(groups * n / sm_count) * (per + _WG_UNIT_OVERHEAD)
+        if cost < best_cost:
+            best, best_cost = n, cost
+    return best, max(1, min(sm_count, groups * best))
+
+
+def _wg_perm(split: bool):
+    """(32,) the column of a 32-wide K chunk that the kernel's logical K
+    index holds: the order in which one 16-byte load of a row gives a
+    thread its A fragment of two k8 steps (f32) or two k16 steps (bf16)."""
+    L = torch.arange(32)
+    kk = L >> 4
+    if split:
+        ks, j = (L >> 3) & 1, L & 7
+        return 8 * (j & 3) + 4 * kk + 2 * ks + (j >> 2)
+    kl = L & 15
+    return 8 * ((kl & 7) >> 1) + 4 * kk + 2 * (kl >> 3) + (kl & 1)
+
+
+def wgmma_operand_plain(X, Kp: int, split: bool):
+    """X (n, k) as the warpgroup-MMA kernel's dY stages, in plain PyTorch:
+    rows padded with zeros to a multiple of 64 and columns to Kp, each
+    32-wide chunk's columns in :func:`_wg_perm`'s order, then per (64-row
+    tile, chunk) stage wgmma's K-major layout without swizzle: 8 × 16-byte
+    core matrices, K-major between them, then rows. ``split``: f32 stages of
+    :func:`tf32_split`'s hi then lo, (T, C, 2, 8, 8, 8, 4); else bf16,
+    (T, C, 4, 8, 8, 8), of a bf16 X's exact values."""
+    n, k = X.shape
+    T, C = -(-n // _WG_SPOTS), Kp // _TC_K
+    if Kp % _TC_K or k > Kp:
+        raise ValueError(f"depth {Kp} does not take {k} columns in chunks of {_TC_K}")
+    dtype = torch.float32 if split else torch.bfloat16
+    pad = torch.zeros((T * _WG_SPOTS, Kp), dtype=dtype, device=X.device)
+    pad[:n, :k] = X
+    cols = (torch.arange(C)[:, None] * _TC_K + _wg_perm(split)[None, :]).reshape(-1)
+    logical = pad[:, cols.to(X.device)]
+    if split:
+        parts = tf32_split(logical)
+        # (T, n8, r, C, kc, e) -> (T, C, kc, n8, r, e)
+        return torch.stack([p.reshape(T, 8, 8, C, 8, 4).permute(0, 3, 4, 1, 2, 5)
+                            for p in parts], dim=2).contiguous()
+    return logical.reshape(T, 8, 8, C, 4, 8).permute(0, 3, 4, 1, 2, 5).contiguous()
+
+
+def wgmma_operand_rows(tiles, n: int, split: bool):
+    """The inverse of :func:`wgmma_operand_plain`: the (n, Kp) rows of the
+    columns in their own order (with ``split``, ``(hi, lo)``)."""
+    T, C = tiles.shape[:2]
+    inverse = torch.argsort(_wg_perm(split))
+    cols = (torch.arange(C)[:, None] * _TC_K + inverse[None, :]).reshape(-1)
+
+    def rows(part):
+        logical = part.permute(0, 3, 4, 1, 2, 5).reshape(T * _WG_SPOTS, C * _TC_K)
+        return logical[:, cols.to(tiles.device)][:n]
+
+    if split:
+        return rows(tiles[:, :, 0]), rows(tiles[:, :, 1])
+    return rows(tiles)
+
+
+def wgmma_operand(X, Kp: int, split: bool):
+    """dY's stages for the warpgroup-MMA kernel (:func:`wgmma_operand_plain`'s
+    layout), once per step: on a CUDA tensor one launch of
+    ``tg_dp_wgmma_operand``, on the CPU the plain version. X (n, k) is f32
+    or bf16 (bf16 when not ``split``), its rows contiguous."""
+    lib = kernels_for(X)
+    if lib is None:
+        return wgmma_operand_plain(X, Kp, split)
+    n, k = X.shape
+    if not split and X.dtype != torch.bfloat16:
+        raise TypeError("the bf16 product takes a bf16 dY")
+    check("X", X, (n, k), F32_BF16)
+    T, C = -(-n // _WG_SPOTS), Kp // _TC_K
+    shape = (T, C, 2, 8, 8, 8, 4) if split else (T, C, 4, 8, 8, 8)
+    out = torch.empty(shape, dtype=torch.float32 if split else torch.bfloat16,
+                      device=X.device)
+    with torch.cuda.device(X.device):
+        lib.call("tg_dp_wgmma_operand", X.data_ptr(), out.data_ptr(), is_bf16(X), n, k, k,
+                 Kp, int(split), stream_of(X))
+    return out
+
+
 class DpOperands(NamedTuple):
-    """The contraction operands of dP = A dYᵀ for the tensor-core tile:
-    ``A_op`` (c, Kp) and ``dY_op`` (s, Kp) from :func:`dp_operand`,
-    ``split``: whether the tile takes three TF32 products of their split
-    parts (f32 inputs) or one product (both inputs bf16: exact), and
-    ``ext``: whether ``dY_op`` is [dY | dq] with ``A_op`` 0 in column k
-    (:func:`backward_operands`, what dm_backward's second product takes)."""
+    """The contraction operands of dP = A dYᵀ for the tensor-core tiles:
+    ``A_op`` (c, Kp) and ``dY_op`` (s, Kp) from :func:`dp_operand`;
+    ``split``: whether the tiles take three TF32 products of their split
+    parts (f32 inputs) or one product (both inputs bf16: exact); ``ext``:
+    whether ``dY_op`` is [dY | dq] with ``A_op`` 0 in column k
+    (:func:`backward_operands`, what dm_backward's second product takes);
+    ``dY_tiles``: dY's stages for the warpgroup-MMA kernel
+    (:func:`wgmma_operand`), or ``None`` where rbar does not go there (and
+    on the CPU)."""
 
     A_op: torch.Tensor
     dY_op: torch.Tensor
     split: bool
     ext: bool = False
+    dY_tiles: torch.Tensor | None = None
 
 
 def dp_operands(A, dY, A_op=None) -> DpOperands:
     """The operands of one step's dP tiles, built once for the rbar, gsq
-    and update kernels; ``A_op`` is ``dp_operand(A)`` when the caller has it
-    already (A does not change between the steps of an unconstrained fit)."""
+    and update kernels: ``dY_op`` for the ``mma.sync`` tile and, on a CUDA
+    device where rbar goes to the warpgroup-MMA kernel (:func:`dp_route`),
+    ``dY_tiles``. ``A_op`` is ``dp_operand(A)`` when the caller has it
+    already (A does not change between the steps of an unconstrained
+    fit)."""
     split = not (A.dtype == torch.bfloat16 and dY.dtype == torch.bfloat16)
-    return DpOperands(dp_operand(A) if A_op is None else A_op, dp_operand(dY), split)
+    A_op = dp_operand(A) if A_op is None else A_op
+    Kp = A_op.shape[1]
+    route = dp_route("rbar", Kp, A.shape[0], A.dtype, dY.dtype)
+    on_card = kernels_for(A_op, dY) is not None
+    tiles = wgmma_operand(dY, Kp, split) if on_card and route != "tile" else None
+    return DpOperands(A_op, dp_operand(dY), split, dY_tiles=tiles)
 
 
 def backward_operands(A, dY, dq) -> DpOperands:
@@ -520,17 +661,33 @@ def backward_operands(A, dY, dq) -> DpOperands:
     backward: ``A_op`` = A and ``dY_op`` = [dY | dq], both f32 and padded
     with zeros to a depth past k (column k of ``A_op`` is 0, so the dP
     product ignores dq there; dm_backward's second product P [dY | dq]
-    takes it). Always the split product: the backward's A and dY are f32."""
+    takes it), and on a CUDA device, when its rbar pass goes to the
+    warpgroup-MMA kernel, ``dY_tiles`` of ``dY_op``. Always the split product: the backward's A
+    and dY are f32."""
     k = A.shape[1]
-    return DpOperands(dp_operand(A, k + 1), dp_operand(_ext(dY.float(), dq), k + 1),
-                      True, True)
+    A_op, dY_op = dp_operand(A, k + 1), dp_operand(_ext(dY.float(), dq), k + 1)
+    Kp = A_op.shape[1]
+    route = dp_route("backward_rbar", Kp, A.shape[0], A.dtype, dY.dtype)
+    on_card = kernels_for(dY_op) is not None
+    tiles = wgmma_operand(dY_op, Kp, True) if on_card and route != "tile" else None
+    return DpOperands(A_op, dY_op, True, True, tiles)
 
 
 def dp_from_operands_plain(ops: DpOperands, w, dq):
     """dP = A dYᵀ + w ⊗ dq from the kernel's operands, as the tensor-core
-    tile computes it (the split products, then the rank-one term in f32)."""
-    product = (tf32_product_plain(ops.A_op, ops.dY_op) if ops.split
-               else ops.A_op @ ops.dY_op.T)
+    tiles compute it (the split products, then the rank-one term in f32);
+    from ``dY_tiles`` when ``dY_op`` is ``None``."""
+    s = dq.shape[0]
+    if ops.dY_op is not None:
+        dY_op = ops.dY_op
+        product = (tf32_product_plain(ops.A_op, dY_op) if ops.split
+                   else ops.A_op @ dY_op.T)
+    elif ops.split:
+        hi, lo = wgmma_operand_rows(ops.dY_tiles, s, True)
+        a_hi, a_lo = tf32_split(ops.A_op)
+        product = (a_lo @ hi.T + a_hi @ lo.T) + a_hi @ hi.T
+    else:
+        product = ops.A_op @ wgmma_operand_rows(ops.dY_tiles, s, False).float().T
     return product + w[:, None] * dq[None, :]
 
 
@@ -540,8 +697,18 @@ def _check_operands(ops: DpOperands, A, dY) -> int:
     if Kp % _TC_K or Kp < A.shape[1]:
         raise ValueError(f"operands of depth {Kp} do not fit k = {A.shape[1]}")
     check("A_op", ops.A_op, (A.shape[0], Kp))
-    check("dY_op", ops.dY_op, (dY.shape[0], Kp))
-    if ops.A_op.data_ptr() % 16 or ops.dY_op.data_ptr() % 16:
+    if ops.dY_op is not None:
+        check("dY_op", ops.dY_op, (dY.shape[0], Kp))
+        if ops.dY_op.data_ptr() % 16:
+            raise ValueError("the dP operands must be 16-byte aligned")
+    if ops.dY_tiles is not None:
+        T, C = -(-dY.shape[0] // _WG_SPOTS), Kp // _TC_K
+        shape = (T, C, 2, 8, 8, 8, 4) if ops.split else (T, C, 4, 8, 8, 8)
+        check("dY_tiles", ops.dY_tiles, shape,
+              F32 if ops.split else (torch.bfloat16,))
+        if ops.dY_tiles.data_ptr() % 16:
+            raise ValueError("the dP operands must be 16-byte aligned")
+    if ops.A_op.data_ptr() % 16:
         raise ValueError("the dP operands must be 16-byte aligned")
     return Kp
 
@@ -572,7 +739,8 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"
     ``with_dh=False`` drops the entropy cotangent path (λ_r = 0). A launch
     counts in ``LAUNCHES[counter]`` (``counter + ".bf16"`` with a bf16 M):
     ``"rbar"`` in the fused steps, ``"backward_rbar"`` as the first pass of
-    :func:`_backward` (A and dY f32 there). ``operands`` are
+    :func:`_backward` (A and dY f32 there); :func:`dp_route` picks the
+    kernel. ``operands`` are
     ``dp_operands(A, dY)`` (or :func:`backward_operands`) when the caller
     has built them already; the kernel reads A and dY from them (the CPU
     twin from A and dY themselves)."""
@@ -585,16 +753,29 @@ def _rbar(M, A, w, m, l, dY, dq, dh, with_dh: bool = True, counter: str = "rbar"
         return _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
     ops = dp_operands(A, dY) if operands is None else operands
     Kp = ops.A_op.shape[1]
-    nsplit = dp_splits(c, s, _sm_count(M))
-    r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
+    route = dp_route(counter, Kp, c, A.dtype, dY.dtype)
     r = torch.empty((c, 1), dtype=torch.float32, device=M.device)
-    if c:
+    if not c:
+        return r
+    common = (w.data_ptr(), dq.data_ptr(), dh.data_ptr(), m.data_ptr(), l.data_ptr())
+    if route == "tile":
+        nsplit = dp_splits(c, s, _sm_count(M))
+        r_part = torch.empty((nsplit, c), dtype=torch.float32, device=M.device)
         with torch.cuda.device(M.device), launch(counter, M):
             lib.call("tg_rbar", M.data_ptr(), ops.A_op.data_ptr(),
-                     ops.dY_op.data_ptr(), w.data_ptr(), dq.data_ptr(),
-                     dh.data_ptr(), m.data_ptr(), l.data_ptr(), r_part.data_ptr(),
+                     ops.dY_op.data_ptr(), *common, r_part.data_ptr(),
                      r.data_ptr(), c, s, Kp, int(with_dh), vec2_ok(s, M), nsplit,
                      is_bf16(M), int(ops.split), stage_granule(s, M), stream_of(M))
+        return r
+    nsplit, blocks = wgmma_splits(c, s, _sm_count(M))
+    if ops.dY_tiles is None:
+        raise ValueError("these dP operands hold no dY stages for the warpgroup-MMA kernel")
+    r_part = torch.empty((2 * nsplit, c), dtype=torch.float32, device=M.device)
+    with torch.cuda.device(M.device), launch(counter, M):
+        lib.call("tg_rbar_wgmma", M.data_ptr(), ops.A_op.data_ptr(), ops.dY_tiles.data_ptr(),
+                 *common, r_part.data_ptr(), r.data_ptr(), c, s, Kp, int(with_dh),
+                 vec2_ok(s, M), nsplit, blocks, is_bf16(M), int(ops.split), stream_of(M))
+        LAUNCHES[launch_key("dp_wgmma", M)] += 1
     return r
 
 

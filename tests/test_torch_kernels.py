@@ -390,7 +390,7 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
     m, l, _ = cc._rowstats(M)
     cc._project(M, T(x["A"]), T(x["w"]), m, l)
     kernels = {"rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-               "dm_adafactor", "backward_rbar", "dm_backward", "init_normal"}
+               "dm_adafactor", "backward_rbar", "dm_backward", "init_normal", "dp_wgmma"}
     assert set(cc.LAUNCHES) == kernels | {name + ".bf16" for name in kernels}
     assert not any(cc.LAUNCHES.values())
     assert resolve_impl("auto", M) == "reference"
@@ -694,6 +694,143 @@ def test_dp_operands_of_bf16_inputs_take_one_exact_product():
     assert float((got.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
     # one bf16 operand alone still takes the split
     assert cc.dp_operands(A, dY.float()).split and cc.dp_operands(A.float(), dY).split
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("role,Kp,c,a_dtype,dy_dtype,want", [
+    ("rbar", 256, 26_431, F32, F32, "wgmma.tf32"),       # the tutorial, f32
+    ("rbar", 256, 26_431, BF16, BF16, "wgmma.bf16"),     # the tutorial, bf16
+    ("rbar", 256, 100_000, BF16, BF16, "wgmma.bf16"),    # the north star's operands
+    ("rbar", 256, 26_431, BF16, F32, "wgmma.tf32"),      # one bf16 operand: the split
+    ("rbar", 32, 1, F32, F32, "wgmma.tf32"),             # one cell, shallow K
+    ("rbar", 256, 22, F32, F32, "wgmma.tf32"),           # clusters mode
+    ("backward_rbar", 256, 26_431, F32, F32, "wgmma.tf32"),
+    ("rbar", 288, 26_431, F32, F32, "tile"),             # the island term's K = 271
+    ("backward_rbar", 288, 26_431, F32, F32, "tile"),    # k + 1 = 257
+    ("rbar", 256, 0, F32, F32, "tile"),                  # no cell to map
+    ("dm_adam", 256, 26_431, F32, F32, "tile"),
+    ("dm_adam", 256, 26_431, BF16, BF16, "tile"),
+    ("gsq", 256, 26_431, F32, F32, "tile"),
+    ("dm_adafactor", 256, 26_431, F32, F32, "tile"),
+    ("dm_backward", 256, 26_431, F32, F32, "tile"),
+])
+def test_dp_route_by_role_depth_cells_and_dtypes(role, Kp, c, a_dtype, dy_dtype, want):
+    """The kernel that forms a launch's dP tile, from what the wrapper can
+    observe: rbar's roles at K up to 256 on the warpgroup-MMA kernel (its
+    bf16 product where A and dY are both bf16), everything else on the
+    mma.sync tile."""
+    assert cc.dp_route(role, Kp, c, a_dtype, dy_dtype) == want
+
+
+@pytest.mark.parametrize("c,s,want", [
+    (26_431, 9_852, (7, 132)),    # the tutorial: 22 tiles a unit, 2,891 units
+    (22, 9_852, (77, 77)),        # clusters mode: two tiles a unit, one a warpgroup
+    (100_000, 50_000, (7, 132)),  # the north star: 112 tiles a unit
+    (37, 53, (1, 1)),
+    (5, 0, (1, 1)),               # no spot: one empty unit
+])
+def test_wgmma_splits_balance_the_units_over_the_card(c, s, want):
+    assert cc.wgmma_splits(c, s, sm_count=132) == want
+    nsplit, blocks = want
+    if s:
+        per = -(-(-(-s // 64)) // nsplit)
+        assert -(-(-(-s // 64)) // per) == nsplit  # every split has a tile
+    assert blocks <= 132 and blocks <= -(-c // 64) * nsplit or blocks == 1
+
+
+def test_wg_perm_permutes_each_chunk():
+    for split in (True, False):
+        perm = cc._wg_perm(split)
+        assert sorted(perm.tolist()) == list(range(32))
+
+
+@pytest.mark.parametrize("n,k,Kp,dtype,split", [
+    (70, 40, 64, F32, True), (64, 32, 32, F32, True), (1, 3, 32, F32, True),
+    (130, 249, 256, F32, True), (75, 19, 32, BF16, True), (77, 200, 224, BF16, False),
+    (9, 31, 32, BF16, False),
+])
+def test_wgmma_operand_holds_the_split_or_bf16_rows(n, k, Kp, dtype, split):
+    """dY's stages for the warpgroup-MMA kernel: unpermuted and unlaid, the
+    rows padded to a multiple of 64 with zeros give back dp_operand's (s,
+    Kp) operand, as tf32_split's parts (split) or bf16 values kept bf16."""
+    X = torch.from_numpy(np.random.default_rng(n + k).normal(0, 1, (n, k)).astype(np.float32))
+    X = X.to(dtype)
+    tiles = cc.wgmma_operand(X, Kp, split)
+    T_ = -(-n // 64)
+    if split:
+        assert tiles.dtype == F32 and tuple(tiles.shape) == (T_, Kp // 32, 2, 8, 8, 8, 4)
+    else:
+        assert tiles.dtype == BF16 and tuple(tiles.shape) == (T_, Kp // 32, 4, 8, 8, 8)
+    rows = cc.wgmma_operand_rows(tiles, n, split)
+    op = cc.dp_operand(X, Kp)
+    if split:
+        hi, lo = cc.tf32_split(op)
+        assert torch.equal(rows[0], hi) and torch.equal(rows[1], lo)
+    else:
+        assert torch.equal(rows, op.to(BF16))
+    # the padding rows are zeros
+    padded = cc.wgmma_operand_rows(tiles, T_ * 64, split)
+    for part in padded if split else (padded,):
+        assert not part[n:].float().abs().sum()
+
+
+@pytest.mark.parametrize("c,s,k,bf16", [(20, 70, 40, False), (65, 129, 249, False),
+                                         (20, 70, 40, True), (3, 64, 256, True)])
+def test_wgmma_stages_read_as_wgmma_reads_them_give_the_product(c, s, k, bf16):
+    """Each stage read as wgmma reads a K-major operand without swizzle (8 x
+    16-byte core matrices, 1,024 bytes apart along K, 128 along N), against
+    A's fragments in the order one 16-byte load a row gives them, forms
+    A_op dY_opᵀ: the layout and the permutation agree."""
+    rng = np.random.default_rng(c + s)
+    A = torch.from_numpy(rng.normal(0, 1, (c, k)).astype(np.float32))
+    dY = torch.from_numpy(rng.normal(0, 1, (s, k)).astype(np.float32))
+    if bf16:
+        A, dY = A.to(BF16), dY.to(BF16)
+    A_op = cc.dp_operand(A)
+    Kp = A_op.shape[1]
+    split = not bf16
+    tiles = cc.wgmma_operand(dY, Kp, split)
+    perm = cc._wg_perm(split)
+    esz = 4 if split else 2
+    per_core = 16 // esz
+    n_idx, L_idx = np.meshgrid(np.arange(64), np.arange(32), indexing="ij")
+    offset = ((L_idx // per_core) * 8 + n_idx // 8) * 128 + (n_idx % 8) * 16 \
+        + (L_idx % per_core) * esz
+    got = torch.zeros((c, tiles.shape[0] * 64), dtype=torch.float64)
+    for t in range(tiles.shape[0]):
+        for ch in range(Kp // 32):
+            stage = tiles[t, ch].reshape(-1).double()
+            if split:
+                stage = stage[:2048] + stage[2048:]
+            B = stage[torch.from_numpy(offset // esz)]  # (64 spots, 32 logical K)
+            a_log = A_op[:, ch * 32 + perm].double()    # (c, 32 logical K)
+            got[:, t * 64:(t + 1) * 64] += a_log @ B.T
+    want = A_op.double() @ cc.dp_operand(dY, Kp).double().T
+    err = float((got[:, :s] - want).abs().max())
+    # the split's lo rounded to TF32 (tf32_split) leaves 2^-22 of each term
+    assert err <= (1e-5 if split else 0.0) * float(want.abs().max() + 1)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dp_from_operands_plain_reads_the_wgmma_stages(bf16):
+    """dp_from_operands_plain on operands that hold dY's stages in place of
+    its rows gives what it gives on the rows, bit for bit; on the CPU
+    dp_operands builds the rows alone."""
+    x = make_inputs(40, 70, 19)
+    A, dY, w, dq = T(x["A"]), T(x["dY"]), T(x["w"]), T(x["dq"])
+    if bf16:
+        A, dY = A.to(BF16), dY.to(BF16)
+    ops = cc.dp_operands(A, dY)
+    assert ops.dY_op is not None and ops.dY_tiles is None
+    tiles = cc.wgmma_operand(dY, ops.A_op.shape[1], ops.split)
+    staged = ops._replace(dY_op=None, dY_tiles=tiles)
+    cc._check_operands(staged, A, dY)
+    assert torch.equal(cc.dp_from_operands_plain(staged, w, dq),
+                       cc.dp_from_operands_plain(ops, w, dq))
+    bops = cc.backward_operands(A.float(), dY.float(), dq)
+    assert bops.dY_tiles is None and bops.split
 
 
 def test_stage_granule_follows_row_alignment():
