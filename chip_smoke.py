@@ -71,10 +71,10 @@ last line):
               runs from one start that must store the same bits, for f32
               Adam, f32 Adafactor + L1/L2, constrained Adam (M and F),
               constrained Adafactor (the autograd loop) and (a); and the
-              f32 Adam and Adafactor + L1/L2 fits in a child process that
-              makes the pair and the mapper anew from the same seeds
-              (--fit-bits): the start, the data and both fits must hash
-              the same
+              f32 Adam, Adafactor + L1/L2 and (a) fits in a child process
+              that makes the pair and the mapper anew from the same seeds
+              (--fit-bits): the start, the data and the three fits must
+              hash the same
 9. reference  10 epochs of the kernels against the materialized reference
               loop at the tutorial shape for Adam, Adam + L1/L2, Adafactor
               + L1/L2 (also stepped one epoch at a time, with one kernel
@@ -266,6 +266,8 @@ from pathlib import Path
 
 import numpy as np
 
+from benchmark.reference.work import PEAKS
+
 REPO = Path(__file__).resolve().parent
 PHASES = ("device", "build", "kernels", "cells", "clusters", "adafactor", "constrained",
           "bf16", "reference", "spatial", "cv", "downstream", "contracts", "tuner", "mesh",
@@ -310,16 +312,18 @@ REPLACES.update({f"{name}.bf16": REPLACES[name] for name in BF16_KERNELS})
 # runs; the others' from the Adam cells run)
 ADAFACTOR_KERNELS = ("rowstats_norms", "gsq", "dm_adafactor")
 BACKWARD_KERNELS = ("backward_rbar", "dm_backward")
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
-# HBM bytes/s, f32 FMA-pipe flop/s outside the tensor cores, and the tensor
-# cores' TF32 and bf16 flop/s (f32 accumulation). A kernel's bound is the
-# largest of its bytes over the first and its flops of each type over that
-# type's rate (the pipes run side by side). An f32 contraction may run on
+# The card's published peaks, one table with the benchmark's (NVIDIA H100
+# SXM data sheet, dense, at 700 W): HBM bytes/s, f32 FMA-pipe flop/s
+# outside the tensor cores, and the tensor cores' TF32 and bf16 flop/s (f32
+# accumulation). A kernel's bound is the largest of its bytes over the
+# first and its flops of each type over that type's rate (the pipes run
+# side by side). An f32 contraction may run on
 # either pipe at f32 accuracy: as FMAs, or as three TF32 products of split
 # operands (3xTF32) on the tensor cores; its time is the smaller of the two,
 # whatever the kernel does.
-HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S = 3.35e12, 67e12, 989e12
-TF32_FLOPS_PER_S, TF32_PASSES = 495e12, 3
+HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S, TF32_FLOPS_PER_S = (
+    PEAKS[k] for k in ("hbm_bytes_per_s", "f32_fma_flops", "bf16_flops", "tf32_flops"))
+TF32_PASSES = 3
 
 # L1/L2 strengths of the adafactor phase and of the reference phase's
 # L1/L2 runs; the adafactor phase prints how large their gradient is
@@ -2065,10 +2069,10 @@ def check_fit_repeats(cells_mapper, norm_lw, con_mapper, epochs=10):
 
 
 def fit_bits(cells_mapper, norm_lw, epochs):
-    """Hashes of the cells mapper's start (M and its data) and, for f32 Adam
-    and f32 Adafactor + L1/L2, of M after an ``epochs``-step fit from it,
-    with each step's total loss as a hex float (the first step that
-    differs)."""
+    """Hashes of the cells mapper's start (M and its data) and, for f32 Adam,
+    f32 Adafactor + L1/L2 and bf16 Adam with stochastic rounding, of M after
+    an ``epochs``-step fit from it, with each step's total loss as a hex
+    float (the first step that differs)."""
     import hashlib
 
     import torch
@@ -2078,16 +2082,20 @@ def fit_bits(cells_mapper, norm_lw, epochs):
     def digest(*tensors):
         h = hashlib.sha256()
         for t in tensors:
+            t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
             h.update(t.detach().contiguous().cpu().numpy().tobytes())
         return h.hexdigest()[:16]
 
     data = cells_mapper.data
     out = {"M0": digest(cells_mapper.M),
            "data": digest(*(t for t in data if isinstance(t, torch.Tensor)))}
-    for label, lw, opt in (("f32 Adam", cells_mapper.lw, "adam"),
-                           ("f32 Adafactor + L1/L2", norm_lw, "adafactor")):
-        M, _ = start_params(cells_mapper)
-        M, hist = fit_mapping(M, data, lw, epochs, impl="kernels", optimizer=opt)
+    for label, lw, opt, low in (
+            ("f32 Adam", cells_mapper.lw, "adam", {}),
+            ("f32 Adafactor + L1/L2", norm_lw, "adafactor", {}),
+            ("bf16 Adam, stochastic", cells_mapper.lw, "adam",
+             dict(BF16_STORAGE, rounding="stochastic"))):
+        M, _ = start_params(cells_mapper, low.get("param_dtype"))
+        M, hist = fit_mapping(M, data, lw, epochs, impl="kernels", optimizer=opt, **low)
         out[label] = {"M": digest(M),
                       "loss": [float(x).hex() for x in hist["total_loss"].tolist()]}
     return out
@@ -4136,8 +4144,9 @@ def mesh_two_gloo_ranks(card, cells_mapper, M0, M_steps, directory):
         M = torch.from_numpy(np.load(os.path.join(directory, f"M_{i}.npy")))
         dM = float((M - M_steps).abs().max())
         dP = float((torch.softmax(M, 1) - torch.softmax(M_steps, 1)).abs().max())
+        # rbar at K <= 256 runs on the warpgroup-MMA kernel (check_launches)
         expect = {"rowstats": 1, "project": MESH_STEPS, "rbar": MESH_STEPS,
-                  "dm_adam": MESH_STEPS}
+                  "dm_adam": MESH_STEPS, "dp_wgmma": MESH_STEPS}
         say("mesh", f"(b) {run['label']}: {MESH_STEPS} steps in {run['secs']:.2f} s with "
             f"the block's upload and the gather, {run['ms']:.3f} ms/step (median of steps "
             f"3-{MESH_STEPS}, CUDA events around each step); rank 0's launches "
@@ -4691,9 +4700,10 @@ def north_star_checks(M, opt_state, data, args, results):
     A_op = fs.unconstrained_a_operand(M, data, lw, bf)
     # one step's operands and cotangents as the fused step forms them (its
     # project and rbar kernels)
-    A, w, _, _, dY, dq, dh, r, _, with_dh, _, ops = fs._unconstrained_cotangents(
-        M, (m, l, u), data, lw, bf, A_op)
-    if with_dh or ops.split:
+    A, w = fs.unconstrained_inputs(M, data, lw)
+    cot = fs._cotangents(M, (m, l, u), A.to(bf), w, data, lw, A_op)
+    (A, w, _, _, dY, dq, dh, r), ops = cot.args, cot.ops
+    if cot.with_dh or ops.split:
         fail("north_star: the step should run without the entropy term, on one exact "
              "bf16 product")
     blocks = ns_blocks(c, s)

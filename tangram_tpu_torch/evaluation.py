@@ -511,7 +511,7 @@ def _fit_folds(params0, data, masks, lw, num_epochs: int, learning_rate,
     from .ops.optim import make_adam
     from .ops.losses import (constrained_epilogue, constrained_inputs,
                              unconstrained_epilogue, unconstrained_inputs)
-    from .parallel.mesh import NO_AXIS, sum_replicated
+    from .ops.axes import NO_AXIS, sum_replicated
 
     cell = NO_AXIS if cell is None else cell
     n = masks.shape[0]
@@ -569,7 +569,7 @@ def _fold_scores(M, S, G, test_cols, cell=None):
     (folds, cells, spots) M: over cells it would renormalize the wrong way
     and depress every held-out score (−0.078 on the recorded LOO). On a
     cell block (M's and S's rows) the projection is summed over ``cell``."""
-    from .parallel.mesh import NO_AXIS, all_sum_
+    from .ops.axes import NO_AXIS, all_sum_
 
     G_pred = all_sum_(torch.matmul(torch.softmax(M, dim=-1).transpose(1, 2), S),
                       NO_AXIS if cell is None else cell)

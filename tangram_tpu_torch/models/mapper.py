@@ -346,7 +346,7 @@ def _fused_loop(M, opt_state, data, lw, num_epochs, learning_rate, optimizer,
             M, count, v1, v2, stats, data, lw, _lr_at(learning_rate, t),
             compute_dtype=compute_dtype, rounding=rounding, A_op=A_op,
         )
-        rows.append(record(terms, M, t))
+        rows.append(record(terms, t, M))
     return M, (count, v1, v2), rows
 
 
@@ -367,7 +367,7 @@ def _fused_constrained_loop(params, opt_state, data, lw, num_epochs, learning_ra
         (M, F), count, (mu, muF), (nu, nuF), stats, terms = fused_constrained_step(
             M, F, count, mu, nu, muF, nuF, stats, data, lw, _lr_at(learning_rate, t),
             compute_dtype=compute_dtype, rounding=rounding)
-        rows.append(record(terms, M, t))
+        rows.append(record(terms, t, M))
     return (M, F), (count, (mu, muF), (nu, nuF)), rows
 
 
@@ -391,26 +391,36 @@ def _autograd_loop(params, opt_state, data, lw, num_epochs, learning_rate,
         terms = {k: v.detach() for k, v in terms.items()}
         opt_state = make_optimizer(optimizer, _lr_at(learning_rate, t)).update(
             grads if constrained else grads[0], opt_state, params)
-        rows.append(record(terms, params[0] if constrained else params, t))
+        rows.append(record(terms, t, params[0] if constrained else params))
     return params, opt_state, rows
 
 
-def _recorder(term_keys, with_val, val_data, val_each, step_offset, impl):
-    """``record(terms, M_new, t)`` → the history row of step ``t``: the
-    pre-step loss terms, then, with ``with_val``, the validation metrics of
-    the post-step logits on the steps where ``(step_offset + t) % val_each
-    == 0`` and NaN on the others (the reference's order and cadence)."""
-    def record(terms, M, t):
+def _recorder(term_keys, val=None, val_each: int = 1, step_offset: int = 0):
+    """``record(terms, t, *state)`` → the history row of step ``t``: the
+    pre-step loss terms, then, when ``val`` is given, the validation
+    metrics ``val(*state)`` of the post-step logits on the steps where
+    ``(step_offset + t) % val_each == 0`` and NaN on the others (the
+    reference's order and cadence). Every loop, on one device or a mesh,
+    records through it."""
+    def record(terms, t, *state):
         row = [terms[k] for k in term_keys]
-        if with_val:
+        if val is not None:
             if (step_offset + t) % val_each == 0:
-                vm = val_metrics(M, val_data.S, val_data.G, val_data.gene_mask,
-                                 impl=impl)
+                vm = val(*state)
                 row += [vm[k] for k in VAL_KEYS]
             else:
-                row += [torch.full((), float("nan"), device=M.device)] * len(VAL_KEYS)
+                row += [torch.full((), float("nan"), device=row[0].device)] * len(VAL_KEYS)
         return torch.stack(row)
     return record
+
+
+def _history(rows, term_keys, with_val: bool, device) -> dict:
+    """A loop's history from its recorded rows: each of ``term_keys`` [and
+    ``VAL_KEYS``] a (num_epochs,) tensor."""
+    keys = term_keys + (VAL_KEYS if with_val else [])
+    table = (torch.stack(rows) if rows
+             else torch.empty((0, len(keys)), device=device))
+    return {k: table[:, i] for i, k in enumerate(keys)}
 
 
 @torch.no_grad()
@@ -489,9 +499,12 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
         ("param_dtype", param_dtype), ("moment_dtype", moment_dtype),
         ("compute_dtype", compute_dtype))] + [rounding]
     term_keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
-    keys = term_keys + (VAL_KEYS if with_val else [])
-    record = _recorder(term_keys, with_val, data if val_data is None else val_data,
-                       int(val_each), int(step_offset), resolved)
+    vd = data if val_data is None else val_data
+
+    def val(M):
+        return val_metrics(M, vd.S, vd.G, vd.gene_mask, impl=resolved)
+
+    record = _recorder(term_keys, val if with_val else None, int(val_each), int(step_offset))
     if use_fused and constrained:
         params, opt_state, rows = _fused_constrained_loop(
             params, opt_state, data, lw, num_epochs, learning_rate, record, *low)
@@ -506,9 +519,7 @@ def fit_mapping(params, data: MapperData, lw: LossWeights, num_epochs: int,
         params, opt_state, rows = _autograd_loop(
             params, opt_state, data, lw, num_epochs, learning_rate, optimizer,
             constrained, resolved, record)
-    table = (torch.stack(rows) if rows
-             else torch.empty((0, len(keys)), device=M.device))
-    history = {k: table[:, i] for i, k in enumerate(keys)}
+    history = _history(rows, term_keys, with_val, M.device)
     if return_opt_state:
         return params, opt_state, history
     return params, history

@@ -848,11 +848,6 @@ def _dm_backward(M, A, w, m, l, dY, dq, dh, r, with_dh: bool = True,
     return dM, dA, dw
 
 
-def _backward_plain(M, A, w, m, l, dY, dq, dh, with_dh=True):
-    r = _rbar_plain(M, A, w, m, l, dY, dq, dh, with_dh)
-    return _dm_backward_plain(M, A, w, m, l, dY, dq, dh, r, with_dh)
-
-
 def _backward(M, A, w, m, l, dY, dq, dh, with_dh: bool = True):
     """The VJP of the core (Y, q, h) → (dM, dA, dw) in two streamed
     passes, as ``pallas_core._backward``: the rbar kernel (counted as

@@ -49,10 +49,12 @@ host.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .axes import NO_AXIS, all_gather_rows, all_max_, all_sum_, sum_replicated
 from .cuda_core import (
     F32_BF16,
     DpOperands,
@@ -517,44 +519,118 @@ def unconstrained_a_operand(M, data: MapperData, lw: LossWeights,
     return dp_operand(A.to(compute_dtype))
 
 
-def _unconstrained_cotangents(M, stats, data: MapperData, lw: LossWeights,
-                              compute_dtype, A_op=None):
-    """Projection forward, epilogue + its gradient, and the rbar pass, with
-    A and dY rounded to ``compute_dtype`` before the kernels. Builds the dP
-    tiles' operands once for the step (A's from ``A_op`` when given).
-    Returns what the update kernels need plus the per-term loss report."""
-    A, w = unconstrained_inputs(M, data, lw)
-    A = A.to(compute_dtype)
-    need_norms = _needs_norms(lw)
-    if need_norms:
-        m, l, u, s1, s2 = stats
-        l1_sum, l2_sum = s1.sum(), s2.sum()
-    else:
-        m, l, u = stats
-        l1_sum = l2_sum = None
-    Y, q = _project(M, A, w, m, l)
+def _total(x, *axes):
+    """Σ of ``x`` over this block, then over each axis, as a (1,) tensor."""
+    x = torch.sum(x).reshape(1)
+    for axis in axes:
+        all_sum_(x, axis)
+    return x
+
+
+def _merge_rowstats(m_l, l_l, u_l, spot):
+    """Per-shard online softmax stats → the row's: the log-sum-exp merge
+    the kernels use across tiles, as collectives over the spot shards."""
+    if spot.group is None:
+        return m_l, l_l, u_l
+    m_g = all_max_(m_l.clone(), spot)
+    scale = torch.exp(m_l - m_g)
+    return m_g, all_sum_(l_l * scale, spot), all_sum_(u_l * scale, spot)
+
+
+def _spot_block(x, spot, width: int):
+    """This rank's ``width`` spots of a full (spots, ...) cotangent, padded
+    with zeros, contiguous."""
+    if spot.group is None:
+        return x.contiguous()
+    x = x[spot.block.slice(x.shape[0])]
+    if x.shape[0] < width:
+        x = torch.cat([x, x.new_zeros((width - x.shape[0],) + tuple(x.shape[1:]))])
+    return x.contiguous()
+
+
+class _Cotangents(NamedTuple):
+    """What one step hands its update passes."""
+
+    args: tuple  # (A, w, m, l, dY, dq, dh, r), as the dP tile's kernels take them
+    with_dh: bool
+    ops: DpOperands  # the dP tiles' operands, built once
+    gF: Optional[torch.Tensor]  # F's gradient, constrained
+    terms: dict  # the loss terms, measured before the update
+
+
+def _cotangents(M, stats, A, w, data: MapperData, lw: LossWeights, A_op=None, F=None,
+                cell=NO_AXIS, spot=NO_AXIS, cvalid=None) -> _Cotangents:
+    """The step up to its update, in every mode, on one device or on this
+    rank's block of a mesh: the row stats merged over the ``spot`` axis;
+    Y = PᵀA and q = wP summed over ``cell`` and gathered over ``spot``; Σh
+    (h = Σ_s P log P) and the L1/L2 norms summed over the mesh; the epilogue
+    (constrained when the filter logits ``F`` are given) and its gradient
+    on the calling thread; the cotangents cut to this rank's spots, dY in
+    A's type; the dP operands (A's from ``A_op`` when given); r summed over
+    ``spot``; constrained, F's gradient (:func:`fused_constrained_step`),
+    F entering the epilogue through its two sums as a leaf of autograd.
+    ``cvalid`` masks the block's padded cells out of Σh, F's sums and dh.
+    On one device the axes are ``NO_AXIS`` and ``cvalid`` None: no
+    collective and no mask."""
+    constrained = F is not None
+    l1_sum = l2_sum = None
+    if not constrained and _needs_norms(lw):
+        # padded cells hold zero logits and the kernels skip sentinel pads
+        l1_sum, l2_sum = (_total(x, cell, spot)[0] for x in stats[3:5])
+    m, l, u = _merge_rowstats(*stats[:3], spot)
+    n_spots, width = data.G.shape[0], M.shape[1]
+    Y, q = (all_gather_rows(all_sum_(x, cell), spot)[:n_spots] for x in _project(M, A, w, m, l))
     # h = Σ_s P log P = u/l − m − log l
     h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
+    h_sum = _total(h if cvalid is None else h * cvalid, cell)[0]
 
     # the epilogue's backward on this thread: on a CUDA device the autograd
     # engine's own thread may free its last buffers after this one resumes,
     # which moves the device's peak memory from run to run
     with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
-        Yv, qv, hv = (x.detach().requires_grad_() for x in (Y, q, h))
-        total, terms = unconstrained_epilogue(Yv, qv, hv, l1_sum, l2_sum, data, lw)
-        dY, dq, dh = torch.autograd.grad(total, (Yv, qv, hv), allow_unused=True)
-    # q is unused without a density prior; dh is zero when λ_r = 0.
-    # Autograd may hand back expanded (stride-0) gradients: the kernels take
-    # contiguous operands.
-    dq = torch.zeros_like(q) if dq is None else dq.contiguous()
-    dh = torch.zeros_like(h) if dh is None else dh.contiguous()
-    dY = dY.contiguous().to(compute_dtype)
+        leaves = [x.detach().requires_grad_() for x in (Y, q, h_sum)]
+        if constrained:
+            leaves.append(F.detach().requires_grad_())
+            f = torch.sigmoid(leaves[3])
+            f = f if cvalid is None else f * cvalid
+            f_sums = (sum_replicated(torch.sum(f), cell),
+                      sum_replicated(torch.sum(f - f * f), cell))
+            total, terms = constrained_epilogue(*leaves[:3], None, data, lw, f_sums=f_sums)
+        else:
+            total, terms = unconstrained_epilogue(*leaves, l1_sum, l2_sum, data, lw)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    dY, dq, dh = grads[:3]
+    # q is unused without a density prior; autograd may hand back expanded
+    # (stride-0) gradients, and the kernels take contiguous operands
+    dY = _spot_block(dY, spot, width).to(A.dtype)
+    dq = q.new_zeros(width) if dq is None else _spot_block(dq, spot, width)
+    dh = (dh.expand(M.shape[0]) if cvalid is None else dh * cvalid).contiguous()
     terms = {key: v.detach() for key, v in terms.items()}
 
-    with_dh = lw.lambda_r != 0
+    with_dh = lw.lambda_r != 0  # λ_r = 0 ⇒ dh ≡ 0
     ops = dp_operands(A, dY, A_op)
-    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, operands=ops)
-    return A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, ops
+    r = all_sum_(_rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, operands=ops), spot)
+    gF = None
+    if constrained:
+        gF = grads[3] + (1.0 - w) * (r[:, 0] - dh * (h + 1.0))
+    return _Cotangents((A, w, m, l, dY, dq, dh, r), with_dh, ops, gF, terms)
+
+
+def _adam_update(M, count: int, mu, nu, cot: _Cotangents, lw: LossWeights,
+                 learning_rate: float, rounding: str, F=None, muF=None, nuF=None):
+    """The Adam update of the step's cotangents, in place: M, mu and nu by
+    the dm_adam pass (the L1/L2 gradient and norms unconstrained), F, muF
+    and nuF by F's exact Adam step when F is given. Returns ``(count + 1,
+    the next row stats)``."""
+    count_new = count + 1
+    norms = F is None and _needs_norms(lw)
+    out = _dm_adam(M, *cot.args, mu, nu, adam_scalars(count_new, learning_rate),
+                   with_dh=cot.with_dh, lam_l1=lw.lambda_l1 if F is None else 0.0,
+                   lam_l2=lw.lambda_l2 if F is None else 0.0, with_norms=norms,
+                   rounding=rounding, step=count_new, operands=cot.ops)
+    if F is not None:
+        make_adam(learning_rate).update(cot.gF, (count, muF, nuF), F)
+    return count_new, tuple(out[3:])
 
 
 @torch.no_grad()
@@ -575,15 +651,10 @@ def fused_unconstrained_step(M, count: int, mu, nu, stats, data: MapperData,
     Returns ``(M, count + 1, mu, nu, stats_new, terms)``; ``terms`` are
     0-d tensors on M's device, measured at M before the update.
     """
-    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, ops = (
-        _unconstrained_cotangents(M, stats, data, lw, compute_dtype, A_op))
-    count_new = count + 1
-    out = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu,
-                   adam_scalars(count_new, learning_rate), with_dh=with_dh,
-                   lam_l1=lw.lambda_l1, lam_l2=lw.lambda_l2, with_norms=need_norms,
-                   rounding=rounding, step=count_new, operands=ops)
-    M, mu, nu = out[:3]
-    return M, count_new, mu, nu, tuple(out[3:]), terms
+    A, w = unconstrained_inputs(M, data, lw)
+    cot = _cotangents(M, stats, A.to(compute_dtype), w, data, lw, A_op)
+    count, stats = _adam_update(M, count, mu, nu, cot, lw, learning_rate, rounding)
+    return M, count, mu, nu, stats, cot.terms
 
 
 @torch.no_grad()
@@ -601,18 +672,18 @@ def fused_unconstrained_step_adafactor(M, count: int, vr, vc, stats,
 
     Returns ``(M, count + 1, vr_new, vc_new, stats_new, terms)``.
     """
-    A, w, m, l, dY, dq, dh, r, terms, with_dh, need_norms, ops = (
-        _unconstrained_cotangents(M, stats, data, lw, compute_dtype, A_op))
+    A, w = unconstrained_inputs(M, data, lw)
+    cot = _cotangents(M, stats, A.to(compute_dtype), w, data, lw, A_op)
     c, s = M.shape
-    vr_sum, vc_sum = _gsq(M, A, w, m, l, dY, dq, dh, r, lw.lambda_l1,
-                          lw.lambda_l2, with_dh=with_dh, operands=ops)
+    vr_sum, vc_sum = _gsq(M, *cot.args, lw.lambda_l1, lw.lambda_l2, with_dh=cot.with_dh,
+                          operands=cot.ops)
     vr_new, vc_new, rowf, colf = factored_rms_vectors(count, vr, vc, vr_sum,
                                                       vc_sum, c, s)
-    out = _dm_adafactor(M, A, w, m, l, dY, dq, dh, r, rowf, colf, learning_rate,
-                        lw.lambda_l1, lw.lambda_l2, with_norms=need_norms,
-                        with_dh=with_dh, rounding=rounding, step=count + 1,
-                        operands=ops)
-    return out[0], count + 1, vr_new, vc_new, tuple(out[1:]), terms
+    out = _dm_adafactor(M, *cot.args, rowf, colf, learning_rate,
+                        lw.lambda_l1, lw.lambda_l2, with_norms=_needs_norms(lw),
+                        with_dh=cot.with_dh, rounding=rounding, step=count + 1,
+                        operands=cot.ops)
+    return out[0], count + 1, vr_new, vc_new, tuple(out[1:]), cot.terms
 
 
 @torch.no_grad()
@@ -638,34 +709,7 @@ def fused_constrained_step(M, F, count: int, mu, nu, muF, nuF, stats,
     Returns ``((M, F), count + 1, (mu, muF), (nu, nuF), stats_new, terms)``.
     """
     A, w = constrained_inputs(F, data)
-    A = A.to(compute_dtype)
-    m, l, u = stats
-    Y, q = _project(M, A, w, m, l)
-    h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
-
-    # on this thread, as in _unconstrained_cotangents
-    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
-        Yv, qv, hsv, Fv = (x.detach().requires_grad_() for x in (Y, q, h.sum(), F))
-        total, terms = constrained_epilogue(Yv, qv, hsv, Fv, data, lw)
-        dY, dq, dhs, dF_direct = torch.autograd.grad(
-            total, (Yv, qv, hsv, Fv), allow_unused=True)
-    # q is unused without a density prior; the kernels take contiguous
-    # operands, and dh is the scalar cotangent of Σh broadcast over cells
-    dq = torch.zeros_like(q) if dq is None else dq.contiguous()
-    dY = dY.contiguous().to(compute_dtype)
-    dh = dhs.expand(M.shape[0]).contiguous()
-    terms = {key: v.detach() for key, v in terms.items()}
-
-    with_dh = lw.lambda_r != 0  # λ_r = 0 ⇒ dh ≡ 0
-    # A = S ⊙ σ(F) moves with F, so both operands are built every step, once
-    ops = dp_operands(A, dY)
-    r = _rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, operands=ops)
-    gF = dF_direct + (1.0 - w) * (r[:, 0] - dh * (h + 1.0))
-
-    count_new = count + 1
-    scalars = adam_scalars(count_new, learning_rate)
-    M, mu, nu, m2, l2, u2 = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars,
-                                     with_dh=with_dh, rounding=rounding,
-                                     step=count_new, operands=ops)
-    make_adam(learning_rate).update(gF, (count, muF, nuF), F)
-    return (M, F), count_new, (mu, muF), (nu, nuF), (m2, l2, u2), terms
+    cot = _cotangents(M, stats, A.to(compute_dtype), w, data, lw, F=F)
+    count, stats = _adam_update(M, count, mu, nu, cot, lw, learning_rate, rounding,
+                                F, muF, nuF)
+    return (M, F), count, (mu, muF), (nu, nuF), stats, cot.terms

@@ -198,11 +198,12 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
     """Everything downstream of the core, as a function of the small
     (spots × k) projection ``Y`` (the genes, then the cell types when the
     island term is on), the marginal ``q`` and the per-cell
-    ``h = Σ P log P``. The fused loop differentiates this function alone and
-    hands (dY, dq, dh) to the streamed backward kernels. ``l1_sum`` and
-    ``l2_sum`` are Σ|M| and ΣM² of the raw logits (``None`` where their
-    lambda is 0); the fused loop passes them as values only, their
-    gradients being added inside the update kernels. A graph term is on
+    ``h = Σ P log P`` or their total, a 0-d tensor. The fused loop
+    differentiates this function alone, on the total, and hands (dY, dq,
+    dh) to the streamed backward kernels. ``l1_sum`` and ``l2_sum`` are
+    Σ|M| and ΣM² of the raw logits (``None`` where their lambda is 0); the
+    fused loop passes them as values only, their gradients being added
+    inside the update kernels. A graph term is on
     where its lambda is > 0 (a negative lambda turns it off, as in JAX).
 
     Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
@@ -239,7 +240,7 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
         terms["kl_reg"] = nan
 
     # entropy (ref :224) — positive entropy ADDED to the loss => peaked maps
-    entropy_term = lw.lambda_r * -torch.sum(h)
+    entropy_term = lw.lambda_r * -(h if h.dim() == 0 else torch.sum(h))
     terms["entropy_reg"] = entropy_term / lw.lambda_r if lw.lambda_r != 0 else nan
 
     # L1/L2 on the raw logits (ref :228-231)
@@ -344,10 +345,9 @@ def constrained_epilogue(Y, q, h_sum, F, data: MapperData, lw: LossWeights,
     independent inputs: the fused step differentiates this function alone
     and recovers F's gradient through A and q from the rbar pass.
 
-    A sharded step passes ``f_sums = (Σ σ(F), Σ σ(F) − σ(F)²)``, the two F
-    reductions summed over the mesh outside this function, and ``F=None``;
-    it then rebuilds F's direct gradient from the sums' cotangents by the
-    chain rule (``parallel/fused_sharded.py``).
+    ``f_sums = (Σ σ(F), Σ σ(F) − σ(F)²)`` with ``F=None`` takes the two F
+    reductions formed outside this function, summed there over the cells'
+    shards on a mesh.
 
     Returns ``(total, terms)``; ``terms`` holds 0-d tensors for
     ``main_loss``, ``vg_reg``, ``kl_reg``, ``entropy_reg``, ``count_reg``,

@@ -21,9 +21,9 @@ small collectives per step carry what the block cannot see:
   the update, which emits per-shard stats that the next step merges again.
 
 Cells and spots that do not divide the mesh are padded (``mesh.py``), the
-padded cells masked out of every sum. The constrained step takes the two F
-reductions (Σσ(F), Σσ(F) − σ(F)²) summed over the mesh outside the
-epilogue's gradient and rebuilds F's direct gradient by the chain rule.
+padded cells masked out of every sum. The step is the single-device one
+(``ops/fused_step.py``, ``_cotangents``) with the layout's axes and mask:
+over an axis the mesh lacks its collectives do nothing.
 
 Stochastic rounding keys each stored row by the step and the row's index
 in its block, as the JAX package keys it by the step and the shard-local
@@ -35,68 +35,32 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..models.mapper import (
     CONSTRAINED_HISTORY_KEYS,
     TERM_KEYS,
-    VAL_KEYS,
+    _history,
+    _lr_at,
+    _recorder,
     _torch_dtype,
 )
-from ..ops.cuda_core import _project, _rbar, _rowstats, dp_operand, dp_operands
+from ..ops.axes import all_gather_rows, all_sum_
+from ..ops.cuda_core import _project, _rowstats, dp_operand
 from ..ops.fused_step import (
+    _adam_update,
     _check_rounding,
-    _dm_adam,
+    _cotangents,
+    _merge_rowstats,
     _needs_norms,
-    adam_scalars,
+    _total,
     initial_stats,
 )
-from ..ops.losses import (
-    LossWeights,
-    MapperData,
-    constrained_epilogue,
-    unconstrained_epilogue,
-    val_metrics_from_projection,
-)
-from ..ops.optim import make_adam
+from ..ops.losses import LossWeights, MapperData, val_metrics_from_projection
 from ..ops.schedules import resolve_lr
-from .mesh import (
-    F_PAD_LOGIT,
-    _Blocks,
-    _data_blocks,
-    _Layout,
-    all_gather_rows,
-    all_max_,
-    all_sum_,
-)
+from .mesh import F_PAD_LOGIT, _Blocks, _data_blocks, _Layout
 
 __all__ = ["fit_mapping_fused_sharded"]
-
-
-def _merge_rowstats(m_l, l_l, u_l, spot):
-    """Per-shard online softmax stats → the row's: the log-sum-exp merge
-    the kernels use across tiles, as collectives over the spot shards."""
-    if spot.group is None:
-        return m_l, l_l, u_l
-    m_g = all_max_(m_l.clone(), spot)
-    scale = torch.exp(m_l - m_g)
-    return m_g, all_sum_(l_l * scale, spot), all_sum_(u_l * scale, spot)
-
-
-def _total(x, *axes):
-    """Σ of ``x`` over this block, then over each axis, as a (1,) tensor."""
-    x = torch.sum(x).reshape(1)
-    for axis in axes:
-        all_sum_(x, axis)
-    return x
-
-
-def _spot_block(x, lay: _Layout):
-    """This rank's spots of a full (spots, ...) cotangent, padded."""
-    if lay.spot.group is None:
-        return x.contiguous()
-    return lay._pad(x[lay.cols], 0, lay.s_local, 0.0).contiguous()
 
 
 class _FusedBlocks(NamedTuple):
@@ -113,68 +77,19 @@ class _FusedBlocks(NamedTuple):
 
 def _step(M, F, count, mu, nu, muF, nuF, stats, fb: _FusedBlocks, lay: _Layout,
           lw: LossWeights, learning_rate: float, compute_dtype, rounding: str):
-    """One fused Adam step on this rank's block: the parameters and moments
-    updated in place; returns ``(count + 1, next per-shard stats, terms)``."""
-    blk, cvalid = fb.blk, lay.cvalid
-    constrained = F is not None
-    if constrained:
-        w_raw = torch.sigmoid(F)
-        w = w_raw * cvalid
-        A, A_op = (blk.S * w[:, None]).to(compute_dtype), None
+    """One fused Adam step on this rank's block, the single-device step
+    over the layout's axes: the parameters and moments updated in place;
+    returns ``(count + 1, next per-shard stats, terms)``."""
+    if F is not None:
+        w = torch.sigmoid(F) * lay.cvalid
+        A, A_op = (fb.blk.S * w[:, None]).to(compute_dtype), None
     else:
-        w, A, A_op = blk.w, fb.A, fb.A_op
-    need_norms = not constrained and _needs_norms(lw)
-    l1_sum = l2_sum = None
-    if need_norms:
-        # padded cells hold zero logits and the kernels skip sentinel pads
-        l1_sum = _total(stats[3], lay.cell, lay.spot)[0]
-        l2_sum = _total(stats[4], lay.cell, lay.spot)[0]
-    m, l, u = _merge_rowstats(*stats[:3], lay.spot)
-    Y, q = _project(M, A, w, m, l)
-    Y = all_gather_rows(all_sum_(Y, lay.cell), lay.spot)[: lay.n_spots]
-    q = all_gather_rows(all_sum_(q, lay.cell), lay.spot)[: lay.n_spots]
-    # h = Σ_s P log P = u/l − m − log l
-    h = (u[:, 0] / l[:, 0]) - m[:, 0] - torch.log(l[:, 0])
-    h_sum = _total(h * cvalid, lay.cell)
-
-    with torch.enable_grad():
-        if constrained:
-            f_sums = (_total(w_raw * cvalid, lay.cell)[0],
-                      _total((w_raw - w_raw * w_raw) * cvalid, lay.cell)[0])
-            inputs = tuple(x.detach().requires_grad_() for x in (Y, q, h_sum[0]) + f_sums)
-            total, terms = constrained_epilogue(*inputs[:3], None, blk.data, lw,
-                                                f_sums=inputs[3:])
-        else:
-            inputs = tuple(x.detach().requires_grad_() for x in (Y, q, h_sum))
-            total, terms = unconstrained_epilogue(*inputs, l1_sum, l2_sum, blk.data, lw)
-        grads = torch.autograd.grad(total, inputs, allow_unused=True)
-    dY, dq, dh = grads[:3]
-    # q is unused without a density prior; dh is zero when λ_r = 0
-    dY = _spot_block(dY, lay).to(compute_dtype)
-    dq = (torch.zeros(lay.s_local, device=lay.device) if dq is None
-          else _spot_block(dq, lay))
-    dh = (torch.zeros_like(cvalid) if dh is None else dh.reshape(()) * cvalid).contiguous()
-    terms = {key: v.detach() for key, v in terms.items()}
-
-    with_dh = lw.lambda_r != 0
-    ops = dp_operands(A, dY, A_op)
-    r = all_sum_(_rbar(M, A, w, m, l, dY, dq, dh, with_dh=with_dh, operands=ops), lay.spot)
-    count_new = count + 1
-    scalars = adam_scalars(count_new, learning_rate)
-    out = _dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh=with_dh,
-                   lam_l1=0.0 if constrained else lw.lambda_l1,
-                   lam_l2=0.0 if constrained else lw.lambda_l2, with_norms=need_norms,
-                   rounding=rounding, step=count_new, operands=ops)
-    if constrained:
-        # F's gradient: its direct part through the two sums by the chain
-        # rule, its part through A and q from the rbar pass
-        ds1, ds2 = (torch.zeros((), device=lay.device) if g is None else g
-                    for g in grads[3:])
-        sig_grad = w_raw * (1.0 - w_raw) * cvalid
-        dF_direct = ds1 * sig_grad + ds2 * (1.0 - 2.0 * w_raw) * sig_grad
-        gF = (dF_direct + (1.0 - w) * (r[:, 0] - dh * (h + 1.0))) * cvalid
-        make_adam(learning_rate).update(gF, (count, muF, nuF), F)
-    return count_new, tuple(out[3:]), terms
+        w, A, A_op = fb.blk.w, fb.A, fb.A_op
+    cot = _cotangents(M, stats, A, w, fb.blk.data, lw, A_op, F, lay.cell, lay.spot,
+                      lay.cvalid)
+    count, stats = _adam_update(M, count, mu, nu, cot, lw, learning_rate, rounding,
+                                F, muF, nuF)
+    return count, stats, cot.terms
 
 
 def _val_metrics(M, stats, fb: _FusedBlocks, lay: _Layout, compute_dtype):
@@ -289,24 +204,15 @@ def fit_mapping_fused_sharded(
     count, mu, nu, muF, nuF = _opt_blocks(opt_state, M, F, moment_dtype, lay)
     stats = tuple(_rowstats(M)) if constrained else tuple(initial_stats(M, lw))
     keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
+    val = (lambda M, stats: _val_metrics(M, stats, fb, lay, compute_dtype)) if with_val else None
+    record = _recorder(keys, val, val_each, step_offset)
     rows = []
     with torch.no_grad():
         for t in range(num_epochs):
-            lr = learning_rate if np.ndim(learning_rate) == 0 else float(learning_rate[t])
             count, stats, terms = _step(M, F, count, mu, nu, muF, nuF, stats, fb, lay, lw,
-                                        lr, compute_dtype, rounding)
-            row = [terms[k] for k in keys]
-            if with_val:
-                if (step_offset + t) % val_each == 0:
-                    vm = _val_metrics(M, stats, fb, lay, compute_dtype)
-                    row += [vm[k] for k in VAL_KEYS]
-                else:
-                    row += [torch.full((), float("nan"), device=lay.device)] * len(VAL_KEYS)
-            rows.append(torch.stack(row))
-    names = keys + (VAL_KEYS if with_val else [])
-    table = (torch.stack(rows) if rows
-             else torch.empty((0, len(names)), device=lay.device))
-    history = {k: table[:, i] for i, k in enumerate(names)}
+                                        _lr_at(learning_rate, t), compute_dtype, rounding)
+            rows.append(record(terms, t, M, stats))
+    history = _history(rows, keys, with_val, lay.device)
     result = (lay.gather(M), lay.gather(F, spots=False)) if constrained else lay.gather(M)
     if not return_opt_state:
         return result, history

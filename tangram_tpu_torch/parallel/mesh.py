@@ -36,16 +36,28 @@ import math
 import os
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..models.mapper import (
     CONSTRAINED_HISTORY_KEYS,
     TERM_KEYS,
-    VAL_KEYS,
     _check_low_precision,
     _check_optimizer,
+    _history,
+    _lr_at,
+    _recorder,
+)
+from ..ops.axes import (
+    NO_AXIS,
+    Block,
+    _Axis,
+    all_gather_rows,
+    all_max_,
+    all_sum_,
+    gather_replicated,
+    local_copy,
+    sum_replicated,
 )
 from ..ops.fused_step import PAD_GUARD
 from ..ops.losses import (
@@ -149,39 +161,12 @@ def make_mesh(n_cell_shards: Optional[int] = None, n_spot_shards: Optional[int] 
 # ---------------------------------------------------------------------------
 
 
-class Block(NamedTuple):
-    """This rank's share of one array axis: block ``index`` of ``count``
-    blocks of ceil(n / count) entries, the last ones short or empty."""
-
-    index: int = 0
-    count: int = 1
-
-    def width(self, n: int) -> int:
-        return -(-n // self.count)
-
-    def slice(self, n: int) -> slice:
-        b = self.width(n)
-        return slice(min(self.index * b, n), min((self.index + 1) * b, n))
-
-
-class _Axis(NamedTuple):
-    """One mesh axis (or the flattened product of axes): its process group
-    (None where the mesh lacks the axis) and this rank's block of it."""
-
-    group: object
-    block: Block
-
-
 def _axis(mesh, names) -> _Axis:
     names = tuple(a for a in names if a in mesh.mesh_dim_names)
     if not names:
-        return _Axis(None, Block())
+        return NO_AXIS
     sub = mesh[names[0]] if len(names) == 1 else mesh[names]._flatten()
     return _Axis(sub.get_group(), Block(sub.get_local_rank(), sub.size()))
-
-
-#: the axis a mesh lacks: collectives over it do nothing
-NO_AXIS = _Axis(None, Block())
 
 
 def _cell_names(mesh):
@@ -316,7 +301,7 @@ class _Layout:
         # one spot shard is the 1-D layout, as the JAX package routes it
         self.spot = _axis(mesh, ("spot",))
         if self.spot.block.count == 1:
-            self.spot = _Axis(None, Block())
+            self.spot = NO_AXIS
         self.n_cells, self.n_spots = n_cells, n_spots
         self.c_local = self.cell.block.width(n_cells)
         self.s_local = self.spot.block.width(n_spots)
@@ -382,90 +367,6 @@ class _Layout:
                 region = (rows, cols) if spots else (rows,)
                 out[region] = buf.cpu()
         return out
-
-
-# ---------------------------------------------------------------------------
-# collectives: in place on values, and as autograd functions
-# ---------------------------------------------------------------------------
-
-
-def all_sum_(x, axis: _Axis):
-    """Sum ``x`` over the axis in place (nothing where the mesh lacks it)."""
-    if axis.group is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=axis.group)
-    return x
-
-
-def all_max_(x, axis: _Axis):
-    if axis.group is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=axis.group)
-    return x
-
-
-def all_gather_rows(x, axis: _Axis):
-    """Every rank's ``x`` of the axis stacked along dim 0 in rank order."""
-    if axis.group is None:
-        return x
-    out = torch.empty((axis.block.count * x.shape[0],) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous(), group=axis.group)
-    return out
-
-
-class _SumReplicated(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis):
-        return all_sum_(x.clone(), axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _LocalCopy(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_sum_(g.clone(), ctx.axis), None
-
-
-class _GatherReplicated(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis, ctx.rows = axis, x.shape[0]
-        return all_gather_rows(x, axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        i = ctx.axis.block.index
-        return g[i * ctx.rows:(i + 1) * ctx.rows], None
-
-
-def sum_replicated(x, axis: _Axis):
-    """Σ over the axis of each rank's ``x``, for a loss that every rank
-    computes alike from the sum: the true adjoint passes the replicated
-    cotangent through to each rank's part. (An all-reduce of the cotangent
-    as well, as ``torch.distributed.nn.functional.all_reduce`` does,
-    scales every gradient by the group's size.)"""
-    return x if axis.group is None else _SumReplicated.apply(x, axis)
-
-
-def local_copy(x, axis: _Axis):
-    """``x``, replicated over the axis, entering a computation that each
-    rank does on its own shard: its gradient is the sum over the axis of
-    every shard's part."""
-    return x if axis.group is None else _LocalCopy.apply(x, axis)
-
-
-def gather_replicated(x, axis: _Axis):
-    """Every rank's rows of the axis stacked in rank order, for a loss
-    that every rank computes alike: the adjoint takes this rank's rows of
-    the replicated cotangent."""
-    return x if axis.group is None else _GatherReplicated.apply(x, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -668,6 +569,11 @@ def fit_mapping_sharded(params, data: MapperData, lw, num_epochs: int,
     opt_state = _generic_state(kwargs.get("opt_state"), leaves, optimizer, constrained, lay)
 
     keys = CONSTRAINED_HISTORY_KEYS if constrained else TERM_KEYS
+
+    def val(M):
+        return _sharded_val_metrics(M, val_data.S, val_data.G, val_data.gene_mask, lay)
+
+    record = _recorder(keys, val if with_val else None, val_each, step_offset)
     rows = []
     # the factored update's means summed over the shards, the padding left out
     hook = {} if optimizer == "adam" else {"means": _ShardMeans(lay)}
@@ -677,22 +583,11 @@ def fit_mapping_sharded(params, data: MapperData, lw, num_epochs: int,
             total, terms = _sharded_loss(req if constrained else req[0], blk, lw, lay,
                                          constrained)
             grads = torch.autograd.grad(total, req)
-        lr = learning_rate if np.ndim(learning_rate) == 0 else float(learning_rate[t])
-        opt_state = make_optimizer(optimizer, lr).update(grads, opt_state, leaves, **hook)
+        opt_state = make_optimizer(optimizer, _lr_at(learning_rate, t)).update(
+            grads, opt_state, leaves, **hook)
         with torch.no_grad():
-            row = [terms[k].detach() for k in keys]
-            if with_val:
-                if (step_offset + t) % val_each == 0:
-                    vm = _sharded_val_metrics(M, val_data.S, val_data.G, val_data.gene_mask,
-                                              lay)
-                    row += [vm[k] for k in VAL_KEYS]
-                else:
-                    row += [torch.full((), float("nan"), device=lay.device)] * len(VAL_KEYS)
-            rows.append(torch.stack(row))
-    names = keys + (VAL_KEYS if with_val else [])
-    table = (torch.stack(rows) if rows
-             else torch.empty((0, len(names)), device=lay.device))
-    history = {k: table[:, i] for i, k in enumerate(names)}
+            rows.append(record({k: v.detach() for k, v in terms.items()}, t, M))
+    history = _history(rows, keys, with_val, lay.device)
     out = ((lay.gather(M), lay.gather(F, spots=False)) if constrained
            else lay.gather(M))
     if kwargs.get("return_opt_state", False):

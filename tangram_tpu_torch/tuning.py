@@ -238,7 +238,7 @@ def _device_metrics(Ps, val_sims, S_val, cell=None, n_cells=None):
     Pearson means and Gram, the vote and consensus entropies, and the gene
     cube S_valᵀP.
     """
-    from .parallel.mesh import NO_AXIS, all_sum_
+    from .ops.axes import NO_AXIS, all_sum_
 
     cell = NO_AXIS if cell is None else cell
     n_cells = Ps.shape[-2] if n_cells is None else n_cells
@@ -324,7 +324,7 @@ def _tuner_loss(M, lam, data_arrays, active=None, cell=None, n_cells=None):
     """
     from .ops.core import graph_matmul, mapper_core_reference
     from .ops.losses import cosine_similarity, kl_div_sum
-    from .parallel.mesh import NO_AXIS, sum_replicated
+    from .ops.axes import NO_AXIS, sum_replicated
 
     cell = NO_AXIS if cell is None else cell
     (S, G, d, mask, voxel_w, nb_filter, ct_enc, spatial_w, getis_ref) = data_arrays
@@ -535,7 +535,7 @@ class _PopulationSetup:
         from .ops.optim import ADAM_EPS, BETA1, BETA2
         from .ops.losses import cosine_similarity
         from .ops.schedules import cosine_value
-        from .parallel.mesh import all_sum_
+        from .ops.axes import all_sum_
 
         n_cfg, R = M.shape[:2]
         members = M.reshape(n_cfg * R, *M.shape[2:])  # views: updates land in M

@@ -2,8 +2,9 @@
 of ``tests/test_torch_printing.py`` and of the torchrun branches of
 ``tests/test_torch_north_star.py``,
 ``tests/test_torch_examples_torchrun.py`` and
-``tests/test_torch_fuzz_{paths,tuner}.py``: every case trained on a mesh
-of ``gloo`` processes on the CPU.
+``tests/test_torch_fuzz_{paths,tuner}.py``, and of
+``tests/test_torch_mesh_of_one.py`` (suite ``"one"``, a world of one):
+every case trained on a mesh of ``gloo`` processes on the CPU.
 
 This module imports numpy, torch and ``tangram_tpu_torch`` only (no JAX),
 so a spawned worker starts in about a second. :func:`run` spawns
@@ -492,24 +493,79 @@ def parallel_jobs(meshes, directory):
     ]
 
 
-def worker(rank, directory, suite="parallel"):
+#: name → (problem, lambdas, options): the fits of suite ``"one"``, each
+#: trained for :data:`ONE_EPOCHS` epochs by the single-device fused loop and
+#: on a ``("cell",)`` mesh of one rank, which must store the same bits
+ONE_CASES = {
+    "f32 l1 l2 entropy": (dict(c=40, s=36), dict(NORMS, lambda_g2=0.5, lambda_r=0.01), {}),
+    "constrained": (dict(c=40, s=36), dict(CONSTRAINED, lambda_g2=0.5, lambda_r=0.01),
+                    dict(target=150.0)),
+    "bf16 stochastic": (dict(c=40, s=36), dict(DENSITY, lambda_r=0.01),
+                        dict(bf16=True, rounding="stochastic")),
+}
+ONE_EPOCHS = 10
+
+
+def one_case(name, mesh):
+    """Case ``name`` of :data:`ONE_CASES` by ``fit_mapping``'s fused loop
+    and by ``fit_mapping_fused_sharded`` on ``mesh``, from the same start:
+    the parameters, the moments and the history of each."""
+    from tangram_tpu_torch import parallel as par
+    from tangram_tpu_torch.models.mapper import fit_mapping
+    from tangram_tpu_torch.ops.losses import LossWeights
+
+    problem, lam, opts = ONE_CASES[name]
+    p = make_problem(**problem)
+    data = torch_data(p, opts)
+    constrained = "target" in opts
+    dtype = torch.bfloat16 if opts.get("bf16") else torch.float32
+    low = dict(moment_dtype="bfloat16", rounding=opts["rounding"]) if opts.get("bf16") else {}
+
+    def start():
+        M0 = torch.from_numpy(p["M0"].copy()).to(dtype)
+        return (M0, torch.from_numpy(p["F0"].copy())) if constrained else M0
+
+    def arrays(params, moments, hist):
+        params = params if constrained else (params,)
+        return dict(params=[x.float().numpy() for x in params],
+                    moments=[x.float().numpy() for x in moments],
+                    hist={k: v.numpy() for k, v in hist.items()})
+
+    lw = LossWeights(**lam)
+    params, state, hist = fit_mapping(start(), data, lw, ONE_EPOCHS, 0.1, impl="fused",
+                                      constrained=constrained, return_opt_state=True,
+                                      param_dtype=str(dtype).removeprefix("torch."), **low)
+    moments = (state[1] + state[2]) if constrained else state[1:]
+    one = arrays(params, moments, hist)
+    params, state, hist = par.fit_mapping_fused_sharded(
+        start(), data, lw, ONE_EPOCHS, 0.1, mesh=mesh, return_opt_state=True, **low)
+    keys = ("mu", "muF", "nu", "nuF") if constrained else ("mu", "nu")
+    return dict(one=one, mesh=arrays(params, [state[k] for k in keys], hist))
+
+
+def worker(rank, directory, suite="parallel", world=WORLD):
     torch.set_num_threads(1)
     from torch.distributed.device_mesh import DeviceMesh
 
     from tangram_tpu_torch import parallel as par
 
-    par.init_distributed("file://" + os.path.join(directory, "rendezvous"), WORLD, rank,
+    par.init_distributed("file://" + os.path.join(directory, "rendezvous"), world, rank,
                          backend="gloo")
-    ranks = torch.arange(WORLD)
-    meshes = {
-        "1d": DeviceMesh("cpu", ranks, mesh_dim_names=("cell",)),
-        "2d": par.make_mesh(2, 2),
-        "slice": DeviceMesh("cpu", ranks.reshape(2, 2), mesh_dim_names=("slice", "cell")),
-        "slice2d": DeviceMesh("cpu", ranks.reshape(2, 1, 2),
-                              mesh_dim_names=("slice", "cell", "spot")),
-    }
+    ranks = torch.arange(world)
+    if suite == "one":
+        meshes = {"1d": DeviceMesh("cpu", ranks, mesh_dim_names=("cell",))}
+    else:
+        meshes = {
+            "1d": DeviceMesh("cpu", ranks, mesh_dim_names=("cell",)),
+            "2d": par.make_mesh(2, 2),
+            "slice": DeviceMesh("cpu", ranks.reshape(2, 2), mesh_dim_names=("slice", "cell")),
+            "slice2d": DeviceMesh("cpu", ranks.reshape(2, 1, 2),
+                                  mesh_dim_names=("slice", "cell", "spot")),
+        }
     results = {}
-    if suite == "printing":
+    if suite == "one":
+        jobs = [(name, lambda name=name: one_case(name, meshes["1d"])) for name in ONE_CASES]
+    elif suite == "printing":
         jobs = printing_jobs(meshes)
     elif suite == "north_star":
         jobs = north_star_jobs()
@@ -536,17 +592,17 @@ def worker(rank, directory, suite="parallel"):
     os._exit(0)
 
 
-def run(directory, timeout=300.0, suite="parallel"):
-    """Spawn the workers on ``suite`` (``"parallel"``, ``"printing"``,
-    ``"north_star"``, ``"tutorials"``, ``"fuzz_paths"`` or ``"fuzz_tuner"``)
-    and return each rank's results; the workers are stopped after
-    ``timeout`` seconds (a collective that one rank never reaches would
-    wait for ever)."""
+def run(directory, timeout=300.0, suite="parallel", world=WORLD):
+    """Spawn ``world`` workers on ``suite`` (``"parallel"``, ``"printing"``,
+    ``"north_star"``, ``"tutorials"``, ``"fuzz_paths"`` or ``"fuzz_tuner"``;
+    ``"one"`` on a world of one) and return each rank's results; the
+    workers are stopped after ``timeout`` seconds (a collective that one
+    rank never reaches would wait for ever)."""
     import time
 
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(worker, args=(directory, suite), nprocs=WORLD,
+    ctx = mp.start_processes(worker, args=(directory, suite, world), nprocs=world,
                              start_method="spawn", join=False)
     deadline = time.monotonic() + timeout
     while not ctx.join(timeout=1.0):
@@ -555,7 +611,7 @@ def run(directory, timeout=300.0, suite="parallel"):
                 proc.terminate()
             raise TimeoutError(f"the gloo workers did not finish in {timeout} s")
     out = []
-    for rank in range(WORLD):
+    for rank in range(world):
         with open(os.path.join(directory, f"rank{rank}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out

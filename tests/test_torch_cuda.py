@@ -1399,8 +1399,9 @@ def test_north_star_past_2_31_bytes_of_m(dev):
 
     lw = LossWeights(**ns.LOSS_WEIGHTS)
     A_op = fs.unconstrained_a_operand(M, data, lw, torch.bfloat16)
-    A, w, _, _, dY, dq, dh, r, _, _, _, ops = fs._unconstrained_cotangents(
-        M, (m, l, u), data, lw, torch.bfloat16, A_op)
+    A, w = fs.unconstrained_inputs(M, data, lw)
+    cot = fs._cotangents(M, (m, l, u), A.to(torch.bfloat16), w, data, lw, A_op)
+    (A, w, _, _, dY, dq, dh, r), ops = cot.args, cot.ops
     scalars = fs.adam_scalars(count + 1, args.lr)
     before = [tuple(t[rows].clone() for t in (M, mu, nu)) for rows in blocks]
     out = fs._dm_adam(M, A, w, m, l, dY, dq, dh, r, mu, nu, scalars, with_dh=False,
