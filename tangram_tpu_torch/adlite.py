@@ -17,6 +17,7 @@ the attribute surface is identical for the subset Tangram touches.
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Mapping
 
 import numpy as np
@@ -24,6 +25,11 @@ import pandas as pd
 import scipy.sparse as sp
 
 __all__ = ["AnnData", "read_h5ad", "write_h5ad", "filter_genes"]
+
+#: sparse X and layer subsets taken by :meth:`AnnData.__getitem__`:
+#: ``"columns"`` keeps every row and picks the columns alone, ``"rows"``
+#: picks rows first (then columns)
+SPARSE_SLICES = collections.Counter()
 
 
 def _as_df(value, length: int, default_prefix: str) -> pd.DataFrame:
@@ -180,7 +186,8 @@ class AnnData:
         else:
             obs_key, var_key = key, slice(None)
         # identity fast paths: adata[:, genes] must not reindex (and copy)
-        # O(spots²) obsp graphs, and adata[cells] must not copy layers' genes
+        # O(spots²) obsp graphs nor copy a sparse X's rows before picking its
+        # genes, and adata[cells] must not copy layers' genes
         obs_all = isinstance(obs_key, slice) and obs_key == slice(None)
         var_all = isinstance(var_key, slice) and var_key == slice(None)
         oi = self._resolve_obs_indexer(obs_key)
@@ -198,6 +205,10 @@ class AnnData:
             if obs_all and var_all:
                 return v
             if sp.issparse(v):
+                if obs_all:
+                    SPARSE_SLICES["columns"] += 1
+                    return v[:, vi]
+                SPARSE_SLICES["rows"] += 1
                 return v[oi][:, vi]
             v = np.asarray(v)
             return v[np.ix_(oi, vi)] if (oi.ndim and vi.ndim) else v[oi][:, vi]

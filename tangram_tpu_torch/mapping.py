@@ -256,8 +256,9 @@ def _train_gene_report(M_logits, S, G, training_genes, adata_sc, adata_sp):
 
     for adata in (adata_sc, adata_sp):
         annotate_gene_sparsity(adata)
-    report["sparsity_sc"] = adata_sc[:, training_genes].var.sparsity
-    report["sparsity_sp"] = adata_sp[:, training_genes].var.sparsity
+    genes = list(training_genes)
+    report["sparsity_sc"] = adata_sc.var.loc[genes, "sparsity"]
+    report["sparsity_sp"] = adata_sp.var.loc[genes, "sparsity"]
     report["sparsity_diff"] = report["sparsity_sp"] - report["sparsity_sc"]
     return report
 
@@ -470,8 +471,8 @@ def map_cells_to_space(
     with profiling.phase("result_build"):
         adata_map = adlite.AnnData(
             X=mapping_matrix,
-            obs=adata_sc[:, training_genes].obs.copy(),
-            var=adata_sp[:, training_genes].obs.copy(),
+            obs=adata_sc.obs.copy(),
+            var=adata_sp.obs.copy(),
         )
         if mode == "constrained":
             adata_map.obs["F_out"] = F_out

@@ -78,12 +78,27 @@ def annotate_gene_sparsity(adata):
     """Write ``var['sparsity']`` = fraction of observations where each gene
     is zero (ref utils.py:46-61)."""
     X = adata.X
-    nonzero_per_gene = (
-        np.asarray((X != 0).sum(axis=0)).ravel()
-        if sp.issparse(X)
-        else np.count_nonzero(np.asarray(X), axis=0)
-    )
+    if sp.issparse(X) and X.format == "csr" and X.has_canonical_format:
+        # one pass over the column indices, with no boolean copy of X; a
+        # canonical CSR stores each entry once, so only explicit zeros are
+        # taken off (a non-canonical one takes the form below, which sums
+        # its duplicates in place first)
+        nonzero_per_gene = _column_counts(X.indices, X.shape[1])
+        zeros = X.data == 0
+        if zeros.any():
+            nonzero_per_gene -= _column_counts(X.indices[zeros], X.shape[1])
+    elif sp.issparse(X):
+        nonzero_per_gene = np.asarray((X != 0).sum(axis=0)).ravel()
+    else:
+        nonzero_per_gene = np.count_nonzero(np.asarray(X), axis=0)
     adata.var["sparsity"] = 1.0 - nonzero_per_gene / float(adata.n_obs)
+
+
+def _column_counts(indices, n_columns):
+    """How often each of ``n_columns`` column indices occurs (int64)."""
+    # from_numpy shares the array's memory: a read-only one is copied first
+    indices = torch.from_numpy(np.require(indices, requirements="W"))
+    return torch.bincount(indices, minlength=n_columns).numpy()
 
 
 def get_matched_genes(prior_genes_names, sn_genes_names, excluded_genes=None):

@@ -539,3 +539,127 @@ def test_mapping_output_crosses_packages(writer, reader, tmp_path):
         np.testing.assert_array_equal(np.asarray(hist[key], dtype=np.float64),
                                       np.asarray(values, dtype=np.float64), err_msg=key)
     assert len(hist["main_loss"]) == 12
+
+
+# ---------------------------------------------------------------------------
+# the port's column pick and gene count on every kind of X
+# ---------------------------------------------------------------------------
+
+X_KINDS = ("csr", "csr_duplicates", "csr_explicit_zeros", "csr_unsorted", "csr_read_only",
+           "csc", "dense")
+
+
+def x_of_kind(kind, seed=0, shape=(12, 9)):
+    """A small count matrix stored as ``kind``: a canonical CSR; one whose
+    rows store each entry as two halves, plus a pair on one column that
+    sums to zero; one with stored zeros (still canonical); one with each
+    row's entries in reverse order; a canonical one whose arrays are
+    read-only (as a mapped file's); a CSC; a dense array."""
+    dense = np.random.default_rng(seed).poisson(0.8, shape).astype(np.float32)
+    dense[:, 4] = 0  # a gene no cell expresses, where the duplicates cancel
+    if kind == "dense":
+        return dense
+    if kind == "csc":
+        return sp.csc_matrix(dense)
+    X = sp.csr_matrix(dense)
+    rows = [(X.indices[a:b], X.data[a:b]) for a, b in zip(X.indptr[:-1], X.indptr[1:])]
+    if kind == "csr_duplicates":
+        rows = [(np.concatenate([j, j, [4, 4]]),
+                 np.concatenate([v / 2, v / 2, [2.0, -2.0]]).astype(np.float32))
+                for j, v in rows]
+    elif kind == "csr_unsorted":
+        rows = [(j[::-1], v[::-1]) for j, v in rows]
+    elif kind == "csr_explicit_zeros":
+        rows = [(j, np.where(np.arange(len(v)) % 3 == 0, 0, v).astype(np.float32))
+                for j, v in rows]
+    elif kind not in ("csr", "csr_read_only"):
+        raise ValueError(kind)
+    indptr = np.concatenate([[0], np.cumsum([len(j) for j, _ in rows])]).astype(np.int32)
+    indices = np.concatenate([j for j, _ in rows]).astype(np.int32)
+    data = np.concatenate([v for _, v in rows]).astype(np.float32)
+    X = sp.csr_matrix((data, indices, indptr), shape=shape)
+    if kind == "csr_read_only":
+        for a in (X.data, X.indices, X.indptr):
+            a.flags.writeable = False
+    return X
+
+
+def test_x_kinds_are_what_they_say():
+    canonical = {kind: x_of_kind(kind).has_canonical_format
+                 for kind in X_KINDS if kind.startswith("csr")}
+    assert canonical == {"csr": True, "csr_duplicates": False, "csr_explicit_zeros": True,
+                         "csr_unsorted": False, "csr_read_only": True}
+    assert (x_of_kind("csr_explicit_zeros").data == 0).any()
+
+
+def assert_same_storage(got, want):
+    """The same matrix in the same storage: format, dtypes and every array
+    of a sparse one in its stored order."""
+    assert type(got) is type(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    arrays = ("data", "indices", "indptr") if sp.issparse(want) else ()
+    for name in arrays:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    if not arrays:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", X_KINDS)
+def test_column_pick_keeps_the_row_path_storage(kind):
+    """``adata[:, genes]`` keeps every row and picks columns alone; its X
+    and layers store what the row-and-column path and the JAX package's
+    container store, bit for bit, and the counter says which path ran."""
+    port = adlite("tangram_tpu_torch")
+    genes = ["g7", "g2", "g4", "g5"]
+    made = [port.AnnData(X=x_of_kind(kind), layers={"counts": x_of_kind(kind, seed=1)},
+                         var=pd.DataFrame(index=[f"g{j}" for j in range(9)]))
+            for _ in range(2)]
+    jax = adlite("tangram_tpu").AnnData(
+        X=x_of_kind(kind), layers={"counts": x_of_kind(kind, seed=1)},
+        var=pd.DataFrame(index=[f"g{j}" for j in range(9)]))
+    port.SPARSE_SLICES.clear()
+    picked = made[0][:, genes]
+    sparse = sp.issparse(picked.X)
+    assert port.SPARSE_SLICES == ({"columns": 2} if sparse else {})
+    port.SPARSE_SLICES.clear()
+    both = made[1][np.arange(12)][:, genes]
+    assert port.SPARSE_SLICES == ({"rows": 2, "columns": 2} if sparse else {})
+    for want in (both, jax[:, genes]):
+        assert_same_storage(picked.X, want.X)
+        assert_same_storage(picked.layers["counts"], want.layers["counts"])
+    assert list(picked.var.index) == genes
+
+
+@pytest.mark.parametrize("kind", X_KINDS)
+def test_gene_count_equals_the_boolean_sum(kind):
+    """``annotate_gene_sparsity`` counts what ``(X != 0).sum(axis=0)``
+    counts (the JAX package's form), with no warning, and leaves X as that
+    form leaves it: a non-canonical CSR sorted with its duplicates summed,
+    any other X untouched."""
+    import warnings
+
+    from tangram_tpu.utils import annotate_gene_sparsity as jax_count
+    from tangram_tpu_torch.utils import annotate_gene_sparsity
+
+    ours, theirs = (adlite(p).AnnData(X=x_of_kind(kind))
+                    for p in ("tangram_tpu_torch", "tangram_tpu"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        annotate_gene_sparsity(ours)
+    jax_count(theirs)
+    np.testing.assert_array_equal(ours.var["sparsity"].to_numpy(),
+                                  theirs.var["sparsity"].to_numpy())
+    assert ours.var["sparsity"].dtype == np.float64
+    nonzero = np.count_nonzero(x_of_kind(kind) if kind == "dense"
+                               else x_of_kind(kind).toarray(), axis=0)
+    np.testing.assert_array_equal(ours.var["sparsity"].to_numpy(), 1.0 - nonzero / 12.0)
+    assert_same_storage(ours.X, theirs.X)
+    if kind in ("csr_duplicates", "csr_unsorted"):
+        assert ours.X.has_canonical_format
+        # each row's cancelled pair stays as one stored zero
+        cancelled = 12 if kind == "csr_duplicates" else 0
+        assert ours.X.nnz == sp.csr_matrix(x_of_kind(kind).toarray()).nnz + cancelled
+    else:
+        assert_same_storage(ours.X, x_of_kind(kind))

@@ -19,10 +19,12 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import scipy.sparse as sp
 import torch
 
 import tangram_tpu as tg
 import tangram_tpu_torch as tgt
+from tangram_tpu_torch import adlite
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data")
 CPU = dict(device="cpu")
@@ -184,6 +186,57 @@ def test_train_score_match(adatas, lambda_g2, lambda_d, density_prior, scale):
     avg_score_df = round(df[df["is_training"] == True]["score"].mean(), 3)  # noqa: E712
     avg_score_hist = round(float(list(ad_map.uns["training_history"]["main_loss"])[-1]), 3)
     assert avg_score_df == pytest.approx(avg_score_hist, abs=2e-3)
+
+
+@pytest.fixture
+def sparse_adatas(adatas):
+    """The synthetic pair with CSR counts on both sides."""
+    for ad in adatas:
+        ad.X = sp.csr_matrix(ad.X)
+    return adatas
+
+
+def test_cells_job_picks_columns_without_a_row_copy(sparse_adatas):
+    """A cells-mode job slices its sparse inputs twice (S and G), each a
+    column pick over every row: no slice copies rows."""
+    adlite.SPARSE_SLICES.clear()
+    map_cells(sparse_adatas, mode="cells", num_epochs=5, random_state=42)
+    assert adlite.SPARSE_SLICES == {"columns": 2}
+
+
+MODE_ARGS = {
+    "cells": dict(mode="cells"),
+    "clusters": dict(mode="clusters", cluster_label="subclass_label"),
+    "constrained": dict(mode="constrained", target_count=30, density_prior="uniform"),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODE_ARGS))
+def test_result_frames_equal_the_sliced_forms(sparse_adatas, mode):
+    """The result's ``obs`` and ``var`` and every column of its
+    ``train_genes_df`` equal the frames that slicing the inputs builds
+    (``adata[:, genes].obs``, ``adata[:, genes].var.sparsity``): index,
+    order, dtypes and values. It trains on every other gene in reverse, so
+    no frame lines up with the inputs' gene order by chance."""
+    ad_sc, ad_sp = sparse_adatas
+    genes = ad_sc.uns["training_genes"][::-2]
+    ad_map = map_cells(sparse_adatas, cv_train_genes=genes, num_epochs=10, random_state=42,
+                       **MODE_ARGS[mode])
+    if mode == "clusters":
+        ad_sc = tgt.adata_to_cluster_expression(ad_sc, "subclass_label", add_density=True)
+        tgt.annotate_gene_sparsity(ad_sc)
+    want = tgt.AnnData(X=ad_map.X, obs=ad_sc[:, genes].obs.copy(),
+                       var=ad_sp[:, genes].obs.copy())
+    if mode == "constrained":
+        want.obs["F_out"] = ad_map.obs["F_out"]
+    pd.testing.assert_frame_equal(ad_map.obs, want.obs, check_exact=True)
+    pd.testing.assert_frame_equal(ad_map.var, want.var, check_exact=True)
+    report = ad_map.uns["train_genes_df"]
+    want_report = report[["train_score"]].copy()
+    want_report["sparsity_sc"] = ad_sc[:, genes].var.sparsity
+    want_report["sparsity_sp"] = ad_sp[:, genes].var.sparsity
+    want_report["sparsity_diff"] = want_report["sparsity_sp"] - want_report["sparsity_sc"]
+    pd.testing.assert_frame_equal(report, want_report, check_exact=True)
 
 
 # ---------------------------------------------------------------------------
