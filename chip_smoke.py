@@ -2275,6 +2275,16 @@ ISLANDS_LABEL = "subclass_label"
 GRAPH_FORMATS = ("dense", "knn")
 REPEAT_EPOCHS = 10
 ADAM_LAUNCHES = {"rowstats": 1, "project": EPOCHS, "rbar": EPOCHS, "dm_adam": EPOCHS}
+#: spot-graph products a fused step's epilogue counts with all five graph
+#: terms on, forward and VJP: the neighbourhood term's two and one VJP, the
+#: islands' one and one, the three indicators' shared one and one
+STACK_GRAPH_PRODUCTS = 7
+
+
+def graph_launches(epochs, products=STACK_GRAPH_PRODUCTS):
+    """The graph terms' count in ``epochs`` fused steps: each step's
+    ``products`` spot-graph products and VJPs in its loss epilogue."""
+    return {"graph": products * epochs}
 
 
 def with_graphs(mapper, ad_sc, ad_sp, graph_format):
@@ -2424,7 +2434,8 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
                 random_state=SEED, cluster_label=ISLANDS_LABEL, graph_format=fmt,
                 **GRAPH_TERMS))
         # the island term's one-hot types take K past 256: the mma.sync tile
-        check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()), wgmma=False)
+        check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches(),
+                                       **graph_launches(EPOCHS)), wgmma=False)
         check_mapping("spatial", ad_map, *SHAPE)
         say("spatial", f"{fmt} five-term stack: map_cells_to_space {secs:.2f} s for "
             f"{EPOCHS} epochs (graphs built on the host included); peak device memory "
@@ -2455,8 +2466,8 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     # the k-NN stack against the materialized reference loop, and repeated
     knn = stacks["knn"]
     compare_with_reference(knn, knn.lw, "adam", "five-term k-NN stack",
-                           {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10},
-                           rounding_witness=True, wgmma=False)
+                           {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10,
+                            **graph_launches(10)}, rounding_witness=True, wgmma=False)
     runs = []
     for _ in range(2):
         M, hist = fit_mapping(knn.M.clone(), knn.data, knn.lw, REPEAT_EPOCHS,
@@ -2472,7 +2483,8 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     islands = islands_where_they_bite(cells_mapper, ad_sc, ad_sp)
     hist = compare_with_reference(islands, islands.lw, "adam",
                                   "islands, standardized filter",
-                                  {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10},
+                                  {"rowstats": 1, "project": 10, "rbar": 10, "dm_adam": 10,
+                                   **graph_launches(10, products=2)},
                                   rounding_witness=True, wgmma=False)
     penalty = hist["ct_island_penalty"]
     if not (np.isfinite(penalty).all() and (penalty > 0).all()):
@@ -2487,7 +2499,8 @@ def spatial_phase(dev, card, ad_sc, ad_sp, cells_mapper, profile=False):
     ad_map, secs = cuda_seconds(lambda: tgt.map_cells_to_space(
         ad_sc, ad_sp, mode="clusters", cluster_label=ISLANDS_LABEL, num_epochs=EPOCHS,
         random_state=SEED, graph_format="knn", **GRAPH_TERMS))
-    check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches()), wgmma=False)
+    check_launches("spatial", dict(ADAM_LAUNCHES, **draw_launches(), **graph_launches(EPOCHS)),
+                   wgmma=False)
     n_clusters = ad_map.X.shape[0]
     check_mapping("spatial", ad_map, n_clusters, SHAPE[1], SHAPE[2])
     clusters = mapper_for(ad_sc, ad_sp, dev, "clusters")

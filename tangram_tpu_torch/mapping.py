@@ -14,6 +14,7 @@ training over a ``mesh`` (``tangram_tpu_torch.parallel``) are ported.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from dataclasses import dataclass
 
@@ -353,7 +354,10 @@ def map_cells_to_space(
     Under :func:`~tangram_tpu_torch.profiling.record_phases` each step of
     the job runs in one phase: ``inputs``, ``preprocess``, ``mapper_init``,
     training (``train_dispatch``, ``train_execute_history``,
-    ``mapping_fetch``), ``result_build`` and ``gene_report``.
+    ``mapping_fetch``), ``result_build`` and ``gene_report``. With a graph
+    term on, ``spot_graphs`` inside ``inputs`` holds the spot graphs and
+    the one-hot cell types built on the host, and ``graph_refs`` inside
+    ``mapper_init`` their upload and the reference indicators.
     """
     with profiling.phase("inputs"):
         lambda_d = _check_mapping_args(
@@ -422,16 +426,19 @@ def map_cells_to_space(
                 "lambda_moran": lambda_moran,
                 "lambda_geary": lambda_geary,
             }
-            graphs = _build_spot_graphs(adata_sp, lambdas, graph_format)
+            # phase spot_graphs, recorded when a graph term is on
+            with (profiling.phase("spot_graphs") if any(v > 0 for v in lambdas.values())
+                  else contextlib.nullcontext()):
+                graphs = _build_spot_graphs(adata_sp, lambdas, graph_format)
 
-            ct_encode = None
-            if lambda_ct_islands > 0:
-                if cluster_label not in adata_sc.obs.keys():
-                    raise ValueError(
-                        "cluster_label must be specified for the cell type island "
-                        "extension."
-                    )
-                ct_encode = one_hot_encoding(adata_sc.obs[cluster_label]).values
+                ct_encode = None
+                if lambda_ct_islands > 0:
+                    if cluster_label not in adata_sc.obs.keys():
+                        raise ValueError(
+                            "cluster_label must be specified for the cell type island "
+                            "extension."
+                        )
+                    ct_encode = one_hot_encoding(adata_sc.obs[cluster_label]).values
 
         with profiling.phase("mapper_init"):
             mapper = Mapper(

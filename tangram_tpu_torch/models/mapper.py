@@ -23,6 +23,7 @@ chunk; no step waits for the device.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Optional
 
@@ -49,6 +50,7 @@ from ..ops.losses import (
     MapperData,
     compute_constrained_loss,
     compute_loss,
+    graph_terms_on,
     spatial_local_indicators,
     val_metrics,
 )
@@ -805,15 +807,20 @@ class Mapper:
         # (mapping_optimizer.py:321-322); pass False for a true val split
         self._val_S, self._val_G = (
             (S_train, G_train) if emulate_reference_val_quirk else genes(val_genes_idx))
-        W_spatial = self._to_weights(spatial_weights)
-        getis_ref, moran_ref, geary_ref = spatial_local_indicators(
-            G_train, W_spatial, self.lw)
+        # phase graph_refs: the spot graphs' upload and the reference
+        # indicators, recorded when a graph term is on
+        with (profiling.phase("graph_refs") if graph_terms_on(self.lw)
+              else contextlib.nullcontext()):
+            W_spatial = self._to_weights(spatial_weights)
+            getis_ref, moran_ref, geary_ref = spatial_local_indicators(
+                G_train, W_spatial, self.lw)
+            graphs = dict(voxel_weights=self._to_weights(voxel_weights),
+                          neighborhood_filter=self._to_weights(neighborhood_filter),
+                          ct_encode=dev(ct_encode))
         self.data = MapperData(
             S=S_train, G=G_train, d=dev(d), d_source=dev(d_source),
-            voxel_weights=self._to_weights(voxel_weights),
-            neighborhood_filter=self._to_weights(neighborhood_filter),
-            ct_encode=dev(ct_encode), spatial_weights=W_spatial,
-            getis_ord_ref=getis_ref, moran_ref=moran_ref, geary_ref=geary_ref,
+            spatial_weights=W_spatial, getis_ord_ref=getis_ref, moran_ref=moran_ref,
+            geary_ref=geary_ref, **graphs,
         )
         storage = (None if self.mesh is not None
                    else _storage_dtype(self.device, impl, self.low_precision))

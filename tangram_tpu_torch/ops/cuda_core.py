@@ -55,10 +55,14 @@ BF16_KERNELS = ("rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq
 #: (``ops/init_draw.py``); ``dp_wgmma`` counts, beside its role's own
 #: count (``rbar``, ``backward_rbar``), each launch that
 #: :func:`dp_route` sends to the warpgroup-MMA kernel, with the role's key
-#: suffix (untimed: the role's :data:`DEVICE_SECONDS` time the launch)
+#: suffix (untimed: the role's :data:`DEVICE_SECONDS` time the launch).
+#: With a graph term on, ``graph`` counts the fused step's spot-graph
+#: products in its loss epilogue, forward and VJP (untimed;
+#: ``ops.fused_step._epilogue_span``)
 LAUNCHES = dict.fromkeys(
     ["rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
-     "dm_adafactor", "backward_rbar", "dm_backward", "init_normal", "dp_wgmma"]
+     "dm_adafactor", "backward_rbar", "dm_backward", "init_normal", "dp_wgmma",
+     "graph"]
     + [name + ".bf16" for name in BF16_KERNELS], 0)
 
 F32 = (torch.float32,)
@@ -71,8 +75,11 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 #: timing events on its stream, timed while a
 #: :func:`~tangram_tpu_torch.profiling.record_phases` recording is active.
 #: Launches finish on the card after the host moves on: read the totals
-#: with :func:`device_seconds`.
-DEVICE_SECONDS = dict.fromkeys(LAUNCHES, 0.0)
+#: with :func:`device_seconds`. ``epilogue`` is no launch: the fused
+#: step's loss epilogue with a graph term on, forward and backward, the
+#: stream's time between two events around it (:func:`timed`), the host's
+#: gaps in issuing its small launches included.
+DEVICE_SECONDS = dict.fromkeys([*LAUNCHES, "epilogue"], 0.0)
 
 #: (key, start event, end event, device) of the timed launches not yet
 #: added to DEVICE_SECONDS, oldest first
@@ -86,6 +93,7 @@ def reset_launches() -> None:
     launches not yet added."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in DEVICE_SECONDS:
         DEVICE_SECONDS[name] = 0.0
     _PENDING.clear()
 
@@ -129,27 +137,34 @@ def device_seconds() -> dict:
 
 
 @contextlib.contextmanager
-def launch(name: str, *storage: torch.Tensor):
-    """One launch of kernel ``name`` on the card: the body makes the
-    kernel library's call, inside the wrapper's device guard. Counts it
-    in :data:`LAUNCHES` under :func:`launch_key` once the call returns,
-    and while a recording is active brackets the call with two timing
-    events on the current stream, taken from a pool of reused pairs; the
-    launches that have finished by then are added to
-    :data:`DEVICE_SECONDS` first."""
-    key = launch_key(name, *storage)
+def timed(key: str, like: torch.Tensor):
+    """While a recording is active, brackets the body with two timing
+    events on the current stream of ``like``'s CUDA device, taken from a
+    pool of reused pairs, whose time goes to :data:`DEVICE_SECONDS`
+    ``[key]``; the timed spans that have finished by then are added
+    first. Else nothing."""
     if not profiling.recording():
         yield
-        LAUNCHES[key] += 1
         return
     _add_finished(all_pending=False)
-    device = storage[0].device
+    device = like.device
     free = _FREE_EVENTS.get(device)
     start, end = free.pop() if free else (_timing_event(), _timing_event())
     start.record()
     yield
     end.record()
     _PENDING.append((key, start, end, device))
+
+
+@contextlib.contextmanager
+def launch(name: str, *storage: torch.Tensor):
+    """One launch of kernel ``name`` on the card: the body makes the
+    kernel library's call, inside the wrapper's device guard. Counts it
+    in :data:`LAUNCHES` under :func:`launch_key` once the call returns,
+    and while a recording is active :func:`timed` brackets the call."""
+    key = launch_key(name, *storage)
+    with timed(key, storage[0]):
+        yield
     LAUNCHES[key] += 1
 
 

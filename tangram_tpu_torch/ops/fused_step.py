@@ -48,6 +48,7 @@ host.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -77,6 +78,7 @@ from .cuda_core import (
     stage_granule,
     stream_of,
     tf32_product_plain,
+    timed,
     vec2_ok,
 )
 from .losses import (
@@ -84,6 +86,8 @@ from .losses import (
     MapperData,
     constrained_epilogue,
     constrained_inputs,
+    counting_graph_products,
+    graph_terms_on,
     unconstrained_epilogue,
     unconstrained_inputs,
 )
@@ -548,6 +552,20 @@ def _spot_block(x, spot, width: int):
     return x.contiguous()
 
 
+@contextlib.contextmanager
+def _epilogue_span(lw: LossWeights, Y):
+    """Around a step's loss epilogue when a graph term is on: its
+    spot-graph products counted in ``LAUNCHES["graph"]`` and, on the card,
+    the epilogue timed as a whole into ``DEVICE_SECONDS["epilogue"]``
+    (:func:`~.cuda_core.timed`); else nothing."""
+    if not graph_terms_on(lw):
+        yield
+        return
+    with counting_graph_products(), \
+            timed("epilogue", Y) if Y.is_cuda else contextlib.nullcontext():
+        yield
+
+
 class _Cotangents(NamedTuple):
     """What one step hands its update passes."""
 
@@ -587,7 +605,8 @@ def _cotangents(M, stats, A, w, data: MapperData, lw: LossWeights, A_op=None, F=
     # the epilogue's backward on this thread: on a CUDA device the autograd
     # engine's own thread may free its last buffers after this one resumes,
     # which moves the device's peak memory from run to run
-    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+    with _epilogue_span(lw, Y), torch.enable_grad(), \
+            torch.autograd.set_multithreading_enabled(False):
         leaves = [x.detach().requires_grad_() for x in (Y, q, h_sum)]
         if constrained:
             leaves.append(F.detach().requires_grad_())

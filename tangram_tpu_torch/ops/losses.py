@@ -16,11 +16,14 @@ Geary's C uses the identity ``Σ_ij w_ij (x_i − x_j)² = r·x² + c·x² −
 2·Σ x ⊙ Wx`` (r, c the row and column sums of W) in place of the
 reference's O(spots² · genes) broadcast, as the JAX package does. The spot
 graphs are dense tensors or :class:`~tangram_tpu_torch.ops.core.NeighborGraph`
-and enter through :func:`~tangram_tpu_torch.ops.core.graph_matmul`.
+and enter through :func:`~tangram_tpu_torch.ops.core.graph_matmul`; inside
+a fused step's epilogue each such product, and each of its VJPs, counts
+once in ``cuda_core.LAUNCHES["graph"]``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, NamedTuple, Optional
@@ -28,6 +31,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .core import graph_matmul, mapper_core
+from .cuda_core import LAUNCHES
 
 __all__ = [
     "LossWeights",
@@ -41,6 +45,7 @@ __all__ = [
     "constrained_inputs",
     "unconstrained_inputs",
     "unconstrained_epilogue",
+    "graph_terms_on",
     "val_metrics",
     "val_metrics_from_projection",
     "VAL_METRIC_KEYS",
@@ -67,6 +72,16 @@ class LossWeights:
     # constrained mode only
     lambda_count: float = 1.0
     lambda_f_reg: float = 1.0
+
+
+#: the five graph terms' lambdas; a term is on where its lambda is > 0
+GRAPH_LAMBDAS = ("lambda_neighborhood_g1", "lambda_ct_islands", "lambda_getis_ord",
+                 "lambda_moran", "lambda_geary")
+
+
+def graph_terms_on(lw: LossWeights) -> bool:
+    """True when any of the five graph terms is on."""
+    return any(getattr(lw, name) > 0 for name in GRAPH_LAMBDAS)
 
 
 class MapperData(NamedTuple):
@@ -129,6 +144,36 @@ def _safe_div(num, den):
                        torch.zeros_like(num))
 
 
+#: whether :func:`_graph_product` counts (inside a fused step's epilogue)
+_COUNT_GRAPH = [False]
+
+
+@contextlib.contextmanager
+def counting_graph_products():
+    """Count each spot-graph product of the loss, and each of its VJPs, in
+    ``LAUNCHES["graph"]`` while open."""
+    outer, _COUNT_GRAPH[0] = _COUNT_GRAPH[0], True
+    try:
+        yield
+    finally:
+        _COUNT_GRAPH[0] = outer
+
+
+def _count_graph_vjp(grad):
+    LAUNCHES["graph"] += 1
+
+
+def _graph_product(W, X):
+    """:func:`graph_matmul`, counted under :func:`counting_graph_products`
+    with its VJP where ``X`` takes a gradient."""
+    out = graph_matmul(W, X)
+    if _COUNT_GRAPH[0]:
+        LAUNCHES["graph"] += 1
+        if out.requires_grad:
+            out.register_hook(_count_graph_vjp)
+    return out
+
+
 def _row_col_sums(W):
     if hasattr(W, "row_sums"):
         return W.row_sums(), W.col_sums()
@@ -148,7 +193,7 @@ def spatial_local_indicators(G, W, lw: LossWeights):
 
     WG = None
     if lw.lambda_getis_ord > 0 or lw.lambda_moran > 0 or lw.lambda_geary > 0:
-        WG = graph_matmul(W, G)
+        WG = _graph_product(W, G)
 
     if lw.lambda_getis_ord > 0:
         getis_ord = _safe_div(WG, torch.sum(G, dim=0))
@@ -251,8 +296,8 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
 
     # spatial neighborhood expression similarity (ref :234-239)
     if lw.lambda_neighborhood_g1 > 0:
-        WGp = graph_matmul(data.voxel_weights, G_pred)
-        WG = graph_matmul(data.voxel_weights, G)
+        WGp = _graph_product(data.voxel_weights, G_pred)
+        WG = _graph_product(data.voxel_weights, G)
         nb_sim = _masked_mean(cosine_similarity(WGp, WG, axis=0), mask)
         gv_neighborhood_term = lw.lambda_neighborhood_g1 * nb_sim
         terms["gv_neighborhood_sim"] = nb_sim
@@ -262,7 +307,7 @@ def unconstrained_epilogue(Y, q, h, l1_sum, l2_sum, data: MapperData,
 
     # cell-type islands (ref :242-248)
     if ct_map is not None:
-        nb_ct = graph_matmul(data.neighborhood_filter, ct_map)
+        nb_ct = _graph_product(data.neighborhood_filter, ct_map)
         excess = ct_map - nb_ct
         # max(x, 0) as jnp.maximum, half the gradient on each side at a tie
         penalty = torch.mean(torch.maximum(excess, torch.zeros_like(excess)))

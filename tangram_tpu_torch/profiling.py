@@ -56,8 +56,11 @@ def record_phases():
     ``mapper_init``, ``init_draw`` holds the draw of the seeded start,
     ``init_cast`` its cast on the host and ``init_upload`` its copy to the
     device (for a start drawn on the card, ``init_draw`` holds the kernels
-    and the read-back of numpy's state, ``init_upload`` the state's copy);
-    an inner phase counts in its outer one's total too.
+    and the read-back of numpy's state, ``init_upload`` the state's copy).
+    With a graph term on, ``spot_graphs`` inside ``inputs`` holds the spot
+    graphs and one-hot cell types built on the host, and ``graph_refs``
+    inside ``mapper_init`` their upload and the reference indicators; an
+    inner phase counts in its outer one's total too.
 
     >>> with tgt.profiling.record_phases() as phases:
     ...     tgt.map_cells_to_space(ad_sc, ad_sp, ...)

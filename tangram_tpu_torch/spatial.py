@@ -7,10 +7,11 @@ The counterpart of ``tangram_tpu/spatial.py``, host-side numpy and scipy:
   ``obsp['spatial_distances']``. Its nearest-neighbor queries run on
   :class:`scipy.spatial.cKDTree` instead of scikit-learn, so the port needs
   nothing beyond numpy and scipy here. Where several candidates tie at the
-  k-th distance (lattice borders), the two libraries may keep different
-  ones, as scikit-learn's own algorithms do among themselves; off ties the
-  graphs are identical. The graph is an input of the graph terms: two runs
-  compared with each other take the same ``obsp``.
+  k-th distance (lattice borders), the k-NN graph keeps the lower spot
+  indices (:data:`TIE_RESOLUTION`), where scikit-learn keeps whichever its
+  algorithm meets first; off ties the graphs are identical. The graph is
+  an input of the graph terms: two runs compared with each other take the
+  same ``obsp``.
 * ``sparse_weights`` and ``spatial_weights`` turn that graph into the
   reference's weight matrices (``spatial_weights.py:5-29``), in CSR and as
   a dense float64 array.
@@ -38,6 +39,39 @@ __all__ = ["spatial_neighbors", "sparse_weights", "spatial_weights", "neighbor_g
 #: the first ring
 _GRID_RING_CUTOFF = 1.3
 
+#: two distances from a spot tie when they round to the same multiple of
+#: this share of the coordinates' largest magnitude (lattice spots lie at
+#: equal distances but for the float rounding of their coordinates); a tie
+#: goes to the lower spot index
+TIE_RESOLUTION = 1e-9
+
+
+def _nearest(coords, k: int) -> np.ndarray:
+    """(n, k) indices of each spot's ``k`` nearest other spots, nearest
+    first, ties by :data:`TIE_RESOLUTION` to the lower index. The self
+    edge is left out by identity, so a duplicated coordinate does not
+    crowd it out. Candidates come from a k-d tree, twice as many as asked
+    for, and more while the last one still ties with the k-th."""
+    n = len(coords)
+    if k <= 0:
+        return np.zeros((n, 0), dtype=np.int64)
+    quantum = TIE_RESOLUTION * max(float(np.abs(coords).max()), np.finfo(np.float64).tiny)
+    tree, own = cKDTree(coords), np.arange(n)[:, None]
+    m = min(n, 2 * (k + 1))
+    while True:
+        _, idx = tree.query(coords, k=m)
+        idx = np.asarray(idx, dtype=np.int64).reshape(n, m)
+        key = np.round(np.linalg.norm(coords[idx] - coords[:, None, :], axis=-1) / quantum)
+        key[idx == own] = np.inf
+        order = np.lexsort((idx, key), axis=-1)
+        kth = np.take_along_axis(key, order[:, k - 1:k], axis=1)[:, 0]
+        # every spot outside the candidates is at least as far as the
+        # farthest candidate other than the spot itself
+        farthest = np.where(idx == own, -np.inf, key).max(axis=1)
+        if m == n or (kth < farthest).all():
+            return np.take_along_axis(idx, order[:, :k], axis=1)
+        m = min(n, 2 * m)
+
 
 def spatial_neighbors(
     adata_sp,
@@ -57,8 +91,10 @@ def spatial_neighbors(
     ``squidpy.gr.spatial_neighbors``:
 
     * ``coord_type="generic"`` — k-nearest-neighbor graph, euclidean
-      distances. ``radius`` as a float switches to a fixed-radius graph; as
-      an ``(rmin, rmax)`` pair it prunes the KNN edges to that interval.
+      distances; of candidates tied at the k-th distance the lower spot
+      indices are kept (:data:`TIE_RESOLUTION`). ``radius`` as a float
+      switches to a fixed-radius graph; as an ``(rmin, rmax)`` pair it
+      prunes the KNN edges to that interval.
       ``percentile`` prunes edges longer than that percentile.
     * ``"grid"`` — Visium-style lattice adjacency: of the ``n_neighs``
       nearest candidates only those within the first lattice ring are kept;
@@ -123,18 +159,8 @@ def spatial_neighbors(
         d = np.linalg.norm(coords[rows] - coords[cols], axis=1)
     else:
         k = min(n_neighs + 1, n)
-        _, idx = cKDTree(coords).query(coords, k=k)
-        idx = np.asarray(idx).reshape(n, k)
-        # Drop each point's self-edge by identity, not position: with
-        # duplicated coordinates a tied zero-distance neighbor may come
-        # before the point itself.
-        is_self = idx == np.arange(n)[:, None]
-        missing_self = ~is_self.any(axis=1)
-        # rows whose self entry got crowded out by >k zero-distance
-        # duplicates: drop one tied zero-distance column instead
-        is_self[missing_self, 0] = True
         rows = np.repeat(np.arange(n), k - 1)
-        cols = idx[~is_self]
+        cols = _nearest(coords, k - 1).reshape(-1)
         d = np.linalg.norm(coords[rows] - coords[cols], axis=1)
 
         if coord_type == "grid" and len(d):

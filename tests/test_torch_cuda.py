@@ -1130,8 +1130,9 @@ def test_map_cells_to_space_knn_graph_terms_on_the_card(dev):
               lambda_geary=0.3)
     cc.reset_launches()
     got = tgt.map_cells_to_space(ad_sc, ad_sp, device=dev, **kw)
+    # each step's seven spot-graph products and VJPs
     assert {n: v for n, v in cc.LAUNCHES.items() if v} == plus_wgmma(dict(
-        rowstats=1, project=20, rbar=20, dm_adam=20, init_normal=1))
+        rowstats=1, project=20, rbar=20, dm_adam=20, init_normal=1, graph=140))
     want = tgt.map_cells_to_space(ad_sc, ad_sp, device="cpu", **kw)
     np.testing.assert_allclose(got.X, want.X, rtol=3e-3, atol=1e-7)
     for key in ("total_loss", "main_loss", "kl_reg"):
@@ -1170,8 +1171,9 @@ def test_island_term_where_it_bites_on_the_card(dev):
 
     cc.reset_launches()
     M_k, h_k = run(dev, "kernels")
+    # each step's islands product and VJP
     assert {n: v for n, v in cc.LAUNCHES.items() if v} == plus_wgmma(dict(
-        rowstats=1, project=10, rbar=10, dm_adam=10))
+        rowstats=1, project=10, rbar=10, dm_adam=10, graph=20))
     M_r, h_r = run("cpu", "reference")
     penalty = h_k["ct_island_penalty"].cpu().numpy()
     assert (penalty > 0).all()

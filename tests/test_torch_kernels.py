@@ -391,7 +391,8 @@ def test_cpu_tensors_never_launch_and_kernels_impl_raises():
     cc._project(M, T(x["A"]), T(x["w"]), m, l)
     kernels = {"rowstats", "project", "rbar", "dm_adam", "rowstats_norms", "gsq",
                "dm_adafactor", "backward_rbar", "dm_backward", "init_normal", "dp_wgmma"}
-    assert set(cc.LAUNCHES) == kernels | {name + ".bf16" for name in kernels}
+    # and the graph terms' spot-graph products, which have no bf16 variant
+    assert set(cc.LAUNCHES) == kernels | {name + ".bf16" for name in kernels} | {"graph"}
     assert not any(cc.LAUNCHES.values())
     assert resolve_impl("auto", M) == "reference"
     with pytest.raises(ValueError, match="kernels"):

@@ -160,7 +160,7 @@ def test_device_seconds_resolve_without_waiting(fake_card):
         b = timed_launch("rbar", 2.0)
         c = timed_launch("dm_adam", 5.0, torch.zeros(2, 2, dtype=torch.bfloat16))
         assert c[0] == "dm_adam.bf16"
-        assert cc.device_seconds() == dict.fromkeys(cc.LAUNCHES, 0.0)
+        assert cc.device_seconds() == dict.fromkeys(cc.DEVICE_SECONDS, 0.0)
         # the card finishes rbar first: a new launch adds nothing while the
         # oldest (project) runs; device_seconds adds every finished one
         b[1].done = b[2].done = True
@@ -199,7 +199,9 @@ def test_reset_launches_clears_counts_seconds_and_pending(fake_card):
     assert set(cc.LAUNCHES.values()) == {0}
     assert set(cc.DEVICE_SECONDS.values()) == {0.0}
     assert not cc._PENDING
-    assert set(cc.DEVICE_SECONDS) == set(cc.LAUNCHES)
+    # every counter's seconds, and the graph terms' loss epilogue, timed
+    # as a span and counted in no launch
+    assert set(cc.DEVICE_SECONDS) == set(cc.LAUNCHES) | {"epilogue"}
     assert {"init_normal", "init_normal.bf16"} <= set(cc.DEVICE_SECONDS)
 
 
